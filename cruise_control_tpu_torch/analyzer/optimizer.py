@@ -1,0 +1,270 @@
+"""Multi-goal optimizer orchestration (port of cruise_control_tpu/
+analyzer/optimizer.py).
+
+Goals run in priority order, each goal's actions must be accepted by
+every previously-optimized goal, per-goal statistics must not regress on
+a healthy cluster, and the initial -> final placement diff becomes the
+proposal set.  The reference fuses this sequence into a few jitted
+programs; here it is a host-driven sequence of the same steps: the
+pre-program (stats and violated counts before, input validity, joint
+pre-balance), goal segments (float refresh at segment entry, then per
+goal the entry count, the no-work skip, the search, the fresh stats, the
+own count and the regression flag) and the post sweep.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from cruise_control_tpu_torch.analyzer.context import (
+    BalancingConstraint, OptimizationOptions, ensure_full_cache,
+    make_context, make_round_cache, refresh_float_aggregates)
+from cruise_control_tpu_torch.analyzer.goals import base as goals_base
+from cruise_control_tpu_torch.analyzer.goals.base import (Goal,
+                                                          OptimizationFailure)
+from cruise_control_tpu_torch.analyzer.proposals import (ExecutionProposal,
+                                                         diff_proposals_host)
+from cruise_control_tpu_torch.common.resources import (RESOURCE_GOAL_NAMES,
+                                                       Resource)
+from cruise_control_tpu_torch.device import resolve_device
+from cruise_control_tpu_torch.model import state as S
+from cruise_control_tpu_torch.model.sanity import sanity_check
+from cruise_control_tpu_torch.model.state import ClusterState
+from cruise_control_tpu_torch.model.stats import (ClusterModelStats,
+                                                  compute_stats,
+                                                  compute_stats_fresh_loads)
+
+
+#: goals per segment: the float aggregates are refreshed at each segment's
+#: entry, at the reference's default cadence (pipeline_segment_size=4)
+SEGMENT_SIZE = 4
+
+
+class InvalidModelInputError(ValueError):
+    """The model carries NaN/Inf/negative loads or capacities."""
+
+
+def inputs_invalid(state: ClusterState) -> torch.Tensor:
+    """bool 0-d: any valid replica load, leadership bonus or broker
+    capacity is NaN/Inf/negative."""
+    def bad(x, mask=None):
+        b = ~torch.isfinite(x) | (x < 0.0)
+        if mask is not None:
+            b = b & mask
+        return torch.any(b)
+    return (bad(state.replica_base_load, state.replica_valid[:, None])
+            | bad(state.partition_leader_bonus)
+            | bad(state.broker_capacity))
+
+
+@dataclasses.dataclass
+class OptimizerResult:
+    """Proposals plus per-goal statistics and violation instruments."""
+
+    proposals: List[ExecutionProposal]
+    stats_before: ClusterModelStats
+    stats_after: ClusterModelStats
+    stats_by_goal: Dict[str, ClusterModelStats]
+    violated_goals_before: List[str]
+    violated_goals_after: List[str]
+    regressed_goals: List[str]
+    final_state: ClusterState
+    duration_s: float = 0.0
+    #: the maintained RoundCache describing final_state (table included)
+    final_cache: Optional[object] = None
+    #: {goal: (before, after-own-run, after-all-goals)}
+    violated_broker_counts: Dict[str, Tuple[int, int, int]] = \
+        dataclasses.field(default_factory=dict)
+    rounds_by_goal: Dict[str, int] = dataclasses.field(default_factory=dict)
+    #: violated-broker count at each goal's own entry
+    entry_broker_counts: Dict[str, int] = \
+        dataclasses.field(default_factory=dict)
+    #: 1-based index of each goal's last committing round (0 = none)
+    converged_at_by_goal: Dict[str, int] = \
+        dataclasses.field(default_factory=dict)
+    hard_goal_names: frozenset = frozenset()
+
+    @property
+    def num_replica_movements(self) -> int:
+        return sum(len(p.replicas_to_add) for p in self.proposals)
+
+    def balancedness_score(self) -> float:
+        """[0, 100]: 100 minus the rank-weighted cost of the goals still
+        violated after optimization."""
+        goal_names = list(self.stats_by_goal) or sorted(
+            set(self.violated_goals_before) | set(self.violated_goals_after))
+        if not goal_names:
+            return 100.0
+        costs = goals_base.balancedness_cost_by_goal(goal_names,
+                                                     self.hard_goal_names)
+        violated = set(self.violated_goals_after)
+        kept = sum(c for n, c in costs.items() if n not in violated)
+        total = sum(costs.values())
+        return 100.0 * kept / total if total else 100.0
+
+
+def _count(mask: torch.Tensor) -> int:
+    return int(mask.sum())
+
+
+class GoalOptimizer:
+    """Priority-ordered multi-goal optimization with acceptance
+    stacking."""
+
+    def __init__(self, goals: Sequence[Goal],
+                 constraint: Optional[BalancingConstraint] = None):
+        self.goals = list(goals)
+        self.constraint = constraint or BalancingConstraint()
+
+    def _plan_segments(self):
+        """Goal chunks of SEGMENT_SIZE; the cache's float aggregates are
+        refreshed at each chunk's entry, as in the reference."""
+        g = len(self.goals)
+        return [(s, min(s + SEGMENT_SIZE, g))
+                for s in range(0, g, SEGMENT_SIZE)]
+
+    def _prebalance_dims(self):
+        """(active resources, balance_counts, count_margin) derived from
+        the goals in this optimizer's list."""
+        names = {g.name for g in self.goals}
+        active = tuple((RESOURCE_GOAL_NAMES[r] + "UsageDistributionGoal")
+                       in names for r in range(len(RESOURCE_GOAL_NAMES)))
+        margin = 0.09
+        for g in self.goals:
+            if g.name == "ReplicaDistributionGoal":
+                margin = getattr(g, "pct_margin", margin)
+        return active, "ReplicaDistributionGoal" in names, margin
+
+    def optimizations(self, state: ClusterState, topology,
+                      options: Optional[OptimizationOptions] = None,
+                      device=None) -> OptimizerResult:
+        """Run all goals in priority order and diff out proposals, on
+        `device` (the card unless "cpu" is asked for)."""
+        t_start = time.time()
+        dev = resolve_device(device)
+        options = options or OptimizationOptions()
+        state = state.to(dev)
+        goals = self.goals
+        ctx = make_context(state, self.constraint, options, topology)
+        initial = state
+
+        # --- pre: stats and violation sweep before, validity, pre-balance
+        if bool(inputs_invalid(initial)):
+            raise InvalidModelInputError(
+                "cluster model carries NaN/Inf/negative replica loads, "
+                "leadership bonuses, or broker capacities")
+        stats_before = compute_stats(initial)
+        cache0 = make_round_cache(initial)
+        vb = [_count(g.violated_brokers(initial, ctx, cache0)) for g in goals]
+        if bool(S.self_healing_eligible(state).any()):
+            raise NotImplementedError(
+                "offline replicas need self-healing (forced_move_round), "
+                "which a later slice of the port brings")
+        broken = (not bool(torch.all(state.broker_alive))
+                  or not bool(torch.all(state.disk_alive)))
+        active_res, balance_counts, count_margin = self._prebalance_dims()
+        pre_rounds = 0
+        if (ctx.prebalance and not ctx.fix_offline_replicas_only
+                and (any(active_res) or balance_counts)):
+            from cruise_control_tpu_torch.analyzer.prebalance import \
+                prebalance
+            state, pre_rounds, cache = prebalance(
+                state, ctx, count_margin=count_margin,
+                active_resources=active_res, balance_counts=balance_counts)
+        else:
+            cache = ensure_full_cache(state, ctx, None)
+        # (the reference re-sizes the broker table when self-healing, which
+        # runs table-less, overfills a row; the pre-balance's arrivals are
+        # gated by the row's free slots, so no row overfills here)
+
+        # --- goal segments
+        prev_stats = stats_before
+        stats_by_goal: Dict[str, ClusterModelStats] = {}
+        own, entry, rounds_by_goal, conv_by_goal = [], [], {}, {}
+        regressed: List[str] = []
+        for start, stop in self._plan_segments():
+            cache = refresh_float_aggregates(state, cache)
+            for i in range(start, stop):
+                goal = goals[i]
+                entry.append(_count(goal.violated_brokers(state, ctx, cache)))
+                nw = goal.no_work(state, ctx, cache)
+                if nw is not None and bool(nw):
+                    g_rounds = g_conv = 0
+                else:
+                    sink: List = []
+                    goals_base.set_round_sink(sink)
+                    try:
+                        state, cache = goal.optimize_cached(
+                            state, ctx, goals[:i], cache)
+                    finally:
+                        goals_base.set_round_sink(None)
+                    g_rounds, g_conv = goals_base.collapse_sink(sink)
+                cache = ensure_full_cache(state, ctx, cache)
+                rounds_by_goal[goal.name] = g_rounds
+                conv_by_goal[goal.name] = g_conv
+                goal_stats = compute_stats_fresh_loads(state, cache)
+                stats_by_goal[goal.name] = goal_stats.cpu()
+                own.append(_count(goal.violated_brokers(state, ctx, cache)))
+                if not bool(goal.stats_not_worse(prev_stats, goal_stats)):
+                    regressed.append(goal.name)
+                prev_stats = goal_stats
+
+        # --- post sweep
+        cache1 = refresh_float_aggregates(state, cache)
+        va = [_count(g.violated_brokers(state, ctx, cache1)) for g in goals]
+
+        violated_before = [g.name for g, v in zip(goals, vb) if v]
+        violated_after = [g.name for g, v in zip(goals, va) if v]
+        if pre_rounds:
+            rounds_by_goal["__prebalance__"] = pre_rounds
+        if regressed and not broken:
+            raise OptimizationFailure(
+                "optimization made goal statistics worse than before "
+                "for: " + ", ".join(regressed))
+        for goal in goals:
+            if goal.is_hard and goal.name in violated_after:
+                raise OptimizationFailure(
+                    f"hard goal {goal.name} still violated after "
+                    f"optimization")
+        sanity_check(state)
+
+        keys = ("replica_broker", "replica_is_leader", "replica_disk")
+        init_h = {k: getattr(initial, k).cpu().numpy() for k in keys}
+        opt_h = {k: getattr(state, k).cpu().numpy() for k in keys}
+        proposals = diff_proposals_host(
+            init_h, opt_h, initial.replica_valid.cpu().numpy(),
+            initial.replica_base_load[:, Resource.DISK].cpu().numpy(),
+            initial.replica_partition.cpu().numpy(), topology,
+            ctx.partition_replicas.cpu().numpy())
+        stats_before = stats_before.cpu()
+        result = OptimizerResult(
+            proposals=proposals,
+            stats_before=stats_before,
+            stats_after=(stats_by_goal[goals[-1].name] if goals
+                         else stats_before),
+            stats_by_goal=stats_by_goal,
+            violated_goals_before=violated_before,
+            violated_goals_after=violated_after,
+            regressed_goals=regressed,
+            final_state=state,
+            duration_s=time.time() - t_start,
+            final_cache=cache,
+            violated_broker_counts={
+                g.name: (b, o, a)
+                for g, b, o, a in zip(goals, vb, own, va)},
+            rounds_by_goal=rounds_by_goal,
+            entry_broker_counts={g.name: e for g, e in zip(goals, entry)},
+            converged_at_by_goal=conv_by_goal,
+            hard_goal_names=frozenset(g.name for g in goals if g.is_hard),
+        )
+        return result
+
+
+def proposal_set(result: OptimizerResult) -> set:
+    """{(partition, old broker ids, new broker ids)} of a result."""
+    return {(p.partition, tuple(r.broker_id for r in p.old_replicas),
+             tuple(r.broker_id for r in p.new_replicas))
+            for p in result.proposals}
