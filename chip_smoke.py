@@ -9,10 +9,12 @@ Phases:
   1. the card's name and power limit (nvidia-smi), then the build of the
      port's CUDA kernels from csrc/ (with nvcc's resource report);
   2. each kernel against its plain PyTorch version on the card at the
-     slice's shapes (integers and booleans exactly, floats bit for bit),
-     with device times per call (20 calls captured in a CUDA graph,
-     median of 5 replays timed with CUDA events) beside the memory bound
-     and a one-call PyTorch yardstick where one exists;
+     slice's shapes and again at the 2,600-broker shapes of phase 4
+     (integers and booleans exactly, floats bit for bit), with device
+     times per call (20 calls captured in a CUDA graph, median of 5
+     replays timed with CUDA events; K3 also without the wrapper's copies
+     of the cache planes) beside the bound for the bytes the function
+     needs and a one-call PyTorch yardstick where one exists;
   3. the slice: the disk + network-inbound proposal solve on the
      200-broker / 20K-partition / rf-3 cluster (8 racks, 10 topics, seed
      4, skew 0.2) with default options, one warm-up and one timed solve,
@@ -32,6 +34,8 @@ port's package is not beside this script.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
 import json
 import os
 import statistics
@@ -141,12 +145,13 @@ def max_abs_err(pairs) -> float:
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def check_row_topk(results: dict) -> None:
+def check_row_topk(b: int, s: int, seed: int) -> dict:
+    """K1 at B x S for k in {1, 4, 8}; the record of k = 4 (the goals'
+    move rounds)."""
     import torch
     from cruise_control_tpu_torch import cuda_kernels
     from cruise_control_tpu_torch.analyzer import kernels as K
-    g = torch.Generator(device="cuda").manual_seed(11)
-    b, s = 200, 1152
+    g = torch.Generator(device="cuda").manual_seed(seed)
     # quantized scores plant many ties; a third of the slots ineligible
     sc = torch.round(torch.rand((b, s), generator=g, device="cuda") * 50.0)
     sc = torch.where(torch.rand((b, s), generator=g, device="cuda") < 0.33,
@@ -162,8 +167,8 @@ def check_row_topk(results: dict) -> None:
         torch.cuda.synchronize()
         for x, y, what in zip(got, want, ("cand", "has", "top")):
             if not equal_exact(x, y):
-                raise AssertionError(f"row_topk k={k}: {what} differs from "
-                                     "the plain version")
+                raise AssertionError(f"row_topk B={b} S={s} k={k}: {what} "
+                                     "differs from the plain version")
         errs.append(max_abs_err([(got[2], want[2])]))
         times[k] = (graph_time_ms(lambda: cuda_kernels.row_topk(sc, table, k)),
                     graph_time_ms(lambda: K.row_topk_plain(sc, table, k)),
@@ -173,22 +178,23 @@ def check_row_topk(results: dict) -> None:
             f"call: kernel {times[k][0]:.4f} ms, plain {times[k][1]:.4f} ms, "
             f"torch.topk {times[k][2]:.4f} ms; one wrapper call with its "
             f"host overhead {call:.4f} ms")
-    k = 4   # the goals' move rounds
-    t_b, by = bound(b * s * 8 + b * k * 9, b * s * k)
-    results["row_topk"] = dict(max_abs_err=max(errs), ms=times[k][0],
-                               plain_ms=times[k][1], bound_ms=t_b,
-                               bound_by=by, library_ms=times[k][2],
-                               shape=f"B={b} S={s} k={k}")
+    k = 4
+    # the scores once, then per output its table gather, id, flag and score
+    t_b, by = bound(b * s * 4 + b * k * (4 + 4 + 1 + 4), b * s * k)
+    return dict(max_abs_err=max(errs), ms=times[k][0], plain_ms=times[k][1],
+                bound_ms=t_b, bound_by=by, library_ms=times[k][2],
+                shape=f"B={b} S={s} k={k}")
 
 
-def check_assign_pass(results: dict) -> None:
+def check_assign_pass(c: int, widths, seed: int) -> dict:
+    """K2 at C x K for each K in `widths`, passes 0 and 3; the record of
+    the first width's pass 3."""
     import torch
     from cruise_control_tpu_torch import cuda_kernels
     from cruise_control_tpu_torch.analyzer import kernels as K
-    g = torch.Generator(device="cuda").manual_seed(12)
-    c = 2048
+    g = torch.Generator(device="cuda").manual_seed(seed)
     timed = None
-    for kk in (256, 200):
+    for kk in widths:
         pref = -torch.rand((c, kk), generator=g, device="cuda")
         pref = torch.where(torch.rand((c, kk), generator=g, device="cuda")
                            < 0.3, torch.full((), K.NEG, device="cuda"), pref)
@@ -218,32 +224,111 @@ def check_assign_pass(results: dict) -> None:
                      pref, dest_open, assigned, cand_has, k, amp)))
             log(f"  assign_pass C={c} K={kk} pass {k}: exact match; device "
                 f"time per call: kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms")
-            if kk == 256 and k == 3:
-                timed = t
-    t_b, by = bound(c * 256 * 4 + 256 + c * 2 + c * 5, c * 256 * 2)
-    results["assign_pass"] = dict(max_abs_err=0.0, ms=timed[0],
-                                  plain_ms=timed[1], bound_ms=t_b,
-                                  bound_by=by, library_ms=None,
-                                  shape=f"C={c} K=256 pass 3")
+            if timed is None and k == 3:
+                timed = (kk, t)
+    kk, t = timed
+    # pref once, the masks, then per row the slot and the flag
+    t_b, by = bound(c * kk * 4 + kk + c * 2 + c * 5, c * kk * 2)
+    return dict(max_abs_err=0.0, ms=t[0], plain_ms=t[1], bound_ms=t_b,
+                bound_by=by, library_ms=None, shape=f"C={c} K={kk} pass 3")
 
 
-def check_commit_moves(results: dict) -> None:
+def commit_bytes(state, cache, r, dst, valid, rank) -> int:
+    """Bytes K3's function must move for this batch: the batch once, each
+    valid move's replica and partition rows, the prefix of each source row
+    up to the last departing slot (the cache keeps no replica-to-slot
+    index), the punched and appended table slots, and a read and a write
+    of each touched aggregate entry.  No copy of an untouched entry."""
+    import torch
+    s_w = cache.broker_table.shape[1]
+    rv, dv = r[valid].long(), dst[valid].long()
+    src = state.replica_broker[rv].long()
+    slot = (cache.broker_table[src] == rv[:, None].int()).int().argmax(1)
+    scan = torch.full((state.num_brokers,), -1, dtype=torch.int64,
+                      device=src.device).scatter_reduce(
+                          0, src, slot.long(), "amax")
+    arrive = (cache.table_fill[dv] + rank[valid]) < s_w
+    p = state.replica_partition[rv].long()
+    t = state.partition_topic[p].long()
+    k, nt = state.num_racks, state.num_topics
+    prc = torch.unique(torch.cat([p * k + state.broker_rack[src].long(),
+                                  p * k + state.broker_rack[dv].long()]))
+    btc = torch.unique(torch.cat([src * nt + t, dv * nt + t]))
+    brokers = torch.unique(torch.cat([src, dv]))
+    n_v = rv.numel()
+    return int(r.numel() * 13                      # r, dst, valid, rank
+               + n_v * (4 + 4 + 1 + 16 + 1 + 16 + 4 + 4)   # replica rows
+               + int((scan + 1).sum()) * 4         # source-row prefixes
+               + n_v * 5                           # punched id and flag
+               + int(arrive.sum()) * (4 + 16 + 16 + 1 + 1)  # appended slots
+               + torch.unique(dv).numel() * 8      # fill pointers
+               # per touched broker: load read and written, util written,
+               # capacity and rack read, four counters read and written
+               + brokers.numel() * (32 + 16 + 16 + 4 + 4 * 8)
+               + (prc.numel() + btc.numel()) * 8)  # count planes
+
+
+def kernel_only_ms(state, cache, r, dst, valid, rank, reps: int = 20,
+                   trials: int = 5) -> float:
+    """K3's device time per launch without the wrapper's copies: `reps`
+    launches captured in one CUDA graph, each into its own copy of the
+    cache planes, which are restored before each timed replay; the median
+    replay over `reps`."""
+    import torch
+    from cruise_control_tpu_torch import cuda_kernels
+    pristine = {f: getattr(cache, f) for f in cuda_kernels.COMMIT_FIELDS}
+    bufs = []
+    for _ in range(reps):
+        out = {f: t.clone() for f, t in pristine.items()}
+        out["broker_util"] = torch.empty_like(cache.broker_load)
+        bufs.append(out)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for out in bufs:
+            cuda_kernels.commit_moves_into(out, state, cache, r, dst, valid,
+                                           rank)
+    times = []
+    for _ in range(trials):
+        for out in bufs:
+            for f, t in pristine.items():
+                out[f].copy_(t)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    got = bufs[0]
+    want = cuda_kernels.commit_moves(state, cache, r, dst, valid, rank)
+    torch.cuda.synchronize()
+    for f in want:
+        if not equal_exact(got[f], want[f]):
+            raise AssertionError(f"commit_moves replay: {f} differs")
+    return statistics.median(times)
+
+
+def check_commit_moves(spec: dict, seed: int) -> dict:
+    """K3 on a 2,048-move batch with several arrivals per destination, on
+    the round cache of the cluster `spec`."""
     import torch
     from cruise_control_tpu_torch import cuda_kernels
     from cruise_control_tpu_torch.analyzer import context as C
     from cruise_control_tpu_torch.testing.random_cluster import (
         RandomClusterSpec, random_cluster)
-    state, _ = random_cluster(RandomClusterSpec(**SLICE_SPEC))
+    state, _ = random_cluster(RandomClusterSpec(**spec))
     ctx = C.make_context(state, C.BalancingConstraint(),
                          C.OptimizationOptions())
     cache = C.make_round_cache(state, ctx.table_slots, ctx)
-    g = torch.Generator(device="cuda").manual_seed(13)
+    g = torch.Generator(device="cuda").manual_seed(seed)
     n = 2048
     r = torch.randperm(state.num_replicas, generator=g,
                        device="cuda")[:n].to(torch.int32)
-    # destinations concentrated on 64 brokers: several arrivals each
-    dst = torch.randint(0, 64, (n,), generator=g, device="cuda").to(
-        torch.int32) * 3 % state.num_brokers
+    # destinations drawn from 64 brokers: several arrivals each
+    hubs = torch.randperm(state.num_brokers, generator=g, device="cuda")[:64]
+    dst = hubs[torch.randint(0, 64, (n,), generator=g, device="cuda")].to(
+        torch.int32)
     valid = (torch.rand(n, generator=g, device="cuda") < 0.9) & (
         state.replica_broker[r.long()] != dst)
     rank = C.arrival_rank(dst, valid, state.num_brokers)
@@ -252,33 +337,29 @@ def check_commit_moves(results: dict) -> None:
     torch.cuda.synchronize()
     for f in sorted(want):
         if not equal_exact(got[f], want[f]):
-            raise AssertionError(f"commit_moves: {f} differs from the plain "
-                                 "version")
+            raise AssertionError(f"commit_moves B={state.num_brokers}: {f} "
+                                 "differs from the plain version")
     err = max_abs_err([(got[f], want[f]) for f in want
                        if want[f].dtype.is_floating_point])
     per_dest = torch.bincount(dst[valid].long()).max()
+    kernel = kernel_only_ms(state, cache, r, dst, valid, rank)
+    wrapper = graph_time_ms(lambda: cuda_kernels.commit_moves(
+        state, cache, r, dst, valid, rank))
     # the plain version synchronises with the host (its ordered float
     # scatter counts rounds), so it is timed per call with its host time
-    t = (graph_time_ms(lambda: cuda_kernels.commit_moves(
-             state, cache, r, dst, valid, rank)),
-         cuda_time_ms(lambda: C.commit_moves_plain(
-             state, cache, r, dst, valid, rank), reps=5))
-    log(f"  commit_moves batch={n} (up to {int(per_dest)} arrivals per "
-        f"destination): bit-exact; device time per call (clones of the "
-        f"cache planes included): kernel {t[0]:.4f} ms; plain version, "
-        f"one call with its host time, {t[1]:.4f} ms")
-    # the function returns fresh cache planes: every cloned plane is read
-    # and written once, plus the batch and its gathered replica rows
-    planes = sum(getattr(cache, f).numel() * getattr(cache, f).element_size()
-                 for f in ("broker_load", "replica_count", "leader_count",
-                           "partition_rack_count", "broker_topic_count",
-                           "potential_nw_out", "leader_bytes_in",
-                           "broker_table", "table_fill", "table_load",
-                           "table_bonus", "table_leader", "table_ok"))
-    t_b, by = bound(2 * planes + n * 13 + n * 64, n * 24)
-    results["commit_moves"] = dict(max_abs_err=err, ms=t[0],
-                                   plain_ms=t[1], bound_ms=t_b, bound_by=by,
-                                   library_ms=None, shape=f"batch={n}")
+    plain = cuda_time_ms(lambda: C.commit_moves_plain(
+        state, cache, r, dst, valid, rank), reps=5)
+    nbytes = commit_bytes(state, cache, r, dst, valid, rank)
+    t_b, by = bound(nbytes, int(valid.sum()) * 2 * 6)
+    log(f"  commit_moves B={state.num_brokers} S={cache.broker_table.shape[1]}"
+        f" batch={n} ({int(valid.sum())} valid, up to {int(per_dest)} "
+        f"arrivals per destination): bit-exact; device time per call: "
+        f"kernel {kernel:.4f} ms, wrapper with its cache-plane copies "
+        f"{wrapper:.4f} ms; plain version, one call with its host time, "
+        f"{plain:.4f} ms; bound {t_b:.5f} ms ({nbytes} bytes)")
+    return dict(max_abs_err=err, ms=kernel, plain_ms=plain, bound_ms=t_b,
+                bound_by=by, library_ms=None,
+                shape=f"B={state.num_brokers} batch={n}")
 
 
 # ---------------------------------------------------------------------------
@@ -291,25 +372,64 @@ def _goals():
     return [DiskUsageDistributionGoal(), NetworkInboundUsageDistributionGoal()]
 
 
-def _solve(spec: dict, device: str, commit_log=None):
+def _solve(spec: dict, device: str):
     import torch
-    from cruise_control_tpu_torch.analyzer import kernels as K
     from cruise_control_tpu_torch.analyzer.optimizer import GoalOptimizer
     from cruise_control_tpu_torch.testing.random_cluster import (
         RandomClusterSpec, random_cluster)
     state, topo = random_cluster(RandomClusterSpec(**spec), device=device)
-    K.COMMIT_LOG = commit_log
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.time()
+    result = GoalOptimizer(_goals()).optimizations(state, topo, device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return state, topo, result, time.time() - t0
+
+
+@contextlib.contextmanager
+def _wrapped(targets, wrap):
+    """Replace each module function (module, name) by `wrap(fn, name)` for
+    the block, and restore it afterwards.  The port's callers reach these
+    functions through the module attribute, so the wrappers see every
+    call."""
+    saved = []
+    for mod, name in targets:
+        fn = getattr(mod, name)
+        saved.append((mod, name, fn))
+        setattr(mod, name, functools.wraps(fn)(wrap(fn, name)))
     try:
-        if device == "cuda":
-            torch.cuda.synchronize()
-        t0 = time.time()
-        result = GoalOptimizer(_goals()).optimizations(state, topo,
-                                                       device=device)
-        if device == "cuda":
-            torch.cuda.synchronize()
-        return state, topo, result, time.time() - t0
+        yield
     finally:
-        K.COMMIT_LOG = None
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def _commit_log(spec: dict, device: str) -> list:
+    """Solve once and return every cached commit's sorted (replica,
+    destination) pairs, one list per commit (a host copy per commit)."""
+    import torch
+    from cruise_control_tpu_torch.analyzer import kernels as K
+    commits = []
+
+    def record(replicas, dests, ok):
+        pairs = torch.stack([replicas[ok].long(), dests[ok].long()], 1)
+        commits.append(sorted(map(tuple, pairs.cpu().tolist())))
+
+    def wrap(fn, name):
+        def logged(state, cache, *batch):
+            if name == "commit_moves_cached":
+                cand_r, cand_dest, cand_valid = batch
+                record(cand_r, cand_dest, cand_valid & (cand_r >= 0))
+            else:
+                record(*K._swap_moves(state, *batch))
+            return fn(state, cache, *batch)
+        return logged
+
+    with _wrapped([(K, "commit_moves_cached"), (K, "commit_swaps_cached")],
+                  wrap):
+        _solve(spec, device)
+    return commits
 
 
 def _report(label: str, result, seconds: float) -> None:
@@ -369,9 +489,8 @@ def run_slice(results: dict) -> None:
     results["_identical"] = same
     log(f"    card and CPU proposals identical: {same}")
     if not same:
-        card_log, cpu_log = [], []
-        _solve(SLICE_SPEC, "cuda", card_log)
-        _solve(SLICE_SPEC, "cpu", cpu_log)
+        card_log = _commit_log(SLICE_SPEC, "cuda")
+        cpu_log = _commit_log(SLICE_SPEC, "cpu")
         first = next((i for i, (a, b) in enumerate(zip(card_log, cpu_log))
                       if a != b), min(len(card_log), len(cpu_log)))
         log(f"    first differing commit round: {first} (card "
@@ -381,7 +500,6 @@ def run_slice(results: dict) -> None:
 def profile_slice(device: str = "cuda") -> None:
     """torch.profiler over one slice solve on the card: wall time, the
     device's busy and idle share, and the device time by kernel."""
-    import functools
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -405,22 +523,16 @@ def profile_slice(device: str = "cuda") -> None:
                (P, "prebalance"), (ST, "sum_f32"),
                (O, "refresh_float_aggregates"), (O, "make_round_cache"),
                (O, "compute_stats"), (O, "compute_stats_fresh_loads")]
-    saved = []
-    for mod, name in targets:
-        fn = getattr(mod, name)
 
-        def labelled(*a, _fn=fn, _name=name, **kw):
-            with record_function(f"port::{_name}"):
-                return _fn(*a, **kw)
-        saved.append((mod, name, fn))
-        setattr(mod, name, functools.wraps(fn)(labelled))
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            _, _, _, secs = _solve(SLICE_SPEC, device)
-    finally:
-        for mod, name, fn in saved:
-            setattr(mod, name, fn)
+    def wrap(fn, name):
+        def labelled(*a, **kw):
+            with record_function(f"port::{name}"):
+                return fn(*a, **kw)
+        return labelled
+
+    with _wrapped(targets, wrap), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, _, _, secs = _solve(SLICE_SPEC, device)
     kernels, labels = [], []
     for evt in prof.key_averages():
         if evt.key.startswith("port::") and evt.device_type == DeviceType.CUDA:
@@ -493,10 +605,16 @@ def main(argv=None) -> int:
 
     results: dict = {}
     if 2 in phases:
-        log("[2] kernels against their plain versions on the card")
-        check_row_topk(results)
-        check_assign_pass(results)
-        check_commit_moves(results)
+        log("[2] kernels against their plain versions on the card, at the "
+            "slice's shapes")
+        results["row_topk"] = check_row_topk(200, 1152, seed=11)
+        results["assign_pass"] = check_assign_pass(2048, (256, 200), seed=12)
+        results["commit_moves"] = check_commit_moves(SLICE_SPEC, seed=13)
+        log("[2] the same at the 2,600-broker shapes of phase 4 (K2 at the "
+            "escalated width K = B)")
+        check_row_topk(2600, 1024, seed=21)
+        check_assign_pass(2048, (2600,), seed=22)
+        check_commit_moves(NORTH_SPEC, seed=23)
     if 3 in phases:
         log("[3] slice: disk + network-inbound solve, 200 brokers")
         run_slice(results)

@@ -38,17 +38,6 @@ MAX_ARRIVALS_PER_ROUND = 64
 #: destination-shortlist width of the candidate x destination planes
 DEST_SHORTLIST = 256
 
-#: when a list, every cached commit appends its batch's sorted (replica,
-#: destination) pairs (a host copy, so one sync per commit): the locator
-#: of the first round where two runs of a solve diverge
-COMMIT_LOG = None
-
-
-def _log_commit(replicas, dests, ok) -> None:
-    if COMMIT_LOG is not None:
-        pairs = torch.stack([replicas[ok].long(), dests[ok].long()], 1)
-        COMMIT_LOG.append(sorted(map(tuple, pairs.cpu().tolist())))
-
 
 def _arange(n: int, dev) -> torch.Tensor:
     return torch.arange(n, dtype=torch.int64, device=dev)
@@ -680,7 +669,6 @@ def commit_moves_cached(state: ClusterState, cache, cand_r, cand_dest,
         update_cache_for_moves
     r = torch.clamp_min(cand_r, 0)
     v = cand_valid & (cand_r >= 0)
-    _log_commit(r, cand_dest, v)
     new_cache = update_cache_for_moves(state, cache, r, cand_dest, v)
     return S.apply_moves(state, r, cand_dest, v), new_cache
 
@@ -690,6 +678,5 @@ def commit_swaps_cached(state: ClusterState, cache, out_r, in_r, cold,
     from cruise_control_tpu_torch.analyzer.context import \
         update_cache_for_moves
     replicas, dests, ok = _swap_moves(state, out_r, in_r, cold, valid)
-    _log_commit(replicas, dests, ok)
     new_cache = update_cache_for_moves(state, cache, replicas, dests, ok)
     return S.apply_moves(state, replicas, dests, ok), new_cache

@@ -107,7 +107,7 @@ def build() -> ctypes.CDLL:
         lib.cc_row_topk.argtypes = [_P, _P, _I, _I, _I, _P, _P, _P, _P]
         lib.cc_assign_pass.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P, _P,
                                        _P, _P]
-        lib.cc_commit_moves.argtypes = [_I] * 7 + [_P] * 29 + [_P]
+        lib.cc_commit_moves.argtypes = [_I] * 7 + [_P] * 31 + [_P]
         for fn in (lib.cc_row_topk, lib.cc_assign_pass, lib.cc_commit_moves):
             fn.restype = ctypes.c_int
         BUILD_INFO.update(seconds=time.time() - t0, log="\n".join(log),
@@ -179,10 +179,30 @@ def assign_pass(pref: torch.Tensor, dest_open: torch.Tensor,
     return best, has
 
 
+#: the cache fields K3 writes; `commit_moves` hands the kernel copies
+COMMIT_FIELDS = ("broker_load", "replica_count", "leader_count",
+                 "partition_rack_count", "broker_topic_count",
+                 "potential_nw_out", "leader_bytes_in", "broker_table",
+                 "table_fill", "table_load", "table_bonus", "table_leader",
+                 "table_ok")
+
+
 def commit_moves(state_before, cache, r: torch.Tensor, dst: torch.Tensor,
                  valid: torch.Tensor, rank: torch.Tensor) -> dict:
-    """K3 launch: the cache fields after committing the batch (fresh
-    tensors; the inputs are not modified)."""
+    """K3: the cache fields after committing the batch (fresh tensors; the
+    inputs are not modified)."""
+    out = {f: getattr(cache, f).clone() for f in COMMIT_FIELDS}
+    out["broker_util"] = torch.empty_like(cache.broker_load)
+    commit_moves_into(out, state_before, cache, r, dst, valid, rank)
+    return out
+
+
+def commit_moves_into(out: dict, state_before, cache, r: torch.Tensor,
+                      dst: torch.Tensor, valid: torch.Tensor,
+                      rank: torch.Tensor) -> None:
+    """K3 launch into `out`, which holds a copy of each of the cache's
+    COMMIT_FIELDS (updated in place) and a `broker_util` plane (written);
+    `cache.table_fill` is read as the fill before the batch."""
     lib = build()
     n = r.shape[0]
     num_b = state_before.num_brokers
@@ -231,13 +251,15 @@ def commit_moves(state_before, cache, r: torch.Tensor, dst: torch.Tensor,
             ("table_leader", cache.table_leader, torch.bool, (num_b, sw)),
             ("table_ok", cache.table_ok, torch.bool, (num_b, sw))):
         _check(t, name, dt, shape)
-    out = {f: getattr(cache, f).clone() for f in (
-        "broker_load", "replica_count", "leader_count",
-        "partition_rack_count", "broker_topic_count", "potential_nw_out",
-        "leader_bytes_in", "broker_table", "table_load", "table_bonus",
-        "table_leader", "table_ok")}
-    out["broker_util"] = torch.empty_like(cache.broker_load)
-    out["table_fill"] = cache.table_fill.clone()
+    for f in (*COMMIT_FIELDS, "broker_util"):
+        like = cache.broker_load if f == "broker_util" else getattr(cache, f)
+        _check(out[f], f"out[{f!r}]", like.dtype, like.shape)
+    # the kernel reads the fill before the batch while it counts arrivals
+    if out["table_fill"].data_ptr() == cache.table_fill.data_ptr():
+        raise ValueError("out['table_fill'] must be a copy of the cache's")
+    # per-move scratch: the float contribution row and the two ends
+    contrib = torch.empty((n, 8), dtype=torch.float32, device=r.device)
+    ends = torch.empty((2, n), dtype=torch.int32, device=r.device)
     s = state_before
     err = lib.cc_commit_moves(
         n, num_b, sw, num_r, s.num_racks, s.num_topics,
@@ -257,7 +279,6 @@ def commit_moves(state_before, cache, r: torch.Tensor, dst: torch.Tensor,
         cache.table_fill.data_ptr(), out["table_fill"].data_ptr(),
         out["table_load"].data_ptr(), out["table_bonus"].data_ptr(),
         out["table_leader"].data_ptr(), out["table_ok"].data_ptr(),
-        _stream())
+        contrib.data_ptr(), ends.data_ptr(), _stream())
     LAUNCHES["commit_moves"] += 1
     _raise_on(err, "commit_moves")
-    return out
