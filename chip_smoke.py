@@ -7,24 +7,37 @@ Run from the repository root on a machine with one CUDA card:
 
 Phases:
   1. the card's name and power limit (nvidia-smi), then the build of the
-     port's CUDA kernels from csrc/ (with nvcc's resource report);
+     port's six CUDA kernels from csrc/ (one nvcc per source, started
+     together, with nvcc's resource report);
   2. each kernel against its plain PyTorch version on the card at the
      slice's shapes and again at the 2,600-broker shapes of phase 4
-     (integers and booleans exactly, floats bit for bit), with device
-     times per call (20 calls captured in a CUDA graph, median of 5
-     replays timed with CUDA events; K3 also without the wrapper's copies
-     of the cache planes) beside the bound for the bytes the function
-     needs and a one-call PyTorch yardstick where one exists;
-  3. the slice: the disk + network-inbound proposal solve on the
-     200-broker / 20K-partition / rf-3 cluster (8 racks, 10 topics, seed
-     4, skew 0.2) with default options, one warm-up and one timed solve,
-     the kernels' launch counts of the timed solve (each must be > 0),
-     the sanity / cache-equals-rebuild / no-self-regression gates, and the
-     same solve on the port's CPU path for a proposal comparison;
-  4. scale: one solve at 2,600 brokers / 200K partitions / 26 racks / 100
-     topics.
-With --profile, one more slice solve runs under torch.profiler and the
-device's busy share and time by kernel are printed.
+     (integers and booleans exactly, floats bit for bit): K1 at k = 1, 4,
+     8, 16 and 64, K2, K3, K4 in both commit modes for passes 0 and 3 (and
+     at C = R, the full-plane width, at 2,600 brokers), K5 on a
+     4,096-transfer table-less batch and on a phase-a batch with the
+     table, K6 on a 4,096-partition window with and without the
+     improvement gate and tiebreak.  Device times per call (20 calls
+     captured in a CUDA graph, median of 5 replays timed with CUDA events;
+     K3 and K5 also without the wrapper's copies of the cache planes)
+     beside the bound for the bytes the function needs and a one-call
+     PyTorch yardstick where one exists;
+  3. the slice geometry (200 brokers / 20K partitions / rf 3, 8 racks, 10
+     topics, skew 0.2, default options): the disk + network-inbound solve
+     of the first slice (seed 4); config 2 whole — Disk, NwIn, NwOut and
+     Cpu usage distribution — as the bench builds it (seed 4), where the
+     leadership sweeps clear every over-limit broker so the leadership
+     table rounds (K4) never start; and this slice's main path, the same
+     four goals on seed 2, where they do.  One warm-up and one timed solve
+     each, the kernels' launch counts of each timed solve (every kernel
+     the path reaches must be > 0; the main path's counts go into the
+     kernel JSON), the sanity / proposal-replay (new leaders included) /
+     cache-equals-rebuild / no-self-regression gates, and each four-goal
+     solve again on the port's CPU path: its proposals and final leader
+     flags must equal the card's;
+  4. scale: the four-goal solve at 2,600 brokers / 200K partitions / 26
+     racks / 100 topics with the same gates (no CPU comparison).
+With --profile, one more main-path solve runs under torch.profiler
+and the device's busy share and time by kernel are printed.
 
 Every phase that fails raises, so the run exits non-zero.  The line
 before the last is the kernel JSON; the last line is the device JSON.
@@ -53,16 +66,32 @@ REPLACES = {
     "row_topk": "cruise_control_tpu/analyzer/kernels.py:91",
     "assign_pass": "cruise_control_tpu/analyzer/kernels.py:788",
     "commit_moves": "cruise_control_tpu/analyzer/context.py:642",
+    "leader_assign_pass": "cruise_control_tpu/analyzer/kernels.py:959",
+    "commit_leadership": "cruise_control_tpu/analyzer/context.py:732",
+    "sweep_pick": "cruise_control_tpu/analyzer/leadership.py:238",
 }
 SOURCES = {
     "row_topk": "cruise_control_tpu_torch/csrc/row_topk.cu",
     "assign_pass": "cruise_control_tpu_torch/csrc/assign_pass.cu",
     "commit_moves": "cruise_control_tpu_torch/csrc/commit_moves.cu",
+    "leader_assign_pass": "cruise_control_tpu_torch/csrc/leader_assign.cu",
+    "commit_leadership":
+        "cruise_control_tpu_torch/csrc/commit_leadership.cu",
+    "sweep_pick": "cruise_control_tpu_torch/csrc/sweep_pick.cu",
 }
+#: the kernels each solve must launch: the leadership table rounds (K4)
+#: run only when a sweep leaves an over-limit broker
+TWO_GOAL_KERNELS = ("row_topk", "assign_pass", "commit_moves")
+FOUR_GOAL_KERNELS = tuple(SOURCES)
+SWEEP_ONLY_KERNELS = tuple(k for k in SOURCES if k != "leader_assign_pass")
 
 SLICE_SPEC = dict(num_brokers=200, num_partitions=20_000,
                   replication_factor=3, num_racks=8, num_topics=10, seed=4,
                   skew_fraction=0.2)
+#: the same geometry on seed 2: NwOut's and Cpu's sweeps end with
+#: over-limit brokers left, so the leadership table rounds (phase a,
+#: K4) run; on seed 4 the sweep clears them and phase a never starts
+SLICE_MAIN_SPEC = dict(SLICE_SPEC, seed=2)
 NORTH_SPEC = dict(num_brokers=2600, num_partitions=200_000,
                   replication_factor=3, num_racks=26, num_topics=100, seed=4,
                   skew_fraction=0.2)
@@ -146,8 +175,10 @@ def max_abs_err(pairs) -> float:
 # ---------------------------------------------------------------------------
 
 def check_row_topk(b: int, s: int, seed: int) -> dict:
-    """K1 at B x S for k in {1, 4, 8}; the record of k = 4 (the goals'
-    move rounds)."""
+    """K1 at B x S for k in {1, 4, 8} (the block path) and {16, 64} (the
+    warp path of the leadership round and its deep pick); the record of
+    k = 4 (the goals' move rounds), with the k = 16 and 64 times beside
+    it."""
     import torch
     from cruise_control_tpu_torch import cuda_kernels
     from cruise_control_tpu_torch.analyzer import kernels as K
@@ -161,11 +192,11 @@ def check_row_topk(b: int, s: int, seed: int) -> dict:
     table = torch.randperm(b * s, generator=g, device="cuda").to(
         torch.int32).reshape(b, s)
     errs, times = [], {}
-    for k in (1, 4, 8):
+    for k in (1, 4, 8, 16, 64):
         got = cuda_kernels.row_topk(sc, table, k)
         want = K.row_topk_plain(sc, table, k)
         torch.cuda.synchronize()
-        for x, y, what in zip(got, want, ("cand", "has", "top")):
+        for x, y, what in zip(got, want, ("cand", "has", "top", "slot")):
             if not equal_exact(x, y):
                 raise AssertionError(f"row_topk B={b} S={s} k={k}: {what} "
                                      "differs from the plain version")
@@ -178,12 +209,18 @@ def check_row_topk(b: int, s: int, seed: int) -> dict:
             f"call: kernel {times[k][0]:.4f} ms, plain {times[k][1]:.4f} ms, "
             f"torch.topk {times[k][2]:.4f} ms; one wrapper call with its "
             f"host overhead {call:.4f} ms")
-    k = 4
-    # the scores once, then per output its table gather, id, flag and score
-    t_b, by = bound(b * s * 4 + b * k * (4 + 4 + 1 + 4), b * s * k)
-    return dict(max_abs_err=max(errs), ms=times[k][0], plain_ms=times[k][1],
-                bound_ms=t_b, bound_by=by, library_ms=times[k][2],
-                shape=f"B={b} S={s} k={k}")
+    out = {}
+    for k in (4, 16, 64):
+        # the scores once, then per output its table gather, id, flag,
+        # score and slot
+        t_b, by = bound(b * s * 4 + b * k * (4 + 4 + 1 + 4 + 4), b * s * k)
+        out[k] = dict(max_abs_err=max(errs), ms=times[k][0],
+                      plain_ms=times[k][1], bound_ms=t_b, bound_by=by,
+                      library_ms=times[k][2], shape=f"B={b} S={s} k={k}")
+        log(f"  row_topk B={b} S={s} k={k}: bound {t_b:.5f} ms ({by})")
+    rec = dict(out[4])
+    rec["deep"] = {k: out[k] for k in (16, 64)}
+    return rec
 
 
 def check_assign_pass(c: int, widths, seed: int) -> dict:
@@ -362,17 +399,291 @@ def check_commit_moves(spec: dict, seed: int) -> dict:
                 shape=f"B={state.num_brokers} batch={n}")
 
 
+def check_leader_assign(c: int, num_b: int, seed: int) -> dict:
+    """K4 at C rows of RF = 3 options in both commit modes, passes 0 and
+    3; the record of the multi-commit pass 3 (the goals' mode)."""
+    import torch
+    from cruise_control_tpu_torch import cuda_kernels
+    from cruise_control_tpu_torch.analyzer import kernels as K
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rf = 3
+
+    def ints(hi, shape):
+        return torch.randint(0, hi, shape, generator=g, device="cuda",
+                             dtype=torch.int32)
+
+    pref = -torch.rand((c, rf), generator=g, device="cuda")
+    pref = torch.where(torch.rand((c, rf), generator=g, device="cuda") < 0.3,
+                       torch.full((), K.NEG, device="cuda"), pref)
+    pref[:, 2] = pref[:, 0]                 # planted ties between options
+    sib_b, sib_r, src = ints(num_b, (c, rf)), ints(10 ** 6, (c, rf)), ints(
+        num_b, (c,))
+    assigned = torch.rand(c, generator=g, device="cuda") < 0.2
+    cand_has = torch.rand(c, generator=g, device="cuda") < 0.9
+    dep = ints(2, (num_b,))
+    finite = pref > K.NEG / 2
+    inf = torch.full((), float("inf"), device="cuda")
+    amp = 0.35 * (torch.max(torch.where(finite, pref, -inf))
+                  - torch.min(torch.where(finite, pref, inf))) + 1e-6
+    rec = None
+    for multi in (False, True):
+        # multi: some destinations at the arrival ceiling
+        taken = ints(3, (num_b,)) * (K.MAX_ARRIVALS_PER_ROUND // 2
+                                     if multi else 1)
+        args = (pref, sib_b, sib_r, src, taken, dep, assigned, cand_has)
+        for k in (0, 3):
+            got = cuda_kernels.leader_assign_pass(*args, k, amp, multi)
+            want = K.leader_assign_pass_plain(*args, k, amp, multi)
+            torch.cuda.synchronize()
+            for x, y, what in zip(got, want, ("slot", "broker", "replica",
+                                              "has")):
+                if not equal_exact(x, y):
+                    raise AssertionError(
+                        f"leader_assign_pass C={c} multi={multi} pass {k}: "
+                        f"{what} differs from the plain version")
+            t = (graph_time_ms(lambda: cuda_kernels.leader_assign_pass(
+                     *args, k, amp, multi)),
+                 graph_time_ms(lambda: K.leader_assign_pass_plain(
+                     *args, k, amp, multi)))
+            log(f"  leader_assign_pass C={c} B={num_b} multi={multi} pass "
+                f"{k}: exact match; device time per call: kernel "
+                f"{t[0]:.4f} ms, plain {t[1]:.4f} ms")
+            if multi and k == 3:
+                rec = t
+    # preferences and option brokers once, the winning replica, the source
+    # broker, the two counter planes and the row masks; four outputs
+    nbytes = c * rf * 8 + c * 4 + c * 4 + num_b * 8 + c * 2 + c * 13
+    t_b, by = bound(nbytes, c * rf * 4)
+    log(f"  leader_assign_pass C={c}: bound {t_b:.5f} ms ({nbytes} bytes)")
+    return dict(max_abs_err=0.0, ms=rec[0], plain_ms=rec[1], bound_ms=t_b,
+                bound_by=by, library_ms=None,
+                shape=f"C={c} RF={rf} multi pass 3")
+
+
+def _leadership_batch(state, n: int, g, valid_share: float):
+    """n transfers (current leader -> another replica of the partition)
+    on distinct partitions; about `valid_share` of them valid."""
+    import torch
+    from cruise_control_tpu_torch.analyzer import context as C
+    from cruise_control_tpu_torch.model import state as S
+    rows = torch.from_numpy(C.partition_replica_index(state)).cuda()
+    cur = S.partition_leader_replica(state)
+    parts = torch.randperm(state.num_partitions, generator=g,
+                           device="cuda")[:n]
+    opts = rows[parts]
+    sr = cur[parts]
+    pick = torch.randint(1, opts.shape[1], (n,), generator=g, device="cuda")
+    # the first option that is not the leader, rotated by `pick`
+    order = (torch.arange(opts.shape[1], device="cuda")[None, :]
+             + pick[:, None]) % opts.shape[1]
+    cand = torch.gather(opts, 1, order)
+    ok = (cand >= 0) & (cand != sr[:, None])
+    dr = torch.clamp_min(torch.gather(
+        cand, 1, torch.argmax(ok.to(torch.int8), 1)[:, None]), 0)
+    valid = (torch.rand(n, generator=g, device="cuda") < valid_share) & (
+        sr >= 0) & torch.any(ok, 1)
+    return (torch.clamp_min(sr, 0).to(torch.int32).contiguous(),
+            dr[:, 0].to(torch.int32).contiguous(), valid)
+
+
+def leadership_bytes(state, cache, sr, dr, valid) -> int:
+    """Bytes K5's function must move for this batch: the batch once, each
+    valid transfer's replica and partition rows, a read and a write of its
+    two replica-load rows, with a table each row's prefix up to the slot
+    it searches for and a read and a write of the two slots, and a read
+    and a write of each touched broker entry."""
+    import torch
+    sv, dv = sr[valid].long(), dr[valid].long()
+    n_v = sv.numel()
+    nbytes = sr.numel() * 9 + n_v * (4 + 4 + 4 + 16 + 4 + 4 + 2 * 2 * 16)
+    sw = cache.broker_table.shape[1]
+    if sw:
+        for ids in (sv, dv):
+            rows = cache.broker_table[state.replica_broker[ids].long()]
+            slot = (rows == ids[:, None].int()).int().argmax(1)
+            nbytes += int((slot + 1).sum()) * 4 + ids.numel() * (2 * 16 + 1)
+    brokers = torch.unique(torch.cat([state.replica_broker[sv],
+                                      state.replica_broker[dv]]))
+    return int(nbytes + brokers.numel() * (32 + 16 + 16 + 8 + 8))
+
+
+def check_commit_leadership(spec: dict, seed: int) -> dict:
+    """K5 on a 4,096-transfer table-less batch (the sweep's commit) and on
+    a B*16-row batch with the broker table (phase a's); the record of the
+    table-less batch."""
+    import torch
+    from cruise_control_tpu_torch import cuda_kernels
+    from cruise_control_tpu_torch.analyzer import context as C
+    from cruise_control_tpu_torch.testing.random_cluster import (
+        RandomClusterSpec, random_cluster)
+    state, _ = random_cluster(RandomClusterSpec(**spec))
+    ctx = C.make_context(state, C.BalancingConstraint(),
+                         C.OptimizationOptions())
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rec = None
+    for label, slots, n, share in (
+            ("table-less", 0, 4096, 0.9),
+            ("with table", ctx.table_slots, state.num_brokers * 16, 0.5)):
+        cache = C.make_round_cache(state, slots, ctx)
+        sr, dr, valid = _leadership_batch(state, n, g, share)
+        got = cuda_kernels.commit_leadership(state, cache, sr, dr, valid)
+        want = C.commit_leadership_plain(state, cache, sr, dr, valid)
+        torch.cuda.synchronize()
+        for f in sorted(want):
+            if not equal_exact(got[f], want[f]):
+                raise AssertionError(
+                    f"commit_leadership B={state.num_brokers} {label}: {f} "
+                    "differs from the plain version")
+        err = max_abs_err([(got[f], want[f]) for f in want
+                           if want[f].dtype.is_floating_point])
+        kernel = kernel_only_leadership_ms(state, cache, sr, dr, valid)
+        wrapper = graph_time_ms(lambda: cuda_kernels.commit_leadership(
+            state, cache, sr, dr, valid))
+        plain = cuda_time_ms(lambda: C.commit_leadership_plain(
+            state, cache, sr, dr, valid), reps=5)
+        nbytes = leadership_bytes(state, cache, sr, dr, valid)
+        t_b, by = bound(nbytes, int(valid.sum()) * 2 * 5)
+        log(f"  commit_leadership B={state.num_brokers} {label} batch={n} "
+            f"({int(valid.sum())} valid): bit-exact; device time per call: "
+            f"kernel {kernel:.4f} ms, wrapper with copies of the planes it "
+            f"writes {wrapper:.4f} ms; plain version, one call with its "
+            f"host time, {plain:.4f} ms; bound {t_b:.5f} ms ({nbytes} "
+            "bytes)")
+        if rec is None:
+            rec = dict(max_abs_err=err, ms=kernel, plain_ms=plain,
+                       bound_ms=t_b, bound_by=by, library_ms=None,
+                       shape=f"B={state.num_brokers} batch={n} table-less")
+    return rec
+
+
+def kernel_only_leadership_ms(state, cache, sr, dr, valid, reps: int = 20,
+                              trials: int = 5) -> float:
+    """K5's device time per launch without the wrapper's copies: `reps`
+    launches captured in one CUDA graph, each into its own copy of the
+    planes, restored before each timed replay; the median replay over
+    `reps`.  The first copy's result must equal a wrapper call's."""
+    import torch
+    from cruise_control_tpu_torch import cuda_kernels
+    from cruise_control_tpu_torch.analyzer.context import LEADERSHIP_FIELDS
+    sw = cache.broker_table.shape[1]
+    pristine = {f: getattr(cache, f) for f in LEADERSHIP_FIELDS
+                if f != "broker_util" and (sw or not f.startswith("table_"))}
+    bufs = []
+    for _ in range(reps):
+        out = {f: t.clone() for f, t in pristine.items()}
+        out["broker_util"] = torch.empty_like(cache.broker_load)
+        bufs.append(out)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for out in bufs:
+            cuda_kernels.commit_leadership_into(out, state, cache, sr, dr,
+                                                valid)
+    times = []
+    for _ in range(trials):
+        for out in bufs:
+            for f, t in pristine.items():
+                out[f].copy_(t)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    want = cuda_kernels.commit_leadership(state, cache, sr, dr, valid)
+    torch.cuda.synchronize()
+    for f in want:
+        if not equal_exact(bufs[0][f], want[f]):
+            raise AssertionError(f"commit_leadership replay: {f} differs")
+    return statistics.median(times)
+
+
+def check_sweep_pick(spec: dict, seed: int) -> dict:
+    """K6 on a window of min(4096, P) partitions of the cluster `spec`, in
+    limit mode and in mean mode with a tiebreak; the record of limit mode
+    (the goals')."""
+    import numpy as np
+    import torch
+    from cruise_control_tpu_torch import cuda_kernels
+    from cruise_control_tpu_torch.analyzer import context as C
+    from cruise_control_tpu_torch.analyzer import kernels as K
+    from cruise_control_tpu_torch.analyzer import leadership as L
+    from cruise_control_tpu_torch.model import state as S
+    from cruise_control_tpu_torch.testing.random_cluster import (
+        RandomClusterSpec, random_cluster)
+    state, _ = random_cluster(RandomClusterSpec(**spec))
+    ctx = C.make_context(state, C.BalancingConstraint(),
+                         C.OptimizationOptions())
+    cache = C.make_round_cache(state, 0, ctx)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    res = 2
+    rows = ctx.partition_replicas
+    num_p, rf = rows.shape
+    wn = min(L.SWEEP_COMPACT, num_p)
+    sel = torch.randperm(num_p, generator=g, device="cuda")[:wn].to(
+        torch.int32)
+    cur = torch.clamp_min(S.partition_leader_replica(state)[sel.long()],
+                          0).to(torch.int32)
+    has_in = torch.rand(wn, generator=g, device="cuda") < 0.9
+    jit_plane = K._pairwise_jitter(num_p, rf, salt=0, device="cuda")
+    value = (state.partition_leader_bonus[state.replica_partition.long(),
+                                          res] * state.replica_valid)
+    static_ok = C.replica_static_ok(state, ctx)
+    cap = state.broker_capacity[:, res]
+    upper = (ctx.balance_upper_pct[res] * cap).contiguous()
+    fill_to = ((upper + ctx.balance_lower_pct[res] * cap) / 2.0).contiguous()
+    W = cache.broker_load[:, res].contiguous()
+    tb = torch.rand(state.num_brokers, generator=g, device="cuda")
+    salt = float(np.float32(3) * np.float32(0.37))
+    rec = None
+    for improve, tb_norm in ((False, None), (True, tb)):
+        args = (sel, has_in, cur, rows, jit_plane, state.replica_broker,
+                value, static_ok, state.broker_alive, ctx.broker_leader_ok,
+                W, fill_to, upper, tb_norm, salt, improve)
+        got = cuda_kernels.sweep_pick(*args)
+        want = L.sweep_pick_plain(*args)
+        torch.cuda.synchronize()
+        for x, y, what in zip(got, want, ("dst_r", "has")):
+            if not equal_exact(x, y):
+                raise AssertionError(
+                    f"sweep_pick W={wn} improve_gate={improve}: {what} "
+                    "differs from the plain version")
+        t = (graph_time_ms(lambda: cuda_kernels.sweep_pick(*args)),
+             graph_time_ms(lambda: L.sweep_pick_plain(*args)))
+        log(f"  sweep_pick P={num_p} W={wn} improve_gate={improve} "
+            f"tiebreak={tb_norm is not None}: exact match "
+            f"({int(got[1].sum())} with a pick); device time per call: "
+            f"kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms")
+        if rec is None:
+            rec = t
+    # the window's ids, flags and current leaders, its option rows and
+    # jitter, per option the broker id, value and eligibility, five
+    # broker planes, two outputs
+    nb = state.num_brokers
+    nbytes = wn * 9 + wn * rf * (4 + 4 + 4 + 4 + 1) + nb * 14 + wn * 5
+    t_b, by = bound(nbytes, wn * rf * 8)
+    log(f"  sweep_pick W={wn}: bound {t_b:.5f} ms ({nbytes} bytes)")
+    return dict(max_abs_err=0.0, ms=rec[0], plain_ms=rec[1], bound_ms=t_b,
+                bound_by=by, library_ms=None, shape=f"W={wn} RF={rf}")
+
+
 # ---------------------------------------------------------------------------
 # phases 3 and 4: the solve
 # ---------------------------------------------------------------------------
 
-def _goals():
-    from cruise_control_tpu_torch.analyzer.goals.resource_distribution import (
-        DiskUsageDistributionGoal, NetworkInboundUsageDistributionGoal)
-    return [DiskUsageDistributionGoal(), NetworkInboundUsageDistributionGoal()]
+def _goals(four: bool):
+    from cruise_control_tpu_torch.analyzer.goals import \
+        resource_distribution as R
+    goals = [R.DiskUsageDistributionGoal(),
+             R.NetworkInboundUsageDistributionGoal()]
+    if four:
+        goals += [R.NetworkOutboundUsageDistributionGoal(),
+                  R.CpuUsageDistributionGoal()]
+    return goals
 
 
-def _solve(spec: dict, device: str):
+def _solve(spec: dict, device: str, four: bool = True):
     import torch
     from cruise_control_tpu_torch.analyzer.optimizer import GoalOptimizer
     from cruise_control_tpu_torch.testing.random_cluster import (
@@ -381,7 +692,8 @@ def _solve(spec: dict, device: str):
     if device == "cuda":
         torch.cuda.synchronize()
     t0 = time.time()
-    result = GoalOptimizer(_goals()).optimizations(state, topo, device=device)
+    result = GoalOptimizer(_goals(four)).optimizations(state, topo,
+                                                       device=device)
     if device == "cuda":
         torch.cuda.synchronize()
     return state, topo, result, time.time() - t0
@@ -406,67 +718,89 @@ def _wrapped(targets, wrap):
 
 
 def _commit_log(spec: dict, device: str) -> list:
-    """Solve once and return every cached commit's sorted (replica,
-    destination) pairs, one list per commit (a host copy per commit)."""
+    """Solve config 2 once and return every cached commit's sorted
+    (kind, replica, destination) triples, one list per commit (a host
+    copy per commit): destination brokers for moves and swaps, promoted
+    replicas for leadership transfers."""
     import torch
     from cruise_control_tpu_torch.analyzer import kernels as K
     commits = []
 
-    def record(replicas, dests, ok):
+    def record(kind, replicas, dests, ok):
         pairs = torch.stack([replicas[ok].long(), dests[ok].long()], 1)
-        commits.append(sorted(map(tuple, pairs.cpu().tolist())))
+        commits.append(sorted((kind, a, b) for a, b in pairs.cpu().tolist()))
 
     def wrap(fn, name):
-        def logged(state, cache, *batch):
+        def logged(state, cache, *batch, **kw):
             if name == "commit_moves_cached":
                 cand_r, cand_dest, cand_valid = batch
-                record(cand_r, cand_dest, cand_valid & (cand_r >= 0))
+                record("move", cand_r, cand_dest, cand_valid & (cand_r >= 0))
+            elif name == "commit_leadership_cached":
+                cand_r, cand_dest, cand_valid = batch
+                record("lead", cand_r, cand_dest, cand_valid & (cand_r >= 0))
             else:
-                record(*K._swap_moves(state, *batch))
-            return fn(state, cache, *batch)
+                record("move", *K._swap_moves(state, *batch))
+            return fn(state, cache, *batch, **kw)
         return logged
 
-    with _wrapped([(K, "commit_moves_cached"), (K, "commit_swaps_cached")],
-                  wrap):
+    from cruise_control_tpu_torch.analyzer import leadership as L
+
+    def wrap_sweep(fn, name):
+        def logged(st, cache, sr, dr, valid, **kw):
+            record("sweep", sr, dr, valid)
+            return fn(st, cache, sr, dr, valid, **kw)
+        return logged
+
+    with _wrapped([(K, "commit_moves_cached"), (K, "commit_swaps_cached"),
+                   (K, "commit_leadership_cached")], wrap), \
+            _wrapped([(L, "update_cache_for_leadership")], wrap_sweep):
         _solve(spec, device)
     return commits
 
 
-def _report(label: str, result, seconds: float) -> None:
+def _sweep_rounds(fn_solve):
+    """Run `fn_solve()` and return (its result, the sweep rounds of each
+    leadership sweep in call order)."""
+    from cruise_control_tpu_torch.analyzer import leadership as L
+    counts = []
+
+    def wrap(fn, name):
+        def counted(*a, **kw):
+            out = fn(*a, **kw)
+            counts.append(int(out[1]))
+            return out
+        return counted
+
+    with _wrapped([(L, "run_sweep_threaded")], wrap):
+        return fn_solve(), counts
+
+
+def _report(label: str, result, seconds: float, sweeps=None) -> None:
     log(f"  {label}: solve {seconds:.3f} s")
     log(f"    rounds {result.rounds_by_goal}")
+    if sweeps is not None:
+        lead_goals = [g for g in result.rounds_by_goal
+                      if g.startswith(("NetworkOutbound", "Cpu"))]
+        for g, n in zip(lead_goals, sweeps):
+            log(f"    {g}: sweep rounds {n}, table rounds "
+                f"{result.rounds_by_goal[g] - n}")
     log(f"    converged_at {result.converged_at_by_goal}")
     for g, (b, o, a) in result.violated_broker_counts.items():
         e = result.entry_broker_counts[g]
         log(f"    violated {g}: before {b} -> entry {e} -> own {o} "
             f"-> after {a}")
     log(f"    proposals {len(result.proposals)}, replica moves "
-        f"{result.num_replica_movements}, balancedness "
+        f"{result.num_replica_movements}, leadership moves "
+        f"{result.num_leadership_movements}, balancedness "
         f"{result.balancedness_score():.3f}")
 
 
-def run_slice(results: dict) -> None:
-    import torch
-    from cruise_control_tpu_torch import cuda_kernels
+def _gates(state, topo, result) -> None:
+    """Sanity, proposal replay (new leaders included), cache equals a
+    rebuild, no goal above its own entry violated count."""
     from cruise_control_tpu_torch.analyzer import context as C
-    from cruise_control_tpu_torch.analyzer.optimizer import proposal_set
     from cruise_control_tpu_torch.model.sanity import sanity_check
     from cruise_control_tpu_torch.testing import checks
-
-    _, _, _, warm_s = _solve(SLICE_SPEC, "cuda")
-    log(f"  warm-up solve {warm_s:.3f} s")
-    cuda_kernels.reset_launches()
-    state, topo, result, secs = _solve(SLICE_SPEC, "cuda")
-    launches = dict(cuda_kernels.LAUNCHES)
-    _report("card", result, secs)
-    log(f"    kernel launches in the timed solve {launches}")
-    for name, count in launches.items():
-        results.setdefault(name, {})["launches"] = count
-        if count <= 0:
-            raise AssertionError(f"kernel {name} was not launched by the "
-                                 "slice's solve")
-    results["_slice_s"] = secs
-
     sanity_check(result.final_state)
     checks.verify_result(state, result, topo)
     ctx = C.make_context(state, C.BalancingConstraint(),
@@ -475,37 +809,100 @@ def run_slice(results: dict) -> None:
                                   result.final_cache)
     if bad:
         raise AssertionError(f"final cache differs from a rebuild: {bad}")
-    log("    sanity, proposal replay and cache-equals-rebuild: ok")
+    log("    sanity, proposal replay (leaders included) and "
+        "cache-equals-rebuild: ok")
     for g, (_, own, _) in result.violated_broker_counts.items():
         if own > result.entry_broker_counts[g]:
             raise AssertionError(f"{g} regressed itself: own {own} > entry "
                                  f"{result.entry_broker_counts[g]}")
     log("    no goal self-regression: ok")
 
+
+def _timed_path(spec: dict, four: bool, kernels, label: str):
+    """One warm-up and one timed card solve; the launches of the timed
+    solve (counts set to 0 just before it, read just after), each of
+    `kernels` > 0."""
+    from cruise_control_tpu_torch import cuda_kernels
+    _, _, _, warm_s = _solve(spec, "cuda", four)
+    log(f"  {label}: warm-up solve {warm_s:.3f} s")
+    cuda_kernels.reset_launches()
+    (state, topo, result, secs), sweeps = _sweep_rounds(
+        lambda: _solve(spec, "cuda", four))
+    launches = dict(cuda_kernels.LAUNCHES)
+    _report(f"{label} on the card", result, secs, sweeps if four else None)
+    log(f"    kernel launches in the timed solve {launches}")
+    for name in kernels:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched by the "
+                                 f"{label} solve")
+    _gates(state, topo, result)
+    return state, topo, result, secs, launches
+
+
+def _card_equals_cpu(spec: dict, result, label: str) -> None:
+    """The same solve on the port's CPU path: its proposals, final leader
+    flags and proposals' new leaders must equal the card's; on a
+    difference, both solves rerun with every commit logged and the first
+    differing commit is named."""
+    import torch
+    from cruise_control_tpu_torch.analyzer.optimizer import proposal_set
     torch.set_num_threads(min(8, os.cpu_count() or 1))
-    _, _, cpu_result, cpu_s = _solve(SLICE_SPEC, "cpu")
-    _report("port on the CPU", cpu_result, cpu_s)
+    _, _, cpu_result, cpu_s = _solve(spec, "cpu")
+    _report(f"{label}, port on the CPU", cpu_result, cpu_s)
     same = proposal_set(cpu_result) == proposal_set(result)
-    results["_identical"] = same
-    log(f"    card and CPU proposals identical: {same}")
-    if not same:
-        card_log = _commit_log(SLICE_SPEC, "cuda")
-        cpu_log = _commit_log(SLICE_SPEC, "cpu")
+    same_leaders = bool(torch.equal(
+        cpu_result.final_state.replica_is_leader,
+        result.final_state.replica_is_leader.cpu()))
+    same_new_leaders = ({(p.partition, p.new_leader)
+                         for p in cpu_result.proposals}
+                        == {(p.partition, p.new_leader)
+                            for p in result.proposals})
+    log(f"    card and CPU: proposals identical {same}, final leader flags "
+        f"identical {same_leaders}, proposals' new leaders identical "
+        f"{same_new_leaders}")
+    if not (same and same_leaders and same_new_leaders):
+        card_log = _commit_log(spec, "cuda")
+        cpu_log = _commit_log(spec, "cpu")
         first = next((i for i, (a, b) in enumerate(zip(card_log, cpu_log))
                       if a != b), min(len(card_log), len(cpu_log)))
-        log(f"    first differing commit round: {first} (card "
-            f"{len(card_log)} commits, CPU {len(cpu_log)})")
+        log(f"    first differing commit: {first} (card {len(card_log)} "
+            f"commits, CPU {len(cpu_log)})")
+        raise AssertionError(f"the card's {label} solve differs from the "
+                             "port's CPU path")
+
+
+def run_slice(results: dict) -> None:
+    log("  -- the first slice's path: disk + network-inbound, seed 4")
+    *_, secs2, _ = _timed_path(SLICE_SPEC, False, TWO_GOAL_KERNELS,
+                               "two-goal slice")
+    results["_slice2_s"] = secs2
+    log("  -- config 2 as the bench builds it: four goals, seed 4")
+    _, _, result, secs, _ = _timed_path(
+        SLICE_SPEC, True, SWEEP_ONLY_KERNELS, "config 2 (seed 4)")
+    results["_config2_s"] = secs
+    _card_equals_cpu(SLICE_SPEC, result, "config 2 (seed 4)")
+    log("  -- this slice's main path: four goals, seed 2 (the sweeps leave "
+        "work for the leadership table rounds)")
+    _, _, result, secs, launches = _timed_path(
+        SLICE_MAIN_SPEC, True, FOUR_GOAL_KERNELS, "four-goal main path")
+    for name, count in launches.items():
+        results.setdefault(name, {})["launches"] = count
+    results["_slice_s"] = secs
+    _card_equals_cpu(SLICE_MAIN_SPEC, result, "four-goal main path")
+    results["_identical"] = True
 
 
 def profile_slice(device: str = "cuda") -> None:
-    """torch.profiler over one slice solve on the card: wall time, the
-    device's busy and idle share, and the device time by kernel."""
+    """torch.profiler over one four-goal slice solve on the card: wall
+    time, the device's busy and idle share, and the device time by
+    kernel."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
     from cruise_control_tpu_torch import ops
     from cruise_control_tpu_torch.analyzer import context as C
     from cruise_control_tpu_torch.analyzer import kernels as K
+    from cruise_control_tpu_torch.analyzer import leadership as L
     from cruise_control_tpu_torch.analyzer import optimizer as O
     from cruise_control_tpu_torch.analyzer import prebalance as P
     from cruise_control_tpu_torch.model import stats as ST
@@ -521,6 +918,10 @@ def profile_slice(device: str = "cuda") -> None:
                (C, "commit_moves"), (C, "arrival_rank"),
                (C, "make_round_cache"), (C, "refresh_float_aggregates"),
                (P, "prebalance"), (ST, "sum_f32"),
+               (K, "leadership_round"), (K, "leader_assign_pass"),
+               (K, "commit_leadership_cached"), (K, "rotation_salt"),
+               (C, "commit_leadership"), (L, "run_sweep_threaded"),
+               (L, "sweep_pick"), (L, "update_cache_for_leadership"),
                (O, "refresh_float_aggregates"), (O, "make_round_cache"),
                (O, "compute_stats"), (O, "compute_stats_fresh_loads")]
 
@@ -532,7 +933,7 @@ def profile_slice(device: str = "cuda") -> None:
 
     with _wrapped(targets, wrap), profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, _, _, secs = _solve(SLICE_SPEC, device)
+        _, _, _, secs = _solve(SLICE_MAIN_SPEC, device)
     kernels, labels = [], []
     for evt in prof.key_averages():
         if evt.key.startswith("port::") and evt.device_type == DeviceType.CUDA:
@@ -562,9 +963,16 @@ def profile_slice(device: str = "cuda") -> None:
 def run_scale(results: dict) -> None:
     from cruise_control_tpu_torch import cuda_kernels
     cuda_kernels.reset_launches()
-    _, _, result, secs = _solve(NORTH_SPEC, "cuda")
-    _report("north 2,600 brokers", result, secs)
-    log(f"    kernel launches {dict(cuda_kernels.LAUNCHES)}")
+    (state, topo, result, secs), sweeps = _sweep_rounds(
+        lambda: _solve(NORTH_SPEC, "cuda"))
+    _report("four-goal north, 2,600 brokers", result, secs, sweeps)
+    launches = dict(cuda_kernels.LAUNCHES)
+    log(f"    kernel launches {launches}")
+    for name in SWEEP_ONLY_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched by the "
+                                 "north solve")
+    _gates(state, topo, result)
     results["_north_s"] = secs
 
 
@@ -610,23 +1018,34 @@ def main(argv=None) -> int:
         results["row_topk"] = check_row_topk(200, 1152, seed=11)
         results["assign_pass"] = check_assign_pass(2048, (256, 200), seed=12)
         results["commit_moves"] = check_commit_moves(SLICE_SPEC, seed=13)
+        results["leader_assign_pass"] = check_leader_assign(2048, 200,
+                                                            seed=14)
+        results["commit_leadership"] = check_commit_leadership(SLICE_SPEC,
+                                                               seed=15)
+        results["sweep_pick"] = check_sweep_pick(SLICE_SPEC, seed=16)
         log("[2] the same at the 2,600-broker shapes of phase 4 (K2 at the "
-            "escalated width K = B)")
+            "escalated width K = B, K4 also at C = R)")
         check_row_topk(2600, 1024, seed=21)
         check_assign_pass(2048, (2600,), seed=22)
         check_commit_moves(NORTH_SPEC, seed=23)
+        check_leader_assign(2048, 2600, seed=24)
+        check_leader_assign(600_000, 2600, seed=25)
+        check_commit_leadership(NORTH_SPEC, seed=26)
+        check_sweep_pick(NORTH_SPEC, seed=27)
     if 3 in phases:
-        log("[3] slice: disk + network-inbound solve, 200 brokers")
+        log("[3] slice: 200 brokers, the two-goal path, then config 2's "
+            "four goals")
         run_slice(results)
     if args.profile:
-        log("[3p] profile of one slice solve on the card")
+        log("[3p] profile of one four-goal slice solve on the card")
         profile_slice()
     if 4 in phases:
-        log("[4] scale: 2,600 brokers / 200K partitions")
+        log("[4] scale: the four-goal solve at 2,600 brokers / 200K "
+            "partitions")
         run_scale(results)
 
     kernels = []
-    for k in ("row_topk", "assign_pass", "commit_moves"):
+    for k in SOURCES:
         r = results.get(k, {})
         kernels.append({
             "name": k, "route": "cuda", "source": SOURCES[k],
@@ -637,9 +1056,12 @@ def main(argv=None) -> int:
             "library_ms": r.get("library_ms")})
         log(f"[5] {k}: timed at {r.get('shape')}")
     log("[5] " + json.dumps({
-        "card": smi, "slice_solve_s": results.get("_slice_s"),
+        "card": smi, "slice_two_goal_solve_s": results.get("_slice2_s"),
+        "config2_seed4_solve_s": results.get("_config2_s"),
+        "main_path_seed2_solve_s": results.get("_slice_s"),
         "north_solve_s": results.get("_north_s"),
-        "card_cpu_proposals_identical": results.get("_identical")}))
+        "card_cpu_identical": results.get("_identical"),
+        "row_topk_deep": results.get("row_topk", {}).get("deep")}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -565,3 +565,131 @@ def update_cache_for_moves(state_before: ClusterState, cache: RoundCache,
                          "broker table (kernel K3)")
     return cache.replace(**_aggregates_plain(state_before, cache, r.long(),
                                              dst.long(), valid))
+
+
+# ---------------------------------------------------------------------------
+# Leadership commits
+# ---------------------------------------------------------------------------
+
+def strip_table(cache: RoundCache) -> RoundCache:
+    """Detach the broker table (0-width planes): the leadership sweep runs
+    table-less."""
+    return cache.replace(**_empty_table_planes(cache.broker_load.shape[0],
+                                               cache.broker_load.device))
+
+
+def reattach_table(state: ClusterState, cache: RoundCache,
+                   table: torch.Tensor, fill: torch.Tensor,
+                   t_bonus: torch.Tensor, t_ok: torch.Tensor,
+                   replica_ok: torch.Tensor) -> RoundCache:
+    """Reattach a detached broker table after leadership-only commits:
+    membership and the static planes are transfer-invariant, so only the
+    role-dependent planes (current-role load, leader flags) re-gather."""
+    num_r = state.num_replicas
+    tab_safe = torch.clamp_max(table, num_r - 1).long()
+    pad = table >= num_r
+    return cache.replace(
+        broker_table=table, table_fill=fill,
+        table_load=S.replica_current_load(state)[tab_safe],
+        table_bonus=t_bonus,
+        table_leader=state.replica_is_leader[tab_safe] & ~pad,
+        table_ok=t_ok, replica_ok=replica_ok)
+
+
+#: the cache fields a leadership commit writes (the table planes only
+#: when the cache carries a table)
+LEADERSHIP_FIELDS = ("broker_load", "broker_util", "replica_load",
+                     "leader_count", "leader_bytes_in", "table_load",
+                     "table_leader")
+
+
+def commit_leadership_plain(state_before: ClusterState, cache: RoundCache,
+                            sr: torch.Tensor, dr: torch.Tensor,
+                            valid: torch.Tensor) -> dict:
+    """Plain PyTorch version of kernel K5: the cache fields after handing
+    each valid transfer's partition leadership bonus from replica sr[i]
+    to dr[i].  Float sums add in the reference's order: `broker_load`
+    gets [-bonus at the sources; +bonus at the destinations] in batch
+    order, `leader_bytes_in` the demoted replica's base NW_IN out and the
+    promoted one's in.  Precondition (asserted): each partition has at
+    most one valid transfer, so every replica row and table slot is
+    touched at most once."""
+    sr = sr.long()
+    dr = dr.long()
+    num_r = state_before.num_replicas
+    num_b = state_before.num_brokers
+    p = state_before.replica_partition[sr].long()
+    pv = p[valid]
+    if pv.numel() != torch.unique(pv).numel():
+        raise AssertionError("a partition appears twice in one leadership "
+                             "commit batch")
+    bonus = state_before.partition_leader_bonus[p] * valid[:, None]
+    b_src = state_before.replica_broker[sr].long()
+    b_dst = state_before.replica_broker[dr].long()
+    s = torch.where(valid, b_src, torch.full_like(b_src, num_b))
+    d = torch.where(valid, b_dst, torch.full_like(b_dst, num_b))
+    broker_load = _scatter_pm(cache.broker_load, s, d, bonus)
+    cap = torch.clamp_min(state_before.broker_capacity, 1e-9)
+    spill = torch.full_like(sr, num_r)
+    replica_load = _scatter_pm(cache.replica_load, torch.where(valid, sr,
+                                                               spill),
+                               torch.where(valid, dr, spill), bonus)
+    leader_count = _scatter_pm(cache.leader_count, s, d,
+                               valid.to(torch.int32))
+    nw_in = state_before.replica_base_load[:, Resource.NW_IN]
+    lbi = ops.scatter_add_seq(cache.leader_bytes_in, torch.cat([s, d]),
+                              torch.cat([-nw_in[sr] * valid,
+                                         nw_in[dr] * valid]))
+    out = dict(broker_load=broker_load, broker_util=broker_load / cap,
+               replica_load=replica_load, leader_count=leader_count,
+               leader_bytes_in=lbi)
+    sw = cache.broker_table.shape[1]
+    if sw:
+        oob = num_b * sw
+        src_slot, src_found = _row_slot_of(cache.broker_table, b_src,
+                                           sr.to(torch.int32))
+        dst_slot, dst_found = _row_slot_of(cache.broker_table, b_dst,
+                                           dr.to(torch.int32))
+        src_idx = torch.where(valid & src_found, b_src * sw + src_slot,
+                              torch.full_like(b_src, oob))
+        dst_idx = torch.where(valid & dst_found, b_dst * sw + dst_slot,
+                              torch.full_like(b_dst, oob))
+        t_load = ops.scatter_add_seq(
+            cache.table_load.reshape(-1, NUM_RESOURCES),
+            torch.cat([src_idx, dst_idx]), torch.cat([-bonus, bonus]))
+        t_lead = ops.scatter_set(cache.table_leader.reshape(-1), src_idx,
+                                 torch.zeros_like(valid))
+        t_lead = ops.scatter_set(t_lead, dst_idx, torch.ones_like(valid))
+        out.update(table_load=t_load.reshape(cache.table_load.shape),
+                   table_leader=t_lead.reshape(cache.table_leader.shape))
+    return out
+
+
+def commit_leadership(state_before: ClusterState, cache: RoundCache,
+                      sr: torch.Tensor, dr: torch.Tensor,
+                      valid: torch.Tensor, donate: bool = False) -> dict:
+    """K5 dispatch: the plain version for a CPU cache, the CUDA kernel
+    (csrc/commit_leadership.cu) for a cache on the card; `donate` lets
+    the kernel update the cache's own planes."""
+    if not cache.broker_load.is_cuda:
+        return commit_leadership_plain(state_before, cache, sr, dr, valid)
+    from cruise_control_tpu_torch import cuda_kernels
+    return cuda_kernels.commit_leadership(state_before, cache, sr, dr, valid,
+                                          donate=donate)
+
+
+def update_cache_for_leadership(state_before: ClusterState,
+                                cache: RoundCache,
+                                src_replicas: torch.Tensor,
+                                dest_replicas: torch.Tensor,
+                                valid: torch.Tensor,
+                                donate: bool = False) -> RoundCache:
+    """Cache after `apply_leadership_transfers(state_before, ...)`: each
+    valid transfer's partition leadership bonus moves from the source
+    replica to the destination replica.  Counts, racks, topics, potential
+    NW_OUT and table membership are leadership-invariant."""
+    fields = commit_leadership(state_before, cache,
+                               src_replicas.to(torch.int32).contiguous(),
+                               dest_replicas.to(torch.int32).contiguous(),
+                               valid.contiguous(), donate=donate)
+    return cache.replace(**fields)

@@ -56,6 +56,13 @@ class Goal(abc.ABC):
         still accept moving `replica` to `dest_broker`?"""
         return _ones(replica.shape, dest_broker.shape, device=replica.device)
 
+    def accept_leadership(self, state, ctx, cache, src_replica,
+                          dest_replica):
+        """bool mask: acceptance of a leadership transfer src -> dest
+        replica."""
+        return _ones(src_replica.shape, dest_replica.shape,
+                     device=src_replica.device)
+
     def accept_swap(self, state, ctx, cache, out_replica, in_replica):
         """bool mask: acceptance of exchanging the two replicas; by
         default both directions must pass accept_move."""
@@ -69,6 +76,14 @@ class Goal(abc.ABC):
         terms of the strict acceptance branch for cumulative multi-commit
         gating; `[]` means no cross-action accumulation, None (default)
         means inexpressible (single commit per broker)."""
+        return None
+
+    def leadership_headroom_terms(self, state, ctx, cache):
+        """Like move_headroom_terms, for leadership transfers: `w` f32[R]
+        is the load that arrives with leadership of a replica's
+        partition, indexed by the promoted replica on the destination
+        side and the demoted leader on the source side.  None (default)
+        switches the leadership search to single-commit mode."""
         return None
 
     def violated_brokers(self, state, ctx, cache) -> torch.Tensor:
@@ -175,6 +190,20 @@ def shed_rows(cache: RoundCache, w_rows, src_ok_b, excess_b,
                                           device=w_rows.device))
 
 
+def leader_shed_rows(cache: RoundCache, value_rows, src_ok_b,
+                     excess_b) -> torch.Tensor:
+    """[B, S] NEG-masked plane of leadership-transfer candidates: leaders
+    with a positive transferable value on source brokers, shed-scored
+    against the row's excess."""
+    from cruise_control_tpu_torch.analyzer import kernels
+    ok = (cache.table_ok & cache.table_leader & src_ok_b[:, None]
+          & (value_rows > 0.0))
+    sc = torch.where(value_rows <= excess_b[:, None], value_rows,
+                     -value_rows)
+    return torch.where(ok, sc, torch.full((), kernels.NEG,
+                                          device=value_rows.device))
+
+
 def balancedness_cost_by_goal(ordered_names: Sequence[str], hard_names,
                               priority_weight: float = 1.1,
                               strictness_weight: float = 1.5) -> dict:
@@ -268,3 +297,33 @@ def move_commit_terms(goals: Sequence[Goal], state, ctx, cache):
         return None, None
     return ([(w, d) for (w, d, s) in terms],
             [(w, s) for (w, d, s) in terms if s is not None])
+
+
+def compose_leadership_headrooms(goals: Sequence[Goal], state, ctx, cache):
+    """Merged leadership_headroom_terms over `goals`."""
+    return _merge_terms([g.leadership_headroom_terms(state, ctx, cache)
+                         for g in goals])
+
+
+def leadership_commit_terms(goals: Sequence[Goal], state, ctx, cache):
+    """(dest_terms, src_terms) for leadership_round's multi-commit mode,
+    or (None, None) when any prior goal's leadership acceptance is not
+    quantitative."""
+    terms = compose_leadership_headrooms(goals, state, ctx, cache)
+    if terms is None:
+        return None, None
+    return ([(w, d) for (w, d, s) in terms],
+            [(w, s) for (w, d, s) in terms if s is not None])
+
+
+def compose_leadership_acceptance(goals: Sequence[Goal], state, ctx, cache
+                                  ) -> Callable:
+    """AND of accept_leadership over `goals`."""
+    def fn(src_replica, dest_replica):
+        ok = _ones(src_replica.shape, dest_replica.shape,
+                   device=src_replica.device)
+        for goal in goals:
+            ok = ok & goal.accept_leadership(state, ctx, cache, src_replica,
+                                             dest_replica)
+        return ok
+    return fn

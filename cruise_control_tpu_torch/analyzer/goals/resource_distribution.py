@@ -2,10 +2,12 @@
 analyzer/goals/resource_distribution.py): keep every alive broker's
 utilization of one resource within the balance band around the average.
 
-This slice of the port covers the resources that do not travel with
-leadership (DISK, NW_IN): their search runs the move phases (b: shed
-over-limit, c: fill under-limit) and the two swap phases.  CPU and NW_OUT
-also need the leadership search, which a later slice ports.
+The search runs as progress-gated phases of a sweep loop: for the
+resources that travel with leadership (CPU, NW_OUT) a whole-cluster
+leadership sweep first (analyzer/leadership.py), then phase a (batched
+leadership transfers off over-limit brokers); then for every resource
+phase b (shed over-limit replicas), phase c (fill under-limit brokers)
+and the two swap phases.
 """
 from __future__ import annotations
 
@@ -18,8 +20,10 @@ from cruise_control_tpu_torch.analyzer.context import (OptimizationContext,
                                                        ensure_full_cache,
                                                        replica_static_ok)
 from cruise_control_tpu_torch.analyzer.goals.base import (
-    Goal, compose_move_acceptance, compose_swap_acceptance, dest_side_only,
-    move_commit_terms, new_broker_dest_mask, run_phase_sweeps, shed_rows)
+    Goal, compose_leadership_acceptance, compose_move_acceptance,
+    compose_swap_acceptance, dest_side_only, leader_shed_rows,
+    leadership_commit_terms, move_commit_terms, new_broker_dest_mask,
+    note_rounds, run_phase_sweeps, shed_rows)
 from cruise_control_tpu_torch.common.resources import (RESOURCE_GOAL_NAMES,
                                                        Resource)
 from cruise_control_tpu_torch.model.state import ClusterState
@@ -32,12 +36,6 @@ class ResourceDistributionGoal(Goal):
     is_hard = False
 
     def __init__(self, max_rounds: int = 64, max_swap_rounds: int = 16):
-        if self._leadership_applicable():
-            raise NotImplementedError(
-                f"{RESOURCE_GOAL_NAMES[int(self.resource)]}"
-                "UsageDistributionGoal needs the leadership search "
-                "(leadership_round, global_leadership_sweep), which the "
-                "next slice of the port brings")
         self.max_rounds = max_rounds
         self.max_swap_rounds = max_swap_rounds
         self.name = (RESOURCE_GOAL_NAMES[int(self.resource)]
@@ -58,12 +56,57 @@ class ResourceDistributionGoal(Goal):
 
     def optimize_cached(self, state: ClusterState, ctx: OptimizationContext,
                         prev_goals: Sequence[Goal], cache=None):
-        """Shed replicas of over-limit brokers, then fill under-limit
-        ones, then swap, as progress-gated sub-loops of a sweep loop."""
+        """Shed leadership (CPU, NW_OUT), then replicas of over-limit
+        brokers, then fill under-limit ones, then swap, as progress-gated
+        sub-loops of a sweep loop."""
         res = int(self.resource)
         lower, upper = self._bounds(state, ctx)
         base_movable = replica_static_ok(state, ctx)
         cap_res = torch.clamp_min(state.broker_capacity[:, res], 1e-9)
+        # the leadership bonus each replica's partition carries
+        bonus = (state.partition_leader_bonus[
+            state.replica_partition.long(), res] * state.replica_valid)
+
+        if self._leadership_applicable():
+            # whole-cluster re-election toward the band first; phase a
+            # remains as the residual backstop
+            from cruise_control_tpu_torch.analyzer.leadership import (
+                VALUE_WEIGHTED_SELECT_JITTER, limit_bounds,
+                run_sweep_threaded)
+            state, sweep_rounds, cache, sweep_conv = run_sweep_threaded(
+                state, ctx, prev_goals, cache,
+                measure=lambda cache: cache.broker_load[:, res],
+                value_r=bonus,
+                bounds=limit_bounds(upper, (upper + lower) / 2.0),
+                improve_gate=False,
+                select_jitter=VALUE_WEIGHTED_SELECT_JITTER)
+            note_rounds(sweep_rounds, converged_at=sweep_conv)
+
+        def phase_a(st, cache):
+            W = cache.broker_load[:, res]
+            accept = compose_leadership_acceptance(prev_goals, st, ctx,
+                                                   cache)
+
+            def accept_all(src_r, dst_r):
+                db = st.replica_broker[dst_r].long()
+                src_b = src_r.expand(torch.broadcast_shapes(src_r.shape,
+                                                            dst_r.shape))
+                return (accept(src_r, dst_r)
+                        & (W[db] + bonus[src_b] <= upper[db]))
+
+            value_rows = cache.table_bonus[:, :, res]
+            lt_d, lt_s = leadership_commit_terms(prev_goals, st, ctx, cache)
+            cand_r, cand_f, cand_v = kernels.leadership_round(
+                st, bonus, W - upper, base_movable, ctx.broker_leader_ok,
+                upper - W, accept_all, -W / cap_res, ctx.partition_replicas,
+                cache=cache,
+                bonus_rows=leader_shed_rows(cache, value_rows, W > upper,
+                                            W - upper),
+                value_rows=value_rows, dest_terms=lt_d, src_terms=lt_s,
+                dest_stack_headroom=(upper + lower) / 2.0 - W)
+            st, cache = kernels.commit_leadership_cached(
+                st, cache, cand_r, cand_f, cand_v, donate=True)
+            return st, cache, torch.any(cand_v)
 
         def phase_b(st, cache):
             W = cache.broker_load[:, res]
@@ -154,7 +197,10 @@ class ResourceDistributionGoal(Goal):
             return (torch.any(self._dest_mask(st, ctx) & (W < lower))
                     & torch.any(st.broker_alive & (W > target)))
 
-        phases = [(phase_b, over_exists), (phase_c, under_exists)]
+        phases = []
+        if self._leadership_applicable():
+            phases.append((phase_a, over_exists))
+        phases += [(phase_b, over_exists), (phase_c, under_exists)]
         if self.max_swap_rounds and not ctx.fast_mode:
             phases.append((phase_swap, swap_work_exists,
                            self.max_swap_rounds))
@@ -213,6 +259,44 @@ class ResourceDistributionGoal(Goal):
         relaxed = torch.abs(next_diff) < torch.abs(prev_diff)
         return (d == 0) | torch.where(both_within, strict, relaxed)
 
+    def accept_leadership(self, state, ctx, cache, src_replica,
+                          dest_replica):
+        """For CPU and NW_OUT the leadership bonus leaves the source and
+        arrives at the destination: strict limits when both are within
+        them, else the destination must not end above the source's
+        utilization.  Other resources accept every transfer."""
+        if not self._leadership_applicable():
+            return super().accept_leadership(state, ctx, cache, src_replica,
+                                             dest_replica)
+        res = int(self.resource)
+        bonus = state.partition_leader_bonus[
+            state.replica_partition[src_replica].long(), res]
+        dest = state.replica_broker[dest_replica].long()
+        src = state.replica_broker[src_replica].long()
+        W = cache.broker_load[:, res]
+        cap = torch.clamp_min(state.broker_capacity[:, res], 1e-9)
+        lower = ctx.balance_lower_pct[res] * cap
+        upper = ctx.balance_upper_pct[res] * cap
+        strict = ((W[dest] + bonus <= upper[dest])
+                  & (W[src] - bonus >= lower[src]))
+        relaxed = (W[dest] + bonus) / cap[dest] <= W[src] / cap[src]
+        ok_before = (W[src] >= lower[src]) & (W[dest] <= upper[dest])
+        return torch.where(ok_before, strict, relaxed)
+
+    def leadership_headroom_terms(self, state, ctx, cache):
+        """`[]` for resources leadership does not carry (no cumulative
+        effect), else the bonus bounded by the band on both ends."""
+        if not self._leadership_applicable():
+            return []
+        res = int(self.resource)
+        cap = state.broker_capacity[:, res]
+        W = cache.broker_load[:, res]
+        bonus = (state.partition_leader_bonus[
+            state.replica_partition.long(), res] * state.replica_valid)
+        return [(f"bonus{res}", bonus,
+                 ctx.balance_upper_pct[res] * cap - W,
+                 W - ctx.balance_lower_pct[res] * cap)]
+
     def move_headroom_terms(self, state, ctx, cache):
         """Strict-branch quantities of accept_move: arrivals bounded by
         upper[d] - load[d], departures by load[b] - lower[b]."""
@@ -243,3 +327,11 @@ class DiskUsageDistributionGoal(ResourceDistributionGoal):
 
 class NetworkInboundUsageDistributionGoal(ResourceDistributionGoal):
     resource = Resource.NW_IN
+
+
+class CpuUsageDistributionGoal(ResourceDistributionGoal):
+    resource = Resource.CPU
+
+
+class NetworkOutboundUsageDistributionGoal(ResourceDistributionGoal):
+    resource = Resource.NW_OUT

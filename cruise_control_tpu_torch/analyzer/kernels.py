@@ -84,17 +84,19 @@ def _table_rows(cache, score: torch.Tensor,
 def row_topk_plain(sc_rows: torch.Tensor, table: torch.Tensor, k: int):
     """Plain version of K1: per-row top-k of a NEG-masked [B, S] plane,
     score descending then slot ascending (jax.lax.top_k's tie rule).
-    Returns (cand i32[B*k] replica id or -1, has bool[B*k], top f32[B, k])."""
+    Returns (cand i32[B*k] replica id or -1, has bool[B*k], top f32[B, k],
+    slot i32[B, k])."""
     top, slots = ops.topk_stable(sc_rows, k)
     cand = torch.gather(table, 1, slots)
     has = top > NEG / 2
     cand = torch.where(has, cand, torch.full_like(cand, -1))
-    return cand.reshape(-1).to(torch.int32), has.reshape(-1), top
+    return (cand.reshape(-1).to(torch.int32), has.reshape(-1), top,
+            slots.to(torch.int32))
 
 
 def row_topk(sc_rows: torch.Tensor, table: torch.Tensor, k: int):
     """K1 dispatch: the plain version on the CPU, csrc/row_topk.cu on the
-    card."""
+    card (k <= 8 and 8 < k <= 64 are two code paths there)."""
     if not sc_rows.is_cuda:
         return row_topk_plain(sc_rows, table, k)
     from cruise_control_tpu_torch import cuda_kernels
@@ -104,7 +106,7 @@ def row_topk(sc_rows: torch.Tensor, table: torch.Tensor, k: int):
 def rows_pick_best(cache, sc_rows: torch.Tensor):
     """Per-broker argmax over a [B, S] score plane (NEG = ineligible):
     (cand i32[B] replica id or -1, has bool[B])."""
-    cand, has, _ = row_topk(sc_rows, cache.broker_table, 1)
+    cand, has, _, _ = row_topk(sc_rows, cache.broker_table, 1)
     return cand, has
 
 
@@ -112,7 +114,7 @@ def rows_pick_topk(cache, sc_rows: torch.Tensor, k: int):
     """Per-broker top-k over a [B, S] plane, flattened row-major:
     (cand i32[B*k], has bool[B*k], top_scores f32[B, k])."""
     k = min(k, max(cache.broker_table.shape[1], 1))
-    return row_topk(sc_rows, cache.broker_table, k)
+    return row_topk(sc_rows, cache.broker_table, k)[:3]
 
 
 def table_pick_best(cache, score: torch.Tensor, valid: torch.Tensor):
@@ -464,6 +466,51 @@ def _pairwise_jitter(num_c: int, num_b: int, salt: int = 0,
     return (x & 0xFFFFFF).to(torch.float32) / float(1 << 24)
 
 
+def salted_jitter(n: int, salt, device=None) -> torch.Tensor:
+    """f32[n] deterministic pseudo-random values in [0, 1) keyed by a
+    scalar salt (an int or a 0-d integer tensor, read as the reference's
+    int32 -> uint32 cast): the reference's uint32 hash, emulated in
+    int64."""
+    if isinstance(salt, torch.Tensor):
+        device = salt.device if device is None else device
+        salt_u = salt.to(device=device, dtype=torch.int64) & _U32
+    else:
+        salt_u = torch.tensor(int(salt) & _U32, dtype=torch.int64,
+                              device=device)
+    i = torch.arange(n, dtype=torch.int64, device=device)
+    x = (_mul_u32(i, 2654435761)
+         + _mul_u32((salt_u + 1) & _U32, 97919)) & _U32
+    x = x ^ (x >> 16)
+    x = _mul_u32(x, 2246822519)
+    x = x ^ (x >> 13)
+    return (x & 0xFFFFFF).to(torch.float32) / float(1 << 24)
+
+
+def _wrap_i32(x: torch.Tensor) -> torch.Tensor:
+    """int64 -> int32 with two's-complement wraparound."""
+    return (((x + 2 ** 31) & _U32) - 2 ** 31).to(torch.int32)
+
+
+def rotation_salt(leader_count: torch.Tensor,
+                  load_col: torch.Tensor) -> torch.Tensor:
+    """i32 0-d state-hash salt for window tie-rotation: a float mix of
+    leader counts and loads reduced mod 2**31 before the cast, plus an
+    integral leader-count term with int32 wraparound (the reference's
+    int32-safe form).  Float sums follow XLA:CPU's order (ops.sum_f32)."""
+    num_b = leader_count.shape[0]
+    dev = leader_count.device
+    hash_w = salted_jitter(num_b, 13, device=dev)
+    float_mix = (ops.sum_f32(leader_count.to(torch.float32) * hash_w)
+                 + ops.sum_f32(load_col * hash_w))
+    int_w = (hash_w * 1021.0).to(torch.int32)
+    int_mix = torch.sum(leader_count.to(torch.int64) * int_w.to(torch.int64))
+    rem = ops.remainder_f(float_mix, 2.0 ** 31)
+    # XLA's float -> int32 convert saturates (NaN -> 0)
+    as_int = torch.where(torch.isnan(rem), torch.zeros_like(rem), rem)
+    as_int = torch.clamp(as_int.to(torch.int64), -2 ** 31, 2 ** 31 - 1)
+    return _wrap_i32(as_int + _wrap_i32(int_mix).to(torch.int64))
+
+
 def assign_pass_plain(pref, dest_open, assigned, cand_has, k: int, amp):
     """Plain version of K2: one pass of assign_destinations — per
     candidate row, the first-max slot of the (jittered, for k > 0)
@@ -680,3 +727,300 @@ def commit_swaps_cached(state: ClusterState, cache, out_r, in_r, cold,
     replicas, dests, ok = _swap_moves(state, out_r, in_r, cold, valid)
     new_cache = update_cache_for_moves(state, cache, replicas, dests, ok)
     return S.apply_moves(state, replicas, dests, ok), new_cache
+
+
+# ---------------------------------------------------------------------------
+# K4: one follower-assignment pass of the leadership search
+# ---------------------------------------------------------------------------
+
+def leader_assign_pass_plain(pref, sib_broker, sib_replica, src_broker,
+                             taken_cnt, dep_cnt, assigned, cand_has,
+                             k: int, amp, multi: bool):
+    """Plain version of K4: one pass of leadership_round's follower
+    assignment.  Per candidate leader row c, the first-max follower slot
+    of the (jittered, for k > 0) preference over the open options —
+    multi-commit: the option's broker has taken fewer than
+    MAX_ARRIVALS_PER_ROUND arrivals; single-commit: the option's broker
+    took none and the row's source broker handed off none — masked for
+    assigned rows.  Returns (slot i32[C], dest broker i32[C], promoted
+    replica i32[C], has bool[C])."""
+    c, rf = pref.shape
+    dev = pref.device
+    neg = torch.full((), NEG, dtype=pref.dtype, device=dev)
+    if k == 0:
+        pass_pref = pref
+    else:
+        jit = _pairwise_jitter(c, rf, salt=k, device=dev)
+        pass_pref = torch.where(pref > NEG / 2, pref + amp * jit, neg)
+    taken_b = taken_cnt[sib_broker.long()]
+    if multi:
+        open_pref = torch.where(taken_b < MAX_ARRIVALS_PER_ROUND, pass_pref,
+                                neg)
+    else:
+        closed = (taken_b > 0) | (dep_cnt[src_broker.long()] > 0)[:, None]
+        open_pref = torch.where(closed, neg, pass_pref)
+    open_pref = torch.where(assigned[:, None], neg, open_pref)
+    mx, slot = torch.max(open_pref, 1)
+    db = torch.gather(sib_broker, 1, slot[:, None])[:, 0]
+    dr = torch.gather(sib_replica, 1, slot[:, None])[:, 0]
+    return (slot.to(torch.int32), db.to(torch.int32), dr.to(torch.int32),
+            cand_has & (mx > NEG / 2))
+
+
+def leader_assign_pass(pref, sib_broker, sib_replica, src_broker, taken_cnt,
+                       dep_cnt, assigned, cand_has, k: int, amp,
+                       multi: bool):
+    """K4 dispatch: the plain version on the CPU, csrc/leader_assign.cu on
+    the card."""
+    if not pref.is_cuda:
+        return leader_assign_pass_plain(pref, sib_broker, sib_replica,
+                                        src_broker, taken_cnt, dep_cnt,
+                                        assigned, cand_has, k, amp, multi)
+    from cruise_control_tpu_torch import cuda_kernels
+    return cuda_kernels.leader_assign_pass(pref, sib_broker, sib_replica,
+                                           src_broker, taken_cnt, dep_cnt,
+                                           assigned, cand_has, k, amp, multi)
+
+
+# ---------------------------------------------------------------------------
+# Leadership round
+# ---------------------------------------------------------------------------
+
+def leadership_round(state: ClusterState, bonus_w, src_excess, movable,
+                     leader_ok, dest_headroom, accept_fn, dest_pref,
+                     partition_replicas, cache=None, bonus_rows=None,
+                     value_rows=None, dest_terms=None, src_terms=None,
+                     dest_stack_headroom=None, escalate: bool = True):
+    """One round of batched leadership-transfer search (see the
+    reference's docstring for the arguments).  Resident-row mode
+    (`bonus_rows` + `value_rows` and a broker table): a structural
+    per-broker top-16 (K1), source prefix gating, salted window rotation,
+    compaction to CAND_COMPACT and the follower assignment (K4 passes),
+    with the zero-commit fallbacks `deep_pick(64)` then the full plane as
+    host `if`s.  Otherwise one candidate per broker from the full plane.
+    Returns (src_replica i32[C], dest_replica i32[C], valid bool[C])."""
+    num_b = state.num_brokers
+    rb = state.replica_broker.long()
+    dev = bonus_w.device
+    r_idx = _arange(rb.shape[0], dev)
+    part = state.replica_partition.long()
+
+    def options_feasible(rows, row_bonus):
+        """[n, RF] follower options of `rows` (replica ids): (follower
+        replica, follower broker, structural + acceptance feasibility)."""
+        sib = partition_replicas[part[rows]]
+        sib_safe = torch.clamp_min(sib, 0).long()
+        ok = (sib >= 0) & (sib != rows[:, None])
+        sib_b = rb[sib_safe]
+        ok &= leader_ok[sib_b] & ~state.replica_offline[sib_safe]
+        ok &= row_bonus[:, None] <= dest_headroom[sib_b]
+        ok &= accept_fn(rows[:, None], sib_safe)
+        return sib_safe, sib_b, ok
+
+    is_src = src_excess > 0.0
+    multi = dest_terms is not None
+    if multi:
+        own_hr = (torch.minimum(dest_headroom, dest_stack_headroom)
+                  if dest_stack_headroom is not None else dest_headroom)
+        dest_terms = [(bonus_w, own_hr)] + list(dest_terms)
+
+    def run_tail(cand_r_safe, cand_has):
+        """Follower assignment for one candidate set: (dest_replica
+        i32[n], assigned bool[n])."""
+        cand_bonus = bonus_w[cand_r_safe]
+        sib_c, sib_broker_c, acc_c = options_feasible(cand_r_safe,
+                                                      cand_bonus)
+        acc_c &= cand_has[:, None]
+        neg = torch.full((), NEG, device=dev)
+        pref_c = torch.where(acc_c, dest_pref[sib_broker_c], neg)
+        gain = cand_bonus
+        c = cand_r_safe.shape[0]
+        src_of_cand = rb[cand_r_safe]
+        taken_cnt = torch.zeros(num_b, dtype=torch.int32, device=dev)
+        dep_cnt = torch.zeros(num_b, dtype=torch.int32, device=dev)
+        n_terms = len(dest_terms or ())
+        cum = torch.zeros((num_b, n_terms), device=dev)
+        assigned = torch.zeros(c, dtype=torch.bool, device=dev)
+        dest_replica = torch.zeros(c, dtype=torch.int32, device=dev)
+        finite = pref_c > NEG / 2
+        inf = torch.full((), float("inf"), device=dev)
+        pmax = torch.max(torch.where(finite, pref_c, -inf))
+        pmin = torch.min(torch.where(finite, pref_c, inf))
+        spread = torch.where(torch.isfinite(pmax - pmin), pmax - pmin,
+                             torch.zeros((), device=dev))
+        amp = 0.35 * spread + 1e-6
+        sib_b32 = sib_broker_c.to(torch.int32).contiguous()
+        sib_r32 = sib_c.to(torch.int32).contiguous()
+        src32 = src_of_cand.to(torch.int32)
+        if multi:
+            cap = torch.full((num_b,), MAX_ARRIVALS_PER_ROUND,
+                             dtype=torch.int32, device=dev)
+            hrs = [hr for _, hr in dest_terms]
+        for k in range(MULTI_ASSIGN_PASSES if multi else ASSIGN_PASSES):
+            _, db, dr, has = leader_assign_pass(
+                pref_c, sib_b32, sib_r32, src32, taken_cnt, dep_cnt,
+                assigned, cand_has, k, amp, multi)
+            if multi:
+                # dest weights index the promoted replica of this pass
+                d_w = [t_w[dr.long()] for t_w, _ in dest_terms]
+                keep = rank_accept(db, gain, has, num_b, taken_cnt, cap,
+                                   list(cum.unbind(1)), d_w, hrs)
+            else:
+                keep = resolve_dest_conflicts(db, gain, has, num_b)
+                keep = resolve_dest_conflicts(src32, gain, keep, num_b)
+            dest_replica = torch.where(keep, dr, dest_replica)
+            assigned = assigned | keep
+            kept_d = torch.where(keep, db, torch.full_like(db, num_b))
+            kept_s = torch.where(keep, src32, torch.full_like(src32, num_b))
+            taken_cnt = taken_cnt + ops.segment_sum(
+                torch.ones_like(kept_d), kept_d, num_b)
+            dep_cnt = dep_cnt + ops.segment_sum(
+                torch.ones_like(kept_s), kept_s, num_b)
+            if n_terms:
+                cum = ops.scatter_add_seq(
+                    cum, kept_d,
+                    torch.where(keep[:, None], torch.stack(d_w, 1),
+                                torch.zeros((), device=dev)))
+        return dest_replica, assigned
+
+    def lead_eligible():
+        return (movable & state.replica_is_leader & is_src[rb]
+                & (bonus_w > 0.0))
+
+    if bonus_rows is not None and value_rows is not None and \
+            _has_table(cache):
+        s_w = cache.broker_table.shape[1]
+        k0 = min(16, max(s_w, 1))
+        cand_r, cand_has, _, _ = row_topk(bonus_rows, cache.broker_table, k0)
+        cand_r_safe = torch.clamp_min(cand_r, 0).long()
+        cand_bonus_b = bonus_w[cand_r_safe]
+        zero = torch.zeros((), device=dev)
+        if multi and k0 > 1:
+            # source-side strict bounds, prefix-gated over each broker's
+            # rank-ordered candidates (rank 0 free)
+            w_bk = torch.where(cand_has, cand_bonus_b, zero).reshape(num_b,
+                                                                     k0)
+            cum_before = ops.cumsum_f32(w_bk, 1) - w_bk
+            cand_has = cand_has & (cum_before
+                                   < src_excess[:, None]).reshape(-1)
+            rank = _arange(k0, dev)[None, :]
+            for t_w, t_hr in (src_terms or ()):
+                tw_bk = torch.where(cand_has, t_w[cand_r_safe],
+                                    zero).reshape(num_b, k0)
+                cum_incl = ops.cumsum_f32(tw_bk, 1)
+                cand_has = cand_has & ((rank == 0)
+                                       | (cum_incl <= t_hr[:, None])
+                                       ).reshape(-1)
+        c_full = cand_r.shape[0]
+        sel = None
+        if c_full > CAND_COMPACT:
+            # window tie-rotation keyed by a state hash (the selection
+            # score only; the assignment ranks by the true gain)
+            salt_r = rotation_salt(cache.leader_count,
+                                   cache.broker_load[:, 0])
+            inf = torch.full((), float("inf"), device=dev)
+            g_lo = torch.min(torch.where(cand_has, cand_bonus_b, inf))
+            g_hi = torch.max(torch.where(cand_has, cand_bonus_b, -inf))
+            spread_g = torch.where(g_hi > g_lo, g_hi - g_lo,
+                                   torch.clamp_min(torch.abs(g_hi), 1.0))
+            gain_sel = cand_bonus_b + 0.35 * spread_g * salted_jitter(
+                c_full, salt_r)
+            sel, _, ch_c, cr_safe_c = compact_candidates(
+                CAND_COMPACT, gain_sel, cand_has, cand_r_safe)
+        else:
+            ch_c, cr_safe_c = cand_has, cand_r_safe
+        dest_c, asg_c = run_tail(cr_safe_c, ch_c)
+        if sel is not None:
+            dest_full = torch.zeros((c_full,), dtype=torch.int32,
+                                    device=dev)
+            dest_full[sel] = dest_c
+            valid_full = torch.zeros((c_full,), dtype=torch.bool,
+                                     device=dev)
+            valid_full[sel] = asg_c
+        else:
+            dest_full, valid_full = dest_c, asg_c
+        if not escalate:
+            return cand_r, dest_full, valid_full
+
+        def fb_triple(pick, has):
+            """[B]-candidate fallback embedded at slot 0 of each broker's
+            row of the [c_full] layout."""
+            dest_b, asg_b = run_tail(torch.clamp_min(pick, 0).long(), has)
+            idx = _arange(num_b, dev) * k0
+            cr = torch.full((c_full,), -1, dtype=torch.int32, device=dev)
+            cr[idx] = pick.to(torch.int32)
+            dst = torch.zeros((c_full,), dtype=torch.int32, device=dev)
+            dst[idx] = dest_b
+            vld = torch.zeros((c_full,), dtype=torch.bool, device=dev)
+            vld[idx] = asg_b & has
+            return cr, dst, vld
+
+        def deep_pick(k):
+            """Per-broker first ACCEPTED candidate among each row's top-k
+            structural candidates."""
+            k = min(k, max(s_w, 1))
+            ck, hs, _, t_slots = row_topk(bonus_rows, cache.broker_table, k)
+            flat = torch.clamp_min(ck, 0).long()
+            fb = torch.gather(value_rows, 1, t_slots.long()).reshape(-1)
+            _, _, ok = options_feasible(flat, fb)
+            ok_rows = torch.any(ok, 1).reshape(num_b, k) & hs.reshape(num_b,
+                                                                      k)
+            first = torch.argmax(ok_rows.to(torch.int8), 1)
+            has = torch.any(ok_rows, 1)
+            picked = torch.gather(ck.reshape(num_b, k), 1, first[:, None])
+            pick = torch.where(has, picked[:, 0], torch.full_like(
+                picked[:, 0], -1))
+            return pick, has
+
+        def full_plane_pick():
+            _, _, ok_full = options_feasible(r_idx, bonus_w)
+            r_has = torch.any(ok_full, 1) & lead_eligible()
+            score = torch.where(r_has, shed_score(bonus_w, src_excess[rb]),
+                                torch.full((), NEG, device=dev))
+            return table_pick_best(cache, score, r_has)
+
+        # zero-commit fallbacks (the reference's lax.cond chain)
+        if bool(torch.any(cand_has) & ~torch.any(valid_full)):
+            cand_r, dest_full, valid_full = fb_triple(*deep_pick(64))
+            if not bool(torch.any(valid_full)):
+                return fb_triple(*full_plane_pick())
+        return cand_r, dest_full, valid_full
+
+    # full-plane selection (no resident rows / no table): one candidate
+    # per broker, acceptance evaluated at selection
+    _, sib_b_all, ok_all = options_feasible(r_idx, bonus_w)
+    feasible = ok_all & lead_eligible()[:, None]
+    neg = torch.full((), NEG, device=dev)
+    pref_full = torch.where(feasible, dest_pref[sib_b_all], neg)
+    r_has = torch.max(pref_full, 1).values > NEG / 2
+    score = torch.where(r_has, shed_score(bonus_w, src_excess[rb]), neg)
+    if _has_table(cache):
+        cand_r, cand_has = table_pick_best(cache, score, r_has)
+    else:
+        cand_r, _, cand_has = per_segment_argmax(score, rb, num_b, r_has)
+    dest, asg = run_tail(torch.clamp_min(cand_r, 0).long(), cand_has)
+    return cand_r, dest, asg
+
+
+def commit_leadership_cached(state: ClusterState, cache, cand_r,
+                             cand_dest_replica, cand_valid,
+                             donate: bool = False):
+    """Apply a leadership round to the state and the cache.  `donate`:
+    the caller gives up `cache`, whose planes the card's kernel (K5) may
+    then update in place."""
+    from cruise_control_tpu_torch.analyzer.context import \
+        update_cache_for_leadership
+    src = torch.clamp_min(cand_r, 0)
+    v = cand_valid & (cand_r >= 0)
+    new_cache = update_cache_for_leadership(state, cache, src,
+                                            cand_dest_replica, v,
+                                            donate=donate)
+    return S.apply_leadership_transfers(state, src, cand_dest_replica,
+                                        v), new_cache
+
+
+def commit_leadership(state: ClusterState, cand_r, cand_dest_replica,
+                      cand_valid) -> ClusterState:
+    return S.apply_leadership_transfers(state, torch.clamp_min(cand_r, 0),
+                                        cand_dest_replica,
+                                        cand_valid & (cand_r >= 0))

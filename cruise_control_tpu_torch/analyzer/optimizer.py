@@ -91,6 +91,12 @@ class OptimizerResult:
     def num_replica_movements(self) -> int:
         return sum(len(p.replicas_to_add) for p in self.proposals)
 
+    @property
+    def num_leadership_movements(self) -> int:
+        """Proposals that only hand leadership to another replica."""
+        return sum(1 for p in self.proposals
+                   if p.has_leader_action and not p.has_replica_action)
+
     def balancedness_score(self) -> float:
         """[0, 100]: 100 minus the rank-weighted cost of the goals still
         violated after optimization."""

@@ -28,11 +28,13 @@ import torch
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
-SOURCES = ("row_topk.cu", "assign_pass.cu", "commit_moves.cu")
+SOURCES = ("row_topk.cu", "assign_pass.cu", "commit_moves.cu",
+           "leader_assign.cu", "commit_leadership.cu", "sweep_pick.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-LAUNCHES = {"row_topk": 0, "assign_pass": 0, "commit_moves": 0}
+LAUNCHES = {"row_topk": 0, "assign_pass": 0, "commit_moves": 0,
+            "leader_assign_pass": 0, "commit_leadership": 0, "sweep_pick": 0}
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -104,11 +106,18 @@ def build() -> ctypes.CDLL:
                 raise RuntimeError("nvcc link failed\n" + "\n".join(log))
             os.replace(tmp, so)
         lib = ctypes.CDLL(str(so))
-        lib.cc_row_topk.argtypes = [_P, _P, _I, _I, _I, _P, _P, _P, _P]
+        lib.cc_row_topk.argtypes = [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P]
         lib.cc_assign_pass.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P, _P,
                                        _P, _P]
         lib.cc_commit_moves.argtypes = [_I] * 7 + [_P] * 31 + [_P]
-        for fn in (lib.cc_row_topk, lib.cc_assign_pass, lib.cc_commit_moves):
+        lib.cc_leader_assign_pass.argtypes = [_P] * 8 + [_I] * 3 + [
+            _P, _I, _I] + [_P] * 5
+        lib.cc_commit_leadership.argtypes = [_I] * 4 + [_P] * 19
+        lib.cc_sweep_pick.argtypes = [_I, _I] + [_P] * 14 + [
+            ctypes.c_float, _I] + [_P] * 4
+        for fn in (lib.cc_row_topk, lib.cc_assign_pass, lib.cc_commit_moves,
+                   lib.cc_leader_assign_pass, lib.cc_commit_leadership,
+                   lib.cc_sweep_pick):
             fn.restype = ctypes.c_int
         BUILD_INFO.update(seconds=time.time() - t0, log="\n".join(log),
                           path=str(so))
@@ -139,22 +148,24 @@ def _raise_on(err: int, name: str) -> None:
 
 
 def row_topk(sc_rows: torch.Tensor, table: torch.Tensor, k: int):
-    """K1 launch: (cand i32[B*k], has bool[B*k], top f32[B, k])."""
+    """K1 launch: (cand i32[B*k], has bool[B*k], top f32[B, k], slot
+    i32[B, k])."""
     lib = build()
     b, s = sc_rows.shape
-    if not 1 <= k <= min(8, s):
-        raise ValueError(f"row_topk takes 1 <= k <= min(8, S), got k={k}")
+    if not 1 <= k <= min(64, s):
+        raise ValueError(f"row_topk takes 1 <= k <= min(64, S), got k={k}")
     _check(sc_rows, "sc_rows", torch.float32)
     _check(table, "table", torch.int32, (b, s))
     cand = torch.empty(b * k, dtype=torch.int32, device=sc_rows.device)
     has = torch.empty(b * k, dtype=torch.bool, device=sc_rows.device)
     top = torch.empty((b, k), dtype=torch.float32, device=sc_rows.device)
+    slot = torch.empty((b, k), dtype=torch.int32, device=sc_rows.device)
     err = lib.cc_row_topk(sc_rows.data_ptr(), table.data_ptr(), b, s, k,
                           cand.data_ptr(), has.data_ptr(), top.data_ptr(),
-                          _stream())
+                          slot.data_ptr(), _stream())
     LAUNCHES["row_topk"] += 1
     _raise_on(err, "row_topk")
-    return cand, has, top
+    return cand, has, top, slot
 
 
 def assign_pass(pref: torch.Tensor, dest_open: torch.Tensor,
@@ -282,3 +293,157 @@ def commit_moves_into(out: dict, state_before, cache, r: torch.Tensor,
         contrib.data_ptr(), ends.data_ptr(), _stream())
     LAUNCHES["commit_moves"] += 1
     _raise_on(err, "commit_moves")
+
+
+def leader_assign_pass(pref: torch.Tensor, sib_broker: torch.Tensor,
+                       sib_replica: torch.Tensor, src_broker: torch.Tensor,
+                       taken_cnt: torch.Tensor, dep_cnt: torch.Tensor,
+                       assigned: torch.Tensor, cand_has: torch.Tensor,
+                       k: int, amp: torch.Tensor, multi: bool):
+    """K4 launch: (slot i32[C], dest broker i32[C], promoted replica
+    i32[C], has bool[C])."""
+    from cruise_control_tpu_torch.analyzer.kernels import \
+        MAX_ARRIVALS_PER_ROUND
+    lib = build()
+    c, rf = pref.shape
+    _check(pref, "pref", torch.float32)
+    _check(sib_broker, "sib_broker", torch.int32, (c, rf))
+    _check(sib_replica, "sib_replica", torch.int32, (c, rf))
+    _check(src_broker, "src_broker", torch.int32, (c,))
+    _check(taken_cnt, "taken_cnt", torch.int32)
+    _check(dep_cnt, "dep_cnt", torch.int32, taken_cnt.shape)
+    _check(assigned, "assigned", torch.bool, (c,))
+    _check(cand_has, "cand_has", torch.bool, (c,))
+    _check(amp, "amp", torch.float32, ())
+    outs = [torch.empty(c, dtype=torch.int32, device=pref.device)
+            for _ in range(3)]
+    has = torch.empty(c, dtype=torch.bool, device=pref.device)
+    err = lib.cc_leader_assign_pass(
+        pref.data_ptr(), sib_broker.data_ptr(), sib_replica.data_ptr(),
+        src_broker.data_ptr(), taken_cnt.data_ptr(), dep_cnt.data_ptr(),
+        assigned.data_ptr(), cand_has.data_ptr(), c, rf, int(k),
+        amp.data_ptr(), int(bool(multi)), MAX_ARRIVALS_PER_ROUND,
+        outs[0].data_ptr(), outs[1].data_ptr(), outs[2].data_ptr(),
+        has.data_ptr(), _stream())
+    LAUNCHES["leader_assign_pass"] += 1
+    _raise_on(err, "leader_assign_pass")
+    return outs[0], outs[1], outs[2], has
+
+
+def commit_leadership(state_before, cache, sr: torch.Tensor,
+                      dr: torch.Tensor, valid: torch.Tensor,
+                      donate: bool = False) -> dict:
+    """K5: the cache fields after a leadership-transfer batch.  With
+    `donate` the kernel updates the cache's own planes in place (the
+    caller gives the cache up); otherwise it writes into copies."""
+    from cruise_control_tpu_torch.analyzer.context import LEADERSHIP_FIELDS
+    sw = cache.broker_table.shape[1]
+    fields = [f for f in LEADERSHIP_FIELDS if f != "broker_util"
+              and (sw or not f.startswith("table_"))]
+    if donate:
+        out = {f: getattr(cache, f) for f in fields}
+    else:
+        out = {f: getattr(cache, f).clone() for f in fields}
+    out["broker_util"] = torch.empty_like(cache.broker_load)
+    commit_leadership_into(out, state_before, cache, sr, dr, valid)
+    return out
+
+
+def commit_leadership_into(out: dict, state_before, cache, sr: torch.Tensor,
+                           dr: torch.Tensor, valid: torch.Tensor) -> None:
+    """K5 launch into `out` (planes updated in place, `broker_util`
+    written); `cache` supplies the broker table."""
+    lib = build()
+    n = sr.shape[0]
+    num_b = state_before.num_brokers
+    num_r = state_before.num_replicas
+    sw = cache.broker_table.shape[1]
+    s = state_before
+    for name, t, dt, shape in (
+            ("sr", sr, torch.int32, (n,)), ("dr", dr, torch.int32, (n,)),
+            ("valid", valid, torch.bool, (n,)),
+            ("replica_broker", s.replica_broker, torch.int32, (num_r,)),
+            ("replica_partition", s.replica_partition, torch.int32,
+             (num_r,)),
+            ("replica_base_load", s.replica_base_load, torch.float32,
+             (num_r, 4)),
+            ("partition_leader_bonus", s.partition_leader_bonus,
+             torch.float32, (s.num_partitions, 4)),
+            ("broker_capacity", s.broker_capacity, torch.float32,
+             (num_b, 4)),
+            ("broker_table", cache.broker_table, torch.int32, (num_b, sw)),
+            ("out[broker_load]", out["broker_load"], torch.float32,
+             (num_b, 4)),
+            ("out[broker_util]", out["broker_util"], torch.float32,
+             (num_b, 4)),
+            ("out[replica_load]", out["replica_load"], torch.float32,
+             (num_r, 4)),
+            ("out[leader_count]", out["leader_count"], torch.int32,
+             (num_b,)),
+            ("out[leader_bytes_in]", out["leader_bytes_in"], torch.float32,
+             (num_b,))):
+        _check(t, name, dt, shape)
+    if sw:
+        _check(out["table_load"], "out[table_load]", torch.float32,
+               (num_b, sw, 4))
+        _check(out["table_leader"], "out[table_leader]", torch.bool,
+               (num_b, sw))
+        t_load, t_leader = out["table_load"], out["table_leader"]
+    else:
+        t_load, t_leader = cache.table_load, cache.table_leader
+    contrib = torch.empty((n, 8), dtype=torch.float32, device=sr.device)
+    ends = torch.empty((2, n), dtype=torch.int32, device=sr.device)
+    err = lib.cc_commit_leadership(
+        n, num_b, sw, num_r, sr.data_ptr(), dr.data_ptr(), valid.data_ptr(),
+        s.replica_broker.data_ptr(), s.replica_partition.data_ptr(),
+        s.replica_base_load.data_ptr(), s.partition_leader_bonus.data_ptr(),
+        s.broker_capacity.data_ptr(), cache.broker_table.data_ptr(),
+        out["broker_load"].data_ptr(), out["broker_util"].data_ptr(),
+        out["replica_load"].data_ptr(), out["leader_count"].data_ptr(),
+        out["leader_bytes_in"].data_ptr(), t_load.data_ptr(),
+        t_leader.data_ptr(), contrib.data_ptr(), ends.data_ptr(),
+        _stream())
+    LAUNCHES["commit_leadership"] += 1
+    _raise_on(err, "commit_leadership")
+
+
+def sweep_pick(sel, has_in, cur_safe, rows, jit_plane, replica_broker,
+               value_r, static_ok, alive, leader_ok, W, fill_to, hard_cap,
+               tb_norm, salt: float, improve_gate: bool):
+    """K6 launch: (dst_r i32[W], has bool[W])."""
+    lib = build()
+    wn = sel.shape[0]
+    num_p, rf = rows.shape
+    num_r = replica_broker.shape[0]
+    num_b = alive.shape[0]
+    for name, t, dt, shape in (
+            ("sel", sel, torch.int32, (wn,)),
+            ("has_in", has_in, torch.bool, (wn,)),
+            ("cur_safe", cur_safe, torch.int32, (wn,)),
+            ("rows", rows, torch.int32, (num_p, rf)),
+            ("jit_plane", jit_plane, torch.float32, (num_p, rf)),
+            ("replica_broker", replica_broker, torch.int32, (num_r,)),
+            ("value_r", value_r, torch.float32, (num_r,)),
+            ("static_ok", static_ok, torch.bool, (num_r,)),
+            ("alive", alive, torch.bool, (num_b,)),
+            ("leader_ok", leader_ok, torch.bool, (num_b,)),
+            ("W", W, torch.float32, (num_b,)),
+            ("fill_to", fill_to, torch.float32, (num_b,)),
+            ("hard_cap", hard_cap, torch.float32, (num_b,))):
+        _check(t, name, dt, shape)
+    if tb_norm is not None:
+        _check(tb_norm, "tb_norm", torch.float32, (num_b,))
+    scratch = torch.empty(1, dtype=torch.int32, device=rows.device)
+    dst_r = torch.empty(wn, dtype=torch.int32, device=rows.device)
+    has = torch.empty(wn, dtype=torch.bool, device=rows.device)
+    err = lib.cc_sweep_pick(
+        wn, rf, sel.data_ptr(), has_in.data_ptr(), cur_safe.data_ptr(),
+        rows.data_ptr(), jit_plane.data_ptr(), replica_broker.data_ptr(),
+        value_r.data_ptr(), static_ok.data_ptr(), alive.data_ptr(),
+        leader_ok.data_ptr(), W.data_ptr(), fill_to.data_ptr(),
+        hard_cap.data_ptr(), tb_norm.data_ptr() if tb_norm is not None
+        else None, float(salt), int(bool(improve_gate)), scratch.data_ptr(),
+        dst_r.data_ptr(), has.data_ptr(), _stream())
+    LAUNCHES["sweep_pick"] += 1
+    _raise_on(err, "sweep_pick")
+    return dst_r, has

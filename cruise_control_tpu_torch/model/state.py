@@ -201,6 +201,42 @@ def apply_moves(state: ClusterState, replicas: torch.Tensor,
                          replica_offline=new_offline)
 
 
+def transfer_leadership(state: ClusterState, src_replica,
+                        dest_replica) -> ClusterState:
+    """Move one partition's leadership from `src_replica` to
+    `dest_replica`: the leader-role load follows the flag."""
+    flags = state.replica_is_leader.clone()
+    flags[src_replica] = False
+    flags[dest_replica] = True
+    return state.replace(replica_is_leader=flags)
+
+
+def apply_leadership_transfers(state: ClusterState,
+                               src_replicas: torch.Tensor,
+                               dest_replicas: torch.Tensor,
+                               valid: torch.Tensor) -> ClusterState:
+    """Batched leadership transfer: K (leader -> follower) handoffs at
+    once.  Invalid rows are routed to a spill row and dropped."""
+    num_r = state.num_replicas
+    spill = torch.full_like(src_replicas, num_r).long()
+    src = torch.where(valid, src_replicas.long(), spill)
+    dst = torch.where(valid, dest_replicas.long(), spill)
+    flags = ops.scatter_set(state.replica_is_leader, src,
+                            torch.zeros_like(valid))
+    flags = ops.scatter_set(flags, dst, torch.ones_like(valid))
+    return state.replace(replica_is_leader=flags)
+
+
+def partition_leader_replica(state: ClusterState) -> torch.Tensor:
+    """i32[P] — replica index of each partition's leader, -1 if none."""
+    r_idx = torch.arange(state.num_replicas, dtype=torch.int32,
+                         device=state.device)
+    is_leader = state.replica_valid & state.replica_is_leader
+    return ops.segment_max(torch.where(is_leader, r_idx,
+                                       torch.full_like(r_idx, -1)),
+                           state.replica_partition, state.num_partitions)
+
+
 # ---------------------------------------------------------------------------
 # Derived statistics helpers
 # ---------------------------------------------------------------------------

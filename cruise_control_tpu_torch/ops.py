@@ -142,6 +142,13 @@ def topk_stable(x: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+def remainder_f(x: torch.Tensor, y: float) -> torch.Tensor:
+    """`jnp.remainder` for floats: the truncated remainder shifted into
+    the divisor's sign (exact; torch.remainder rounds differently)."""
+    rem = torch.fmod(x, y)
+    return torch.where((rem != 0) & ((rem < 0) != (y < 0)), rem + y, rem)
+
+
 def argsort_stable(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """`jnp.argsort(x, stable=True)` (int64 indices)."""
     return torch.sort(x, dim=dim, stable=True).indices

@@ -102,3 +102,113 @@ def test_reference_stays_on_the_cpu():
     if jax is None:
         pytest.skip("JAX is not installed here")
     assert jax.default_backend() == "cpu"
+
+
+@pytest.mark.parametrize("k", [16, 64])
+def test_row_topk_deep_matches_plain(k):
+    """The warp path of K1 (8 < k <= 64) with its slot output."""
+    ck = _card()
+    rng = np.random.default_rng(k)
+    sc = np.round(rng.random((200, 1152)) * 40).astype(np.float32)
+    sc[rng.random(sc.shape) < 0.3] = K.NEG
+    sc[3] = K.NEG
+    sc[4] = 1.0
+    sc[5, 70:] = K.NEG                  # fewer eligible slots than k
+    sc_t = torch.from_numpy(sc).cuda()
+    table = torch.from_numpy(rng.permutation(200 * 1152).astype(
+        np.int32).reshape(200, 1152)).cuda()
+    got = ck.row_topk(sc_t, table, k)
+    want = K.row_topk_plain(sc_t, table, k)
+    torch.cuda.synchronize()
+    assert all(_same(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("multi", [False, True])
+@pytest.mark.parametrize("k", [0, 3])
+def test_leader_assign_pass_matches_plain(multi, k):
+    ck = _card()
+    rng = np.random.default_rng(10 * k + multi)
+    c, rf, nb = 2048, 3, 200
+    pref = -rng.random((c, rf)).astype(np.float32)
+    pref[rng.random(pref.shape) < 0.3] = K.NEG
+    pref[:, 2] = pref[:, 0]
+    args = [torch.from_numpy(x).cuda() for x in (
+        pref, rng.integers(0, nb, (c, rf)).astype(np.int32),
+        rng.integers(0, 10 ** 6, (c, rf)).astype(np.int32),
+        rng.integers(0, nb, c).astype(np.int32),
+        (rng.integers(0, 3, nb) * (32 if multi else 1)).astype(np.int32),
+        rng.integers(0, 2, nb).astype(np.int32),
+        rng.random(c) < 0.2, rng.random(c) < 0.9)]
+    amp = torch.tensor(0.35 + 1e-6, dtype=torch.float32).cuda()
+    got = ck.leader_assign_pass(*args, k, amp, multi)
+    want = K.leader_assign_pass_plain(*args, k, amp, multi)
+    torch.cuda.synchronize()
+    assert all(_same(a, b) for a, b in zip(got, want))
+
+
+def _transfer_batch(state, ctx, n, rng):
+    from cruise_control_tpu_torch.model import state as S
+    rows = ctx.partition_replicas.cpu().numpy()
+    cur = S.partition_leader_replica(state).cpu().numpy()
+    parts = rng.choice(rows.shape[0], size=n, replace=False)
+    src = cur[parts].astype(np.int32)
+    dst = np.array([[r for r in rows[p] if r >= 0 and r != s][0]
+                    for p, s in zip(parts, src)], dtype=np.int32)
+    return [torch.from_numpy(x).cuda()
+            for x in (src, dst, rng.random(n) < 0.8)]
+
+
+@pytest.mark.parametrize("table", [False, True])
+def test_commit_leadership_matches_plain_bit_for_bit(table):
+    ck = _card()
+    state, _ = random_cluster(RandomClusterSpec(**SLICE), device="cuda")
+    ctx = C.make_context(state, C.BalancingConstraint(),
+                         C.OptimizationOptions())
+    cache = C.make_round_cache(state, ctx.table_slots if table else 0, ctx)
+    sr, dr, valid = _transfer_batch(state, ctx, 4096 if not table else 3200,
+                                    np.random.default_rng(int(table)))
+    want = C.commit_leadership_plain(state, cache, sr, dr, valid)
+    got = ck.commit_leadership(state, cache, sr, dr, valid)
+    torch.cuda.synchronize()
+    for f in want:
+        assert _same(got[f], want[f]), f
+    # donated: the cache's own planes carry the result
+    donated = ck.commit_leadership(state, cache, sr, dr, valid, donate=True)
+    torch.cuda.synchronize()
+    assert donated["replica_load"].data_ptr() == \
+        cache.replica_load.data_ptr()
+    for f in want:
+        assert _same(donated[f], want[f]), f
+
+
+@pytest.mark.parametrize("improve_gate", [False, True])
+def test_sweep_pick_matches_plain(improve_gate):
+    ck = _card()
+    from cruise_control_tpu_torch.analyzer import leadership as L
+    state, _ = random_cluster(RandomClusterSpec(**SLICE), device="cuda")
+    ctx = C.make_context(state, C.BalancingConstraint(),
+                         C.OptimizationOptions())
+    cache = C.make_round_cache(state, 0, ctx)
+    rng = np.random.default_rng(int(improve_gate))
+    rows = ctx.partition_replicas
+    num_p, rf = rows.shape
+    sel = torch.from_numpy(rng.choice(num_p, 4096, replace=False).astype(
+        np.int32)).cuda()
+    cur = torch.clamp_min(rows[sel.long(), 0], 0).contiguous()
+    has_in = torch.from_numpy(rng.random(4096) < 0.9).cuda()
+    value = state.partition_leader_bonus[state.replica_partition.long(), 2]
+    cap = state.broker_capacity[:, 2]
+    upper = (ctx.balance_upper_pct[2] * cap).contiguous()
+    fill_to = ((upper + ctx.balance_lower_pct[2] * cap) / 2).contiguous()
+    tb = torch.rand(state.num_brokers, device="cuda") if improve_gate \
+        else None
+    args = (sel, has_in, cur, rows, K._pairwise_jitter(num_p, rf,
+                                                       device="cuda"),
+            state.replica_broker, value.contiguous(),
+            C.replica_static_ok(state, ctx), state.broker_alive,
+            ctx.broker_leader_ok, cache.broker_load[:, 2].contiguous(),
+            fill_to, upper, tb, 1.11, improve_gate)
+    got = ck.sweep_pick(*args)
+    want = L.sweep_pick_plain(*args)
+    torch.cuda.synchronize()
+    assert all(_same(a, b) for a, b in zip(got, want))

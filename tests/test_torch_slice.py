@@ -8,14 +8,22 @@ placement, the proposals, the per-goal violated-broker counts, rounds,
 converged-at rounds and the balancedness score must be EQUAL; both results
 must pass sanity and the verifier's invariants.  Each run has pre-balance
 work and at least one swap round.
+
+The same holds for the four goals of config 2 (Disk, NwIn, NwOut, Cpu),
+whose last two run the leadership sweep and the leadership table rounds,
+on the same seeds — leader flags and proposals' new leaders included —
+and for NwOut alone and Cpu alone from the same start states.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from cruise_control_tpu.analyzer.goals.resource_distribution import (
-    DiskUsageDistributionGoal as JDisk,
-    NetworkInboundUsageDistributionGoal as JNwIn)
+    CpuUsageDistributionGoal as JCpu, DiskUsageDistributionGoal as JDisk,
+    NetworkInboundUsageDistributionGoal as JNwIn,
+    NetworkOutboundUsageDistributionGoal as JNwOut)
 from cruise_control_tpu.analyzer.optimizer import GoalOptimizer as JOptimizer
 from cruise_control_tpu.testing.random_cluster import (
     RandomClusterSpec as JSpec, random_cluster as j_random_cluster)
@@ -25,10 +33,10 @@ from cruise_control_tpu_torch.analyzer.context import (BalancingConstraint,
                                                        OptimizationOptions,
                                                        make_context)
 from cruise_control_tpu_torch.analyzer.goals.resource_distribution import (
-    DiskUsageDistributionGoal, NetworkInboundUsageDistributionGoal,
-    ResourceDistributionGoal)
+    CpuUsageDistributionGoal, DiskUsageDistributionGoal,
+    NetworkInboundUsageDistributionGoal,
+    NetworkOutboundUsageDistributionGoal)
 from cruise_control_tpu_torch.analyzer.optimizer import GoalOptimizer
-from cruise_control_tpu_torch.common.resources import Resource
 from cruise_control_tpu_torch.device import resolve_device
 from cruise_control_tpu_torch.model.sanity import sanity_check
 from cruise_control_tpu_torch.testing import checks
@@ -147,11 +155,130 @@ def test_entry_point_needs_the_card_unless_cpu_is_asked_for():
         random_cluster(RandomClusterSpec(**_spec(0)))
 
 
-@pytest.mark.parametrize("resource", [Resource.CPU, Resource.NW_OUT])
-def test_leadership_goals_are_not_offered_yet(resource):
-    goal_cls = type("G", (ResourceDistributionGoal,), {"resource": resource})
-    with pytest.raises(NotImplementedError, match="leadership"):
-        goal_cls()
+# ---------------------------------------------------------------------------
+# the leadership goals: config 2's four goals, and NwOut / Cpu alone
+# ---------------------------------------------------------------------------
+
+FOUR = ((JDisk, DiskUsageDistributionGoal),
+        (JNwIn, NetworkInboundUsageDistributionGoal),
+        (JNwOut, NetworkOutboundUsageDistributionGoal),
+        (JCpu, CpuUsageDistributionGoal))
+
+
+def _solve_both(goal_pairs, seed, j_opt=None):
+    spec = _spec(seed)
+    js, jt = j_random_cluster(JSpec(**spec))
+    j_opt = j_opt or JOptimizer([j() for j, _ in goal_pairs])
+    jres = j_opt.optimizations(js, jt)
+    jres._topology = jt
+    ps, pt = random_cluster(RandomClusterSpec(**spec), device="cpu")
+    pres = GoalOptimizer([p() for _, p in goal_pairs]).optimizations(
+        ps, pt, device="cpu")
+    return js, jres, ps, pt, pres
+
+
+@pytest.fixture(scope="module")
+def j_optimizer4():
+    return JOptimizer([j() for j, _ in FOUR])
+
+
+@pytest.fixture(scope="module", params=SEEDS)
+def solved4(request, j_optimizer4):
+    return _solve_both(FOUR, request.param, j_optimizer4)
+
+
+def _assert_same_solve(jres, pres):
+    for f in ("replica_broker", "replica_is_leader"):
+        assert np.array_equal(np.asarray(getattr(jres.final_state, f)),
+                              getattr(pres.final_state, f).numpy()), f
+    # proposals list the leader first: equal tuples mean equal leaders
+    assert _proposals(jres) == _proposals(pres)
+    assert ({(str(p.partition), p.new_leader) for p in jres.proposals}
+            == {(str(p.partition), p.new_leader) for p in pres.proposals})
+    assert jres.violated_broker_counts == pres.violated_broker_counts
+    assert jres.entry_broker_counts == pres.entry_broker_counts
+    assert jres.rounds_by_goal == pres.rounds_by_goal
+    assert jres.converged_at_by_goal == pres.converged_at_by_goal
+    assert jres.num_leadership_movements == pres.num_leadership_movements
+    assert jres.balancedness_score() == pres.balancedness_score()
+
+
+def test_four_goals_placement_and_leaders_equal(solved4):
+    _, jres, _, _, pres = solved4
+    for f in ("replica_broker", "replica_is_leader"):
+        assert np.array_equal(np.asarray(getattr(jres.final_state, f)),
+                              getattr(pres.final_state, f).numpy()), f
+
+
+def test_four_goals_proposals_equal(solved4):
+    _, jres, _, _, pres = solved4
+    _assert_same_solve(jres, pres)
+    assert pres.num_leadership_movements > 0
+    assert pres.num_replica_movements > 0
+
+
+def test_four_goals_instruments_equal(solved4):
+    """Rounds include the leadership sweep's (the goal's sink adds them)."""
+    _, jres, _, _, pres = solved4
+    assert jres.violated_broker_counts == pres.violated_broker_counts
+    assert jres.rounds_by_goal == pres.rounds_by_goal
+    assert jres.converged_at_by_goal == pres.converged_at_by_goal
+    assert jres.violated_goals_after == pres.violated_goals_after
+    for g in ("NetworkOutboundUsageDistributionGoal",
+              "CpuUsageDistributionGoal"):
+        assert pres.rounds_by_goal[g] > 0
+
+
+def test_four_goals_stats_match(solved4):
+    """Per-goal statistics within 1e-6 relative, as in test_stats_match."""
+    _, jres, _, _, pres = solved4
+    for g, stats in pres.stats_by_goal.items():
+        for f, v in vars(stats).items():
+            a = np.asarray(getattr(jres.stats_by_goal[g], f))
+            if v.dtype.is_floating_point:
+                np.testing.assert_allclose(v.numpy(), a, rtol=1e-6,
+                                           err_msg=f"{g} {f}")
+            else:
+                assert np.array_equal(a, v.numpy()), (g, f)
+
+
+def test_four_goals_verifier_and_cache(solved4):
+    js, jres, ps, pt, pres = solved4
+    j_verify(js, jres)
+    checks.verify_result(ps, pres, pt)
+    ctx = make_context(ps, BalancingConstraint(), OptimizationOptions(), pt)
+    assert checks.cache_mismatches(pres.final_state, ctx,
+                                   pres.final_cache) == []
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("which", [2, 3], ids=["NwOut", "Cpu"])
+def test_leadership_goal_alone_matches(which, seed):
+    _, jres, ps, pt, pres = _solve_both([FOUR[which]], seed)
+    _assert_same_solve(jres, pres)
+    assert pres.num_leadership_movements > 0
+    checks.verify_result(ps, pres, pt)
+
+
+def test_verify_result_checks_new_leaders():
+    """The replay gate fails a proposal whose new leader is not the
+    partition's final leader, and a leader change with no proposal."""
+    ps, pt = random_cluster(RandomClusterSpec(**_spec(0)), device="cpu")
+    pres = GoalOptimizer([NetworkOutboundUsageDistributionGoal()]
+                         ).optimizations(ps, pt, device="cpu")
+    checks.verify_result(ps, pres, pt)
+    lead_only = next(p for p in pres.proposals
+                     if p.has_leader_action and not p.has_replica_action)
+    swapped = dataclasses.replace(
+        lead_only, new_replicas=lead_only.new_replicas[::-1])
+    bad = dataclasses.replace(pres, proposals=[
+        swapped if p is lead_only else p for p in pres.proposals])
+    with pytest.raises(AssertionError, match="names leader"):
+        checks.verify_result(ps, bad, pt)
+    dropped = dataclasses.replace(pres, proposals=[
+        p for p in pres.proposals if p is not lead_only])
+    with pytest.raises(AssertionError, match="without a proposal"):
+        checks.verify_result(ps, dropped, pt)
 
 
 def test_offline_replicas_are_refused():
@@ -181,3 +308,20 @@ def test_slice_geometry_matches_reference(j_optimizer):
     assert jres.rounds_by_goal == pres.rounds_by_goal
     assert jres.converged_at_by_goal == pres.converged_at_by_goal
     assert jres.balancedness_score() == pres.balancedness_score()
+
+
+@pytest.mark.slow
+def test_four_goal_config2_geometry_matches_reference(j_optimizer4):
+    """Config 2 whole (Disk, NwIn, NwOut, Cpu) on the slice geometry: the
+    port on the CPU against the reference.  Marked slow: the two solves
+    take over a minute on a CPU, and this file's tier-1 cases already
+    take about four minutes on one worker."""
+    spec = dict(num_brokers=200, num_partitions=20_000, replication_factor=3,
+                num_racks=8, num_topics=10, seed=4, skew_fraction=0.2)
+    js, jt = j_random_cluster(JSpec(**spec))
+    jres = j_optimizer4.optimizations(js, jt)
+    ps, pt = random_cluster(RandomClusterSpec(**spec), device="cpu")
+    pres = GoalOptimizer([p() for _, p in FOUR]).optimizations(
+        ps, pt, device="cpu")
+    _assert_same_solve(jres, pres)
+    checks.verify_result(ps, pres, pt)
