@@ -7,37 +7,49 @@ Run from the repository root on a machine with one CUDA card:
 
 Phases:
   1. the card's name and power limit (nvidia-smi), then the build of the
-     port's six CUDA kernels from csrc/ (one nvcc per source, started
+     port's seven CUDA kernels from csrc/ (one nvcc per source, started
      together, with nvcc's resource report);
   2. each kernel against its plain PyTorch version on the card at the
      slice's shapes and again at the 2,600-broker shapes of phase 4
      (integers and booleans exactly, floats bit for bit): K1 at k = 1, 4,
-     8, 16 and 64, K2, K3, K4 in both commit modes for passes 0 and 3 (and
-     at C = R, the full-plane width, at 2,600 brokers), K5 on a
+     8, 16 and 64, K2 (also at the forced-move round's C = 4096 against K
+     = 256 and 2600), K3 with the broker table and table-less
+     (self-healing's commits), K4 in both commit modes for passes 0 and 3
+     (and at C = R, the full-plane width, at 2,600 brokers), K5 on a
      4,096-transfer table-less batch and on a phase-a batch with the
      table, K6 on a 4,096-partition window with and without the
-     improvement gate and tiebreak.  Device times per call (20 calls
-     captured in a CUDA graph, median of 5 replays timed with CUDA events;
-     K3 and K5 also without the wrapper's copies of the cache planes)
-     beside the bound for the bytes the function needs and a one-call
-     PyTorch yardstick where one exists;
+     improvement gate and tiebreak, K7 at R = 60,000 and 600,000, k =
+     4096, with 0.5 % forced, equal weights, fewer forced than k and every
+     replica forced (and its guard-only launch).  Device times per call
+     (20 calls captured in a CUDA graph, median of 5 replays timed with
+     CUDA events; K3 and K5 also without the wrapper's copies of the cache
+     planes) beside the bound for the bytes the function needs and a
+     one-call PyTorch yardstick where one exists;
   3. the slice geometry (200 brokers / 20K partitions / rf 3, 8 racks, 10
      topics, skew 0.2, default options): the disk + network-inbound solve
      of the first slice (seed 4); config 2 whole — Disk, NwIn, NwOut and
      Cpu usage distribution — as the bench builds it (seed 4), where the
      leadership sweeps clear every over-limit broker so the leadership
-     table rounds (K4) never start; and this slice's main path, the same
-     four goals on seed 2, where they do.  One warm-up and one timed solve
-     each, the kernels' launch counts of each timed solve (every kernel
-     the path reaches must be > 0; the main path's counts go into the
-     kernel JSON), the sanity / proposal-replay (new leaders included) /
-     cache-equals-rebuild / no-self-regression gates, and each four-goal
-     solve again on the port's CPU path: its proposals and final leader
-     flags must equal the card's;
-  4. scale: the four-goal solve at 2,600 brokers / 200K partitions / 26
-     racks / 100 topics with the same gates (no CPU comparison).
-With --profile, one more main-path solve runs under torch.profiler
-and the device's busy share and time by kernel are printed.
+     table rounds (K4) never start; the same four goals on seed 2, where
+     they do; BASELINE config 5 (4 logdirs per broker, 4 broken, healed,
+     then Disk capacity + Disk usage distribution); and the remove-broker
+     drain (brokers 0 and 100 killed) under the six hard goals (rack
+     awareness, replica capacity, the four resource capacities).  One
+     warm-up and one timed solve each, the kernels' launch counts of each
+     timed solve (every kernel the path reaches must be > 0; the
+     four-goal seed-2 counts go into the kernel JSON for K1-K6, config
+     5's for K7), self-healing's rounds and moves, the sanity / no offline
+     replica left / proposal-replay (new leaders included) /
+     cache-equals-rebuild / no-self-regression gates, and each solve but
+     the first again on the port's CPU path: its proposals and final
+     leader flags must equal the card's;
+  4. scale, 2,600 brokers / 200K partitions / 26 racks / 100 topics: the
+     four-goal solve, config 5 (52 broken logdirs) and the six hard goals
+     with brokers 0, 100, ..., 2500 killed, with the same gates (no CPU
+     comparison).
+With --profile, one more four-goal solve and one more config-5 solve run
+under torch.profiler and the device's busy share and time by kernel are
+printed.
 
 Every phase that fails raises, so the run exits non-zero.  The line
 before the last is the kernel JSON; the last line is the device JSON.
@@ -69,6 +81,7 @@ REPLACES = {
     "leader_assign_pass": "cruise_control_tpu/analyzer/kernels.py:959",
     "commit_leadership": "cruise_control_tpu/analyzer/context.py:732",
     "sweep_pick": "cruise_control_tpu/analyzer/leadership.py:238",
+    "forced_select": "cruise_control_tpu/analyzer/kernels.py:1235",
 }
 SOURCES = {
     "row_topk": "cruise_control_tpu_torch/csrc/row_topk.cu",
@@ -78,12 +91,19 @@ SOURCES = {
     "commit_leadership":
         "cruise_control_tpu_torch/csrc/commit_leadership.cu",
     "sweep_pick": "cruise_control_tpu_torch/csrc/sweep_pick.cu",
+    "forced_select": "cruise_control_tpu_torch/csrc/forced_select.cu",
 }
 #: the kernels each solve must launch: the leadership table rounds (K4)
 #: run only when a sweep leaves an over-limit broker
 TWO_GOAL_KERNELS = ("row_topk", "assign_pass", "commit_moves")
-FOUR_GOAL_KERNELS = tuple(SOURCES)
-SWEEP_ONLY_KERNELS = tuple(k for k in SOURCES if k != "leader_assign_pass")
+FOUR_GOAL_KERNELS = ("row_topk", "assign_pass", "commit_moves",
+                     "leader_assign_pass", "commit_leadership", "sweep_pick")
+SWEEP_ONLY_KERNELS = tuple(k for k in FOUR_GOAL_KERNELS
+                           if k != "leader_assign_pass")
+#: self-healing selects with K7 and commits with K3 (table-less); the hard
+#: goals' rack awareness and capacity rounds pick with K1
+CONFIG5_KERNELS = ("forced_select", "commit_moves", "assign_pass")
+HARD_KERNELS = ("forced_select", "commit_moves", "assign_pass", "row_topk")
 
 SLICE_SPEC = dict(num_brokers=200, num_partitions=20_000,
                   replication_factor=3, num_racks=8, num_topics=10, seed=4,
@@ -95,6 +115,40 @@ SLICE_MAIN_SPEC = dict(SLICE_SPEC, seed=2)
 NORTH_SPEC = dict(num_brokers=2600, num_partitions=200_000,
                   replication_factor=3, num_racks=26, num_topics=100, seed=4,
                   skew_fraction=0.2)
+
+TWO_GOALS = ["DiskUsageDistributionGoal",
+             "NetworkInboundUsageDistributionGoal"]
+FOUR_GOALS = TWO_GOALS + ["NetworkOutboundUsageDistributionGoal",
+                          "CpuUsageDistributionGoal"]
+CONFIG5_GOALS = ["DiskCapacityGoal", "DiskUsageDistributionGoal"]
+#: the default hard goals (goals/registry.py DEFAULT_HARD_GOALS)
+HARD_GOALS = ["RackAwareGoal", "ReplicaCapacityGoal", "DiskCapacityGoal",
+              "NetworkInboundCapacityGoal", "NetworkOutboundCapacityGoal",
+              "CpuCapacityGoal"]
+
+
+def path(spec: dict, goals, max_rounds=None, kill=()) -> dict:
+    """A solve: the random cluster `spec` with the brokers `kill` killed
+    (set_broker_state(alive=False), the bench's remove-broker drain),
+    optimized by `goals` (registry names) at `max_rounds`."""
+    return dict(spec=spec, goals=list(goals), max_rounds=max_rounds,
+                kill=tuple(kill))
+
+
+SLICE_TWO = path(SLICE_SPEC, TWO_GOALS)
+SLICE_FOUR = path(SLICE_SPEC, FOUR_GOALS)
+SLICE_MAIN = path(SLICE_MAIN_SPEC, FOUR_GOALS)
+#: BASELINE config 5 (bench.py _build: 4 logdirs per broker, one broken
+#: per 50 brokers) at the slice size, and the remove-broker drain of
+#: bench.py's config 4 (brokers 0, 100, ... killed) under the six hard
+#: goals
+SLICE_CONFIG5 = path(dict(SLICE_SPEC, jbod_disks=4, dead_disks=4),
+                     CONFIG5_GOALS, 192)
+SLICE_HARD = path(SLICE_SPEC, HARD_GOALS, 192, kill=(0, 100))
+NORTH_FOUR = path(NORTH_SPEC, FOUR_GOALS)
+NORTH_CONFIG5 = path(dict(NORTH_SPEC, jbod_disks=4, dead_disks=52),
+                     CONFIG5_GOALS, 192)
+NORTH_HARD = path(NORTH_SPEC, HARD_GOALS, 192, kill=range(0, 2600, 100))
 
 
 def log(msg: str) -> None:
@@ -280,11 +334,19 @@ def commit_bytes(state, cache, r, dst, valid, rank) -> int:
     s_w = cache.broker_table.shape[1]
     rv, dv = r[valid].long(), dst[valid].long()
     src = state.replica_broker[rv].long()
-    slot = (cache.broker_table[src] == rv[:, None].int()).int().argmax(1)
-    scan = torch.full((state.num_brokers,), -1, dtype=torch.int64,
-                      device=src.device).scatter_reduce(
-                          0, src, slot.long(), "amax")
-    arrive = (cache.table_fill[dv] + rank[valid]) < s_w
+    if s_w:
+        slot = (cache.broker_table[src] == rv[:, None].int()).int().argmax(1)
+        scan = torch.full((state.num_brokers,), -1, dtype=torch.int64,
+                          device=src.device).scatter_reduce(
+                              0, src, slot.long(), "amax")
+        arrive = (cache.table_fill[dv] + rank[valid]) < s_w
+        table_bytes = (int((scan + 1).sum()) * 4   # source-row prefixes
+                       + rv.numel() * 5            # punched id and flag
+                       # appended slots and fill pointers
+                       + int(arrive.sum()) * (4 + 16 + 16 + 1 + 1)
+                       + torch.unique(dv).numel() * 8)
+    else:
+        table_bytes = 0                            # table-less mode
     p = state.replica_partition[rv].long()
     t = state.partition_topic[p].long()
     k, nt = state.num_racks, state.num_topics
@@ -293,12 +355,9 @@ def commit_bytes(state, cache, r, dst, valid, rank) -> int:
     btc = torch.unique(torch.cat([src * nt + t, dv * nt + t]))
     brokers = torch.unique(torch.cat([src, dv]))
     n_v = rv.numel()
-    return int(r.numel() * 13                      # r, dst, valid, rank
+    return int(r.numel() * (13 if s_w else 9)      # r, dst, valid, rank
                + n_v * (4 + 4 + 1 + 16 + 1 + 16 + 4 + 4)   # replica rows
-               + int((scan + 1).sum()) * 4         # source-row prefixes
-               + n_v * 5                           # punched id and flag
-               + int(arrive.sum()) * (4 + 16 + 16 + 1 + 1)  # appended slots
-               + torch.unique(dv).numel() * 8      # fill pointers
+               + table_bytes
                # per touched broker: load read and written, util written,
                # capacity and rack read, four counters read and written
                + brokers.numel() * (32 + 16 + 16 + 4 + 4 * 8)
@@ -313,7 +372,8 @@ def kernel_only_ms(state, cache, r, dst, valid, rank, reps: int = 20,
     replay over `reps`."""
     import torch
     from cruise_control_tpu_torch import cuda_kernels
-    pristine = {f: getattr(cache, f) for f in cuda_kernels.COMMIT_FIELDS}
+    pristine = {f: getattr(cache, f)
+                for f in cuda_kernels.commit_fields(cache)}
     bufs = []
     for _ in range(reps):
         out = {f: t.clone() for f, t in pristine.items()}
@@ -397,6 +457,126 @@ def check_commit_moves(spec: dict, seed: int) -> dict:
     return dict(max_abs_err=err, ms=kernel, plain_ms=plain, bound_ms=t_b,
                 bound_by=by, library_ms=None,
                 shape=f"B={state.num_brokers} batch={n}")
+
+
+def check_commit_moves_tableless(spec: dict, seed: int) -> dict:
+    """K3's table-less mode (self-healing's commits) on a 4,096-move batch
+    with many arrivals per destination, on the cluster `spec`'s cache
+    without a broker table."""
+    import torch
+    from cruise_control_tpu_torch import cuda_kernels
+    from cruise_control_tpu_torch.analyzer import context as C
+    from cruise_control_tpu_torch.testing.random_cluster import (
+        RandomClusterSpec, random_cluster)
+    state, _ = random_cluster(RandomClusterSpec(**spec))
+    cache = C.make_round_cache(state)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    n = 4096
+    r = torch.randperm(state.num_replicas, generator=g,
+                       device="cuda")[:n].to(torch.int32)
+    hubs = torch.randperm(state.num_brokers, generator=g, device="cuda")[:64]
+    dst = hubs[torch.randint(0, 64, (n,), generator=g, device="cuda")].to(
+        torch.int32)
+    valid = (torch.rand(n, generator=g, device="cuda") < 0.9) & (
+        state.replica_broker[r.long()] != dst)
+    got = cuda_kernels.commit_moves(state, cache, r, dst, valid, None)
+    want = C.commit_moves_plain(state, cache, r, dst, valid, None)
+    torch.cuda.synchronize()
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"commit_moves table-less writes {sorted(got)},"
+                             f" the plain version {sorted(want)}")
+    for f in sorted(want):
+        if not equal_exact(got[f], want[f]):
+            raise AssertionError(f"commit_moves table-less B="
+                                 f"{state.num_brokers}: {f} differs from "
+                                 "the plain version")
+    err = max_abs_err([(got[f], want[f]) for f in want
+                       if want[f].dtype.is_floating_point])
+    kernel = kernel_only_ms(state, cache, r, dst, valid, None)
+    plain = cuda_time_ms(lambda: C.commit_moves_plain(
+        state, cache, r, dst, valid, None), reps=5)
+    nbytes = commit_bytes(state, cache, r, dst, valid, None)
+    t_b, by = bound(nbytes, int(valid.sum()) * 2 * 6)
+    log(f"  commit_moves table-less B={state.num_brokers} batch={n} "
+        f"({int(valid.sum())} valid): bit-exact; device time per call: "
+        f"kernel {kernel:.4f} ms; plain version, one call with its host "
+        f"time, {plain:.4f} ms; bound {t_b:.5f} ms ({nbytes} bytes)")
+    return dict(max_abs_err=err, ms=kernel, plain_ms=plain, bound_ms=t_b,
+                bound_by=by, library_ms=None,
+                shape=f"B={state.num_brokers} batch={n} table-less")
+
+
+def check_forced_select(spec: dict, seed: int) -> dict:
+    """K7 at R = the cluster `spec`'s replicas, k = min(4096, R), in four
+    cases: about 0.5 % forced (config 5's broken logdirs), many equal
+    weights, fewer forced than k (the -inf tail in play), every replica
+    forced; each bit for bit against its plain version, and the guard-only
+    launch (k = 0).  The record of the 0.5 % case."""
+    import torch
+    from cruise_control_tpu_torch import cuda_kernels
+    from cruise_control_tpu_torch.analyzer import context as C
+    from cruise_control_tpu_torch.analyzer import kernels as K
+    from cruise_control_tpu_torch.testing.random_cluster import (
+        RandomClusterSpec, random_cluster)
+    state, _ = random_cluster(RandomClusterSpec(**spec))
+    ctx = C.make_context(state, C.BalancingConstraint(),
+                         C.OptimizationOptions())
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    num_r, num_b = state.num_replicas, state.num_brokers
+    pr = ctx.partition_replicas
+    rf = pr.shape[1]
+    k = min(4096, num_r)
+    w0 = state.replica_base_load[:, 3].contiguous()
+    inf = torch.full((), float("inf"), device="cuda")
+    dest_ok = state.broker_alive & (torch.rand(num_b, generator=g,
+                                               device="cuda") < 0.9)
+    top_b, top_h = K.top_headroom(dest_ok, inf.expand(num_b), rf)
+    top_b = top_b.to(torch.int32).contiguous()
+    top_h = top_h.contiguous()
+    cases = (("0.5% forced", 0.005, w0),
+             ("equal weights", 0.3, torch.round(w0 / w0.max() * 3.0)),
+             ("fewer forced than k", min(1.0, 0.5 * k / num_r), w0),
+             ("every replica forced", 1.0, w0))
+    rec = None
+    for label, share, w in cases:
+        forced = torch.rand(num_r, generator=g, device="cuda") < share
+        args = (forced, w, state.replica_partition, state.replica_broker,
+                pr, top_b, top_h)
+        for kk in (k, 0):
+            got = cuda_kernels.forced_select(*args, kk)
+            want = K.forced_select_plain(*args, kk)
+            torch.cuda.synchronize()
+            for x, y, what in zip(got, want, ("cand_r", "cand_has",
+                                              "forced_ok")):
+                if (x is None) != (y is None) or (
+                        x is not None and not equal_exact(x, y)):
+                    raise AssertionError(
+                        f"forced_select R={num_r} k={kk} {label}: {what} "
+                        "differs from the plain version")
+        n_forced, n_ok = int(forced.sum()), int(want[2].sum())
+        if label.startswith("fewer") and not 0 < n_ok < k:
+            raise AssertionError(f"forced_select {label}: {n_ok} guarded "
+                                 f"replicas, not between 0 and k={k}")
+        score = torch.where(want[2], w + 1.0, -inf)
+        t = (graph_time_ms(lambda: cuda_kernels.forced_select(*args, k)),
+             graph_time_ms(lambda: K.forced_select_plain(*args, k)),
+             graph_time_ms(lambda: torch.topk(score, k)),
+             graph_time_ms(lambda: cuda_kernels.forced_select(*args, 0)))
+        # the flags in and out for every replica; weight, partition,
+        # sibling row and sibling brokers for each forced one; k ids and
+        # flags out
+        nbytes = num_r * 2 + n_forced * (4 + 4 + 8 * rf) + k * 5
+        t_b, by = bound(nbytes, n_forced * rf * (rf + 2) + num_r)
+        log(f"  forced_select R={num_r} k={k} {label} ({n_forced} forced, "
+            f"{n_ok} with a destination): exact match, guard-only too; "
+            f"device time per call: kernel {t[0]:.4f} ms (guard only "
+            f"{t[3]:.4f} ms), plain {t[1]:.4f} ms, torch.topk {t[2]:.4f} "
+            f"ms; bound {t_b:.5f} ms ({nbytes} bytes)")
+        if rec is None:
+            rec = dict(max_abs_err=0.0, ms=t[0], plain_ms=t[1], bound_ms=t_b,
+                       bound_by=by, library_ms=t[2],
+                       shape=f"R={num_r} k={k} {label}")
+    return rec
 
 
 def check_leader_assign(c: int, num_b: int, seed: int) -> dict:
@@ -672,28 +852,26 @@ def check_sweep_pick(spec: dict, seed: int) -> dict:
 # phases 3 and 4: the solve
 # ---------------------------------------------------------------------------
 
-def _goals(four: bool):
-    from cruise_control_tpu_torch.analyzer.goals import \
-        resource_distribution as R
-    goals = [R.DiskUsageDistributionGoal(),
-             R.NetworkInboundUsageDistributionGoal()]
-    if four:
-        goals += [R.NetworkOutboundUsageDistributionGoal(),
-                  R.CpuUsageDistributionGoal()]
-    return goals
-
-
-def _solve(spec: dict, device: str, four: bool = True):
+def _solve(solve: dict, device: str):
+    """Build the cluster of `solve` (see `path`) on `device` and run its
+    goals through GoalOptimizer.optimizations: (initial state, topology,
+    result, solve seconds)."""
     import torch
+    from cruise_control_tpu_torch.analyzer.goals.registry import \
+        default_goals
     from cruise_control_tpu_torch.analyzer.optimizer import GoalOptimizer
+    from cruise_control_tpu_torch.model import state as S
     from cruise_control_tpu_torch.testing.random_cluster import (
         RandomClusterSpec, random_cluster)
-    state, topo = random_cluster(RandomClusterSpec(**spec), device=device)
+    state, topo = random_cluster(RandomClusterSpec(**solve["spec"]),
+                                 device=device)
+    for b in solve["kill"]:
+        state = S.set_broker_state(state, b, alive=False)
+    goals = default_goals(solve["max_rounds"], solve["goals"])
     if device == "cuda":
         torch.cuda.synchronize()
     t0 = time.time()
-    result = GoalOptimizer(_goals(four)).optimizations(state, topo,
-                                                       device=device)
+    result = GoalOptimizer(goals).optimizations(state, topo, device=device)
     if device == "cuda":
         torch.cuda.synchronize()
     return state, topo, result, time.time() - t0
@@ -717,8 +895,8 @@ def _wrapped(targets, wrap):
             setattr(mod, name, fn)
 
 
-def _commit_log(spec: dict, device: str) -> list:
-    """Solve config 2 once and return every cached commit's sorted
+def _commit_log(solve: dict, device: str) -> list:
+    """Run `solve` once and return every cached commit's sorted
     (kind, replica, destination) triples, one list per commit (a host
     copy per commit): destination brokers for moves and swaps, promoted
     replicas for leadership transfers."""
@@ -754,7 +932,7 @@ def _commit_log(spec: dict, device: str) -> list:
     with _wrapped([(K, "commit_moves_cached"), (K, "commit_swaps_cached"),
                    (K, "commit_leadership_cached")], wrap), \
             _wrapped([(L, "update_cache_for_leadership")], wrap_sweep):
-        _solve(spec, device)
+        _solve(solve, device)
     return commits
 
 
@@ -777,6 +955,8 @@ def _sweep_rounds(fn_solve):
 
 def _report(label: str, result, seconds: float, sweeps=None) -> None:
     log(f"  {label}: solve {seconds:.3f} s")
+    log(f"    self-healing: {result.heal_rounds} rounds, "
+        f"{result.heal_moves} replicas moved")
     log(f"    rounds {result.rounds_by_goal}")
     if sweeps is not None:
         lead_goals = [g for g in result.rounds_by_goal
@@ -802,6 +982,8 @@ def _gates(state, topo, result) -> None:
     from cruise_control_tpu_torch.model.sanity import sanity_check
     from cruise_control_tpu_torch.testing import checks
     sanity_check(result.final_state)
+    # includes: no replica on a dead broker or broken disk, no offline
+    # replica left
     checks.verify_result(state, result, topo)
     ctx = C.make_context(state, C.BalancingConstraint(),
                          C.OptimizationOptions(), topo)
@@ -809,8 +991,8 @@ def _gates(state, topo, result) -> None:
                                   result.final_cache)
     if bad:
         raise AssertionError(f"final cache differs from a rebuild: {bad}")
-    log("    sanity, proposal replay (leaders included) and "
-        "cache-equals-rebuild: ok")
+    log("    sanity, no offline replica left, proposal replay (leaders "
+        "included) and cache-equals-rebuild: ok")
     for g, (_, own, _) in result.violated_broker_counts.items():
         if own > result.entry_broker_counts[g]:
             raise AssertionError(f"{g} regressed itself: own {own} > entry "
@@ -818,17 +1000,19 @@ def _gates(state, topo, result) -> None:
     log("    no goal self-regression: ok")
 
 
-def _timed_path(spec: dict, four: bool, kernels, label: str):
-    """One warm-up and one timed card solve; the launches of the timed
-    solve (counts set to 0 just before it, read just after), each of
-    `kernels` > 0."""
+def _timed_path(solve: dict, kernels, label: str, warm: bool = True):
+    """One warm-up (unless `warm` is False) and one timed card solve; the
+    launches of the timed solve (counts set to 0 just before it, read just
+    after), each of `kernels` > 0."""
     from cruise_control_tpu_torch import cuda_kernels
-    _, _, _, warm_s = _solve(spec, "cuda", four)
-    log(f"  {label}: warm-up solve {warm_s:.3f} s")
+    if warm:
+        _, _, _, warm_s = _solve(solve, "cuda")
+        log(f"  {label}: warm-up solve {warm_s:.3f} s")
     cuda_kernels.reset_launches()
     (state, topo, result, secs), sweeps = _sweep_rounds(
-        lambda: _solve(spec, "cuda", four))
+        lambda: _solve(solve, "cuda"))
     launches = dict(cuda_kernels.LAUNCHES)
+    four = solve["goals"] == FOUR_GOALS
     _report(f"{label} on the card", result, secs, sweeps if four else None)
     log(f"    kernel launches in the timed solve {launches}")
     for name in kernels:
@@ -839,7 +1023,7 @@ def _timed_path(spec: dict, four: bool, kernels, label: str):
     return state, topo, result, secs, launches
 
 
-def _card_equals_cpu(spec: dict, result, label: str) -> None:
+def _card_equals_cpu(solve: dict, result, label: str) -> None:
     """The same solve on the port's CPU path: its proposals, final leader
     flags and proposals' new leaders must equal the card's; on a
     difference, both solves rerun with every commit logged and the first
@@ -847,7 +1031,7 @@ def _card_equals_cpu(spec: dict, result, label: str) -> None:
     import torch
     from cruise_control_tpu_torch.analyzer.optimizer import proposal_set
     torch.set_num_threads(min(8, os.cpu_count() or 1))
-    _, _, cpu_result, cpu_s = _solve(spec, "cpu")
+    _, _, cpu_result, cpu_s = _solve(solve, "cpu")
     _report(f"{label}, port on the CPU", cpu_result, cpu_s)
     same = proposal_set(cpu_result) == proposal_set(result)
     same_leaders = bool(torch.equal(
@@ -861,8 +1045,8 @@ def _card_equals_cpu(spec: dict, result, label: str) -> None:
         f"identical {same_leaders}, proposals' new leaders identical "
         f"{same_new_leaders}")
     if not (same and same_leaders and same_new_leaders):
-        card_log = _commit_log(spec, "cuda")
-        cpu_log = _commit_log(spec, "cpu")
+        card_log = _commit_log(solve, "cuda")
+        cpu_log = _commit_log(solve, "cpu")
         first = next((i for i, (a, b) in enumerate(zip(card_log, cpu_log))
                       if a != b), min(len(card_log), len(cpu_log)))
         log(f"    first differing commit: {first} (card {len(card_log)} "
@@ -873,29 +1057,42 @@ def _card_equals_cpu(spec: dict, result, label: str) -> None:
 
 def run_slice(results: dict) -> None:
     log("  -- the first slice's path: disk + network-inbound, seed 4")
-    *_, secs2, _ = _timed_path(SLICE_SPEC, False, TWO_GOAL_KERNELS,
-                               "two-goal slice")
+    *_, secs2, _ = _timed_path(SLICE_TWO, TWO_GOAL_KERNELS, "two-goal slice")
     results["_slice2_s"] = secs2
     log("  -- config 2 as the bench builds it: four goals, seed 4")
-    _, _, result, secs, _ = _timed_path(
-        SLICE_SPEC, True, SWEEP_ONLY_KERNELS, "config 2 (seed 4)")
+    _, _, result, secs, _ = _timed_path(SLICE_FOUR, SWEEP_ONLY_KERNELS,
+                                        "config 2 (seed 4)")
     results["_config2_s"] = secs
-    _card_equals_cpu(SLICE_SPEC, result, "config 2 (seed 4)")
-    log("  -- this slice's main path: four goals, seed 2 (the sweeps leave "
-        "work for the leadership table rounds)")
+    _card_equals_cpu(SLICE_FOUR, result, "config 2 (seed 4)")
+    log("  -- the second slice's main path: four goals, seed 2 (the sweeps "
+        "leave work for the leadership table rounds)")
     _, _, result, secs, launches = _timed_path(
-        SLICE_MAIN_SPEC, True, FOUR_GOAL_KERNELS, "four-goal main path")
-    for name, count in launches.items():
-        results.setdefault(name, {})["launches"] = count
+        SLICE_MAIN, FOUR_GOAL_KERNELS, "four-goal main path")
+    for name in FOUR_GOAL_KERNELS:
+        results.setdefault(name, {})["launches"] = launches[name]
     results["_slice_s"] = secs
-    _card_equals_cpu(SLICE_MAIN_SPEC, result, "four-goal main path")
+    _card_equals_cpu(SLICE_MAIN, result, "four-goal main path")
+    log("  -- this slice's main path: config 5 (JBOD, 4 broken logdirs) "
+        "healed, then Disk capacity + Disk usage distribution")
+    _, _, result, secs, launches = _timed_path(
+        SLICE_CONFIG5, CONFIG5_KERNELS, "config 5 slice")
+    results["forced_select"] = dict(results.get("forced_select", {}),
+                                    launches=launches["forced_select"])
+    results["_launches_config5"] = launches
+    results["_config5_s"] = secs
+    _card_equals_cpu(SLICE_CONFIG5, result, "config 5 slice")
+    log("  -- remove-broker: brokers 0 and 100 killed, the six hard goals")
+    _, _, result, secs, launches = _timed_path(
+        SLICE_HARD, HARD_KERNELS, "six hard goals slice")
+    results["_launches_hard"] = launches
+    results["_hard_s"] = secs
+    _card_equals_cpu(SLICE_HARD, result, "six hard goals slice")
     results["_identical"] = True
 
 
-def profile_slice(device: str = "cuda") -> None:
-    """torch.profiler over one four-goal slice solve on the card: wall
-    time, the device's busy and idle share, and the device time by
-    kernel."""
+def profile_slice(solve: dict, device: str = "cuda") -> None:
+    """torch.profiler over one solve on the card: wall time, the device's
+    busy and idle share, and the device time by kernel."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -923,7 +1120,9 @@ def profile_slice(device: str = "cuda") -> None:
                (C, "commit_leadership"), (L, "run_sweep_threaded"),
                (L, "sweep_pick"), (L, "update_cache_for_leadership"),
                (O, "refresh_float_aggregates"), (O, "make_round_cache"),
-               (O, "compute_stats"), (O, "compute_stats_fresh_loads")]
+               (O, "compute_stats"), (O, "compute_stats_fresh_loads"),
+               (K, "forced_move_round"), (K, "forced_select"),
+               (O, "heal_offline_replicas")]
 
     def wrap(fn, name):
         def labelled(*a, **kw):
@@ -933,7 +1132,7 @@ def profile_slice(device: str = "cuda") -> None:
 
     with _wrapped(targets, wrap), profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, _, _, secs = _solve(SLICE_MAIN_SPEC, device)
+        _, _, _, secs = _solve(solve, device)
     kernels, labels = [], []
     for evt in prof.key_averages():
         if evt.key.startswith("port::") and evt.device_type == DeviceType.CUDA:
@@ -961,19 +1160,22 @@ def profile_slice(device: str = "cuda") -> None:
 
 
 def run_scale(results: dict) -> None:
-    from cruise_control_tpu_torch import cuda_kernels
-    cuda_kernels.reset_launches()
-    (state, topo, result, secs), sweeps = _sweep_rounds(
-        lambda: _solve(NORTH_SPEC, "cuda"))
-    _report("four-goal north, 2,600 brokers", result, secs, sweeps)
-    launches = dict(cuda_kernels.LAUNCHES)
-    log(f"    kernel launches {launches}")
-    for name in SWEEP_ONLY_KERNELS:
-        if launches[name] <= 0:
-            raise AssertionError(f"kernel {name} was not launched by the "
-                                 "north solve")
-    _gates(state, topo, result)
+    """The 2,600-broker solves, one each (no warm-up, no CPU run), with
+    the same gates."""
+    _, _, _, secs, _ = _timed_path(NORTH_FOUR, SWEEP_ONLY_KERNELS,
+                                   "four-goal north, 2,600 brokers",
+                                   warm=False)
     results["_north_s"] = secs
+    _, _, _, secs, launches = _timed_path(
+        NORTH_CONFIG5, CONFIG5_KERNELS, "config 5 north (52 broken "
+        "logdirs), 2,600 brokers", warm=False)
+    results["_north_config5_s"] = secs
+    results["_launches_north_config5"] = launches
+    _, _, _, secs, launches = _timed_path(
+        NORTH_HARD, HARD_KERNELS, "six hard goals north (26 brokers "
+        "killed), 2,600 brokers", warm=False)
+    results["_north_hard_s"] = secs
+    results["_launches_north_hard"] = launches
 
 
 def main(argv=None) -> int:
@@ -1023,6 +1225,13 @@ def main(argv=None) -> int:
         results["commit_leadership"] = check_commit_leadership(SLICE_SPEC,
                                                                seed=15)
         results["sweep_pick"] = check_sweep_pick(SLICE_SPEC, seed=16)
+        results["forced_select"] = check_forced_select(SLICE_SPEC, seed=17)
+        results["_commit_moves_tableless"] = check_commit_moves_tableless(
+            SLICE_SPEC, seed=18)
+        log("[2] K2 at the forced-move round's C = 4096, against the "
+            "shortlist (K = 256) and every broker (K = 2600)")
+        results["_assign_pass_4096"] = check_assign_pass(4096, (256, 2600),
+                                                         seed=19)
         log("[2] the same at the 2,600-broker shapes of phase 4 (K2 at the "
             "escalated width K = B, K4 also at C = R)")
         check_row_topk(2600, 1024, seed=21)
@@ -1032,16 +1241,22 @@ def main(argv=None) -> int:
         check_leader_assign(600_000, 2600, seed=25)
         check_commit_leadership(NORTH_SPEC, seed=26)
         check_sweep_pick(NORTH_SPEC, seed=27)
+        results["_forced_select_north"] = check_forced_select(NORTH_SPEC,
+                                                              seed=28)
+        results["_commit_moves_tableless_north"] = \
+            check_commit_moves_tableless(NORTH_SPEC, seed=29)
     if 3 in phases:
-        log("[3] slice: 200 brokers, the two-goal path, then config 2's "
-            "four goals")
+        log("[3] slice: 200 brokers, the two-goal path, config 2's four "
+            "goals, then config 5 and the six hard goals (self-healing)")
         run_slice(results)
     if args.profile:
         log("[3p] profile of one four-goal slice solve on the card")
-        profile_slice()
+        profile_slice(SLICE_MAIN)
+        log("[3p] profile of one config 5 slice solve on the card")
+        profile_slice(SLICE_CONFIG5)
     if 4 in phases:
-        log("[4] scale: the four-goal solve at 2,600 brokers / 200K "
-            "partitions")
+        log("[4] scale: the four-goal solve, config 5 and the six hard goals "
+            "at 2,600 brokers / 200K partitions")
         run_scale(results)
 
     kernels = []
@@ -1059,9 +1274,22 @@ def main(argv=None) -> int:
         "card": smi, "slice_two_goal_solve_s": results.get("_slice2_s"),
         "config2_seed4_solve_s": results.get("_config2_s"),
         "main_path_seed2_solve_s": results.get("_slice_s"),
+        "config5_slice_solve_s": results.get("_config5_s"),
+        "hard_slice_solve_s": results.get("_hard_s"),
         "north_solve_s": results.get("_north_s"),
+        "north_config5_solve_s": results.get("_north_config5_s"),
+        "north_hard_solve_s": results.get("_north_hard_s"),
         "card_cpu_identical": results.get("_identical"),
         "row_topk_deep": results.get("row_topk", {}).get("deep")}))
+    log("[5] " + json.dumps({
+        "commit_moves_tableless": results.get("_commit_moves_tableless"),
+        "commit_moves_tableless_north":
+            results.get("_commit_moves_tableless_north"),
+        "forced_select_north": results.get("_forced_select_north"),
+        "assign_pass_C4096": results.get("_assign_pass_4096")}))
+    log("[5] launches by path: " + json.dumps({
+        k: results.get(f"_launches_{k}") for k in (
+            "config5", "hard", "north_config5", "north_hard")}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

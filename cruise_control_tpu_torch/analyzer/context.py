@@ -105,14 +105,23 @@ def partition_replica_index(state: ClusterState,
     return out
 
 
+def table_width(max_count: int, num_replicas: int) -> int:
+    """Broker-table width for a largest per-broker replica count of
+    `max_count`: half again as many slots plus 64, rounded up to 128."""
+    return min(num_replicas, -(-int(max_count * 1.5 + 64) // 128) * 128)
+
+
 def make_context(state: ClusterState,
                  constraint: BalancingConstraint,
                  options: OptimizationOptions,
                  topology=None,
-                 fix_offline_replicas_only: bool = False
+                 fix_offline_replicas_only: bool = False,
+                 table_slots: Optional[int] = None
                  ) -> OptimizationContext:
     """Assemble the tensor context from host-side options (on the
-    state's device)."""
+    state's device).  `table_slots` overrides the broker-table width
+    derived from the per-broker replica counts (the optimizer's re-run
+    after self-healing overfilled a row)."""
     dev = state.device
     num_t = state.num_topics
     excluded_topic_mask = np.zeros(num_t, dtype=bool)
@@ -168,9 +177,9 @@ def make_context(state: ClusterState,
     # headroom for arrivals and removal holes between compactions
     counts = np.bincount(host["replica_broker"][host["replica_valid"]],
                          minlength=state.num_brokers)
-    max_count = int(counts.max(initial=0))
-    table_slots = min(state.num_replicas,
-                      -(-int(max_count * 1.5 + 64) // 128) * 128)
+    if table_slots is None:
+        table_slots = table_width(int(counts.max(initial=0)),
+                                  state.num_replicas)
 
     avg_util = S.average_utilization_percentage(state).cpu().numpy()
     upper = np.zeros(NUM_RESOURCES, dtype=np.float32)
@@ -464,10 +473,13 @@ def _aggregates_plain(state_before: ClusterState, cache: RoundCache,
 
 def commit_moves_plain(state_before: ClusterState, cache: RoundCache,
                        r: torch.Tensor, dst: torch.Tensor,
-                       valid: torch.Tensor, rank: torch.Tensor) -> dict:
+                       valid: torch.Tensor,
+                       rank: Optional[torch.Tensor]) -> dict:
     """Plain PyTorch version of kernel K3: the cache fields after
     committing the batch, before any re-pack.  `valid` already excludes
-    no-op moves; `rank` is `arrival_rank(dst, valid)`."""
+    no-op moves; `rank` is `arrival_rank(dst, valid)`.  A cache without
+    a broker table (table-less mode, `rank` None) gets the aggregates
+    only."""
     r = r.long()
     dst = dst.long()
     num_r = state_before.num_replicas
@@ -476,6 +488,8 @@ def commit_moves_plain(state_before: ClusterState, cache: RoundCache,
     if rv.numel() != torch.unique(rv).numel():
         raise AssertionError("a replica appears twice in one commit batch")
     out = _aggregates_plain(state_before, cache, r, dst, valid)
+    if not cache.broker_table.shape[1]:
+        return out
 
     # --- broker table: punch departures, append arrivals ---
     src = state_before.replica_broker[r].long()
@@ -515,7 +529,7 @@ def commit_moves_plain(state_before: ClusterState, cache: RoundCache,
 
 def commit_moves(state_before: ClusterState, cache: RoundCache,
                  r: torch.Tensor, dst: torch.Tensor, valid: torch.Tensor,
-                 rank: torch.Tensor) -> dict:
+                 rank: Optional[torch.Tensor]) -> dict:
     """K3 dispatch: the plain version for a CPU cache, the CUDA kernel
     (csrc/commit_moves.cu) for a cache on the card."""
     if not cache.broker_load.is_cuda:
@@ -556,15 +570,13 @@ def update_cache_for_moves(state_before: ClusterState, cache: RoundCache,
     dst = dest_brokers.to(torch.int32)
     src = state_before.replica_broker[r.long()]
     valid = valid & (src != dst)
-    if cache.broker_table.shape[1]:
-        rank = arrival_rank(dst, valid, state_before.num_brokers)
-        fields = commit_moves(state_before, cache, r, dst, valid, rank)
-        return _repack(cache.replace(**fields), state_before.num_replicas)
-    if cache.broker_load.is_cuda:
-        raise ValueError("update_cache_for_moves on the card needs a "
-                         "broker table (kernel K3)")
-    return cache.replace(**_aggregates_plain(state_before, cache, r.long(),
-                                             dst.long(), valid))
+    if not cache.broker_table.shape[1]:
+        # table-less mode (self-healing): the aggregates only
+        return cache.replace(**commit_moves(state_before, cache, r, dst,
+                                            valid, None))
+    rank = arrival_rank(dst, valid, state_before.num_brokers)
+    fields = commit_moves(state_before, cache, r, dst, valid, rank)
+    return _repack(cache.replace(**fields), state_before.num_replicas)
 
 
 # ---------------------------------------------------------------------------

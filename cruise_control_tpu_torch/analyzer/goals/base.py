@@ -175,6 +175,24 @@ def run_phase_sweeps(state: ClusterState, phases, max_rounds: int,
     return state, cache
 
 
+def run_rounds(state: ClusterState, cache: RoundCache, round_body,
+               work_exists, max_rounds: int):
+    """A goal's single round loop, driven from the host: `round_body`
+    (state, cache) -> (state, cache, committed) runs while the previous
+    round committed, `work_exists(state, cache)` holds and the budget
+    allows; the rounds are reported.  Returns (state, cache)."""
+    rounds = last_commit = 0
+    progressed = True
+    while (progressed and rounds < max_rounds
+           and bool(work_exists(state, cache))):
+        state, cache, progressed = round_body(state, cache)
+        rounds += 1
+        if progressed:
+            last_commit = rounds
+    note_rounds(rounds, converged_at=last_commit)
+    return state, cache
+
+
 def shed_rows(cache: RoundCache, w_rows, src_ok_b, excess_b,
               require_positive: bool = True,
               strict: bool = False) -> torch.Tensor:

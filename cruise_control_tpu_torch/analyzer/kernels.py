@@ -3,17 +3,20 @@ cruise_control_tpu/analyzer/kernels.py).
 
 Each round scores candidate (replica, destination) pairs in parallel,
 picks candidates per source broker, assigns destinations in a few
-passes and commits the non-conflicting batch.  Two of the round's hot
+passes and commits the non-conflicting batch.  The round's hot
 functions are hand-written CUDA kernels on the card:
 
 * K1 `row_topk` (csrc/row_topk.cu) behind `rows_pick_topk` /
   `rows_pick_best`;
 * K2 `assign_pass` (csrc/assign_pass.cu), one pass of
-  `assign_destinations`.
+  `assign_destinations`;
+* K7 `forced_select` (csrc/forced_select.cu), the candidate selection of
+  a table-less `forced_move_round`.
 
-Their plain versions (`row_topk_plain`, `assign_pass_plain`) live here;
-a CPU tensor runs them.  The reference's `lax.cond` branches are host
-`if`s on a 0-d tensor (one sync each).
+Their plain versions (`row_topk_plain`, `assign_pass_plain`,
+`forced_select_plain`) live here; a CPU tensor runs them.  The
+reference's `lax.cond` branches are host `if`s on a 0-d tensor (one sync
+each).
 """
 from __future__ import annotations
 
@@ -122,6 +125,15 @@ def table_pick_best(cache, score: torch.Tensor, valid: torch.Tensor):
     return rows_pick_best(cache, _table_rows(cache, score, valid))
 
 
+def table_pick_topk(cache, score: torch.Tensor, valid: torch.Tensor,
+                    k: int):
+    """Per-broker top-k over the table from per-replica score/valid,
+    flattened to a candidate list: (cand i32[B*k], has bool[B*k])."""
+    cand, has, _ = rows_pick_topk(cache, _table_rows(cache, score, valid),
+                                  k)
+    return cand, has
+
+
 # ---------------------------------------------------------------------------
 # Ranking and conflict resolution
 # ---------------------------------------------------------------------------
@@ -226,13 +238,24 @@ def _dest_feasibility(state: ClusterState, cand_r, dest_ok,
     return feasible
 
 
+def top_headroom(dest_ok, dest_headroom, rf: int):
+    """(top_b int64[k], top_h f32[k]) — the min(RF+2, B) eligible brokers
+    with the most headroom (ineligible ones at -inf), ties to the lower
+    broker id: a replica's blocked set (its own and its siblings'
+    brokers) has at most RF members, so one of them is unblocked unless
+    too few brokers are eligible."""
+    k = min(rf + 2, dest_ok.shape[0])
+    inf = torch.full((), float("inf"), device=dest_headroom.device)
+    top_h, top_b = ops.topk_stable(torch.where(dest_ok, dest_headroom, -inf),
+                                   k)
+    return top_b, top_h
+
+
 def _blocked_best(state, sib_rows, dest_ok, dest_headroom,
                   partition_replicas):
-    rf = partition_replicas.shape[1]
-    k = min(rf + 2, state.num_brokers)
     inf = torch.full((), float("inf"), device=dest_headroom.device)
-    ok_headroom = torch.where(dest_ok, dest_headroom, -inf)
-    top_h, top_b = ops.topk_stable(ok_headroom, k)
+    top_b, top_h = top_headroom(dest_ok, dest_headroom,
+                                partition_replicas.shape[1])
     sib = partition_replicas[sib_rows]
     sib_broker = torch.where(
         sib >= 0, state.replica_broker[torch.clamp_min(sib, 0).long()],
@@ -599,6 +622,141 @@ def assign_destinations(pref, gain, cand_has, num_b: int, dest_ids=None,
             cum = ops.scatter_add_seq(
                 cum, kept_d, torch.where(keep[:, None], w_all, zero))
     return dest, assigned
+
+
+# ---------------------------------------------------------------------------
+# K7: forced-candidate selection, and the forced-move round
+# ---------------------------------------------------------------------------
+
+def forced_select_plain(forced, w, replica_partition, replica_broker,
+                        partition_replicas, top_b, top_h, k: int):
+    """Plain version of K7: the table-less candidate selection of a
+    forced-move round.  forced_ok = forced & feasible_dest_exists (the
+    guard against the top headroom brokers `top_b` / `top_h`), then
+    jax.lax.top_k of `forced_ok ? w + 1 : -inf` over all R replicas
+    (score descending, ties and the -inf tail in index order).  Returns
+    (cand_r i32[k], cand_has bool[k], forced_ok bool[R]); k == 0 computes
+    only the guard (the first two are None)."""
+    inf = torch.full((), float("inf"), device=w.device)
+    sib = partition_replicas[replica_partition.long()]
+    sib_broker = torch.where(
+        sib >= 0, replica_broker[torch.clamp_min(sib, 0).long()],
+        torch.full_like(sib, -1))
+    blocked = torch.any(sib_broker[:, :, None] == top_b[None, None, :], 1)
+    best = torch.max(torch.where(blocked, -inf, top_h[None, :]), 1).values
+    forced_ok = forced & (best >= w)
+    if k == 0:
+        return None, None, forced_ok
+    _, idx = ops.topk_stable(torch.where(forced_ok, w + 1.0, -inf), k)
+    return idx.to(torch.int32), forced_ok[idx], forced_ok
+
+
+def forced_select(forced, w, replica_partition, replica_broker,
+                  partition_replicas, top_b, top_h, k: int):
+    """K7 dispatch: the plain version on the CPU, csrc/forced_select.cu on
+    the card."""
+    if not w.is_cuda:
+        return forced_select_plain(forced, w, replica_partition,
+                                   replica_broker, partition_replicas, top_b,
+                                   top_h, k)
+    from cruise_control_tpu_torch import cuda_kernels
+    return cuda_kernels.forced_select(
+        forced.contiguous(), w.contiguous(), replica_partition,
+        replica_broker, partition_replicas,
+        top_b.to(torch.int32).contiguous(), top_h.contiguous(), k)
+
+
+def forced_move_round(state: ClusterState, forced, w, dest_ok,
+                      accept_matrix_fn, dest_pref, partition_replicas,
+                      max_candidates: int = 4096,
+                      cap_alive_sources: bool = True, cache=None,
+                      dest_terms=None, dest_stack_headroom=None,
+                      stack_w=None):
+    """One round of global forced-move search (self-healing, rack
+    awareness): candidates are not limited to one per source broker.
+    Without a broker table the top `max_candidates` forced replicas
+    (largest load first) come from K7; with one, a per-broker row top-k
+    (k = 1 when alive sources are capped to one departure, else 4) with a
+    guarded re-pick when every candidate is blocked.  `dest_terms`
+    switches the assignment to multi-commit.  Returns (cand_r i32[C],
+    cand_dest i32[C], cand_valid bool[C])."""
+    num_b = state.num_brokers
+    rb = state.replica_broker.long()
+    dev = w.device
+    max_candidates = min(max_candidates, state.num_replicas)
+    multi = dest_terms is not None
+    dest_cap = None
+    rf = partition_replicas.shape[1]
+    inf_room = torch.full((num_b,), float("inf"), device=dev)
+    neg = torch.full((), NEG, device=dev)
+
+    if _has_table(cache):
+        dest_ok = dest_ok & (cache.table_fill < cache.broker_table.shape[1])
+        if multi:
+            dest_cap = (cache.broker_table.shape[1]
+                        - cache.table_fill).to(torch.int32)
+        k = 1 if cap_alive_sources else 4
+        # candidates first, destination existence second; if every
+        # candidate of the round is blocked while forced replicas remain,
+        # re-pick once among the guarded replicas
+        score = torch.where(forced, w + 1.0, neg)
+        cand_r, cand_struct = table_pick_topk(cache, score, forced, k)
+        cand_r = torch.clamp_min(cand_r, 0)
+        cand_has = cand_struct & cand_has_dest(
+            state, cand_r, w[cand_r.long()], dest_ok, inf_room,
+            partition_replicas)
+        if bool(torch.any(cand_struct) & ~torch.any(cand_has)):
+            top_b, top_h = top_headroom(dest_ok, inf_room, rf)
+            _, _, forced_ok = forced_select(
+                forced, w, state.replica_partition, state.replica_broker,
+                partition_replicas, top_b, top_h, 0)
+            f_cand, f_has = table_pick_topk(
+                cache, torch.where(forced_ok, w + 1.0, neg), forced_ok, k)
+            cand_r, cand_has = torch.clamp_min(f_cand, 0), f_has
+        max_candidates = cand_r.shape[0]
+    else:
+        top_b, top_h = top_headroom(dest_ok, inf_room, rf)
+        cand_r, cand_has, _ = forced_select(
+            forced, w, state.replica_partition, state.replica_broker,
+            partition_replicas, top_b, top_h, max_candidates)
+
+    cand_rl = cand_r.long()
+    fits_w = w[cand_rl]
+    d_terms = ([(t_w[cand_rl], t_hr) for t_w, t_hr in dest_terms]
+               if multi else None)
+    if multi and dest_stack_headroom is not None:
+        # spreading bound: without it a round stacks a whole evacuation
+        # onto the single best destination
+        sw = (stack_w if stack_w is not None else w)[cand_rl]
+        d_terms = [(sw, dest_stack_headroom)] + d_terms
+
+    def assign_with(dest_ids):
+        feasible = (cand_has[:, None]
+                    & _dest_feasibility(state, cand_rl, dest_ok,
+                                        accept_matrix_fn,
+                                        partition_replicas, dest_ids))
+        pref = torch.where(feasible, dest_pref[dest_ids][None, :], neg)
+        return assign_destinations(pref, fits_w, cand_has, num_b, dest_ids,
+                                   dest_terms=d_terms, dest_cap=dest_cap)
+
+    cand_dest, cand_valid = _assign_with_escalation(
+        assign_with, dest_ok, dest_pref, cand_has, num_b)
+    cand_valid = resolve_dest_conflicts(state.replica_partition[cand_rl],
+                                        fits_w, cand_valid,
+                                        state.num_partitions)
+    if cap_alive_sources:
+        # at most one departure per ALIVE source per round (a source-side
+        # acceptance snapshot stays valid); dead sources stay uncapped
+        src = rb[cand_rl]
+        alive_src = state.broker_alive[src]
+        seg = torch.where(alive_src, src, torch.full_like(src, num_b))
+        capped, _, _ = per_segment_argmax(fits_w, seg, num_b + 1,
+                                          cand_valid & alive_src)
+        c_idx = _arange(max_candidates, dev)
+        cand_valid = cand_valid & torch.where(
+            alive_src, capped.long()[seg] == c_idx,
+            torch.ones_like(alive_src))
+    return cand_r, cand_dest, cand_valid
 
 
 # ---------------------------------------------------------------------------

@@ -10,18 +10,26 @@ pre-program (stats and violated counts before, input validity, joint
 pre-balance), goal segments (float refresh at segment entry, then per
 goal the entry count, the no-work skip, the search, the fresh stats, the
 own count and the regression flag) and the post sweep.
+
+Self-healing runs first when the model carries offline replicas (dead
+brokers, broken logdirs): `heal_offline_replicas` moves every one of them
+to an alive broker with capacity headroom, table-less, before the
+pre-balance.
 """
 from __future__ import annotations
 
 import dataclasses
+import logging
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from cruise_control_tpu_torch.analyzer import kernels as K
 from cruise_control_tpu_torch.analyzer.context import (
-    BalancingConstraint, OptimizationOptions, ensure_full_cache,
-    make_context, make_round_cache, refresh_float_aggregates)
+    BalancingConstraint, OptimizationContext, OptimizationOptions,
+    ensure_full_cache, make_context, make_round_cache,
+    refresh_float_aggregates, table_width)
 from cruise_control_tpu_torch.analyzer.goals import base as goals_base
 from cruise_control_tpu_torch.analyzer.goals.base import (Goal,
                                                           OptimizationFailure)
@@ -37,6 +45,8 @@ from cruise_control_tpu_torch.model.stats import (ClusterModelStats,
                                                   compute_stats,
                                                   compute_stats_fresh_loads)
 
+
+LOG = logging.getLogger(__name__)
 
 #: goals per segment: the float aggregates are refreshed at each segment's
 #: entry, at the reference's default cadence (pipeline_segment_size=4)
@@ -86,6 +96,10 @@ class OptimizerResult:
     converged_at_by_goal: Dict[str, int] = \
         dataclasses.field(default_factory=dict)
     hard_goal_names: frozenset = frozenset()
+    #: self-healing's rounds and the replicas it moved (0, 0 when the
+    #: model carried no offline replica)
+    heal_rounds: int = 0
+    heal_moves: int = 0
 
     @property
     def num_replica_movements(self) -> int:
@@ -114,6 +128,43 @@ class OptimizerResult:
 
 def _count(mask: torch.Tensor) -> int:
     return int(mask.sum())
+
+
+def heal_offline_replicas(state: ClusterState, ctx: OptimizationContext,
+                          max_rounds: int = 256):
+    """Batched self-healing: every offline replica moves to an alive
+    broker with capacity headroom in every resource, preferring the least
+    disk-utilized destinations, while a round commits anything (at most
+    `max_rounds`).  Runs table-less (K7 selects, K3 commits the
+    aggregates).  Returns (state, rounds, replicas moved)."""
+    cache = make_round_cache(state)
+    rounds = moved = 0
+    while rounds < max_rounds:
+        offline = S.self_healing_eligible(state)
+        w = cache.replica_load[:, Resource.DISK]
+        cap = state.broker_capacity * ctx.capacity_threshold[None, :]
+        headroom_all = cap - cache.broker_load
+
+        def accept(r, d, load=cache.replica_load, room=headroom_all):
+            # capacity across every resource (CapacityGoal acceptance)
+            return torch.all(load[r] <= room[d], -1)
+
+        dest_ok = state.broker_alive & ctx.broker_dest_ok
+        util = cache.broker_load[:, Resource.DISK] / torch.clamp_min(
+            state.broker_capacity[:, Resource.DISK], 1e-9)
+        # acceptance is capacity-only (destination-side), so several
+        # offline replicas may leave one alive broker (bad disk) per round
+        cand_r, cand_d, cand_v = K.forced_move_round(
+            state, offline, w, dest_ok, accept, -util, ctx.partition_replicas,
+            cap_alive_sources=False)
+        state, cache = K.commit_moves_cached(state, cache, cand_r, cand_d,
+                                             cand_v)
+        rounds += 1
+        n = _count(cand_v)
+        moved += n
+        if not n:
+            break
+    return state, rounds, moved
 
 
 class GoalOptimizer:
@@ -146,15 +197,20 @@ class GoalOptimizer:
 
     def optimizations(self, state: ClusterState, topology,
                       options: Optional[OptimizationOptions] = None,
-                      device=None) -> OptimizerResult:
+                      device=None,
+                      _table_slots_override: Optional[int] = None
+                      ) -> OptimizerResult:
         """Run all goals in priority order and diff out proposals, on
-        `device` (the card unless "cpu" is asked for)."""
+        `device` (the card unless "cpu" is asked for).
+        `_table_slots_override` sets the broker-table width (the re-run
+        after self-healing overfilled a row)."""
         t_start = time.time()
         dev = resolve_device(device)
         options = options or OptimizationOptions()
         state = state.to(dev)
         goals = self.goals
-        ctx = make_context(state, self.constraint, options, topology)
+        ctx = make_context(state, self.constraint, options, topology,
+                           table_slots=_table_slots_override)
         initial = state
 
         # --- pre: stats and violation sweep before, validity, pre-balance
@@ -165,12 +221,15 @@ class GoalOptimizer:
         stats_before = compute_stats(initial)
         cache0 = make_round_cache(initial)
         vb = [_count(g.violated_brokers(initial, ctx, cache0)) for g in goals]
-        if bool(S.self_healing_eligible(state).any()):
-            raise NotImplementedError(
-                "offline replicas need self-healing (forced_move_round), "
-                "which a later slice of the port brings")
-        broken = (not bool(torch.all(state.broker_alive))
+        needs_heal = bool(S.self_healing_eligible(state).any())
+        # a broken cluster (dead brokers, broken disks or offline
+        # replicas) waives the stats-regression abort
+        broken = (needs_heal or not bool(torch.all(state.broker_alive))
                   or not bool(torch.all(state.disk_alive)))
+        heal_rounds = heal_moves = 0
+        if needs_heal:
+            state, heal_rounds, heal_moves = heal_offline_replicas(state,
+                                                                   ctx)
         active_res, balance_counts, count_margin = self._prebalance_dims()
         pre_rounds = 0
         if (ctx.prebalance and not ctx.fix_offline_replicas_only
@@ -182,9 +241,26 @@ class GoalOptimizer:
                 active_resources=active_res, balance_counts=balance_counts)
         else:
             cache = ensure_full_cache(state, ctx, None)
-        # (the reference re-sizes the broker table when self-healing, which
-        # runs table-less, overfills a row; the pre-balance's arrivals are
-        # gated by the row's free slots, so no row overfills here)
+        # self-healing runs table-less and may push a broker past the
+        # table width sized from the pre-heal counts, and a rebuilt table
+        # would drop the overflow; the reference then re-runs the whole
+        # solve with a wider table (and discards this run), so the port
+        # restarts as soon as it knows
+        max_count = int(torch.max(S.broker_replica_count(state)))
+        if ctx.table_slots and max_count > ctx.table_slots:
+            new_slots = table_width(max_count, state.num_replicas)
+            LOG.warning("post-heal per-broker replica count %d overflowed "
+                        "the broker table width %d; re-running with width "
+                        "%d", max_count, ctx.table_slots, new_slots)
+            return self.optimizations(initial, topology, options,
+                                      device=dev,
+                                      _table_slots_override=new_slots)
+        still_offline = _count(S.self_healing_eligible(state))
+        if still_offline:
+            raise OptimizationFailure(
+                f"self-healing could not relocate {still_offline} "
+                f"offline replicas (insufficient capacity or eligible "
+                f"brokers)")
 
         # --- goal segments
         prev_stats = stats_before
@@ -265,6 +341,8 @@ class GoalOptimizer:
             entry_broker_counts={g.name: e for g, e in zip(goals, entry)},
             converged_at_by_goal=conv_by_goal,
             hard_goal_names=frozenset(g.name for g in goals if g.is_hard),
+            heal_rounds=heal_rounds,
+            heal_moves=heal_moves,
         )
         return result
 

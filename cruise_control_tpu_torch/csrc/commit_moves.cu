@@ -16,6 +16,14 @@
 //     rank with its id, load, bonus, leader flag and eligibility; the
 //     fill pointers count every valid arrival.
 //
+// Table-less mode (S == 0, the self-healing path, which runs before any
+// broker table exists): only the aggregates are committed -- broker load
+// and util, replica and leader counts, the partition x rack and broker x
+// topic counts, potential NW_OUT and leader bytes-in -- by the same walks,
+// so they equal the table mode's and the plain version's bit for bit; the
+// table planes, the fill pointers and `rank` are not read or written (the
+// wrapper may pass null for them).
+//
 // Float aggregates use no float atomics: each broker walks the batch,
 // removals first and then arrivals, each in batch order -- exactly the
 // order of the reference's fused scatter over [s; d] -- so the sums are
@@ -159,7 +167,8 @@ __global__ void move_kernel(Args a) {
   const int ri = a.r[i];
   const int src = a.replica_broker[ri];
 
-  // departure: punch the mover's slot in its source row.  Concurrent
+  // departure: punch the mover's slot in its source row (no row in
+  // table-less mode: the loop does not run).  Concurrent
   // writes to the same row touch other replicas' slots (punches) or slots
   // at or past the row's fill pointer (arrivals), never this id.
   const int* row = a.table + (size_t)src * a.S;
@@ -183,6 +192,8 @@ __global__ void move_kernel(Args a) {
   atomicAdd(&a.prc[(size_t)pi * a.num_racks + a.broker_rack[d]], 1);
   atomicSub(&a.btc[(size_t)src * a.num_topics + t], 1);
   atomicAdd(&a.btc[(size_t)d * a.num_topics + t], 1);
+
+  if (a.S == 0) return;  // table-less mode: the aggregates only
 
   // arrival: append at fill[dst] + rank when the row has room
   const int as = a.fill_in[d] + a.rank[i];

@@ -29,12 +29,14 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 SOURCES = ("row_topk.cu", "assign_pass.cu", "commit_moves.cu",
-           "leader_assign.cu", "commit_leadership.cu", "sweep_pick.cu")
+           "leader_assign.cu", "commit_leadership.cu", "sweep_pick.cu",
+           "forced_select.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES = {"row_topk": 0, "assign_pass": 0, "commit_moves": 0,
-            "leader_assign_pass": 0, "commit_leadership": 0, "sweep_pick": 0}
+            "leader_assign_pass": 0, "commit_leadership": 0, "sweep_pick": 0,
+            "forced_select": 0}
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -115,9 +117,10 @@ def build() -> ctypes.CDLL:
         lib.cc_commit_leadership.argtypes = [_I] * 4 + [_P] * 19
         lib.cc_sweep_pick.argtypes = [_I, _I] + [_P] * 14 + [
             ctypes.c_float, _I] + [_P] * 4
+        lib.cc_forced_select.argtypes = [_I] * 4 + [_P] * 14 + [_P]
         for fn in (lib.cc_row_topk, lib.cc_assign_pass, lib.cc_commit_moves,
                    lib.cc_leader_assign_pass, lib.cc_commit_leadership,
-                   lib.cc_sweep_pick):
+                   lib.cc_sweep_pick, lib.cc_forced_select):
             fn.restype = ctypes.c_int
         BUILD_INFO.update(seconds=time.time() - t0, log="\n".join(log),
                           path=str(so))
@@ -190,19 +193,29 @@ def assign_pass(pref: torch.Tensor, dest_open: torch.Tensor,
     return best, has
 
 
-#: the cache fields K3 writes; `commit_moves` hands the kernel copies
-COMMIT_FIELDS = ("broker_load", "replica_count", "leader_count",
-                 "partition_rack_count", "broker_topic_count",
-                 "potential_nw_out", "leader_bytes_in", "broker_table",
-                 "table_fill", "table_load", "table_bonus", "table_leader",
-                 "table_ok")
+#: the cache fields K3 writes in both modes, and with a broker table
+AGGREGATE_FIELDS = ("broker_load", "replica_count", "leader_count",
+                    "partition_rack_count", "broker_topic_count",
+                    "potential_nw_out", "leader_bytes_in")
+TABLE_FIELDS = ("broker_table", "table_fill", "table_load", "table_bonus",
+                "table_leader", "table_ok")
+
+
+def commit_fields(cache) -> tuple:
+    """The cache fields K3 writes for `cache` (`commit_moves` hands the
+    kernel copies of them): the aggregates, and the table planes when the
+    cache carries a table."""
+    if cache.broker_table.shape[1]:
+        return AGGREGATE_FIELDS + TABLE_FIELDS
+    return AGGREGATE_FIELDS
 
 
 def commit_moves(state_before, cache, r: torch.Tensor, dst: torch.Tensor,
-                 valid: torch.Tensor, rank: torch.Tensor) -> dict:
+                 valid: torch.Tensor, rank) -> dict:
     """K3: the cache fields after committing the batch (fresh tensors; the
-    inputs are not modified)."""
-    out = {f: getattr(cache, f).clone() for f in COMMIT_FIELDS}
+    inputs are not modified).  Without a broker table (table-less mode)
+    the aggregates only, and `rank` may be None."""
+    out = {f: getattr(cache, f).clone() for f in commit_fields(cache)}
     out["broker_util"] = torch.empty_like(cache.broker_load)
     commit_moves_into(out, state_before, cache, r, dst, valid, rank)
     return out
@@ -210,21 +223,21 @@ def commit_moves(state_before, cache, r: torch.Tensor, dst: torch.Tensor,
 
 def commit_moves_into(out: dict, state_before, cache, r: torch.Tensor,
                       dst: torch.Tensor, valid: torch.Tensor,
-                      rank: torch.Tensor) -> None:
+                      rank) -> None:
     """K3 launch into `out`, which holds a copy of each of the cache's
-    COMMIT_FIELDS (updated in place) and a `broker_util` plane (written);
-    `cache.table_fill` is read as the fill before the batch."""
+    `commit_fields` (updated in place) and a `broker_util` plane
+    (written); with a table, `cache.table_fill` is read as the fill
+    before the batch."""
     lib = build()
     n = r.shape[0]
     num_b = state_before.num_brokers
     num_r = state_before.num_replicas
     sw = cache.broker_table.shape[1]
-    if sw == 0:
-        raise ValueError("commit_moves needs a broker table")
+    if sw:
+        _check(rank, "rank", torch.int32, (n,))
     for name, t, dt, shape in (
             ("r", r, torch.int32, (n,)), ("dst", dst, torch.int32, (n,)),
             ("valid", valid, torch.bool, (n,)),
-            ("rank", rank, torch.int32, (n,)),
             ("replica_broker", state_before.replica_broker, torch.int32,
              (num_r,)),
             ("replica_partition", state_before.replica_partition,
@@ -262,12 +275,22 @@ def commit_moves_into(out: dict, state_before, cache, r: torch.Tensor,
             ("table_leader", cache.table_leader, torch.bool, (num_b, sw)),
             ("table_ok", cache.table_ok, torch.bool, (num_b, sw))):
         _check(t, name, dt, shape)
-    for f in (*COMMIT_FIELDS, "broker_util"):
+    for f in (*commit_fields(cache), "broker_util"):
         like = cache.broker_load if f == "broker_util" else getattr(cache, f)
         _check(out[f], f"out[{f!r}]", like.dtype, like.shape)
-    # the kernel reads the fill before the batch while it counts arrivals
-    if out["table_fill"].data_ptr() == cache.table_fill.data_ptr():
-        raise ValueError("out['table_fill'] must be a copy of the cache's")
+    if sw:
+        # the kernel reads the fill before the batch while it counts
+        # arrivals
+        if out["table_fill"].data_ptr() == cache.table_fill.data_ptr():
+            raise ValueError("out['table_fill'] must be a copy of the "
+                             "cache's")
+        table = {f: out[f] for f in TABLE_FIELDS}
+    else:
+        # table-less mode: the kernel touches no table plane
+        table = {f: None for f in TABLE_FIELDS}
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
     # per-move scratch: the float contribution row and the two ends
     contrib = torch.empty((n, 8), dtype=torch.float32, device=r.device)
     ends = torch.empty((2, n), dtype=torch.int32, device=r.device)
@@ -275,7 +298,7 @@ def commit_moves_into(out: dict, state_before, cache, r: torch.Tensor,
     err = lib.cc_commit_moves(
         n, num_b, sw, num_r, s.num_racks, s.num_topics,
         cache.replica_ok.shape[0],
-        r.data_ptr(), dst.data_ptr(), valid.data_ptr(), rank.data_ptr(),
+        r.data_ptr(), dst.data_ptr(), valid.data_ptr(), ptr(rank),
         s.replica_broker.data_ptr(), s.replica_partition.data_ptr(),
         s.replica_is_leader.data_ptr(), s.replica_base_load.data_ptr(),
         s.partition_leader_bonus.data_ptr(), s.partition_topic.data_ptr(),
@@ -286,10 +309,11 @@ def commit_moves_into(out: dict, state_before, cache, r: torch.Tensor,
         out["partition_rack_count"].data_ptr(),
         out["broker_topic_count"].data_ptr(),
         out["potential_nw_out"].data_ptr(),
-        out["leader_bytes_in"].data_ptr(), out["broker_table"].data_ptr(),
-        cache.table_fill.data_ptr(), out["table_fill"].data_ptr(),
-        out["table_load"].data_ptr(), out["table_bonus"].data_ptr(),
-        out["table_leader"].data_ptr(), out["table_ok"].data_ptr(),
+        out["leader_bytes_in"].data_ptr(), ptr(table["broker_table"]),
+        cache.table_fill.data_ptr() if sw else None,
+        ptr(table["table_fill"]), ptr(table["table_load"]),
+        ptr(table["table_bonus"]), ptr(table["table_leader"]),
+        ptr(table["table_ok"]),
         contrib.data_ptr(), ends.data_ptr(), _stream())
     LAUNCHES["commit_moves"] += 1
     _raise_on(err, "commit_moves")
@@ -447,3 +471,55 @@ def sweep_pick(sel, has_in, cur_safe, rows, jit_plane, replica_broker,
     LAUNCHES["sweep_pick"] += 1
     _raise_on(err, "sweep_pick")
     return dst_r, has
+
+
+def forced_select(forced: torch.Tensor, w: torch.Tensor,
+                  replica_partition: torch.Tensor,
+                  replica_broker: torch.Tensor,
+                  partition_replicas: torch.Tensor, top_b: torch.Tensor,
+                  top_h: torch.Tensor, k: int):
+    """K7 launch: (cand_r i32[k], cand_has bool[k], forced_ok bool[R]);
+    with k == 0 only the guard runs and the first two are None."""
+    lib = build()
+    num_r = forced.shape[0]
+    num_p, rf = partition_replicas.shape
+    nb = top_b.shape[0]
+    if not 0 <= k <= min(4096, num_r):
+        raise ValueError(f"forced_select takes 0 <= k <= min(4096, R), "
+                         f"got k={k}")
+    if nb > 32:
+        raise ValueError(f"forced_select takes at most 32 top brokers, "
+                         f"got {nb}")
+    for name, t, dt, shape in (
+            ("forced", forced, torch.bool, (num_r,)),
+            ("w", w, torch.float32, (num_r,)),
+            ("replica_partition", replica_partition, torch.int32, (num_r,)),
+            ("replica_broker", replica_broker, torch.int32, (num_r,)),
+            ("partition_replicas", partition_replicas, torch.int32,
+             (num_p, rf)),
+            ("top_b", top_b, torch.int32, (nb,)),
+            ("top_h", top_h, torch.float32, (nb,))):
+        _check(t, name, dt, shape)
+    dev = forced.device
+    forced_ok = torch.empty(num_r, dtype=torch.bool, device=dev)
+    if k:
+        keys = torch.empty(num_r, dtype=torch.int64, device=dev)
+        hist = torch.empty(8 * 256, dtype=torch.int32, device=dev)
+        sel = torch.empty(3, dtype=torch.int64, device=dev)
+        out_keys = torch.empty(k, dtype=torch.int64, device=dev)
+        cand_r = torch.empty(k, dtype=torch.int32, device=dev)
+        cand_has = torch.empty(k, dtype=torch.bool, device=dev)
+        scratch = [keys.data_ptr(), hist.data_ptr(), sel.data_ptr(),
+                   out_keys.data_ptr(), cand_r.data_ptr(),
+                   cand_has.data_ptr()]
+    else:
+        cand_r = cand_has = None
+        scratch = [None] * 6
+    err = lib.cc_forced_select(
+        num_r, rf, nb, int(k), forced.data_ptr(), w.data_ptr(),
+        replica_partition.data_ptr(), replica_broker.data_ptr(),
+        partition_replicas.data_ptr(), top_b.data_ptr(), top_h.data_ptr(),
+        forced_ok.data_ptr(), *scratch, _stream())
+    LAUNCHES["forced_select"] += 1
+    _raise_on(err, "forced_select")
+    return cand_r, cand_has, forced_ok

@@ -160,6 +160,12 @@ def partition_rack_count(state: ClusterState) -> torch.Tensor:
     return counts.reshape(state.num_partitions, state.num_racks)
 
 
+def partition_replication_factor(state: ClusterState) -> torch.Tensor:
+    """i32[P] — replica count per partition."""
+    return ops.segment_sum(state.replica_valid.to(torch.int32),
+                           state.replica_partition, state.num_partitions)
+
+
 def potential_leadership_load(state: ClusterState) -> torch.Tensor:
     """f32[B] — NW_OUT a broker would serve if it led every partition it
     hosts a replica of."""
@@ -225,6 +231,54 @@ def apply_leadership_transfers(state: ClusterState,
                             torch.zeros_like(valid))
     flags = ops.scatter_set(flags, dst, torch.ones_like(valid))
     return state.replace(replica_is_leader=flags)
+
+
+def set_broker_state(state: ClusterState, broker: int, *,
+                     alive: bool = None, new: bool = None,
+                     demoted: bool = None,
+                     bad_disks: bool = None) -> ClusterState:
+    """Broker state change.  Killing a broker marks its replicas offline;
+    reviving one keeps the replicas on its broken logdirs offline."""
+    def set_at(flags: torch.Tensor, value: bool) -> torch.Tensor:
+        out = flags.clone()
+        out[broker] = value
+        return out
+
+    updates = {}
+    if alive is not None:
+        updates["broker_alive"] = set_at(state.broker_alive, alive)
+        on_broker = (state.replica_broker == broker) & state.replica_valid
+        on_dead_disk = ((state.replica_disk >= 0) & ~state.disk_alive[
+            torch.clamp_min(state.replica_disk, 0).long()])
+        now_offline = on_dead_disk if alive else torch.ones_like(on_broker)
+        updates["replica_offline"] = torch.where(on_broker, now_offline,
+                                                 state.replica_offline)
+        if not alive:
+            updates["replica_original_offline"] = (
+                state.replica_original_offline | on_broker)
+    if new is not None:
+        updates["broker_new"] = set_at(state.broker_new, new)
+    if demoted is not None:
+        updates["broker_demoted"] = set_at(state.broker_demoted, demoted)
+    if bad_disks is not None:
+        updates["broker_bad_disks"] = set_at(state.broker_bad_disks,
+                                             bad_disks)
+    return state.replace(**updates)
+
+
+def mark_disk_dead(state: ClusterState, disk: int) -> ClusterState:
+    """Mark one logdir broken: its replicas go offline while the broker
+    stays alive with bad disks."""
+    disk_alive = state.disk_alive.clone()
+    disk_alive[disk] = False
+    on_disk = (state.replica_disk == disk) & state.replica_valid
+    bad = state.broker_bad_disks.clone()
+    bad[int(state.disk_broker[disk])] = True
+    return state.replace(
+        disk_alive=disk_alive,
+        replica_offline=state.replica_offline | on_disk,
+        replica_original_offline=state.replica_original_offline | on_disk,
+        broker_bad_disks=bad)
 
 
 def partition_leader_replica(state: ClusterState) -> torch.Tensor:

@@ -83,7 +83,8 @@ def cache_mismatches(state, ctx, cache, rtol: float = 1e-5) -> List[str]:
 
 def verify_result(initial, result, topology) -> None:
     """The optimizer-result invariants: sanity of the final state,
-    nothing on dead brokers or offline, no regressed goal, each
+    nothing on dead brokers or broken disks and no offline replica left
+    (self-healing), no regressed goal, each
     proposal's new replica set equal to the final placement and its new
     leader the partition's final leader, and a proposal for every
     partition whose leader changed."""
@@ -94,6 +95,11 @@ def verify_result(initial, result, topology) -> None:
     valid = final.replica_valid.cpu().numpy()
     if (~alive[broker] & valid).any():
         raise AssertionError("replica remains on dead broker after optimize")
+    disk = final.replica_disk.cpu().numpy()
+    disk_alive = final.disk_alive.cpu().numpy()
+    on_disk = valid & (disk >= 0)
+    if on_disk.any() and (~disk_alive[disk[on_disk]]).any():
+        raise AssertionError("replica remains on broken disk after optimize")
     if bool(S.self_healing_eligible(final).any()):
         raise AssertionError("offline replicas remain after optimize")
     if result.regressed_goals:

@@ -1,6 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
 card, at the slice's shapes (marker `torch_cuda`).
 
+K7 (`forced_select`) and K3's table-less mode are held here too, and K2
+at the forced-move round's 4,096 candidates.
+
 Each test decides inside itself whether a card is present and skips
 with a reason when none is; run them on a machine with the card with
 ``JAX_PLATFORMS=cpu python -m pytest --noconftest -m torch_cuda
@@ -212,3 +215,83 @@ def test_sweep_pick_matches_plain(improve_gate):
     want = L.sweep_pick_plain(*args)
     torch.cuda.synchronize()
     assert all(_same(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("kk", [256, 2600])
+def test_assign_pass_at_4096_candidates(kk):
+    """K2 at the forced-move round's C = 4096 (self-healing's candidates),
+    against the shortlist and the escalated all-broker width."""
+    ck = _card()
+    rng = np.random.default_rng(kk)
+    c = 4096
+    pref = -rng.random((c, kk)).astype(np.float32)
+    pref[rng.random(pref.shape) < 0.3] = K.NEG
+    pref[:, 9] = pref[:, 4]
+    args = [torch.from_numpy(x).cuda() for x in (
+        pref, rng.random(kk) < 0.8, rng.random(c) < 0.2, rng.random(c) < 0.9)]
+    amp = torch.tensor(0.35 + 1e-6, dtype=torch.float32).cuda()
+    for k in (0, 5):
+        got = ck.assign_pass(*args, k, amp)
+        want = K.assign_pass_plain(*args, k, amp)
+        torch.cuda.synchronize()
+        assert all(_same(a, b) for a, b in zip(got, want))
+
+
+def test_commit_moves_tableless_matches_plain_bit_for_bit():
+    """K3's table-less mode (self-healing's commits): the aggregates only,
+    equal to the plain aggregates bit for bit."""
+    ck = _card()
+    state, _ = random_cluster(RandomClusterSpec(**SLICE), device="cuda")
+    cache = C.make_round_cache(state)
+    rng = np.random.default_rng(3)
+    n = 4096
+    r = torch.from_numpy(rng.choice(state.num_replicas, size=n,
+                                    replace=False).astype(np.int32)).cuda()
+    dst = torch.from_numpy(rng.integers(0, 40, size=n).astype(
+        np.int32)).cuda()
+    valid = (torch.from_numpy(rng.random(n) < 0.9).cuda()
+             & (state.replica_broker[r.long()] != dst))
+    got = ck.commit_moves(state, cache, r, dst, valid, None)
+    want = C._aggregates_plain(state, cache, r.long(), dst.long(), valid)
+    torch.cuda.synchronize()
+    assert set(got) == set(want)
+    for f in want:
+        assert _same(got[f], want[f]), f
+
+
+@pytest.mark.parametrize("case", ["sparse", "ties", "tail", "all"])
+def test_forced_select_matches_plain(case):
+    """K7 against its plain version: about 0.5 % forced, many equal
+    weights, fewer forced than k (the -inf tail), every replica forced;
+    and its guard-only mode (k = 0)."""
+    ck = _card()
+    spec = dict(SLICE, num_brokers=24, num_partitions=3000)
+    state, _ = random_cluster(RandomClusterSpec(**spec), device="cuda")
+    ctx = C.make_context(state, C.BalancingConstraint(),
+                         C.OptimizationOptions())
+    rng = np.random.default_rng(len(case))
+    num_r = state.num_replicas
+    share = {"sparse": 0.005, "ties": 0.5, "tail": 0.3, "all": 1.0}[case]
+    forced = torch.from_numpy(rng.random(num_r) < share).cuda()
+    w = state.replica_base_load[:, 3].contiguous()
+    if case == "ties":
+        w = torch.round(w / w.max() * 3.0)
+    dest_ok = torch.from_numpy(rng.random(state.num_brokers) < 0.7).cuda()
+    inf_room = torch.full((state.num_brokers,), float("inf"), device="cuda")
+    top_b, top_h = K.top_headroom(dest_ok, inf_room,
+                                  ctx.partition_replicas.shape[1])
+    top_b = top_b.to(torch.int32).contiguous()
+    for k in (4096, 0):
+        got = ck.forced_select(forced, w, state.replica_partition,
+                               state.replica_broker, ctx.partition_replicas,
+                               top_b, top_h, k)
+        want = K.forced_select_plain(forced, w, state.replica_partition,
+                                     state.replica_broker,
+                                     ctx.partition_replicas, top_b, top_h, k)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert (a is None) == (b is None)
+            if a is not None:
+                assert _same(a, b)
+    if case == "tail":
+        assert 0 < int(want[2].sum()) < 4096

@@ -9,7 +9,8 @@ converged-at rounds and the balancedness score must be EQUAL; both results
 must pass sanity and the verifier's invariants.  Each run has pre-balance
 work and at least one swap round.
 
-The same holds for the four goals of config 2 (Disk, NwIn, NwOut, Cpu),
+The same holds with a dead broker, whose replicas are healed first, and
+for the four goals of config 2 (Disk, NwIn, NwOut, Cpu),
 whose last two run the leadership sweep and the leadership table rounds,
 on the same seeds — leader flags and proposals' new leaders included —
 and for NwOut alone and Cpu alone from the same start states.
@@ -281,12 +282,28 @@ def test_verify_result_checks_new_leaders():
         checks.verify_result(ps, dropped, pt)
 
 
-def test_offline_replicas_are_refused():
+def test_offline_replicas_are_healed_like_the_reference(j_optimizer):
+    """A dead broker's replicas are healed first (the port used to refuse
+    them), then the two goals run: the same fixture in both packages
+    gives the same solve."""
     spec = dict(_spec(0), dead_brokers=1)
+    js, jt = j_random_cluster(JSpec(**spec))
+    jres = j_optimizer.optimizations(js, jt)
+    jres._topology = jt
     ps, pt = random_cluster(RandomClusterSpec(**spec), device="cpu")
-    with pytest.raises(NotImplementedError, match="self-healing"):
-        GoalOptimizer([DiskUsageDistributionGoal()]).optimizations(
-            ps, pt, device="cpu")
+    pres = GoalOptimizer([DiskUsageDistributionGoal(),
+                          NetworkInboundUsageDistributionGoal()]
+                         ).optimizations(ps, pt, device="cpu")
+    assert pres.heal_moves == int(ps.replica_offline.sum()) > 0
+    for f in ("replica_broker", "replica_offline", "replica_is_leader"):
+        assert np.array_equal(np.asarray(getattr(jres.final_state, f)),
+                              getattr(pres.final_state, f).numpy()), f
+    assert _proposals(jres) == _proposals(pres)
+    assert jres.violated_broker_counts == pres.violated_broker_counts
+    assert jres.rounds_by_goal == pres.rounds_by_goal
+    assert jres.converged_at_by_goal == pres.converged_at_by_goal
+    j_verify(js, jres)
+    checks.verify_result(ps, pres, pt)
 
 
 def test_slice_geometry_matches_reference(j_optimizer):
