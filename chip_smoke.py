@@ -7,7 +7,7 @@ Run from the repository root on a machine with one CUDA card:
 
 Phases:
   1. the card's name and power limit (nvidia-smi), then the build of the
-     port's seven CUDA kernels from csrc/ (one nvcc per source, started
+     port's eight CUDA kernels from csrc/ (one nvcc per source, started
      together, with nvcc's resource report);
   2. each kernel against its plain PyTorch version on the card at the
      slice's shapes and again at the 2,600-broker shapes of phase 4
@@ -20,35 +20,41 @@ Phases:
      table, K6 on a 4,096-partition window with and without the
      improvement gate and tiebreak, K7 at R = 60,000 and 600,000, k =
      4096, with 0.5 % forced, equal weights, fewer forced than k and every
-     replica forced (and its guard-only launch).  Device times per call
-     (20 calls captured in a CUDA graph, median of 5 replays timed with
-     CUDA events; K3 and K5 also without the wrapper's copies of the cache
-     planes) beside the bound for the bytes the function needs and a
-     one-call PyTorch yardstick where one exists;
+     replica forced (and its guard-only launch), K8 at C = 1 to 4096 (B =
+     200 and 2600, T = 0 to 6 terms) in seven cases and at C = 10,400,
+     20,800 and 600,000.  Device times per call (20 calls captured in a
+     CUDA graph, median of 5 replays timed with CUDA events; K3 and K5
+     also without the wrapper's copies of the cache planes) beside the
+     bound for the bytes the function needs and a one-call PyTorch
+     yardstick where one exists;
   3. the slice geometry (200 brokers / 20K partitions / rf 3, 8 racks, 10
      topics, skew 0.2, default options): the disk + network-inbound solve
      of the first slice (seed 4); config 2 whole — Disk, NwIn, NwOut and
      Cpu usage distribution — as the bench builds it (seed 4), where the
      leadership sweeps clear every over-limit broker so the leadership
      table rounds (K4) never start; the same four goals on seed 2, where
-     they do; BASELINE config 5 (4 logdirs per broker, 4 broken, healed,
-     then Disk capacity + Disk usage distribution); and the remove-broker
-     drain (brokers 0 and 100 killed) under the six hard goals (rack
-     awareness, replica capacity, the four resource capacities).  One
-     warm-up and one timed solve each, the kernels' launch counts of each
-     timed solve (every kernel the path reaches must be > 0; the
-     four-goal seed-2 counts go into the kernel JSON for K1-K6, config
-     5's for K7), self-healing's rounds and moves, the sanity / no offline
-     replica left / proposal-replay (new leaders included) /
+     they do; the whole default stack (the 15 goals of DEFAULT_GOAL_ORDER,
+     seed 4, 192 rounds) and the add-broker solve of bench config 4 (10
+     empty brokers appended) under it; BASELINE config 5 (4 logdirs per
+     broker, 4 broken, healed, then Disk capacity + Disk usage
+     distribution); and the remove-broker drain (brokers 0 and 100
+     killed) under the six hard goals.  One warm-up and one timed solve
+     each, the kernels' launch counts of each timed solve (every kernel
+     the path reaches must be > 0; the default stack's counts go into the
+     kernel JSON for K1-K6 and K8, config 5's for K7), self-healing's
+     rounds and moves, the per-goal violated counts, the sanity / no
+     offline replica left / proposal-replay (new leaders included) /
      cache-equals-rebuild / no-self-regression gates, and each solve but
      the first again on the port's CPU path: its proposals and final
      leader flags must equal the card's;
   4. scale, 2,600 brokers / 200K partitions / 26 racks / 100 topics: the
-     four-goal solve, config 5 (52 broken logdirs) and the six hard goals
-     with brokers 0, 100, ..., 2500 killed, with the same gates (no CPU
-     comparison).
-With --profile, one more four-goal solve and one more config-5 solve run
-under torch.profiler and the device's busy share and time by kernel are
+     whole default stack (bench.py's "north" preset), the four-goal solve,
+     config 5 (52 broken logdirs) and the six hard goals with brokers 0,
+     100, ..., 2500 killed, with the same gates (no CPU comparison); then
+     the widest rank_accept call of the run must be one phase 2 checked.
+With --profile, two more default-stack solves (with K8, then with
+rank_accept's plain version) and one more config-5 solve run under
+torch.profiler and the device's busy share and time by kernel are
 printed.
 
 Every phase that fails raises, so the run exits non-zero.  The line
@@ -82,6 +88,7 @@ REPLACES = {
     "commit_leadership": "cruise_control_tpu/analyzer/context.py:732",
     "sweep_pick": "cruise_control_tpu/analyzer/leadership.py:238",
     "forced_select": "cruise_control_tpu/analyzer/kernels.py:1235",
+    "rank_accept": "cruise_control_tpu/analyzer/kernels.py:145",
 }
 SOURCES = {
     "row_topk": "cruise_control_tpu_torch/csrc/row_topk.cu",
@@ -92,18 +99,27 @@ SOURCES = {
         "cruise_control_tpu_torch/csrc/commit_leadership.cu",
     "sweep_pick": "cruise_control_tpu_torch/csrc/sweep_pick.cu",
     "forced_select": "cruise_control_tpu_torch/csrc/forced_select.cu",
+    "rank_accept": "cruise_control_tpu_torch/csrc/rank_accept.cu",
 }
 #: the kernels each solve must launch: the leadership table rounds (K4)
-#: run only when a sweep leaves an over-limit broker
-TWO_GOAL_KERNELS = ("row_topk", "assign_pass", "commit_moves")
+#: run only when a sweep leaves an over-limit broker; every path runs
+#: multi-commit passes or sweeps, so K8 in all
+TWO_GOAL_KERNELS = ("row_topk", "assign_pass", "commit_moves", "rank_accept")
 FOUR_GOAL_KERNELS = ("row_topk", "assign_pass", "commit_moves",
-                     "leader_assign_pass", "commit_leadership", "sweep_pick")
+                     "leader_assign_pass", "commit_leadership", "sweep_pick",
+                     "rank_accept")
 SWEEP_ONLY_KERNELS = tuple(k for k in FOUR_GOAL_KERNELS
                            if k != "leader_assign_pass")
 #: self-healing selects with K7 and commits with K3 (table-less); the hard
 #: goals' rack awareness and capacity rounds pick with K1
-CONFIG5_KERNELS = ("forced_select", "commit_moves", "assign_pass")
-HARD_KERNELS = ("forced_select", "commit_moves", "assign_pass", "row_topk")
+CONFIG5_KERNELS = ("forced_select", "commit_moves", "assign_pass",
+                   "rank_accept")
+HARD_KERNELS = ("forced_select", "commit_moves", "assign_pass", "row_topk",
+                "rank_accept")
+#: the whole default stack: the leader-count goal's transfer rounds run K4
+STACK_KERNELS = FOUR_GOAL_KERNELS
+#: the widest rank_accept call phase 2 checks (C = R at 2,600 brokers)
+RANK_CHECKED_C = 600_000
 
 SLICE_SPEC = dict(num_brokers=200, num_partitions=20_000,
                   replication_factor=3, num_racks=8, num_topics=10, seed=4,
@@ -130,9 +146,10 @@ HARD_GOALS = ["RackAwareGoal", "ReplicaCapacityGoal", "DiskCapacityGoal",
 def path(spec: dict, goals, max_rounds=None, kill=()) -> dict:
     """A solve: the random cluster `spec` with the brokers `kill` killed
     (set_broker_state(alive=False), the bench's remove-broker drain),
-    optimized by `goals` (registry names) at `max_rounds`."""
-    return dict(spec=spec, goals=list(goals), max_rounds=max_rounds,
-                kill=tuple(kill))
+    optimized by `goals` (registry names; None is the whole default
+    order) at `max_rounds`."""
+    return dict(spec=spec, goals=None if goals is None else list(goals),
+                max_rounds=max_rounds, kill=tuple(kill))
 
 
 SLICE_TWO = path(SLICE_SPEC, TWO_GOALS)
@@ -149,6 +166,12 @@ NORTH_FOUR = path(NORTH_SPEC, FOUR_GOALS)
 NORTH_CONFIG5 = path(dict(NORTH_SPEC, jbod_disks=4, dead_disks=52),
                      CONFIG5_GOALS, 192)
 NORTH_HARD = path(NORTH_SPEC, HARD_GOALS, 192, kill=range(0, 2600, 100))
+#: the whole default stack (goals/registry.py DEFAULT_GOAL_ORDER, 15
+#: goals) as the bench's "north" / "3" presets run it, and the add-broker
+#: solve of bench.py's config 4 (max(1, B / 20) empty brokers appended)
+SLICE_STACK = path(SLICE_SPEC, None, 192)
+SLICE_ADD = path(dict(SLICE_SPEC, new_brokers=10), None, 192)
+NORTH_STACK = path(NORTH_SPEC, None, 192)
 
 
 def log(msg: str) -> None:
@@ -848,6 +871,121 @@ def check_sweep_pick(spec: dict, seed: int) -> dict:
                 bound_by=by, library_ms=None, shape=f"W={wn} RF={rf}")
 
 
+#: K8's cases (see _rank_inputs for what each plants)
+RANK_CASES = ("random", "all invalid", "one segment", "equal gains",
+              "signed zeros", "taken at cap", "mid-segment failure")
+
+
+def _rank_inputs(c: int, b: int, t: int, case: str, g):
+    """rank_accept's inputs at C candidates, B brokers and T terms for one
+    of RANK_CASES: (dest, gain, has, taken, cap, cum f32[T, B], d_w
+    f32[T, C], hr f32[T, B])."""
+    import torch
+    dev = "cuda"
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g, device=dev)
+
+    def ints(lo, hi, n):
+        return torch.randint(lo, hi, (n,), generator=g, device=dev,
+                             dtype=torch.int32)
+    # few destinations, so segments are long; quantized gains plant ties
+    dest = ints(0, min(b, max(1, c // 8) + 1), c)
+    gain = torch.round(rand(c) * 8.0) / 4.0
+    has = rand(c) < 0.85
+    taken = torch.where(rand(b) < 0.7, torch.zeros((), device=dev,
+                                                   dtype=torch.int32),
+                        ints(1, 4, b))
+    cap = ints(24, 65, b)
+    d_w = torch.round(rand(t, c) * 64.0) / 16.0
+    cum = torch.round(rand(t, b) * 16.0) / 4.0
+    hr = cum + rand(t, b) * 60.0
+    if case == "all invalid":
+        has = torch.zeros(c, dtype=torch.bool, device=dev)
+    elif case == "one segment":
+        dest = torch.full((c,), b // 2, dtype=torch.int32, device=dev)
+        cap = torch.full((b,), 1 << 30, dtype=torch.int32, device=dev)
+        hr = cum + 0.4 * c
+    elif case == "equal gains":
+        gain = torch.ones(c, device=dev)
+    elif case == "signed zeros":
+        gain = torch.where(rand(c) < 0.5, torch.zeros((), device=dev),
+                           torch.full((), -0.0, device=dev))
+    elif case == "taken at cap":
+        taken = torch.where(rand(b) < 0.5, cap, taken)
+    elif case == "mid-segment failure":
+        # one term crosses its headroom halfway down each segment
+        d_w = torch.ones((t, c), device=dev)
+        cum = torch.zeros((t, b), device=dev)
+        hr = torch.full((t, b), max(1.0, c / (2.0 * max(1, c // 8 + 1))),
+                        device=dev)
+        cap = torch.full((b,), 1 << 30, dtype=torch.int32, device=dev)
+    return dest, gain, has, taken, cap, cum, d_w, hr
+
+
+def check_rank_accept(seed: int) -> dict:
+    """K8 against rank_accept_plain on the card, exactly, at C = 1, 16,
+    17, 256, 257, 2048 and 4096 (B = 200 and 2600), T = 0, 1, 3 and 6, in
+    every case of RANK_CASES; then at the paths' widest calls (C = 4 B =
+    10,400, the rack goal's table branch and the capacity goals' fallback
+    at 2,600 brokers; 20,800; and C = R = 600,000) with T = 3.  Times per
+    call at C = 2048, T = 3, B = 200 (the record) and at C = 4096 and
+    10,400: the kernel alone (after the lexsort, terms pre-stacked), the
+    dispatch (sort, stacks and kernel) and the plain version."""
+    import torch
+    from cruise_control_tpu_torch import cuda_kernels
+    from cruise_control_tpu_torch.analyzer import kernels as K
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    shapes = [(c, b, t) for c in (1, 16, 17, 256, 257, 2048, 4096)
+              for b in (200, 2600) for t in (0, 1, 3, 6)]
+    shapes += [(10_400, 2600, 3), (20_800, 2600, 3), (600_000, 2600, 3)]
+    n_checked = 0
+    accepted = 0
+    for c, b, t in shapes:
+        for case in RANK_CASES:
+            dest, gain, has, taken, cap, cum, d_w, hr = _rank_inputs(
+                c, b, t, case, g)
+            got = K.rank_accept(dest, gain, has, b, taken, cap, list(cum),
+                                list(d_w), list(hr))
+            want = K.rank_accept_plain(dest, gain, has, b, taken, cap,
+                                       list(cum), list(d_w), list(hr))
+            torch.cuda.synchronize()
+            if not equal_exact(got, want):
+                bad = int((got != want).sum())
+                raise AssertionError(f"rank_accept C={c} B={b} T={t} case "
+                                     f"{case!r}: {bad} flags differ from the "
+                                     "plain version")
+            n_checked += 1
+            accepted += int(got.sum())
+    log(f"  rank_accept: exact match in all {n_checked} checks ({accepted} "
+        f"acceptances), C up to 600,000")
+    rec = None
+    for c, b, t in ((2048, 200, 3), (4096, 200, 3), (10_400, 2600, 3)):
+        dest, gain, has, taken, cap, cum, d_w, hr = _rank_inputs(
+            c, b, t, "random", g)
+        seg = torch.where(has, dest.long(), torch.full_like(dest, b).long())
+        order = K._lexsort_dest_gain(seg, gain)
+        args = (dest, gain, has, b, taken, cap, list(cum), list(d_w),
+                list(hr))
+        times = (graph_time_ms(lambda: cuda_kernels.rank_accept(
+                     order, dest, has, b, taken, cap, cum, d_w, hr)),
+                 graph_time_ms(lambda: K.rank_accept(*args)),
+                 graph_time_ms(lambda: K.rank_accept_plain(*args)))
+        # the order, destinations and flags, the T weight rows in, the
+        # flags out; per broker the counts and the T cumulants/headrooms
+        nbytes = c * (8 + 4 + 1 + 4 * t + 1) + b * (8 + 8 * t)
+        t_b, by = bound(nbytes, c * t * 4)
+        log(f"  rank_accept C={c} B={b} T={t}: device time per call: kernel "
+            f"{times[0]:.4f} ms, dispatch with the sort {times[1]:.4f} ms, "
+            f"plain {times[2]:.4f} ms; bound {t_b:.6f} ms ({by}, {nbytes} "
+            "bytes)")
+        if rec is None:
+            rec = dict(max_abs_err=0.0, ms=times[0], plain_ms=times[2],
+                       dispatch_ms=times[1], bound_ms=t_b, bound_by=by,
+                       library_ms=None, shape=f"C={c} B={b} T={t}")
+    return rec
+
+
 # ---------------------------------------------------------------------------
 # phases 3 and 4: the solve
 # ---------------------------------------------------------------------------
@@ -1068,10 +1206,25 @@ def run_slice(results: dict) -> None:
         "leave work for the leadership table rounds)")
     _, _, result, secs, launches = _timed_path(
         SLICE_MAIN, FOUR_GOAL_KERNELS, "four-goal main path")
-    for name in FOUR_GOAL_KERNELS:
-        results.setdefault(name, {})["launches"] = launches[name]
+    results["_launches_four"] = launches
     results["_slice_s"] = secs
     _card_equals_cpu(SLICE_MAIN, result, "four-goal main path")
+    log("  -- this slice's main path: the whole default stack (15 goals), "
+        "seed 4")
+    _, _, result, secs, launches = _timed_path(
+        SLICE_STACK, STACK_KERNELS, "default stack slice")
+    for name in STACK_KERNELS:
+        results.setdefault(name, {})["launches"] = launches[name]
+    results["_launches_stack"] = launches
+    results["_stack_s"] = secs
+    _card_equals_cpu(SLICE_STACK, result, "default stack slice")
+    log("  -- add-broker (bench config 4): 10 empty brokers appended, the "
+        "default stack")
+    _, _, result, secs, launches = _timed_path(
+        SLICE_ADD, STACK_KERNELS, "add-broker slice")
+    results["_launches_add"] = launches
+    results["_add_s"] = secs
+    _card_equals_cpu(SLICE_ADD, result, "add-broker slice")
     log("  -- this slice's main path: config 5 (JBOD, 4 broken logdirs) "
         "healed, then Disk capacity + Disk usage distribution")
     _, _, result, secs, launches = _timed_path(
@@ -1090,9 +1243,12 @@ def run_slice(results: dict) -> None:
     results["_identical"] = True
 
 
-def profile_slice(solve: dict, device: str = "cuda") -> None:
+def profile_slice(solve: dict, device: str = "cuda",
+                  plain_rank_accept: bool = False) -> None:
     """torch.profiler over one solve on the card: wall time, the device's
-    busy and idle share, and the device time by kernel."""
+    busy and idle share, and the device time by kernel.  With
+    `plain_rank_accept` the solve runs rank_accept's plain version in
+    place of K8 (to compare its host time per call)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -1130,8 +1286,16 @@ def profile_slice(solve: dict, device: str = "cuda") -> None:
                 return fn(*a, **kw)
         return labelled
 
-    with _wrapped(targets, wrap), profile(
-            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    swap = ([(K, "rank_accept")] if plain_rank_accept else [])
+    def to_plain(fn, name):
+        def plain(*a, **kw):
+            return K.rank_accept_plain(*a, **kw)
+        return plain
+
+    with _wrapped(swap, to_plain), \
+            _wrapped(targets, wrap), profile(
+                activities=[ProfilerActivity.CPU,
+                            ProfilerActivity.CUDA]) as prof:
         _, _, _, secs = _solve(solve, device)
     kernels, labels = [], []
     for evt in prof.key_averages():
@@ -1162,6 +1326,12 @@ def profile_slice(solve: dict, device: str = "cuda") -> None:
 def run_scale(results: dict) -> None:
     """The 2,600-broker solves, one each (no warm-up, no CPU run), with
     the same gates."""
+    _, _, result, secs, launches = _timed_path(
+        NORTH_STACK, STACK_KERNELS, "default stack north (15 goals), 2,600 "
+        "brokers", warm=False)
+    results["_north_stack_s"] = secs
+    results["_launches_north_stack"] = launches
+    results["_north_stack_balancedness"] = result.balancedness_score()
     _, _, _, secs, _ = _timed_path(NORTH_FOUR, SWEEP_ONLY_KERNELS,
                                    "four-goal north, 2,600 brokers",
                                    warm=False)
@@ -1213,7 +1383,16 @@ def main(argv=None) -> int:
                 or line.startswith("==")):
             log(f"    {line.strip()}")
 
+    t_run = time.time()
     results: dict = {}
+    widest = [0]
+
+    def widest_call(fn, name):
+        def call(order, *a, **kw):
+            widest[0] = max(widest[0], order.shape[0])
+            return fn(order, *a, **kw)
+        return call
+
     if 2 in phases:
         log("[2] kernels against their plain versions on the card, at the "
             "slice's shapes")
@@ -1226,6 +1405,7 @@ def main(argv=None) -> int:
                                                                seed=15)
         results["sweep_pick"] = check_sweep_pick(SLICE_SPEC, seed=16)
         results["forced_select"] = check_forced_select(SLICE_SPEC, seed=17)
+        results["rank_accept"] = check_rank_accept(seed=30)
         results["_commit_moves_tableless"] = check_commit_moves_tableless(
             SLICE_SPEC, seed=18)
         log("[2] K2 at the forced-move round's C = 4096, against the "
@@ -1245,19 +1425,31 @@ def main(argv=None) -> int:
                                                               seed=28)
         results["_commit_moves_tableless_north"] = \
             check_commit_moves_tableless(NORTH_SPEC, seed=29)
-    if 3 in phases:
-        log("[3] slice: 200 brokers, the two-goal path, config 2's four "
-            "goals, then config 5 and the six hard goals (self-healing)")
-        run_slice(results)
+    log(f"[t] {time.time() - t_run:.1f} s")
+    with _wrapped([(cuda_kernels, "rank_accept")], widest_call):
+        if 3 in phases:
+            log("[3] slice: 200 brokers, the two-goal path, config 2's four "
+                "goals, the default stack and the add-broker solve, then "
+                "config 5 and the six hard goals (self-healing)")
+            run_slice(results)
+            log(f"[t] {time.time() - t_run:.1f} s")
+        if 4 in phases:
+            log("[4] scale: the default stack, the four-goal solve, config 5 "
+                "and the six hard goals at 2,600 brokers / 200K partitions")
+            run_scale(results)
+            log(f"[t] {time.time() - t_run:.1f} s")
+    log(f"[4] the widest rank_accept call of the run: C = {widest[0]}")
+    if widest[0] > RANK_CHECKED_C:
+        raise AssertionError(f"a path called rank_accept at C = {widest[0]}, "
+                             f"wider than phase 2 checks ({RANK_CHECKED_C})")
     if args.profile:
-        log("[3p] profile of one four-goal slice solve on the card")
-        profile_slice(SLICE_MAIN)
+        log("[3p] profile of one default-stack slice solve on the card")
+        profile_slice(SLICE_STACK)
+        log("[3p] the same with rank_accept's plain version in place of K8")
+        profile_slice(SLICE_STACK, plain_rank_accept=True)
         log("[3p] profile of one config 5 slice solve on the card")
         profile_slice(SLICE_CONFIG5)
-    if 4 in phases:
-        log("[4] scale: the four-goal solve, config 5 and the six hard goals "
-            "at 2,600 brokers / 200K partitions")
-        run_scale(results)
+        log(f"[t] {time.time() - t_run:.1f} s")
 
     kernels = []
     for k in SOURCES:
@@ -1279,6 +1471,12 @@ def main(argv=None) -> int:
         "north_solve_s": results.get("_north_s"),
         "north_config5_solve_s": results.get("_north_config5_s"),
         "north_hard_solve_s": results.get("_north_hard_s"),
+        "stack_slice_solve_s": results.get("_stack_s"),
+        "add_broker_slice_solve_s": results.get("_add_s"),
+        "north_stack_solve_s": results.get("_north_stack_s"),
+        "north_stack_balancedness":
+            results.get("_north_stack_balancedness"),
+        "rank_accept_widest_c": widest[0],
         "card_cpu_identical": results.get("_identical"),
         "row_topk_deep": results.get("row_topk", {}).get("deep")}))
     log("[5] " + json.dumps({
@@ -1289,7 +1487,9 @@ def main(argv=None) -> int:
         "assign_pass_C4096": results.get("_assign_pass_4096")}))
     log("[5] launches by path: " + json.dumps({
         k: results.get(f"_launches_{k}") for k in (
-            "config5", "hard", "north_config5", "north_hard")}))
+            "four", "stack", "add", "config5", "hard", "north_stack",
+            "north_config5", "north_hard")}))
+    log("[5] rank_accept: " + json.dumps(results.get("rank_accept")))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

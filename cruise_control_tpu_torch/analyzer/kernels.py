@@ -11,12 +11,14 @@ functions are hand-written CUDA kernels on the card:
 * K2 `assign_pass` (csrc/assign_pass.cu), one pass of
   `assign_destinations`;
 * K7 `forced_select` (csrc/forced_select.cu), the candidate selection of
-  a table-less `forced_move_round`.
+  a table-less `forced_move_round`;
+* K8 `rank_accept` (csrc/rank_accept.cu), the multi-commit acceptance of
+  every assignment pass and of the leadership sweep.
 
 Their plain versions (`row_topk_plain`, `assign_pass_plain`,
-`forced_select_plain`) live here; a CPU tensor runs them.  The
-reference's `lax.cond` branches are host `if`s on a 0-d tensor (one sync
-each).
+`forced_select_plain`, `rank_accept_plain`) live here; a CPU tensor runs
+them.  The reference's `lax.cond` branches are host `if`s on a 0-d tensor
+(one sync each).
 """
 from __future__ import annotations
 
@@ -162,13 +164,13 @@ def _lexsort_dest_gain(seg: torch.Tensor, gain: torch.Tensor):
     return o1[ops.argsort_stable(seg[o1])]
 
 
-def rank_accept(dest, gain, has, num_b: int, taken_cnt, cap, cum_d, d_w,
-                hr_d) -> torch.Tensor:
-    """bool[C] — multi-arrival acceptance for one assignment pass: per
-    destination, candidates ranked by gain (ties by index) are accepted
-    as a prefix while the arrival count stays under `cap` and every
-    cumulative term stays within its headroom; the first arrival at a
-    still-virgin destination bypasses the terms."""
+def rank_accept_plain(dest, gain, has, num_b: int, taken_cnt, cap, cum_d,
+                      d_w, hr_d) -> torch.Tensor:
+    """Plain version of K8: bool[C] multi-arrival acceptance for one
+    assignment pass.  Per destination, candidates ranked by gain (ties by
+    index) are accepted as a prefix while the arrival count stays under
+    `cap` and every cumulative term stays within its headroom; the first
+    arrival at a still-virgin destination bypasses the terms."""
     c = dest.shape[0]
     dev = dest.device
     seg = torch.where(has, dest.long(), torch.full_like(dest, num_b).long())
@@ -197,6 +199,21 @@ def rank_accept(dest, gain, has, num_b: int, taken_cnt, cap, cum_d, d_w,
     out = torch.zeros((c,), dtype=torch.bool, device=dev)
     out[order] = ok & has[order]
     return out
+
+
+def rank_accept(dest, gain, has, num_b: int, taken_cnt, cap, cum_d, d_w,
+                hr_d) -> torch.Tensor:
+    """K8 dispatch: the plain version on the CPU; on the card the lexsort
+    (a torch sort) then csrc/rank_accept.cu for everything after it."""
+    if not dest.is_cuda:
+        return rank_accept_plain(dest, gain, has, num_b, taken_cnt, cap,
+                                 cum_d, d_w, hr_d)
+    from cruise_control_tpu_torch import cuda_kernels
+    seg = torch.where(has, dest.long(), torch.full_like(dest, num_b).long())
+    return cuda_kernels.rank_accept(
+        _lexsort_dest_gain(seg, gain), dest.to(torch.int32).contiguous(),
+        has.contiguous(), num_b, taken_cnt.to(torch.int32).contiguous(),
+        cap.to(torch.int32).contiguous(), cum_d, d_w, hr_d)
 
 
 def resolve_dest_conflicts(dest, gain, valid, num_brokers: int):

@@ -30,13 +30,13 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 SOURCES = ("row_topk.cu", "assign_pass.cu", "commit_moves.cu",
            "leader_assign.cu", "commit_leadership.cu", "sweep_pick.cu",
-           "forced_select.cu")
+           "forced_select.cu", "rank_accept.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES = {"row_topk": 0, "assign_pass": 0, "commit_moves": 0,
             "leader_assign_pass": 0, "commit_leadership": 0, "sweep_pick": 0,
-            "forced_select": 0}
+            "forced_select": 0, "rank_accept": 0}
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -118,9 +118,13 @@ def build() -> ctypes.CDLL:
         lib.cc_sweep_pick.argtypes = [_I, _I] + [_P] * 14 + [
             ctypes.c_float, _I] + [_P] * 4
         lib.cc_forced_select.argtypes = [_I] * 4 + [_P] * 14 + [_P]
+        lib.cc_rank_accept.argtypes = [_I] * 3 + [_P] * 13 + [_P]
+        lib.cc_rank_accept_level_floats.argtypes = [_I]
+        lib.cc_rank_accept_level_floats.restype = ctypes.c_longlong
         for fn in (lib.cc_row_topk, lib.cc_assign_pass, lib.cc_commit_moves,
                    lib.cc_leader_assign_pass, lib.cc_commit_leadership,
-                   lib.cc_sweep_pick, lib.cc_forced_select):
+                   lib.cc_sweep_pick, lib.cc_forced_select,
+                   lib.cc_rank_accept):
             fn.restype = ctypes.c_int
         BUILD_INFO.update(seconds=time.time() - t0, log="\n".join(log),
                           path=str(so))
@@ -523,3 +527,56 @@ def forced_select(forced: torch.Tensor, w: torch.Tensor,
     LAUNCHES["forced_select"] += 1
     _raise_on(err, "forced_select")
     return cand_r, cand_has, forced_ok
+
+
+def rank_accept(order: torch.Tensor, dest: torch.Tensor, has: torch.Tensor,
+                num_b: int, taken_cnt: torch.Tensor, cap: torch.Tensor,
+                cum_d, d_w, hr_d) -> torch.Tensor:
+    """K8 launch: bool[C] acceptance after the lexsort `order` (int64[C]).
+    `cum_d` / `hr_d` are T tensors f32[B] (or one f32[T, B]), `d_w` T
+    tensors f32[C] (or one f32[T, C]); lists are stacked here."""
+    lib = build()
+    c = order.shape[0]
+    n_terms = len(d_w)
+    if not (len(cum_d) == len(hr_d) == n_terms):
+        raise ValueError("rank_accept takes as many cumulants and headrooms "
+                         "as weights")
+    if num_b < 1 or c >= 2 ** 31 - 1:
+        raise ValueError(f"rank_accept takes B >= 1 and C < 2**31 - 1, got "
+                         f"B={num_b}, C={c}")
+    dev = order.device
+
+    def rows(x, n):
+        if isinstance(x, torch.Tensor):
+            return x
+        return (torch.stack(list(x)) if n_terms
+                else torch.empty((0, n), device=dev))
+    cum, dw, hr = rows(cum_d, num_b), rows(d_w, c), rows(hr_d, num_b)
+    for name, t, dt, shape in (
+            ("order", order, torch.int64, (c,)),
+            ("dest", dest, torch.int32, (c,)),
+            ("has", has, torch.bool, (c,)),
+            ("taken_cnt", taken_cnt, torch.int32, (num_b,)),
+            ("cap", cap, torch.int32, (num_b,)),
+            ("cum", cum, torch.float32, (n_terms, num_b)),
+            ("d_w", dw, torch.float32, (n_terms, c)),
+            ("hr", hr, torch.float32, (n_terms, num_b))):
+        _check(t, name, dt, shape)
+    out = torch.empty(c, dtype=torch.bool, device=dev)
+    if c > 4096:
+        levels = lib.cc_rank_accept_level_floats(c)
+        s_i = torch.empty(3 * c, dtype=torch.int32, device=dev)
+        s_ok = torch.empty(c, dtype=torch.bool, device=dev)
+        s_ws = torch.empty(max(n_terms * c, 1), device=dev)
+        s_cs = torch.empty(max(n_terms * levels, 1), device=dev)
+        scratch = [s_i.data_ptr(), s_ok.data_ptr(), s_ws.data_ptr(),
+                   s_cs.data_ptr()]
+    else:
+        scratch = [None] * 4
+    err = lib.cc_rank_accept(
+        c, num_b, n_terms, order.data_ptr(), dest.data_ptr(), has.data_ptr(),
+        taken_cnt.data_ptr(), cap.data_ptr(), cum.data_ptr(), dw.data_ptr(),
+        hr.data_ptr(), *scratch, out.data_ptr(), _stream())
+    LAUNCHES["rank_accept"] += 1
+    _raise_on(err, "rank_accept")
+    return out

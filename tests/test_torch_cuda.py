@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
 card, at the slice's shapes (marker `torch_cuda`).
 
-K7 (`forced_select`) and K3's table-less mode are held here too, and K2
-at the forced-move round's 4,096 candidates.
+K7 (`forced_select`) and K3's table-less mode are held here too, K2 at
+the forced-move round's 4,096 candidates, K8 (`rank_accept`) on both of
+its paths, and a short default-stack solve against the port's CPU path.
 
 Each test decides inside itself whether a card is present and skips
 with a reason when none is; run them on a machine with the card with
@@ -295,3 +296,52 @@ def test_forced_select_matches_plain(case):
                 assert _same(a, b)
     if case == "tail":
         assert 0 < int(want[2].sum()) < 4096
+
+
+@pytest.mark.parametrize("c", [17, 2048, 4096, 10_400])
+@pytest.mark.parametrize("t", [0, 3, 6])
+def test_rank_accept_matches_plain(c, t):
+    """K8 (one block up to C = 4096, the multi-launch path beyond) against
+    the plain version, exactly, with ties and mid-segment failures."""
+    _card()
+    rng = np.random.default_rng(c + t)
+    b = 2600 if c > 4096 else 200
+    dest = rng.integers(0, min(b, c // 8 + 1), c).astype(np.int32)
+    gain = (np.round(rng.random(c) * 8.0) / 4.0).astype(np.float32)
+    has = rng.random(c) < 0.85
+    taken = np.where(rng.random(b) < 0.7, 0,
+                     rng.integers(1, 4, b)).astype(np.int32)
+    cap = rng.integers(24, 65, b).astype(np.int32)
+    d_w = (np.round(rng.random((t, c)) * 64.0) / 16.0).astype(np.float32)
+    cum = (np.round(rng.random((t, b)) * 16.0) / 4.0).astype(np.float32)
+    hr = (cum + rng.random((t, b)) * 30.0).astype(np.float32)
+    cu = [torch.from_numpy(x).cuda() for x in (dest, gain, has, taken, cap,
+                                               cum, d_w, hr)]
+    args = cu[:3] + [b] + cu[3:5] + [list(cu[5]), list(cu[6]), list(cu[7])]
+    got = K.rank_accept(*args)
+    want = K.rank_accept_plain(*args)
+    torch.cuda.synchronize()
+    assert _same(got, want)
+    assert bool(got.any())
+
+
+def test_default_stack_solve_on_the_card_equals_the_cpu_path():
+    """A short default-stack solve (the 15 goals, 16 rounds) on a
+    48-broker cluster: the card's proposals and final leader flags equal
+    the port's CPU path's."""
+    _card()
+    from cruise_control_tpu_torch.analyzer.goals.registry import \
+        default_goals
+    from cruise_control_tpu_torch.analyzer.optimizer import (GoalOptimizer,
+                                                             proposal_set)
+    spec = dict(num_brokers=48, num_partitions=1500, replication_factor=3,
+                num_racks=8, num_topics=8, seed=4, skew_fraction=0.2)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        st, topo = random_cluster(RandomClusterSpec(**spec), device=dev)
+        out[dev] = GoalOptimizer(default_goals(16)).optimizations(
+            st, topo, device=dev)
+    assert proposal_set(out["cuda"]) == proposal_set(out["cpu"])
+    assert torch.equal(out["cuda"].final_state.replica_is_leader.cpu(),
+                       out["cpu"].final_state.replica_is_leader)
+    assert out["cuda"].rounds_by_goal == out["cpu"].rounds_by_goal
