@@ -7,7 +7,7 @@ Run from the repository root on a machine with one CUDA card:
 
 Phases:
   1. the card's name and power limit (nvidia-smi), then the build of the
-     port's eight CUDA kernels from csrc/ (one nvcc per source, started
+     port's eleven CUDA kernels from csrc/ (one nvcc per source, started
      together, with nvcc's resource report);
   2. each kernel against its plain PyTorch version on the card at the
      slice's shapes and again at the 2,600-broker shapes of phase 4
@@ -22,11 +22,17 @@ Phases:
      4096, with 0.5 % forced, equal weights, fewer forced than k and every
      replica forced (and its guard-only launch), K8 at C = 1 to 4096 (B =
      200 and 2600, T = 0 to 6 terms) in seven cases and at C = 10,400,
-     20,800 and 600,000.  Device times per call (20 calls captured in a
-     CUDA graph, median of 5 replays timed with CUDA events; K3 and K5
-     also without the wrapper's copies of the cache planes) beside the
-     bound for the bytes the function needs and a one-call PyTorch
-     yardstick where one exists;
+     20,800 and 600,000, K9 at n = 2048 and 4096 and at R = 60,000 into
+     800 and 600,000 into 10,400 segments (ties, -0.0 against +0.0, empty
+     and all-invalid segments, NEG and -inf scores, out-of-range ids), K10
+     at H = C = 128 with tied improvements, with and without the band and
+     with an all-False acceptance plane, and K11's plane at C = 2048 x K =
+     200 and 256 and C = 4096 x K = 2600 (sibling rows with -1) and its
+     guard on candidates and on every replica.  Device times per call (20
+     calls captured in a CUDA graph, median of 5 replays timed with CUDA
+     events; K3 and K5 also without the wrapper's copies of the cache
+     planes) beside the bound for the bytes the function needs and a
+     one-call PyTorch yardstick where one exists;
   3. the slice geometry (200 brokers / 20K partitions / rf 3, 8 racks, 10
      topics, skew 0.2, default options): the disk + network-inbound solve
      of the first slice (seed 4); config 2 whole — Disk, NwIn, NwOut and
@@ -37,25 +43,32 @@ Phases:
      seed 4, 192 rounds) and the add-broker solve of bench config 4 (10
      empty brokers appended) under it; BASELINE config 5 (4 logdirs per
      broker, 4 broken, healed, then Disk capacity + Disk usage
-     distribution); and the remove-broker drain (brokers 0 and 100
-     killed) under the six hard goals.  One warm-up and one timed solve
+     distribution); the remove-broker drain (brokers 0 and 100 killed)
+     under the six hard goals; then the request modes: demote brokers 0
+     and 100 (preferred leader election), the kafka-assigner goal order,
+     and the intra-broker goals on config 5's geometry without load skew,
+     without and with 4 broken logdirs.  One warm-up and one timed solve
      each, the kernels' launch counts of each timed solve (every kernel
      the path reaches must be > 0; the default stack's counts go into the
-     kernel JSON for K1-K6 and K8, config 5's for K7), self-healing's
-     rounds and moves, the per-goal violated counts, the sanity / no
-     offline replica left / proposal-replay (new leaders included) /
-     cache-equals-rebuild / no-self-regression gates, and each solve but
-     the first again on the port's CPU path: its proposals and final
-     leader flags must equal the card's;
+     kernel JSON, the kafka-assigner solve's for K10 if the stack runs no
+     swap round, config 5's for K7), self-healing's rounds and moves, the
+     per-goal violated counts, the sanity / no offline replica left /
+     proposal-replay (new leaders included) / cache-equals-rebuild /
+     no-self-regression gates (and for the intra-broker solves no alive
+     logdir above 0.8 of its capacity), and each solve but the first
+     again on the port's CPU path: its proposals (logdirs included) and
+     final leader flags must equal the card's;
   4. scale, 2,600 brokers / 200K partitions / 26 racks / 100 topics: the
      whole default stack (bench.py's "north" preset), the four-goal solve,
-     config 5 (52 broken logdirs) and the six hard goals with brokers 0,
-     100, ..., 2500 killed, with the same gates (no CPU comparison); then
-     the widest rank_accept call of the run must be one phase 2 checked.
+     config 5 (52 broken logdirs), the six hard goals with brokers 0,
+     100, ..., 2500 killed, and the three modes (26 brokers demoted, the
+     kafka-assigner order, the intra-broker goals on 4 logdirs per
+     broker), with the same gates (no CPU comparison); then the widest
+     rank_accept call of the run must be one phase 2 checked.
 With --profile, two more default-stack solves (with K8, then with
-rank_accept's plain version) and one more config-5 solve run under
-torch.profiler and the device's busy share and time by kernel are
-printed.
+rank_accept's plain version) and one more config-5, kafka-assigner and
+intra-broker solve each run under torch.profiler and the device's busy
+share and time by kernel are printed.
 
 Every phase that fails raises, so the run exits non-zero.  The line
 before the last is the kernel JSON; the last line is the device JSON.
@@ -89,6 +102,9 @@ REPLACES = {
     "sweep_pick": "cruise_control_tpu/analyzer/leadership.py:238",
     "forced_select": "cruise_control_tpu/analyzer/kernels.py:1235",
     "rank_accept": "cruise_control_tpu/analyzer/kernels.py:145",
+    "segment_argmax": "cruise_control_tpu/analyzer/kernels.py:31",
+    "swap_pair": "cruise_control_tpu/analyzer/kernels.py:1376",
+    "dest_feasibility": "cruise_control_tpu/analyzer/kernels.py:208",
 }
 SOURCES = {
     "row_topk": "cruise_control_tpu_torch/csrc/row_topk.cu",
@@ -100,24 +116,41 @@ SOURCES = {
     "sweep_pick": "cruise_control_tpu_torch/csrc/sweep_pick.cu",
     "forced_select": "cruise_control_tpu_torch/csrc/forced_select.cu",
     "rank_accept": "cruise_control_tpu_torch/csrc/rank_accept.cu",
+    "segment_argmax": "cruise_control_tpu_torch/csrc/segment_argmax.cu",
+    "swap_pair": "cruise_control_tpu_torch/csrc/swap_pair.cu",
+    "dest_feasibility": "cruise_control_tpu_torch/csrc/dest_feasibility.cu",
 }
 #: the kernels each solve must launch: the leadership table rounds (K4)
 #: run only when a sweep leaves an over-limit broker; every path runs
-#: multi-commit passes or sweeps, so K8 in all
-TWO_GOAL_KERNELS = ("row_topk", "assign_pass", "commit_moves", "rank_accept")
+#: multi-commit passes or sweeps, so K8 in all; every move round resolves
+#: its conflicts with K9 and builds its destination plane with K11
+MOVE_KERNELS = ("segment_argmax", "dest_feasibility")
+TWO_GOAL_KERNELS = ("row_topk", "assign_pass", "commit_moves",
+                    "rank_accept") + MOVE_KERNELS
 FOUR_GOAL_KERNELS = ("row_topk", "assign_pass", "commit_moves",
                      "leader_assign_pass", "commit_leadership", "sweep_pick",
-                     "rank_accept")
+                     "rank_accept") + MOVE_KERNELS
 SWEEP_ONLY_KERNELS = tuple(k for k in FOUR_GOAL_KERNELS
                            if k != "leader_assign_pass")
 #: self-healing selects with K7 and commits with K3 (table-less); the hard
 #: goals' rack awareness and capacity rounds pick with K1
 CONFIG5_KERNELS = ("forced_select", "commit_moves", "assign_pass",
-                   "rank_accept")
+                   "rank_accept") + MOVE_KERNELS
 HARD_KERNELS = ("forced_select", "commit_moves", "assign_pass", "row_topk",
-                "rank_accept")
+                "rank_accept") + MOVE_KERNELS
 #: the whole default stack: the leader-count goal's transfer rounds run K4
 STACK_KERNELS = FOUR_GOAL_KERNELS
+#: the kafka-assigner mode: the rack rounds and the count-evening pass
+#: (K1, K2, K3, K9, K11), then swap rounds (K10, K3); demote runs none of
+#: the hand kernels (preferred leader election is one batched pass of
+#: torch ops); the intra-broker goals pick with K9 only, and after broken
+#: logdirs self-healing adds K7, K3 and K11
+KAFKA_ASSIGNER_KERNELS = ("row_topk", "assign_pass", "commit_moves",
+                          "swap_pair") + MOVE_KERNELS
+DEMOTE_KERNELS = ()
+INTRA_KERNELS = ("segment_argmax",)
+INTRA_BROKEN_KERNELS = ("segment_argmax", "forced_select", "commit_moves",
+                        "dest_feasibility")
 #: the widest rank_accept call phase 2 checks (C = R at 2,600 brokers)
 RANK_CHECKED_C = 600_000
 
@@ -141,15 +174,26 @@ CONFIG5_GOALS = ["DiskCapacityGoal", "DiskUsageDistributionGoal"]
 HARD_GOALS = ["RackAwareGoal", "ReplicaCapacityGoal", "DiskCapacityGoal",
               "NetworkInboundCapacityGoal", "NetworkOutboundCapacityGoal",
               "CpuCapacityGoal"]
+#: the request modes beside the default stack (goals/registry.py): demote
+#: brokers, kafka_assigner=true, and the intra-broker (JBOD) rebalance
+DEMOTE_GOALS = ["PreferredLeaderElectionGoal"]
+KAFKA_ASSIGNER_GOALS = ["KafkaAssignerEvenRackAwareGoal",
+                        "KafkaAssignerDiskUsageDistributionGoal"]
+INTRA_GOALS = ["IntraBrokerDiskCapacityGoal",
+               "IntraBrokerDiskUsageDistributionGoal"]
 
 
-def path(spec: dict, goals, max_rounds=None, kill=()) -> dict:
+def path(spec: dict, goals, max_rounds=None, kill=(), demote=(),
+         broken=()) -> dict:
     """A solve: the random cluster `spec` with the brokers `kill` killed
-    (set_broker_state(alive=False), the bench's remove-broker drain),
-    optimized by `goals` (registry names; None is the whole default
-    order) at `max_rounds`."""
+    (set_broker_state(alive=False), the bench's remove-broker drain), the
+    brokers `demote` demoted (set_broker_state(demoted=True), the
+    demote-broker request) and the logdirs `broken` marked dead
+    (mark_disk_dead), optimized by `goals` (registry names; None is the
+    whole default order) at `max_rounds`."""
     return dict(spec=spec, goals=None if goals is None else list(goals),
-                max_rounds=max_rounds, kill=tuple(kill))
+                max_rounds=max_rounds, kill=tuple(kill),
+                demote=tuple(demote), broken=tuple(broken))
 
 
 SLICE_TWO = path(SLICE_SPEC, TWO_GOALS)
@@ -172,6 +216,23 @@ NORTH_HARD = path(NORTH_SPEC, HARD_GOALS, 192, kill=range(0, 2600, 100))
 SLICE_STACK = path(SLICE_SPEC, None, 192)
 SLICE_ADD = path(dict(SLICE_SPEC, new_brokers=10), None, 192)
 NORTH_STACK = path(NORTH_SPEC, None, 192)
+#: the three request modes: demote brokers 0 and 100 (0, 100, ..., 2500
+#: at 2,600 brokers); the kafka-assigner goal order; the intra-broker
+#: goals on config 5's JBOD geometry (4 logdirs per broker) without load
+#: skew -- a skewed broker above 0.8 of its whole logdir capacity cannot
+#: be fixed by moves inside it, and the hard intra-broker capacity goal
+#: then aborts the solve, in the reference as in the port -- without and
+#: with config 5's max(1, B / 50) = 4 broken logdirs, one per 50 brokers
+JBOD_SPEC = dict(SLICE_SPEC, skew_fraction=0.0, jbod_disks=4)
+SLICE_DEMOTE = path(SLICE_SPEC, DEMOTE_GOALS, demote=(0, 100))
+SLICE_KAFKA_ASSIGNER = path(SLICE_SPEC, KAFKA_ASSIGNER_GOALS)
+SLICE_INTRA = path(JBOD_SPEC, INTRA_GOALS)
+SLICE_INTRA_BROKEN = path(JBOD_SPEC, INTRA_GOALS,
+                          broken=(0, 4 * 50, 4 * 100, 4 * 150))
+NORTH_DEMOTE = path(NORTH_SPEC, DEMOTE_GOALS, demote=range(0, 2600, 100))
+NORTH_KAFKA_ASSIGNER = path(NORTH_SPEC, KAFKA_ASSIGNER_GOALS)
+NORTH_INTRA = path(dict(NORTH_SPEC, skew_fraction=0.0, jbod_disks=4),
+                   INTRA_GOALS)
 
 
 def log(msg: str) -> None:
@@ -986,6 +1047,233 @@ def check_rank_accept(seed: int) -> dict:
     return rec
 
 
+def _argmax_inputs(n: int, s: int, g):
+    """K9's inputs at n elements into s segments: quantized scores (many
+    ties) with -0.0 against +0.0, NEG and -inf scores, a run of
+    out-of-range and negative ids, an all-invalid segment (1) and empty
+    segments (ids drawn from the lower nine tenths)."""
+    import torch
+    from cruise_control_tpu_torch.analyzer import kernels as K
+    dev = "cuda"
+
+    def rand(m):
+        return torch.rand(m, generator=g, device=dev)
+    score = torch.round(rand(n) * 6.0) / 2.0 - 1.0
+    score = torch.where(rand(n) < 0.1, torch.full((), -0.0, device=dev),
+                        score)
+    score = torch.where(rand(n) < 0.05, torch.full((), K.NEG, device=dev),
+                        score)
+    score[: min(n, 3)] = torch.tensor([-float("inf"), K.NEG / 2, K.NEG / 4],
+                                      device=dev)[: min(n, 3)]
+    hi = max(1, (s * 9) // 10)
+    seg = torch.randint(0, hi, (n,), generator=g, device=dev,
+                        dtype=torch.int32)
+    seg[: min(n, 16)] = torch.arange(-8, 8, device=dev,
+                                     dtype=torch.int32)[: min(n, 16)] * s
+    valid = (rand(n) < 0.8) & (seg != 1)
+    return score, seg, valid
+
+
+def check_segment_argmax(seed: int) -> dict:
+    """K9 against per_segment_argmax_plain on the card, exactly (max with
+    ==, so -0.0 equals +0.0), at the conflict-resolution widths (n = 2048
+    and 4096 into 200 and 4096 segments), at R = 60,000 into 800 and at
+    R = 600,000 into 10,400 (the intra-broker candidate pick at 2,600
+    brokers x 4 logdirs).  The record of n = 2048 into 200 segments."""
+    import torch
+    from cruise_control_tpu_torch import cuda_kernels
+    from cruise_control_tpu_torch.analyzer import kernels as K
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rec = None
+    for n, s in ((2048, 200), (4096, 4096), (60_000, 800),
+                 (600_000, 10_400)):
+        score, seg, valid = _argmax_inputs(n, s, g)
+        got = cuda_kernels.segment_argmax(score, seg, valid, s)
+        want = K.per_segment_argmax_plain(score, seg, s, valid)
+        torch.cuda.synchronize()
+        if not (equal_exact(got[0], want[0]) and equal_exact(got[2], want[2])
+                and bool(torch.equal(got[1], want[1]))):
+            raise AssertionError(f"segment_argmax n={n} S={s}: differs from "
+                                 "the plain version")
+        n_has = int(got[2].sum())
+        if not 0 < n_has < s:
+            raise AssertionError(f"segment_argmax n={n} S={s}: {n_has} "
+                                 "segments with a winner, not between 0 "
+                                 "and S")
+        t = (graph_time_ms(lambda: cuda_kernels.segment_argmax(
+                 score, seg, valid, s)),
+             graph_time_ms(lambda: K.per_segment_argmax_plain(
+                 score, seg, s, valid)))
+        # each element's score, id and flag in; each segment's id, max and
+        # flag out
+        nbytes = n * 9 + s * 9
+        t_b, by = bound(nbytes, n)
+        log(f"  segment_argmax n={n} S={s}: exact match ({n_has} segments "
+            f"with a winner); device time per call: kernel {t[0]:.4f} ms, "
+            f"plain {t[1]:.4f} ms; bound {t_b:.6f} ms ({nbytes} bytes); "
+            "library call: none")
+        if rec is None:
+            rec = dict(max_abs_err=0.0, ms=t[0], plain_ms=t[1], bound_ms=t_b,
+                       bound_by=by, library_ms=None, shape=f"n={n} S={s}")
+    return rec
+
+
+def check_swap_pair(spec: dict, seed: int) -> dict:
+    """K10 against swap_pair_plain on the card at H = C = min(128, B) of
+    the cluster `spec`, exactly, with quantized loads and deviations (tied
+    improvements): no band, the lower / upper band, and an acceptance
+    plane that refuses everything.  The record of the no-band case."""
+    import torch
+    from cruise_control_tpu_torch import cuda_kernels
+    from cruise_control_tpu_torch.analyzer import context as C
+    from cruise_control_tpu_torch.analyzer import kernels as K
+    from cruise_control_tpu_torch.testing.random_cluster import (
+        RandomClusterSpec, random_cluster)
+    state, _ = random_cluster(RandomClusterSpec(**spec))
+    ctx = C.make_context(state, C.BalancingConstraint(),
+                         C.OptimizationOptions())
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    nb, num_r = state.num_brokers, state.num_replicas
+    pr = ctx.partition_replicas
+    h = min(K.SWAP_SHORTLIST, nb)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g, device="cuda")
+    # two shortlists over the same brokers, overlapping as the swap
+    # round's two top-k lists may
+    h_ids, c_ids = (torch.randperm(nb, generator=g, device="cuda")[:h].to(
+        torch.int32) for _ in range(2))
+    out_r = torch.randint(-1, num_r, (nb,), generator=g, device="cuda",
+                          dtype=torch.int32)
+    in_r = torch.randint(-1, num_r, (nb,), generator=g, device="cuda",
+                         dtype=torch.int32)
+    w = torch.round(rand(num_r) * 8.0)
+    dev_u = torch.round(rand(nb) * 16.0) - 8.0
+    util = rand(nb) * 50.0
+    out_has, in_has, hot, cold = (rand(nb) < p for p in (0.9, 0.9, 0.7, 0.7))
+    rec = None
+    for case in ("no band", "band", "refuse all"):
+        accept = rand(h, h) < (0.0 if case == "refuse all" else 0.8)
+        band = case == "band"
+        args = (h_ids, c_ids, out_r, in_r, out_has, in_has, hot, cold, w,
+                dev_u, util, util - 20.0 if band else None,
+                util + 20.0 if band else None, accept,
+                state.replica_partition, pr, state.replica_broker)
+        got = cuda_kernels.swap_pair(*args)
+        want = K.swap_pair_plain(*args)
+        torch.cuda.synchronize()
+        if not (equal_exact(got[0], want[0])
+                and equal_exact(got[1].long(), want[1])):
+            raise AssertionError(f"swap_pair H={h} {case}: differs from the "
+                                 "plain version")
+        n_sel = int((got[0] > K.NEG / 2).sum())
+        if (n_sel == 0) != (case == "refuse all"):
+            raise AssertionError(f"swap_pair {case}: {n_sel} rows with a "
+                                 "feasible pair")
+        t = (graph_time_ms(lambda: cuda_kernels.swap_pair(*args)),
+             graph_time_ms(lambda: K.swap_pair_plain(*args)))
+        rf = pr.shape[1]
+        # the acceptance plane; per row and column a broker id, a replica
+        # id, four flags, weight, deviation, utilization and band, the
+        # replica's partition and its RF sibling ids and brokers; two
+        # outputs per row
+        nbytes = h * h + 2 * h * (4 + 4 + 4 + 4 + 4 + 4 + 4 + 4 + 8 * rf) \
+            + h * 8
+        t_b, by = bound(nbytes, h * h * 16)
+        log(f"  swap_pair H=C={h} (B={nb}) {case}: exact match ({n_sel} rows "
+            f"with a pair); device time per call: kernel {t[0]:.4f} ms, "
+            f"plain {t[1]:.4f} ms; bound {t_b:.6f} ms ({by}); library "
+            "call: none")
+        if rec is None:
+            rec = dict(max_abs_err=0.0, ms=t[0], plain_ms=t[1], bound_ms=t_b,
+                       bound_by=by, library_ms=None,
+                       shape=f"H=C={h} {case}")
+    return rec
+
+
+def check_dest_feasibility(spec: dict, widths, seed: int) -> dict:
+    """K11 against its plain versions on the card, exactly: the plane
+    entry at C x K for each (C, K) in `widths` (a shortlist of K brokers,
+    or every broker), with and without the sibling test, on partitions
+    whose sibling rows carry -1 (rf below the widest); the guard entry on
+    C candidates and on every replica.  The record of the first plane."""
+    import torch
+    from cruise_control_tpu_torch import cuda_kernels
+    from cruise_control_tpu_torch.analyzer import context as C
+    from cruise_control_tpu_torch.analyzer import kernels as K
+    from cruise_control_tpu_torch.testing.random_cluster import (
+        RandomClusterSpec, random_cluster)
+    state, _ = random_cluster(RandomClusterSpec(**spec))
+    ctx = C.make_context(state, C.BalancingConstraint(),
+                         C.OptimizationOptions())
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    nb, num_r = state.num_brokers, state.num_replicas
+    # every third partition loses its last replica: -1 in its sibling row
+    pr = ctx.partition_replicas.clone()
+    pr[::3, -1] = -1
+    rf = pr.shape[1]
+    dest_ok = torch.rand(nb, generator=g, device="cuda") < 0.85
+    rb, rp = state.replica_broker, state.replica_partition
+    rec = None
+    for c, k in widths:
+        cand = torch.randperm(num_r, generator=g, device="cuda")[:c].to(
+            torch.int32)
+        dest_ids = (torch.randperm(nb, generator=g, device="cuda")[:k]
+                    if k < nb else torch.arange(nb, device="cuda")).to(
+                        torch.int32)
+        for rows in (pr, None):
+            args = (cand, dest_ids, dest_ok, rb, rp, rows)
+            got = cuda_kernels.dest_feasibility(*args)
+            want = K.dest_struct_plain(*args)
+            torch.cuda.synchronize()
+            if not equal_exact(got, want):
+                raise AssertionError(f"dest_feasibility C={c} K={k} siblings="
+                                     f"{rows is not None}: differs from the "
+                                     "plain version")
+        args = (cand, dest_ids, dest_ok, rb, rp, pr)
+        t = (graph_time_ms(lambda: cuda_kernels.dest_feasibility(*args)),
+             graph_time_ms(lambda: K.dest_struct_plain(*args)))
+        # the plane out; per candidate its id, broker, partition and RF
+        # sibling ids and brokers; per destination its id and flag
+        nbytes = c * k + c * (4 + 4 + 4 + 8 * rf) + k * 5
+        t_b, by = bound(nbytes, c * k * (rf + 2))
+        log(f"  dest_feasibility plane C={c} K={k}: exact match with and "
+            f"without the sibling test ({int(want.sum())} feasible); "
+            f"device time per call: kernel {t[0]:.4f} ms, plain "
+            f"{t[1]:.4f} ms; bound {t_b:.6f} ms ({by}); library call: none")
+        if rec is None:
+            rec = dict(max_abs_err=0.0, ms=t[0], plain_ms=t[1], bound_ms=t_b,
+                       bound_by=by, library_ms=None, shape=f"C={c} K={k}")
+    w = state.replica_base_load[:, 3].contiguous()
+    room = torch.rand(nb, generator=g, device="cuda") * float(
+        torch.median(w)) * 2.0
+    top_b, top_h = K.top_headroom(dest_ok, room, rf)
+    top_b = top_b.to(torch.int32).contiguous()
+    for c in (widths[0][0], None):
+        cand = (None if c is None else torch.randperm(
+            num_r, generator=g, device="cuda")[:c].to(torch.int32))
+        w_c = w if cand is None else w[cand.long()].contiguous()
+        args = (cand, w_c, top_b, top_h, rb, rp, pr)
+        got = cuda_kernels.dest_has(*args)
+        want = K.dest_has_plain(*args)
+        torch.cuda.synchronize()
+        n = w_c.shape[0]
+        if not equal_exact(got, want) or not 0 < int(got.sum()) < n:
+            raise AssertionError(f"dest_feasibility guard C={n}: differs "
+                                 "from the plain version or is uniform")
+        t = (graph_time_ms(lambda: cuda_kernels.dest_has(*args)),
+             graph_time_ms(lambda: K.dest_has_plain(*args)))
+        nbytes = n * (4 + 4 + 4 + 8 * rf + 1) + top_b.numel() * 8
+        t_b, _ = bound(nbytes, n * rf * top_b.numel())
+        log(f"  dest_feasibility guard C={n} (k={top_b.numel()}): exact "
+            f"match ({int(got.sum())} with a destination); device time per "
+            f"call: kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms; bound "
+            f"{t_b:.6f} ms")
+        rec.setdefault("guard", {})[n] = dict(ms=t[0], plain_ms=t[1],
+                                              bound_ms=t_b)
+    return rec
+
+
 # ---------------------------------------------------------------------------
 # phases 3 and 4: the solve
 # ---------------------------------------------------------------------------
@@ -1005,6 +1293,10 @@ def _solve(solve: dict, device: str):
                                  device=device)
     for b in solve["kill"]:
         state = S.set_broker_state(state, b, alive=False)
+    for b in solve["demote"]:
+        state = S.set_broker_state(state, b, demoted=True)
+    for d in solve["broken"]:
+        state = S.mark_disk_dead(state, d)
     goals = default_goals(solve["max_rounds"], solve["goals"])
     if device == "cuda":
         torch.cuda.synchronize()
@@ -1171,7 +1463,8 @@ def _card_equals_cpu(solve: dict, result, label: str) -> None:
     torch.set_num_threads(min(8, os.cpu_count() or 1))
     _, _, cpu_result, cpu_s = _solve(solve, "cpu")
     _report(f"{label}, port on the CPU", cpu_result, cpu_s)
-    same = proposal_set(cpu_result) == proposal_set(result)
+    same = (proposal_set(cpu_result) == proposal_set(result)
+            and _logdir_moves(cpu_result) == _logdir_moves(result))
     same_leaders = bool(torch.equal(
         cpu_result.final_state.replica_is_leader,
         result.final_state.replica_is_leader.cpu()))
@@ -1191,6 +1484,65 @@ def _card_equals_cpu(solve: dict, result, label: str) -> None:
             f"commits, CPU {len(cpu_log)})")
         raise AssertionError(f"the card's {label} solve differs from the "
                              "port's CPU path")
+
+
+def _logdir_moves(result) -> set:
+    """{(partition, old (broker, logdir)s, new (broker, logdir)s)} of a
+    result's proposals."""
+    return {(p.partition,
+             tuple((r.broker_id, r.logdir) for r in p.old_replicas),
+             tuple((r.broker_id, r.logdir) for r in p.new_replicas))
+            for p in result.proposals}
+
+
+def _logdir_gate(result, threshold: float = 0.8) -> None:
+    """No alive logdir above `threshold` of its capacity, tested as the
+    intra-broker capacity goal tests it (load > capacity * threshold)."""
+    import torch
+    from cruise_control_tpu_torch.model import state as S
+    st = result.final_state
+    load = S.disk_load(st)
+    over = st.disk_alive & (load > st.disk_capacity * threshold)
+    fill = load / torch.clamp_min(st.disk_capacity, 1e-9)
+    worst = float(torch.max(torch.where(st.disk_alive, fill,
+                                        torch.zeros_like(fill))))
+    if bool(torch.any(over)):
+        raise AssertionError(f"{int(over.sum())} alive logdirs end above "
+                             f"{threshold} of their capacity (worst "
+                             f"{worst:.6f})")
+    log(f"    no alive logdir above {threshold} of its capacity (worst "
+        f"{worst:.4f}): ok")
+
+
+def run_modes(results: dict, north: bool) -> None:
+    """The three request modes beside the default stack: demote brokers,
+    the kafka-assigner goal order and the intra-broker rebalance (at 200
+    brokers twice, without and with broken logdirs).  At 200 brokers a
+    warm-up, a timed solve and the CPU comparison each; at 2,600 one
+    timed solve each."""
+    tag = "north_" if north else ""
+    where = "2,600 brokers" if north else "slice"
+    cases = ((NORTH_DEMOTE, DEMOTE_KERNELS, "demote", "demote 26 brokers"),
+             (NORTH_KAFKA_ASSIGNER, KAFKA_ASSIGNER_KERNELS, "kafka_assigner",
+              "kafka-assigner"),
+             (NORTH_INTRA, INTRA_KERNELS, "intra", "intra-broker")) if north \
+        else ((SLICE_DEMOTE, DEMOTE_KERNELS, "demote",
+               "demote brokers 0 and 100"),
+              (SLICE_KAFKA_ASSIGNER, KAFKA_ASSIGNER_KERNELS,
+               "kafka_assigner", "kafka-assigner"),
+              (SLICE_INTRA, INTRA_KERNELS, "intra", "intra-broker"),
+              (SLICE_INTRA_BROKEN, INTRA_BROKEN_KERNELS, "intra_broken",
+               "intra-broker, 4 broken logdirs"))
+    for solve, kernels, key, label in cases:
+        log(f"  -- {label} ({where})")
+        _, _, result, secs, launches = _timed_path(
+            solve, kernels, f"{label} {where}", warm=not north)
+        if solve["goals"] == INTRA_GOALS:
+            _logdir_gate(result)
+        results[f"_{tag}{key}_s"] = secs
+        results[f"_launches_{tag}{key}"] = launches
+        if not north:
+            _card_equals_cpu(solve, result, f"{label} {where}")
 
 
 def run_slice(results: dict) -> None:
@@ -1213,7 +1565,7 @@ def run_slice(results: dict) -> None:
         "seed 4")
     _, _, result, secs, launches = _timed_path(
         SLICE_STACK, STACK_KERNELS, "default stack slice")
-    for name in STACK_KERNELS:
+    for name in STACK_KERNELS + ("swap_pair",):
         results.setdefault(name, {})["launches"] = launches[name]
     results["_launches_stack"] = launches
     results["_stack_s"] = secs
@@ -1240,6 +1592,7 @@ def run_slice(results: dict) -> None:
     results["_launches_hard"] = launches
     results["_hard_s"] = secs
     _card_equals_cpu(SLICE_HARD, result, "six hard goals slice")
+    run_modes(results, north=False)
     results["_identical"] = True
 
 
@@ -1278,6 +1631,8 @@ def profile_slice(solve: dict, device: str = "cuda",
                (O, "refresh_float_aggregates"), (O, "make_round_cache"),
                (O, "compute_stats"), (O, "compute_stats_fresh_loads"),
                (K, "forced_move_round"), (K, "forced_select"),
+               (K, "per_segment_argmax"), (K, "swap_pair"),
+               (K, "dest_struct"), (K, "dest_has"),
                (O, "heal_offline_replicas")]
 
     def wrap(fn, name):
@@ -1346,6 +1701,7 @@ def run_scale(results: dict) -> None:
         "killed), 2,600 brokers", warm=False)
     results["_north_hard_s"] = secs
     results["_launches_north_hard"] = launches
+    run_modes(results, north=True)
 
 
 def main(argv=None) -> int:
@@ -1408,6 +1764,10 @@ def main(argv=None) -> int:
         results["rank_accept"] = check_rank_accept(seed=30)
         results["_commit_moves_tableless"] = check_commit_moves_tableless(
             SLICE_SPEC, seed=18)
+        results["segment_argmax"] = check_segment_argmax(seed=31)
+        results["swap_pair"] = check_swap_pair(SLICE_SPEC, seed=32)
+        results["dest_feasibility"] = check_dest_feasibility(
+            SLICE_SPEC, ((2048, 200),), seed=33)
         log("[2] K2 at the forced-move round's C = 4096, against the "
             "shortlist (K = 256) and every broker (K = 2600)")
         results["_assign_pass_4096"] = check_assign_pass(4096, (256, 2600),
@@ -1425,17 +1785,22 @@ def main(argv=None) -> int:
                                                               seed=28)
         results["_commit_moves_tableless_north"] = \
             check_commit_moves_tableless(NORTH_SPEC, seed=29)
+        results["_swap_pair_north"] = check_swap_pair(NORTH_SPEC, seed=34)
+        results["_dest_feasibility_north"] = check_dest_feasibility(
+            NORTH_SPEC, ((2048, 256), (4096, 2600)), seed=35)
     log(f"[t] {time.time() - t_run:.1f} s")
     with _wrapped([(cuda_kernels, "rank_accept")], widest_call):
         if 3 in phases:
             log("[3] slice: 200 brokers, the two-goal path, config 2's four "
                 "goals, the default stack and the add-broker solve, then "
-                "config 5 and the six hard goals (self-healing)")
+                "config 5 and the six hard goals (self-healing), then the "
+                "demote, kafka-assigner and intra-broker modes")
             run_slice(results)
             log(f"[t] {time.time() - t_run:.1f} s")
         if 4 in phases:
-            log("[4] scale: the default stack, the four-goal solve, config 5 "
-                "and the six hard goals at 2,600 brokers / 200K partitions")
+            log("[4] scale: the default stack, the four-goal solve, config 5, "
+                "the six hard goals and the demote, kafka-assigner and "
+                "intra-broker modes at 2,600 brokers / 200K partitions")
             run_scale(results)
             log(f"[t] {time.time() - t_run:.1f} s")
     log(f"[4] the widest rank_accept call of the run: C = {widest[0]}")
@@ -1449,8 +1814,20 @@ def main(argv=None) -> int:
         profile_slice(SLICE_STACK, plain_rank_accept=True)
         log("[3p] profile of one config 5 slice solve on the card")
         profile_slice(SLICE_CONFIG5)
+        log("[3p] profile of one kafka-assigner and one intra-broker slice "
+            "solve on the card")
+        profile_slice(SLICE_KAFKA_ASSIGNER)
+        profile_slice(SLICE_INTRA)
         log(f"[t] {time.time() - t_run:.1f} s")
 
+    # a kernel the default stack did not launch reports its own path's
+    # launches (the swap pair plane: the kafka-assigner solve)
+    ka = results.get("_launches_kafka_assigner") or {}
+    for k in SOURCES:
+        r = results.setdefault(k, {})
+        if not r.get("launches") and ka.get(k):
+            r["launches"] = ka[k]
+            log(f"[5] {k}: launches of the kafka-assigner slice solve")
     kernels = []
     for k in SOURCES:
         r = results.get(k, {})
@@ -1476,6 +1853,9 @@ def main(argv=None) -> int:
         "north_stack_solve_s": results.get("_north_stack_s"),
         "north_stack_balancedness":
             results.get("_north_stack_balancedness"),
+        "modes_solve_s": {k: results.get(f"_{k}_s") for k in (
+            "demote", "kafka_assigner", "intra", "intra_broken",
+            "north_demote", "north_kafka_assigner", "north_intra")},
         "rank_accept_widest_c": widest[0],
         "card_cpu_identical": results.get("_identical"),
         "row_topk_deep": results.get("row_topk", {}).get("deep")}))
@@ -1484,11 +1864,17 @@ def main(argv=None) -> int:
         "commit_moves_tableless_north":
             results.get("_commit_moves_tableless_north"),
         "forced_select_north": results.get("_forced_select_north"),
-        "assign_pass_C4096": results.get("_assign_pass_4096")}))
+        "assign_pass_C4096": results.get("_assign_pass_4096"),
+        "swap_pair_north": results.get("_swap_pair_north"),
+        "dest_feasibility_north": results.get("_dest_feasibility_north"),
+        "dest_feasibility_guard": results.get("dest_feasibility", {}).get(
+            "guard")}))
     log("[5] launches by path: " + json.dumps({
         k: results.get(f"_launches_{k}") for k in (
-            "four", "stack", "add", "config5", "hard", "north_stack",
-            "north_config5", "north_hard")}))
+            "four", "stack", "add", "config5", "hard", "demote",
+            "kafka_assigner", "intra", "intra_broken", "north_stack",
+            "north_config5", "north_hard", "north_demote",
+            "north_kafka_assigner", "north_intra")}))
     log("[5] rank_accept: " + json.dumps(results.get("rank_accept")))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -45,11 +45,22 @@ class Goal(abc.ABC):
             return min(self.max_rounds, max(8, self.max_rounds // 4))
         return self.max_rounds
 
-    @abc.abstractmethod
+    def optimize(self, state: ClusterState, ctx: OptimizationContext,
+                 prev_goals: Sequence["Goal"]) -> ClusterState:
+        """Rebalance `state` for this goal.  A goal implements this or
+        `optimize_cached`; each default bridges to the other."""
+        return self.optimize_cached(state, ctx, prev_goals, None)[0]
+
     def optimize_cached(self, state: ClusterState, ctx: OptimizationContext,
                         prev_goals: Sequence["Goal"],
                         cache: Optional[RoundCache] = None):
-        """(state', cache') — optimize with RoundCache threading."""
+        """(state', cache') — optimize with RoundCache threading.  The
+        default bridges to `optimize` and returns cache' None, which
+        tells the optimizer to rebuild the cache."""
+        if type(self).optimize is Goal.optimize:
+            raise TypeError(f"{type(self).__name__} implements neither "
+                            "optimize nor optimize_cached")
+        return self.optimize(state, ctx, prev_goals), None
 
     def accept_move(self, state, ctx, cache, replica, dest_broker):
         """bool mask (broadcast of the two index shapes): would this goal

@@ -2,7 +2,9 @@
 network.py): `PotentialNwOutGoal` caps each broker's potential outbound
 rate (the NW_OUT it would serve as leader of every replica it hosts), and
 `LeaderBytesInDistributionGoal` balances the leader-side bytes-in rate
-with leadership transfers behind a self-regression gate.
+with leadership transfers behind a self-regression gate, and
+`PreferredLeaderElectionGoal` (the demote-broker request's goal) hands
+each partition's leadership to its first eligible replica.
 """
 from __future__ import annotations
 
@@ -10,6 +12,7 @@ from typing import Sequence
 
 import torch
 
+from cruise_control_tpu_torch import ops
 from cruise_control_tpu_torch.analyzer import kernels
 from cruise_control_tpu_torch.analyzer.context import (OptimizationContext,
                                                        ensure_full_cache,
@@ -257,3 +260,54 @@ class LeaderBytesInDistributionGoal(Goal):
     def violated_brokers(self, state, ctx, cache):
         lbi = cache.leader_bytes_in
         return state.broker_alive & (lbi > self._bounds(state, lbi))
+
+
+class PreferredLeaderElectionGoal(Goal):
+    """Make the first eligible replica in each partition's original order
+    the leader (the demote-broker flow).  One batched pass, no search
+    loop."""
+
+    name = "PreferredLeaderElectionGoal"
+
+    def __init__(self, max_rounds: int = 1):
+        self.max_rounds = max_rounds
+
+    @staticmethod
+    def _elected_leader(state: ClusterState, ctx: OptimizationContext):
+        """(has_candidate bool[P], chosen int64[P]): per partition the
+        FIRST replica in ctx.partition_replicas order whose broker is
+        alive, leadership-eligible and not demoted, and which is not
+        offline.  Shared by optimize and violated_brokers, so the two
+        never disagree."""
+        rows = ctx.partition_replicas
+        rows_safe = torch.clamp_min(rows, 0).long()
+        broker = state.replica_broker[rows_safe].long()
+        ok = ((rows >= 0) & state.broker_alive[broker]
+              & ctx.broker_leader_ok[broker]
+              & ~state.replica_offline[rows_safe]
+              & ~state.broker_demoted[broker])
+        has_candidate = torch.any(ok, 1)
+        first = torch.argmax(ok.to(torch.int8), 1)
+        chosen = torch.gather(rows_safe, 1, first[:, None])[:, 0]
+        return has_candidate, chosen
+
+    def _transfers(self, state, ctx):
+        """(current leader int64[P] (-1: none), chosen, bool[P] to
+        transfer)."""
+        has_candidate, chosen = self._elected_leader(state, ctx)
+        cur_leader = S.partition_leader_replica(state).long()
+        bad = has_candidate & (cur_leader >= 0) & (chosen != cur_leader)
+        return cur_leader, chosen, bad
+
+    def optimize(self, state: ClusterState, ctx: OptimizationContext,
+                 prev_goals: Sequence[Goal]) -> ClusterState:
+        cur_leader, chosen, eligible = self._transfers(state, ctx)
+        return S.apply_leadership_transfers(
+            state, torch.clamp_min(cur_leader, 0), chosen, eligible)
+
+    def violated_brokers(self, state, ctx, cache):
+        cur_leader, _, bad = self._transfers(state, ctx)
+        broker_of_leader = state.replica_broker[torch.clamp_min(cur_leader,
+                                                                0)]
+        return ops.segment_sum(bad.to(torch.int32), broker_of_leader,
+                               state.num_brokers) > 0

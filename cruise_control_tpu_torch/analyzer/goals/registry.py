@@ -1,10 +1,11 @@
 """Goal registry and default priority order (port of cruise_control_tpu/
 analyzer/goals/registry.py).
 
-The default order and the hard-goal list are the reference's; every goal
-of the default order is ported.  The reference's other goals (preferred
-leader election, the intra-broker and kafka-assigner goals) raise a
-KeyError that says they are not ported yet.
+The default order, the hard-goal list and the kafka-assigner order are
+the reference's, and every goal of the reference's GOAL_CLASSES is
+ported: the default order's fifteen, preferred leader election (the
+demote-broker request), the two kafka-assigner goals and the two
+intra-broker (JBOD) goals.
 """
 from __future__ import annotations
 
@@ -17,8 +18,13 @@ from cruise_control_tpu_torch.analyzer.goals.capacity import (
 from cruise_control_tpu_torch.analyzer.goals.count_distribution import (
     LeaderReplicaDistributionGoal, ReplicaDistributionGoal,
     TopicReplicaDistributionGoal)
+from cruise_control_tpu_torch.analyzer.goals.intra_broker import (
+    IntraBrokerDiskCapacityGoal, IntraBrokerDiskUsageDistributionGoal)
+from cruise_control_tpu_torch.analyzer.goals.kafkaassigner import (
+    KafkaAssignerDiskUsageDistributionGoal, KafkaAssignerEvenRackAwareGoal)
 from cruise_control_tpu_torch.analyzer.goals.network import (
-    LeaderBytesInDistributionGoal, PotentialNwOutGoal)
+    LeaderBytesInDistributionGoal, PotentialNwOutGoal,
+    PreferredLeaderElectionGoal)
 from cruise_control_tpu_torch.analyzer.goals.rack_aware import RackAwareGoal
 from cruise_control_tpu_torch.analyzer.goals.resource_distribution import (
     CpuUsageDistributionGoal, DiskUsageDistributionGoal,
@@ -42,14 +48,26 @@ GOAL_CLASSES: Dict[str, Type[Goal]] = {
     "TopicReplicaDistributionGoal": TopicReplicaDistributionGoal,
     "LeaderReplicaDistributionGoal": LeaderReplicaDistributionGoal,
     "LeaderBytesInDistributionGoal": LeaderBytesInDistributionGoal,
+    "PreferredLeaderElectionGoal": PreferredLeaderElectionGoal,
+    "KafkaAssignerEvenRackAwareGoal": KafkaAssignerEvenRackAwareGoal,
+    "KafkaAssignerDiskUsageDistributionGoal":
+        KafkaAssignerDiskUsageDistributionGoal,
+    "IntraBrokerDiskCapacityGoal": IntraBrokerDiskCapacityGoal,
+    "IntraBrokerDiskUsageDistributionGoal":
+        IntraBrokerDiskUsageDistributionGoal,
 }
 
-#: the reference's goals outside the default order that the port does not
-#: have yet
-NOT_PORTED = ("PreferredLeaderElectionGoal", "KafkaAssignerEvenRackAwareGoal",
-              "KafkaAssignerDiskUsageDistributionGoal",
-              "IntraBrokerDiskCapacityGoal",
-              "IntraBrokerDiskUsageDistributionGoal")
+#: the goal list of a request with kafka_assigner=true
+KAFKA_ASSIGNER_GOAL_ORDER: List[str] = [
+    "KafkaAssignerEvenRackAwareGoal",
+    "KafkaAssignerDiskUsageDistributionGoal",
+]
+
+#: the intra-broker (JBOD) rebalance's goals
+INTRA_BROKER_GOALS: List[str] = [
+    "IntraBrokerDiskCapacityGoal",
+    "IntraBrokerDiskUsageDistributionGoal",
+]
 
 #: priority order of the reference's `default.goals`
 DEFAULT_GOAL_ORDER: List[str] = [
@@ -83,10 +101,6 @@ DEFAULT_HARD_GOALS: List[str] = [
 
 def make_goal(name: str, **kwargs) -> Goal:
     if name not in GOAL_CLASSES:
-        if name in NOT_PORTED:
-            raise KeyError(f"goal {name!r} is not ported to "
-                           f"cruise_control_tpu_torch yet; ported: "
-                           f"{sorted(GOAL_CLASSES)}")
         raise KeyError(f"unknown goal {name!r}; known: "
                        f"{sorted(GOAL_CLASSES)}")
     return GOAL_CLASSES[name](**kwargs)

@@ -13,11 +13,18 @@ functions are hand-written CUDA kernels on the card:
 * K7 `forced_select` (csrc/forced_select.cu), the candidate selection of
   a table-less `forced_move_round`;
 * K8 `rank_accept` (csrc/rank_accept.cu), the multi-commit acceptance of
-  every assignment pass and of the leadership sweep.
+  every assignment pass and of the leadership sweep;
+* K9 `segment_argmax` (csrc/segment_argmax.cu) behind
+  `per_segment_argmax`;
+* K10 `swap_pair` (csrc/swap_pair.cu), the swap round's pair plane;
+* K11 `dest_feasibility` (csrc/dest_feasibility.cu), the structural terms
+  of `_dest_feasibility` and the guard of `cand_has_dest` /
+  `feasible_dest_exists`.
 
 Their plain versions (`row_topk_plain`, `assign_pass_plain`,
-`forced_select_plain`, `rank_accept_plain`) live here; a CPU tensor runs
-them.  The reference's `lax.cond` branches are host `if`s on a 0-d tensor
+`forced_select_plain`, `rank_accept_plain`, `per_segment_argmax_plain`,
+`swap_pair_plain`, `dest_struct_plain`, `dest_has_plain`) live here; a
+CPU tensor runs them.  The reference's `lax.cond` branches are host `if`s on a 0-d tensor
 (one sync each).
 """
 from __future__ import annotations
@@ -48,11 +55,12 @@ def _arange(n: int, dev) -> torch.Tensor:
     return torch.arange(n, dtype=torch.int64, device=dev)
 
 
-def per_segment_argmax(score: torch.Tensor, segment: torch.Tensor,
-                       num_segments: int, valid: torch.Tensor):
-    """For each segment the index of the max-score valid element: (arg
-    i32[n] (-1 if none), max_score f32[n], has bool[n]); ties go to the
-    lowest index."""
+def per_segment_argmax_plain(score: torch.Tensor, segment: torch.Tensor,
+                             num_segments: int, valid: torch.Tensor):
+    """Plain version of K9: for each segment the index of the max-score
+    valid element: (arg i32[S] (-1 if none), max_score f32[S], has
+    bool[S]); ties go to the lowest index, ids outside [0, S) are
+    dropped."""
     neg = torch.full((), NEG, dtype=score.dtype, device=score.device)
     masked = torch.where(valid, score, neg)
     seg_max = ops.segment_max(masked, segment, num_segments)
@@ -65,6 +73,18 @@ def per_segment_argmax(score: torch.Tensor, segment: torch.Tensor,
                           num_segments)
     arg = torch.where(has, arg, torch.full_like(arg, -1)).to(torch.int32)
     return arg, seg_max, has
+
+
+def per_segment_argmax(score: torch.Tensor, segment: torch.Tensor,
+                       num_segments: int, valid: torch.Tensor):
+    """K9 dispatch: the plain version on the CPU, csrc/segment_argmax.cu
+    on the card.  (arg i32[S], max_score f32[S], has bool[S])."""
+    if not score.is_cuda:
+        return per_segment_argmax_plain(score, segment, num_segments, valid)
+    from cruise_control_tpu_torch import cuda_kernels
+    return cuda_kernels.segment_argmax(
+        score.contiguous(), segment.to(torch.int32).contiguous(),
+        valid.contiguous(), num_segments)
 
 
 def _has_table(cache) -> bool:
@@ -228,31 +248,55 @@ def resolve_dest_conflicts(dest, gain, valid, num_brokers: int):
 # Feasibility
 # ---------------------------------------------------------------------------
 
-def _dest_feasibility(state: ClusterState, cand_r, dest_ok,
-                      accept_matrix_fn, partition_replicas=None,
-                      dest_ids=None) -> torch.Tensor:
-    """bool[C, K] structural destination feasibility: eligible broker,
-    not the current broker, no second replica of the partition, and the
-    composed acceptance stack."""
-    num_b = state.num_brokers
-    rb = state.replica_broker
-    if dest_ids is None:
-        dest_ids = _arange(num_b, rb.device)
+def dest_struct_plain(cand_r, dest_ids, dest_ok, replica_broker,
+                      replica_partition, partition_replicas) -> torch.Tensor:
+    """Plain version of K11's plane entry: bool[C, K] structural
+    feasibility of moving cand_r[c] to dest_ids[k] -- an eligible broker,
+    not the current one, and (with partition_replicas) no second replica
+    of the partition there."""
     dest_ids = dest_ids.long()
     cand_r = cand_r.long()
+    rb = replica_broker
     feasible = dest_ok[dest_ids][None, :].expand(
         cand_r.shape[0], dest_ids.shape[0]).clone()
     feasible &= dest_ids[None, :] != rb[cand_r][:, None]
     if partition_replicas is not None:
-        siblings = partition_replicas[state.replica_partition[cand_r].long()]
+        siblings = partition_replicas[replica_partition[cand_r].long()]
         sib_valid = siblings >= 0
         sib_broker = rb[torch.clamp_min(siblings, 0).long()]
         dup = torch.any(sib_valid[:, :, None]
                         & (sib_broker[:, :, None] == dest_ids[None, None, :]),
                         dim=1)
         feasible &= ~dup
-    feasible &= accept_matrix_fn(cand_r[:, None], dest_ids[None, :])
     return feasible
+
+
+def dest_struct(cand_r, dest_ids, dest_ok, replica_broker,
+                replica_partition, partition_replicas) -> torch.Tensor:
+    """K11 dispatch (plane entry): the plain version on the CPU,
+    csrc/dest_feasibility.cu on the card."""
+    if not cand_r.is_cuda:
+        return dest_struct_plain(cand_r, dest_ids, dest_ok, replica_broker,
+                                 replica_partition, partition_replicas)
+    from cruise_control_tpu_torch import cuda_kernels
+    return cuda_kernels.dest_feasibility(
+        cand_r.to(torch.int32).contiguous(),
+        dest_ids.to(torch.int32).contiguous(), dest_ok.contiguous(),
+        replica_broker, replica_partition, partition_replicas)
+
+
+def _dest_feasibility(state: ClusterState, cand_r, dest_ok,
+                      accept_matrix_fn, partition_replicas=None,
+                      dest_ids=None) -> torch.Tensor:
+    """bool[C, K] structural destination feasibility: eligible broker,
+    not the current broker, no second replica of the partition (K11),
+    and the composed acceptance stack (torch ops)."""
+    if dest_ids is None:
+        dest_ids = _arange(state.num_brokers, state.device)
+    feasible = dest_struct(cand_r, dest_ids, dest_ok, state.replica_broker,
+                           state.replica_partition, partition_replicas)
+    return feasible & accept_matrix_fn(cand_r.long()[:, None],
+                                       dest_ids.long()[None, :])
 
 
 def top_headroom(dest_ok, dest_headroom, rf: int):
@@ -268,34 +312,55 @@ def top_headroom(dest_ok, dest_headroom, rf: int):
     return top_b, top_h
 
 
-def _blocked_best(state, sib_rows, dest_ok, dest_headroom,
-                  partition_replicas):
-    inf = torch.full((), float("inf"), device=dest_headroom.device)
-    top_b, top_h = top_headroom(dest_ok, dest_headroom,
-                                partition_replicas.shape[1])
-    sib = partition_replicas[sib_rows]
+def dest_has_plain(cand_r, w_c, top_b, top_h, replica_broker,
+                   replica_partition, partition_replicas) -> torch.Tensor:
+    """Plain version of K11's guard entry: bool[C], best[c] >= w_c[c]
+    where best is the most headroom among the top brokers that hold no
+    replica of the candidate's partition (cand_r None: every replica)."""
+    rows = (replica_partition if cand_r is None
+            else replica_partition[cand_r.long()]).long()
+    inf = torch.full((), float("inf"), device=top_h.device)
+    sib = partition_replicas[rows]
     sib_broker = torch.where(
-        sib >= 0, state.replica_broker[torch.clamp_min(sib, 0).long()],
+        sib >= 0, replica_broker[torch.clamp_min(sib, 0).long()],
         torch.full_like(sib, -1))
     blocked = torch.any(sib_broker[:, :, None] == top_b[None, None, :], 1)
-    return torch.max(torch.where(blocked, -inf, top_h[None, :]), 1).values
+    best = torch.max(torch.where(blocked, -inf, top_h[None, :]), 1).values
+    return best >= w_c
+
+
+def dest_has(cand_r, w_c, top_b, top_h, replica_broker, replica_partition,
+             partition_replicas) -> torch.Tensor:
+    """K11 dispatch (guard entry): the plain version on the CPU,
+    csrc/dest_feasibility.cu on the card."""
+    if not w_c.is_cuda:
+        return dest_has_plain(cand_r, w_c, top_b, top_h, replica_broker,
+                              replica_partition, partition_replicas)
+    from cruise_control_tpu_torch import cuda_kernels
+    return cuda_kernels.dest_has(
+        None if cand_r is None else cand_r.to(torch.int32).contiguous(),
+        w_c.contiguous(), top_b.to(torch.int32).contiguous(),
+        top_h.contiguous(), replica_broker, replica_partition,
+        partition_replicas)
 
 
 def cand_has_dest(state, cand_r, w_c, dest_ok, dest_headroom,
                   partition_replicas) -> torch.Tensor:
     """bool[C] — does some destination fit each candidate (top RF+2
     headroom argument)?"""
-    rows = state.replica_partition[cand_r.long()].long()
-    return _blocked_best(state, rows, dest_ok, dest_headroom,
-                         partition_replicas) >= w_c
+    top_b, top_h = top_headroom(dest_ok, dest_headroom,
+                                partition_replicas.shape[1])
+    return dest_has(cand_r, w_c, top_b, top_h, state.replica_broker,
+                    state.replica_partition, partition_replicas)
 
 
 def feasible_dest_exists(state, w, dest_ok, dest_headroom,
                          partition_replicas) -> torch.Tensor:
     """bool[R] — replica-level form of cand_has_dest."""
-    rows = state.replica_partition.long()
-    return _blocked_best(state, rows, dest_ok, dest_headroom,
-                         partition_replicas) >= w
+    top_b, top_h = top_headroom(dest_ok, dest_headroom,
+                                partition_replicas.shape[1])
+    return dest_has(None, w, top_b, top_h, state.replica_broker,
+                    state.replica_partition, partition_replicas)
 
 
 def shed_score(w: torch.Tensor, excess_r: torch.Tensor) -> torch.Tensor:
@@ -780,13 +845,85 @@ def forced_move_round(state: ClusterState, forced, w, dest_ok,
 # Swap round
 # ---------------------------------------------------------------------------
 
+def swap_pair_plain(h_ids, c_ids, out_r, in_r, out_has, in_has, hot_b,
+                    cold_b, w, dev_u, util, lower, upper, accept,
+                    replica_partition, partition_replicas, replica_broker):
+    """Plain version of K10: the swap round's [H, C] pair plane.  Hot row
+    h sheds broker h_ids[h]'s replica, cold column c takes broker
+    c_ids[c]'s; a pair is feasible when both picks exist, the exchange
+    moves load hot -> cold and lowers the squared deviation, neither
+    replica meets a sibling, the acceptance plane allows it and it stays
+    inside the band (`lower` / `upper`, when given).  Returns (sel
+    f32[H], the best improvement or NEG; slot int64[H], its first cold
+    column)."""
+    neg = torch.full((), NEG, device=w.device)
+    h_ids = h_ids.long()
+    c_ids = c_ids.long()
+    rb = replica_broker.long()
+    out_h = torch.clamp_min(out_r, 0).long()[h_ids]
+    in_c = torch.clamp_min(in_r, 0).long()[c_ids]
+    delta = w[out_h][:, None] - w[in_c][None, :]
+    dev_h = dev_u[h_ids][:, None]
+    dev_c = dev_u[c_ids][None, :]
+    # each sum of squares is one fused multiply-add in the reference's
+    # compiled program: fma(x, x, y * y)
+    dev_before = ops.fma_f32(dev_h, dev_h, (dev_c * dev_c).expand_as(delta))
+    dev_h_after = dev_h - delta
+    dev_c_after = dev_c + delta
+    imp = dev_before - ops.fma_f32(dev_h_after, dev_h_after,
+                                   dev_c_after * dev_c_after)
+
+    def sibling_on(cand_rows, dest_ids):
+        sib = partition_replicas[replica_partition[cand_rows].long()]
+        sib_b = torch.where(sib >= 0, rb[torch.clamp_min(sib, 0).long()],
+                            torch.full_like(sib, -1).long())
+        return torch.any(sib_b[:, :, None] == dest_ids[None, None, :], 1)
+
+    dup_out = sibling_on(out_h, c_ids)
+    dup_in = sibling_on(in_c, h_ids)
+    feasible = (out_has[h_ids][:, None] & in_has[c_ids][None, :]
+                & hot_b[h_ids][:, None] & cold_b[c_ids][None, :]
+                & (delta > 0) & (imp > 0)
+                & ~dup_out & ~dup_in.T & accept)
+    if lower is not None:
+        feasible &= util[h_ids][:, None] - delta >= lower[h_ids][:, None]
+    if upper is not None:
+        feasible &= util[c_ids][None, :] + delta <= upper[c_ids][None, :]
+    score = torch.where(feasible, imp, neg)
+    return torch.max(score, 1)
+
+
+def swap_pair(h_ids, c_ids, out_r, in_r, out_has, in_has, hot_b, cold_b, w,
+              dev_u, util, lower, upper, accept, replica_partition,
+              partition_replicas, replica_broker):
+    """K10 dispatch: the plain version on the CPU, csrc/swap_pair.cu on
+    the card.  (sel f32[H], slot [H])."""
+    if not w.is_cuda:
+        return swap_pair_plain(h_ids, c_ids, out_r, in_r, out_has, in_has,
+                               hot_b, cold_b, w, dev_u, util, lower, upper,
+                               accept, replica_partition, partition_replicas,
+                               replica_broker)
+    from cruise_control_tpu_torch import cuda_kernels
+
+    def f32(x):
+        return None if x is None else x.to(torch.float32).contiguous()
+    return cuda_kernels.swap_pair(
+        h_ids.to(torch.int32).contiguous(), c_ids.to(torch.int32).contiguous(),
+        out_r.to(torch.int32).contiguous(), in_r.to(torch.int32).contiguous(),
+        out_has.contiguous(), in_has.contiguous(), hot_b.contiguous(),
+        cold_b.contiguous(), f32(w), f32(dev_u), f32(util), f32(lower),
+        f32(upper), accept.contiguous(), replica_partition,
+        partition_replicas, replica_broker)
+
+
 def swap_round(state: ClusterState, w, movable, hot_b, cold_b, util,
                target_util, accept_pair_fn, partition_replicas, cache=None,
-               w_rows=None, lower=None, upper=None):
+               w_rows=None, lower=None, upper=None, dev_u=None):
     """One round of batched replica-swap search: each hot broker
     nominates its largest movable replica, each cold broker its smallest;
     the worst SWAP_SHORTLIST brokers per side are paired on an [H, C]
-    plane scored by squared-deviation improvement.  Returns (out_r
+    plane (K10) scored by squared-deviation improvement.  `dev_u`, when
+    given, is the caller's own `util - target_util`.  Returns (out_r
     i32[B], in_r i32[B], cold i32[B], valid bool[B])."""
     num_b = state.num_brokers
     rb = state.replica_broker.long()
@@ -816,49 +953,22 @@ def swap_round(state: ClusterState, w, movable, hot_b, cold_b, util,
                                              movable & cold_b[rb])
     out_safe = torch.clamp_min(out_r, 0).long()
     in_safe = torch.clamp_min(in_r, 0).long()
-    w_out = w[out_safe]
-    w_in = w[in_safe]
 
-    dev_u = util - target_util
+    if dev_u is None:
+        dev_u = util - target_util
     hot_rank = torch.where(hot_b & out_has, dev_u, -inf)
     cold_rank = torch.where(cold_b & in_has, -dev_u, -inf)
     _, h_ids = ops.topk_stable(hot_rank, shortlist)
     _, c_ids = ops.topk_stable(cold_rank, shortlist)
     out_h = out_safe[h_ids]
     in_c = in_safe[c_ids]
-    w_out_h = w_out[h_ids]
-    w_in_c = w_in[c_ids]
-
-    delta = w_out_h[:, None] - w_in_c[None, :]
-    dev_h = dev_u[h_ids]
-    dev_c = dev_u[c_ids]
-    dev_before = (dev_h ** 2)[:, None] + (dev_c ** 2)[None, :]
-    dev_after = ((dev_h[:, None] - delta) ** 2
-                 + (dev_c[None, :] + delta) ** 2)
-    imp = dev_before - dev_after
-
-    def sibling_on(cand_rows, dest_ids):
-        sib = partition_replicas[state.replica_partition[cand_rows].long()]
-        sib_b = torch.where(sib >= 0, rb[torch.clamp_min(sib, 0).long()],
-                            torch.full_like(sib, -1).long())
-        return torch.any(sib_b[:, :, None] == dest_ids[None, None, :], 1)
-
-    dup_out = sibling_on(out_h, c_ids)
-    dup_in = sibling_on(in_c, h_ids)
-    feasible = (out_has[h_ids][:, None] & in_has[c_ids][None, :]
-                & hot_b[h_ids][:, None] & cold_b[c_ids][None, :]
-                & (delta > 0) & (imp > 0)
-                & ~dup_out & ~dup_in.T
-                & accept_pair_fn(out_h[:, None], in_c[None, :]))
-    if lower is not None:
-        feasible &= util[h_ids][:, None] - delta >= lower[h_ids][:, None]
-    if upper is not None:
-        feasible &= util[c_ids][None, :] + delta <= upper[c_ids][None, :]
-
-    score = torch.where(feasible, imp, neg)
-    sel_h, cold_slot = torch.max(score, 1)
+    accept = accept_pair_fn(out_h[:, None], in_c[None, :])
+    sel_h, cold_slot = swap_pair(
+        h_ids, c_ids, out_r, in_r, out_has, in_has, hot_b, cold_b, w, dev_u,
+        util, lower, upper, accept, state.replica_partition,
+        partition_replicas, state.replica_broker)
     valid_h = sel_h > NEG / 2
-    cold_h = c_ids[cold_slot]
+    cold_h = c_ids[cold_slot.long()]
     valid_h = resolve_dest_conflicts(cold_h, sel_h, valid_h, num_b)
     p_out = state.replica_partition[out_h]
     p_in = state.replica_partition[torch.clamp_min(in_r[cold_h], 0).long()]

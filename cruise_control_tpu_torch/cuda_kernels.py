@@ -30,13 +30,15 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 SOURCES = ("row_topk.cu", "assign_pass.cu", "commit_moves.cu",
            "leader_assign.cu", "commit_leadership.cu", "sweep_pick.cu",
-           "forced_select.cu", "rank_accept.cu")
+           "forced_select.cu", "rank_accept.cu", "segment_argmax.cu",
+           "swap_pair.cu", "dest_feasibility.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES = {"row_topk": 0, "assign_pass": 0, "commit_moves": 0,
             "leader_assign_pass": 0, "commit_leadership": 0, "sweep_pick": 0,
-            "forced_select": 0, "rank_accept": 0}
+            "forced_select": 0, "rank_accept": 0, "segment_argmax": 0,
+            "swap_pair": 0, "dest_feasibility": 0}
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -121,10 +123,15 @@ def build() -> ctypes.CDLL:
         lib.cc_rank_accept.argtypes = [_I] * 3 + [_P] * 13 + [_P]
         lib.cc_rank_accept_level_floats.argtypes = [_I]
         lib.cc_rank_accept_level_floats.restype = ctypes.c_longlong
+        lib.cc_segment_argmax.argtypes = [_P, _P, _P, _I, _I] + [_P] * 5
+        lib.cc_swap_pair.argtypes = [_I] * 3 + [_P] * 19 + [_P]
+        lib.cc_dest_struct.argtypes = [_I] * 3 + [_P] * 7 + [_P]
+        lib.cc_dest_has.argtypes = [_I] * 3 + [_P] * 8 + [_P]
         for fn in (lib.cc_row_topk, lib.cc_assign_pass, lib.cc_commit_moves,
                    lib.cc_leader_assign_pass, lib.cc_commit_leadership,
                    lib.cc_sweep_pick, lib.cc_forced_select,
-                   lib.cc_rank_accept):
+                   lib.cc_rank_accept, lib.cc_segment_argmax,
+                   lib.cc_swap_pair, lib.cc_dest_struct, lib.cc_dest_has):
             fn.restype = ctypes.c_int
         BUILD_INFO.update(seconds=time.time() - t0, log="\n".join(log),
                           path=str(so))
@@ -579,4 +586,141 @@ def rank_accept(order: torch.Tensor, dest: torch.Tensor, has: torch.Tensor,
         hr.data_ptr(), *scratch, out.data_ptr(), _stream())
     LAUNCHES["rank_accept"] += 1
     _raise_on(err, "rank_accept")
+    return out
+
+
+def segment_argmax(score: torch.Tensor, segment: torch.Tensor,
+                   valid: torch.Tensor, num_segments: int):
+    """K9 launch: (arg i32[S], max f32[S], has bool[S]) per segment, the
+    lowest index of the max-score valid element."""
+    lib = build()
+    n = score.shape[0]
+    if num_segments < 0 or n >= 2 ** 31 - 1:
+        raise ValueError(f"segment_argmax takes S >= 0 and n < 2**31 - 1, "
+                         f"got S={num_segments}, n={n}")
+    for name, t, dt in (("score", score, torch.float32),
+                        ("segment", segment, torch.int32),
+                        ("valid", valid, torch.bool)):
+        _check(t, name, dt, (n,))
+    dev = score.device
+    keys = torch.empty(max(num_segments, 1), dtype=torch.int64, device=dev)
+    arg = torch.empty(num_segments, dtype=torch.int32, device=dev)
+    mx = torch.empty(num_segments, dtype=torch.float32, device=dev)
+    has = torch.empty(num_segments, dtype=torch.bool, device=dev)
+    err = lib.cc_segment_argmax(score.data_ptr(), segment.data_ptr(),
+                                valid.data_ptr(), n, num_segments,
+                                keys.data_ptr(), arg.data_ptr(),
+                                mx.data_ptr(), has.data_ptr(), _stream())
+    LAUNCHES["segment_argmax"] += 1
+    _raise_on(err, "segment_argmax")
+    return arg, mx, has
+
+
+def swap_pair(h_ids, c_ids, out_r, in_r, out_has, in_has, hot, cold, w,
+              dev_u, util, lower, upper, accept, replica_partition,
+              partition_replicas, replica_broker):
+    """K10 launch: (sel f32[H], slot i32[H]), each hot row's best
+    feasible improvement (NEG if none) and its first cold slot."""
+    lib = build()
+    nh, nc = h_ids.shape[0], c_ids.shape[0]
+    num_b = hot.shape[0]
+    num_r = replica_broker.shape[0]
+    num_p, rf = partition_replicas.shape
+    for name, t, dt, shape in (
+            ("h_ids", h_ids, torch.int32, (nh,)),
+            ("c_ids", c_ids, torch.int32, (nc,)),
+            ("out_r", out_r, torch.int32, (num_b,)),
+            ("in_r", in_r, torch.int32, (num_b,)),
+            ("out_has", out_has, torch.bool, (num_b,)),
+            ("in_has", in_has, torch.bool, (num_b,)),
+            ("hot", hot, torch.bool, (num_b,)),
+            ("cold", cold, torch.bool, (num_b,)),
+            ("w", w, torch.float32, (num_r,)),
+            ("dev_u", dev_u, torch.float32, (num_b,)),
+            ("util", util, torch.float32, (num_b,)),
+            ("accept", accept, torch.bool, (nh, nc)),
+            ("replica_partition", replica_partition, torch.int32, (num_r,)),
+            ("partition_replicas", partition_replicas, torch.int32,
+             (num_p, rf)),
+            ("replica_broker", replica_broker, torch.int32, (num_r,))):
+        _check(t, name, dt, shape)
+    for name, t in (("lower", lower), ("upper", upper)):
+        if t is not None:
+            _check(t, name, torch.float32, (num_b,))
+    if nc < 1:
+        raise ValueError("swap_pair takes at least one cold column")
+    sel = torch.empty(nh, dtype=torch.float32, device=w.device)
+    slot = torch.empty(nh, dtype=torch.int32, device=w.device)
+    err = lib.cc_swap_pair(
+        nh, nc, rf, h_ids.data_ptr(), c_ids.data_ptr(), out_r.data_ptr(),
+        in_r.data_ptr(), out_has.data_ptr(), in_has.data_ptr(),
+        hot.data_ptr(), cold.data_ptr(), w.data_ptr(), dev_u.data_ptr(),
+        util.data_ptr(), lower.data_ptr() if lower is not None else None,
+        upper.data_ptr() if upper is not None else None, accept.data_ptr(),
+        replica_partition.data_ptr(), partition_replicas.data_ptr(),
+        replica_broker.data_ptr(), sel.data_ptr(), slot.data_ptr(),
+        _stream())
+    LAUNCHES["swap_pair"] += 1
+    _raise_on(err, "swap_pair")
+    return sel, slot
+
+
+def _check_ids(replica_broker, replica_partition, partition_replicas):
+    num_r = replica_broker.shape[0]
+    _check(replica_broker, "replica_broker", torch.int32, (num_r,))
+    _check(replica_partition, "replica_partition", torch.int32, (num_r,))
+    if partition_replicas is not None:
+        _check(partition_replicas, "partition_replicas", torch.int32,
+               (partition_replicas.shape[0], partition_replicas.shape[1]))
+
+
+def dest_feasibility(cand_r, dest_ids, dest_ok, replica_broker,
+                     replica_partition, partition_replicas):
+    """K11 launch, plane entry: bool[C, K] structural feasibility of
+    moving cand_r[c] to dest_ids[k] (partition_replicas may be None: no
+    sibling test)."""
+    lib = build()
+    nc, nk = cand_r.shape[0], dest_ids.shape[0]
+    _check(cand_r, "cand_r", torch.int32, (nc,))
+    _check(dest_ids, "dest_ids", torch.int32, (nk,))
+    _check(dest_ok, "dest_ok", torch.bool, (dest_ok.shape[0],))
+    _check_ids(replica_broker, replica_partition, partition_replicas)
+    rf = 0 if partition_replicas is None else partition_replicas.shape[1]
+    out = torch.empty((nc, nk), dtype=torch.bool, device=cand_r.device)
+    err = lib.cc_dest_struct(
+        nc, nk, rf, cand_r.data_ptr(), dest_ids.data_ptr(),
+        dest_ok.data_ptr(), replica_broker.data_ptr(),
+        replica_partition.data_ptr(),
+        partition_replicas.data_ptr() if partition_replicas is not None
+        else None, out.data_ptr(), _stream())
+    LAUNCHES["dest_feasibility"] += 1
+    _raise_on(err, "dest_feasibility")
+    return out
+
+
+def dest_has(cand_r, w_c, top_b, top_h, replica_broker, replica_partition,
+             partition_replicas):
+    """K11 launch, guard entry: bool[C], does one of the top headroom
+    brokers that holds no replica of the candidate's partition have
+    headroom >= w_c?  cand_r None: every replica is a candidate."""
+    lib = build()
+    nc = w_c.shape[0]
+    nt = top_b.shape[0]
+    if not 0 < nt <= 32:
+        raise ValueError(f"dest_has takes 1 to 32 top brokers, got {nt}")
+    if cand_r is not None:
+        _check(cand_r, "cand_r", torch.int32, (nc,))
+    _check(w_c, "w_c", torch.float32, (nc,))
+    _check(top_b, "top_b", torch.int32, (nt,))
+    _check(top_h, "top_h", torch.float32, (nt,))
+    _check_ids(replica_broker, replica_partition, partition_replicas)
+    out = torch.empty(nc, dtype=torch.bool, device=w_c.device)
+    err = lib.cc_dest_has(
+        nc, partition_replicas.shape[1], nt,
+        cand_r.data_ptr() if cand_r is not None else None, w_c.data_ptr(),
+        top_b.data_ptr(), top_h.data_ptr(), replica_broker.data_ptr(),
+        replica_partition.data_ptr(), partition_replicas.data_ptr(),
+        out.data_ptr(), _stream())
+    LAUNCHES["dest_feasibility"] += 1
+    _raise_on(err, "dest_has")
     return out

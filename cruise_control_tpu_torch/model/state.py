@@ -175,6 +175,17 @@ def potential_leadership_load(state: ClusterState) -> torch.Tensor:
                            state.num_brokers)
 
 
+def disk_load(state: ClusterState) -> torch.Tensor:
+    """f32[D] — per-logdir DISK utilization (JBOD), summed in replica
+    order."""
+    on_disk = state.replica_disk >= 0
+    disk_idx = torch.where(on_disk, state.replica_disk,
+                           torch.zeros_like(state.replica_disk))
+    contrib = (replica_current_load(state)[:, Resource.DISK]
+               * on_disk * state.replica_valid)
+    return ops.segment_sum(contrib, disk_idx, state.num_disks)
+
+
 def utilization_matrix(state: ClusterState) -> torch.Tensor:
     """f32[RES, B] utilization over alive brokers (0 for dead ones)."""
     load = broker_load(state)
@@ -231,6 +242,28 @@ def apply_leadership_transfers(state: ClusterState,
                             torch.zeros_like(valid))
     flags = ops.scatter_set(flags, dst, torch.ones_like(valid))
     return state.replace(replica_is_leader=flags)
+
+
+def apply_disk_moves(state: ClusterState, replicas: torch.Tensor,
+                     dest_disks: torch.Tensor,
+                     valid: torch.Tensor) -> ClusterState:
+    """Batched intra-broker relocation: move K replicas between logdirs of
+    their own broker.  Rows that are invalid, leave the broker or stay on
+    their logdir are dropped; moving off a broken logdir clears the
+    replica's offline flag (it is set again on a dead broker or a dead
+    target logdir)."""
+    replicas = replicas.long()
+    num_r = state.num_replicas
+    tgt = dest_disks.to(torch.int32)
+    tgt_safe = torch.clamp_min(tgt, 0).long()
+    same_broker = state.disk_broker[tgt_safe] == state.replica_broker[replicas]
+    valid = valid & same_broker & (state.replica_disk[replicas] != tgt)
+    idx = torch.where(valid, replicas, torch.full_like(replicas, num_r))
+    new_disk = ops.scatter_set(state.replica_disk, idx, tgt)
+    offline = (~state.disk_alive[tgt_safe]
+               | ~state.broker_alive[state.replica_broker[replicas].long()])
+    new_offline = ops.scatter_set(state.replica_offline, idx, offline)
+    return state.replace(replica_disk=new_disk, replica_offline=new_offline)
 
 
 def set_broker_state(state: ClusterState, broker: int, *,

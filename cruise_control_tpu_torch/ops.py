@@ -177,3 +177,27 @@ def sum_f32(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
     for j in range(n):
         acc = acc + x[j]
     return acc
+
+
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 fused multiply-add ``a * b + c`` rounded once, as XLA:CPU
+    computes a product and a sum that it fuses into one FMA.  The product
+    of two float32 values is exact in float64; the float64 sum's rounding
+    error is recovered exactly (TwoSum), and a float64 sum that lands on a
+    float32 midpoint is moved to the side the error points to, so the
+    result is the correctly rounded one, not a double rounding."""
+    p = a.double() * b.double()
+    cd = c.double()
+    s = p + cd
+    bv = s - p
+    err = (p - (s - bv)) + (cd - bv)
+    r = s.float()
+    d = s - r.double()
+    # s halfway between r and its neighbour toward d: the exact value
+    # lies beyond the midpoint when err points the same way as d
+    toward = torch.where(d > 0, torch.full_like(r, float("inf")),
+                         torch.full_like(r, -float("inf")))
+    nb = torch.nextafter(r, toward)
+    half = (nb.double() - r.double()) / 2.0
+    fix = (d != 0) & (d == half) & (err != 0) & ((err > 0) == (d > 0))
+    return torch.where(fix, nb, r)

@@ -3,7 +3,10 @@ card, at the slice's shapes (marker `torch_cuda`).
 
 K7 (`forced_select`) and K3's table-less mode are held here too, K2 at
 the forced-move round's 4,096 candidates, K8 (`rank_accept`) on both of
-its paths, and a short default-stack solve against the port's CPU path.
+its paths, K9 (`segment_argmax`), K10 (`swap_pair`) and K11
+(`dest_feasibility`, both entries), a short default-stack solve and the
+demote, kafka-assigner and intra-broker solves against the port's CPU
+path.
 
 Each test decides inside itself whether a card is present and skips
 with a reason when none is; run them on a machine with the card with
@@ -342,6 +345,146 @@ def test_default_stack_solve_on_the_card_equals_the_cpu_path():
         out[dev] = GoalOptimizer(default_goals(16)).optimizations(
             st, topo, device=dev)
     assert proposal_set(out["cuda"]) == proposal_set(out["cpu"])
+    assert torch.equal(out["cuda"].final_state.replica_is_leader.cpu(),
+                       out["cpu"].final_state.replica_is_leader)
+    assert out["cuda"].rounds_by_goal == out["cpu"].rounds_by_goal
+
+
+@pytest.mark.parametrize("n,s", [(2048, 200), (4096, 4096), (60_000, 800)])
+def test_segment_argmax_matches_plain(n, s):
+    """K9 with ties, -0.0 against +0.0, empty and all-invalid segments,
+    scores at or below NEG/2 and out-of-range ids."""
+    ck = _card()
+    rng = np.random.default_rng(n)
+    score = (np.round(rng.random(n) * 6.0) / 2.0 - 1.0).astype(np.float32)
+    score[rng.random(n) < 0.1] = -0.0
+    score[rng.random(n) < 0.05] = K.NEG
+    score[:3] = [-np.inf, K.NEG / 2, K.NEG / 4]
+    seg = rng.integers(-2, s // 2 + 2, n).astype(np.int32)
+    valid = (rng.random(n) < 0.8) & (seg != 1)
+    cu = [torch.from_numpy(x).cuda() for x in (score, seg, valid)]
+    got = ck.segment_argmax(cu[0], cu[1], cu[2], s)
+    want = K.per_segment_argmax_plain(cu[0], cu[1], s, cu[2])
+    torch.cuda.synchronize()
+    assert _same(got[0], want[0]) and _same(got[2], want[2])
+    assert bool(torch.equal(got[1], want[1]))    # == : -0.0 equals +0.0
+    assert bool(got[2].any()) and not bool(got[2].all())
+
+
+def _swap_pair_inputs(rng, h=128, nb=200):
+    state, _ = random_cluster(RandomClusterSpec(**SLICE), device="cuda")
+    pr = torch.from_numpy(C.partition_replica_index(state)).cuda()
+    num_r = state.num_replicas
+    ids = torch.from_numpy(rng.permutation(nb)[:2 * h].astype(np.int32))
+    h_ids, c_ids = ids[:h].cuda(), ids[h:2 * h].cuda()
+    out_r = torch.from_numpy(rng.integers(-1, num_r, nb).astype(
+        np.int32)).cuda()
+    in_r = torch.from_numpy(rng.integers(-1, num_r, nb).astype(
+        np.int32)).cuda()
+    w = torch.from_numpy((np.round(rng.random(num_r) * 8.0)).astype(
+        np.float32)).cuda()
+    dev_u = torch.from_numpy((np.round(rng.random(nb) * 16.0) - 8.0).astype(
+        np.float32)).cuda()
+    util = torch.from_numpy((rng.random(nb) * 50.0).astype(np.float32)).cuda()
+    flags = [torch.from_numpy(rng.random(nb) < p).cuda()
+             for p in (0.9, 0.9, 0.6, 0.6)]
+    return state, pr, h_ids, c_ids, out_r, in_r, w, dev_u, util, flags
+
+
+@pytest.mark.parametrize("case", ["plain", "band", "refuse all"])
+def test_swap_pair_matches_plain(case):
+    """K10 at H = C = 100 (of 200 brokers) with tied improvements, with
+    and without the band, and with an all-False acceptance plane."""
+    ck = _card()
+    rng = np.random.default_rng(len(case))
+    (state, pr, h_ids, c_ids, out_r, in_r, w, dev_u, util,
+     (out_has, in_has, hot, cold)) = _swap_pair_inputs(rng, h=100)
+    accept = torch.from_numpy(rng.random((100, 100)) < (
+        0.0 if case == "refuse all" else 0.8)).cuda()
+    band = case == "band"
+    lower = (util - 20.0) if band else None
+    upper = (util + 20.0) if band else None
+    args = (h_ids, c_ids, out_r, in_r, out_has, in_has, hot, cold, w, dev_u,
+            util, lower, upper, accept, state.replica_partition, pr,
+            state.replica_broker)
+    got = ck.swap_pair(*args)
+    want = K.swap_pair_plain(*args)
+    torch.cuda.synchronize()
+    assert bool(torch.equal(got[0], want[0]))
+    assert bool(torch.equal(got[1].long(), want[1]))
+    feasible = int((want[0] > K.NEG / 2).sum())
+    assert feasible == 0 if case == "refuse all" else feasible > 0
+
+
+@pytest.mark.parametrize("k", [256, 200])
+def test_dest_feasibility_matches_plain(k):
+    """K11's plane entry (a shortlist, every broker, no sibling test) and
+    its guard entry (candidates and every replica)."""
+    ck = _card()
+    rng = np.random.default_rng(k)
+    state, _ = random_cluster(RandomClusterSpec(**SLICE), device="cuda")
+    pr = torch.from_numpy(C.partition_replica_index(state)).cuda()
+    nb = state.num_brokers
+    cand = torch.from_numpy(rng.choice(state.num_replicas, 2048,
+                                       replace=False).astype(np.int32)).cuda()
+    dest_ok = torch.from_numpy(rng.random(nb) < 0.8).cuda()
+    dest_ids = torch.from_numpy(rng.choice(nb, min(k, nb), replace=False)
+                                .astype(np.int32)).cuda()
+    for rows in (pr, None):
+        args = (cand, dest_ids, dest_ok, state.replica_broker,
+                state.replica_partition, rows)
+        got = ck.dest_feasibility(*args)
+        want = K.dest_struct_plain(*args)
+        torch.cuda.synchronize()
+        assert _same(got, want)
+    w = state.replica_base_load[:, 3].contiguous()
+    room = torch.from_numpy((rng.random(nb) * 300.0).astype(
+        np.float32)).cuda()
+    top_b, top_h = K.top_headroom(dest_ok, room, pr.shape[1])
+    top_b = top_b.to(torch.int32).contiguous()
+    for c in (cand, None):
+        w_c = w if c is None else w[c.long()].contiguous()
+        args = (c, w_c, top_b, top_h.contiguous(), state.replica_broker,
+                state.replica_partition, pr)
+        got = ck.dest_has(*args)
+        want = K.dest_has_plain(*args)
+        torch.cuda.synchronize()
+        assert _same(got, want)
+        assert bool(got.any()) and not bool(got.all())
+
+
+@pytest.mark.parametrize("mode", ["demote", "kafka assigner", "intra broker"])
+def test_mode_solve_on_the_card_equals_the_cpu_path(mode):
+    """The three request modes on a 48-broker cluster: the card's
+    proposals (with logdirs) and final leader flags equal the port's CPU
+    path's."""
+    _card()
+    from cruise_control_tpu_torch.analyzer.goals import registry as R
+    from cruise_control_tpu_torch.analyzer.optimizer import GoalOptimizer
+    from cruise_control_tpu_torch.model import state as S
+    spec = dict(num_brokers=48, num_partitions=1500, replication_factor=3,
+                num_racks=8, num_topics=8, seed=4, skew_fraction=0.2)
+    if mode == "intra broker":
+        spec.update(skew_fraction=0.0, jbod_disks=4)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        st, topo = random_cluster(RandomClusterSpec(**spec), device=dev)
+        if mode == "demote":
+            st = S.set_broker_state(st, 0, demoted=True)
+            goals = [R.make_goal("PreferredLeaderElectionGoal")]
+        elif mode == "kafka assigner":
+            goals = R.default_goals(names=R.KAFKA_ASSIGNER_GOAL_ORDER)
+        else:
+            goals = R.default_goals(names=R.INTRA_BROKER_GOALS)
+        out[dev] = GoalOptimizer(goals).optimizations(st, topo, device=dev)
+
+    def props(res):
+        return {(p.partition,
+                 tuple((r.broker_id, r.logdir) for r in p.old_replicas),
+                 tuple((r.broker_id, r.logdir) for r in p.new_replicas),
+                 p.new_leader) for p in res.proposals}
+    assert props(out["cuda"]) == props(out["cpu"])
+    assert out["cuda"].proposals
     assert torch.equal(out["cuda"].final_state.replica_is_leader.cpu(),
                        out["cpu"].final_state.replica_is_leader)
     assert out["cuda"].rounds_by_goal == out["cpu"].rounds_by_goal

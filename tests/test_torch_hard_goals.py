@@ -214,11 +214,11 @@ def test_registry_mirrors_the_reference():
     assert soft[0].max_rounds == 16 and not soft[0].is_hard
     for name in R.GOAL_CLASSES:
         assert R.make_goal(name).name == name
-    # the whole default order is ported; the reference's other goals not
-    assert set(R.DEFAULT_GOAL_ORDER) <= set(R.GOAL_CLASSES)
-    for name in R.NOT_PORTED:
-        assert name in JR.GOAL_CLASSES
-        with pytest.raises(KeyError, match="not ported"):
-            R.make_goal(name)
+    # every goal of the reference is ported, and the kafka-assigner order
+    # is the reference's
+    assert list(R.GOAL_CLASSES) == list(JR.GOAL_CLASSES)
+    assert R.KAFKA_ASSIGNER_GOAL_ORDER == JR.KAFKA_ASSIGNER_GOAL_ORDER
+    for name in R.GOAL_CLASSES:
+        assert R.GOAL_CLASSES[name].is_hard == JR.GOAL_CLASSES[name].is_hard
     with pytest.raises(KeyError, match="unknown goal"):
         R.make_goal("NoSuchGoal")
