@@ -19,12 +19,15 @@ Phases:
      4,096-transfer table-less batch and on a phase-a batch with the
      table, K6 on a 4,096-partition window with and without the
      improvement gate and tiebreak, K7 at R = 60,000 and 600,000, k =
-     4096, with 0.5 % forced, equal weights, fewer forced than k and every
-     replica forced (and its guard-only launch), K8 at C = 1 to 4096 (B =
-     200 and 2600, T = 0 to 6 terms) in seven cases and at C = 10,400,
-     20,800 and 600,000, K9 at n = 2048 and 4096 and at R = 60,000 into
-     800 and 600,000 into 10,400 segments (ties, -0.0 against +0.0, empty
-     and all-invalid segments, NEG and -inf scores, out-of-range ids), K10
+     4096, and at k = R on a 24-broker cluster, with 0.5 % forced, equal
+     weights, fewer forced than k and every replica forced (and its
+     guard-only launch), K8 at C = 1 to 4097 (B = 200 and 2600, T = 0 to
+     6 terms) in eight cases and at C = 10,400, 20,800 and 600,000, alone
+     and with the pass commit (keep, arrival counts and cumulants), K9 at
+     n = 2048 and
+     4096 and at R = 60,000 into 800 and 600,000 into 10,400 segments
+     (ties, -0.0 against +0.0, empty and all-invalid segments, NEG and
+     -inf scores, out-of-range ids), K10
      at H = C = 128 with tied improvements, with and without the band and
      with an all-False acceptance plane, and K11's plane at C = 2048 x K =
      200 and 256 and C = 4096 x K = 2600 (sibling rows with -1) and its
@@ -32,7 +35,11 @@ Phases:
      calls captured in a CUDA graph, median of 5 replays timed with CUDA
      events; K3 and K5 also without the wrapper's copies of the cache
      planes) beside the bound for the bytes the function needs and a
-     one-call PyTorch yardstick where one exists;
+     one-call PyTorch yardstick where one exists; K8 also per call with
+     its host work against its lexsort dispatch (the torch lexsort, the
+     kernel on that order, the ordered scatters), and its one-block time
+     split
+     by the sort and the commit;
   3. the slice geometry (200 brokers / 20K partitions / rf 3, 8 racks, 10
      topics, skew 0.2, default options): the disk + network-inbound solve
      of the first slice (seed 4); config 2 whole — Disk, NwIn, NwOut and
@@ -57,7 +64,9 @@ Phases:
      no-self-regression gates (and for the intra-broker solves no alive
      logdir above 0.8 of its capacity), and each solve but the first
      again on the port's CPU path: its proposals (logdirs included) and
-     final leader flags must equal the card's;
+     final leader flags must equal the card's; the default stack once more
+     with the sorts, ordered sums and host syncs inside its multi-commit
+     passes counted (there must be none);
   4. scale, 2,600 brokers / 200K partitions / 26 racks / 100 topics: the
      whole default stack (bench.py's "north" preset), the four-goal solve,
      config 5 (52 broken logdirs), the six hard goals with brokers 0,
@@ -65,10 +74,11 @@ Phases:
      kafka-assigner order, the intra-broker goals on 4 logdirs per
      broker), with the same gates (no CPU comparison); then the widest
      rank_accept call of the run must be one phase 2 checked.
-With --profile, two more default-stack solves (with K8, then with
-rank_accept's plain version) and one more config-5, kafka-assigner and
-intra-broker solve each run under torch.profiler and the device's busy
-share and time by kernel are printed.
+With --profile, default-stack solves in turns and two more profiled (with
+K8, then with K8's lexsort dispatch: the torch lexsort, the kernel on its
+order and the ordered scatters after each pass) and one more config-5,
+kafka-assigner and intra-broker solve each run under torch.profiler and
+the device's busy share and time by kernel are printed.
 
 Every phase that fails raises, so the run exits non-zero.  The line
 before the last is the kernel JSON; the last line is the device JSON.
@@ -590,12 +600,18 @@ def check_commit_moves_tableless(spec: dict, seed: int) -> dict:
                 shape=f"B={state.num_brokers} batch={n} table-less")
 
 
+#: K7's launches per call: one cooperative launch; the guard alone is one
+#: plain launch
+FORCED_SELECT_LAUNCHES = {"select": 1, "guard": 1}
+
+
 def check_forced_select(spec: dict, seed: int) -> dict:
     """K7 at R = the cluster `spec`'s replicas, k = min(4096, R), in four
     cases: about 0.5 % forced (config 5's broken logdirs), many equal
     weights, fewer forced than k (the -inf tail in play), every replica
     forced; each bit for bit against its plain version, and the guard-only
-    launch (k = 0).  The record of the 0.5 % case."""
+    launch (k = 0).  Times of the kernel, the plain version and torch.topk
+    on the same scores.  The record of the 0.5 % case."""
     import torch
     from cruise_control_tpu_torch import cuda_kernels
     from cruise_control_tpu_torch.analyzer import context as C
@@ -651,14 +667,17 @@ def check_forced_select(spec: dict, seed: int) -> dict:
         # flags out
         nbytes = num_r * 2 + n_forced * (4 + 4 + 8 * rf) + k * 5
         t_b, by = bound(nbytes, n_forced * rf * (rf + 2) + num_r)
+        path = "select" if n_ok > k else "no select (<= k guarded)"
         log(f"  forced_select R={num_r} k={k} {label} ({n_forced} forced, "
-            f"{n_ok} with a destination): exact match, guard-only too; "
-            f"device time per call: kernel {t[0]:.4f} ms (guard only "
-            f"{t[3]:.4f} ms), plain {t[1]:.4f} ms, torch.topk {t[2]:.4f} "
-            f"ms; bound {t_b:.5f} ms ({nbytes} bytes)")
+            f"{n_ok} with a destination, {path}): exact match, guard-only "
+            f"too; device time per call: kernel {t[0]:.4f} ms (1 "
+            f"cooperative launch; guard only {t[3]:.4f} ms), plain "
+            f"{t[1]:.4f} ms, torch.topk {t[2]:.4f} ms; bound {t_b:.5f} ms "
+            f"({nbytes} bytes)")
         if rec is None:
             rec = dict(max_abs_err=0.0, ms=t[0], plain_ms=t[1], bound_ms=t_b,
-                       bound_by=by, library_ms=t[2],
+                       bound_by=by, library_ms=t[2], guard_ms=t[3],
+                       launches_per_call=FORCED_SELECT_LAUNCHES,
                        shape=f"R={num_r} k={k} {label}")
     return rec
 
@@ -934,7 +953,8 @@ def check_sweep_pick(spec: dict, seed: int) -> dict:
 
 #: K8's cases (see _rank_inputs for what each plants)
 RANK_CASES = ("random", "all invalid", "one segment", "equal gains",
-              "signed zeros", "taken at cap", "mid-segment failure")
+              "signed zeros", "taken at cap", "mid-segment failure",
+              "order-sensitive weights")
 
 
 def _rank_inputs(c: int, b: int, t: int, case: str, g):
@@ -981,23 +1001,100 @@ def _rank_inputs(c: int, b: int, t: int, case: str, g):
         hr = torch.full((t, b), max(1.0, c / (2.0 * max(1, c // 8 + 1))),
                         device=dev)
         cap = torch.full((b,), 1 << 30, dtype=torch.int32, device=dev)
+    elif case == "order-sensitive weights":
+        # magnitudes 2**24 apart with ties: the committed sums change with
+        # the order of the adds; headrooms that let most candidates in
+        scale = torch.tensor([1.0, 0.1, 3.0, 1.5e7], device=dev)[
+            torch.randint(0, 4, (t, c), generator=g, device=dev)]
+        d_w = scale * (torch.round(rand(t, c) * 3.0) + 1.0) / 3.0
+        cum = cum * 1e3
+        hr = torch.full((t, b), 3e9, device=dev)
     return dest, gain, has, taken, cap, cum, d_w, hr
 
 
+def lexsort_rank_accept(dest, gain, has, num_b, taken_cnt, cap, cum_d, d_w,
+                    hr_d):
+    """K8's lexsort dispatch, for comparison: the torch lexsort (two
+    stable sorts), then the kernel on that order."""
+    import torch
+    from cruise_control_tpu_torch import cuda_kernels
+    from cruise_control_tpu_torch.analyzer import kernels as K
+    seg = torch.where(has, dest.long(), torch.full_like(dest, num_b).long())
+    return cuda_kernels.rank_accept(
+        dest.to(torch.int32).contiguous(), gain.contiguous(),
+        has.contiguous(), num_b, taken_cnt.to(torch.int32).contiguous(),
+        cap.to(torch.int32).contiguous(), cum_d, d_w, hr_d,
+        order=K._lexsort_dest_gain(seg, gain))
+
+
+def lexsort_rank_accept_commit(dest, gain, has, num_b, taken_cnt, cap, cum,
+                           d_w, hr):
+    """The multi-commit pass after the assignment with K8's lexsort
+    dispatch, for comparison: then the integer count and the ordered
+    scatter of the cumulants (one host sync for the scatter's width, a
+    launch per rank column)."""
+    import torch
+    from cruise_control_tpu_torch import ops
+    keep = lexsort_rank_accept(dest, gain, has, num_b, taken_cnt, cap, cum,
+                               d_w, hr)
+    kept_d = torch.where(keep, dest, torch.full_like(dest, num_b))
+    taken_cnt += ops.segment_sum(torch.ones_like(kept_d), kept_d, num_b)
+    if cum.shape[0]:
+        cum.T.copy_(ops.scatter_add_seq(
+            cum.T, kept_d, torch.where(keep[:, None], d_w.T,
+                                       torch.zeros((), device=cum.device))))
+    return keep
+
+
+def lexsort_k8():
+    """Inside the block the port runs K8's lexsort dispatch in place of the
+    one-launch K8 (the leadership sweep's acceptance and the multi-commit
+    passes)."""
+    from cruise_control_tpu_torch.analyzer import kernels as K
+
+    def to_lexsort(fn, name):
+        return (lexsort_rank_accept if name == "rank_accept"
+                else lexsort_rank_accept_commit)
+    return _wrapped([(K, "rank_accept"), (K, "rank_accept_commit")],
+                    to_lexsort)
+
+
+def k8_solve_turns(solve: dict) -> dict:
+    """A warm-up solve of `solve`, then unprofiled solves in turns: K8's
+    lexsort dispatch, the one-launch K8, K8, the lexsort dispatch; the
+    wall times."""
+    _, _, _, warm = _solve(solve, "cuda")
+    log(f"  warm-up solve {warm:.3f} s")
+    times = {"k8": [], "lexsort": []}
+    for which in ("lexsort", "k8", "k8", "lexsort"):
+        lexsort = which == "lexsort"
+        with (lexsort_k8() if lexsort else contextlib.nullcontext()):
+            _, _, result, secs = _solve(solve, "cuda")
+        times[which].append(secs)
+        log(f"  {'lexsort dispatch' if lexsort else 'one-launch K8'}: "
+            f"solve {secs:.3f} s, {len(result.proposals)} proposals")
+    return times
+
+
 def check_rank_accept(seed: int) -> dict:
-    """K8 against rank_accept_plain on the card, exactly, at C = 1, 16,
-    17, 256, 257, 2048 and 4096 (B = 200 and 2600), T = 0, 1, 3 and 6, in
-    every case of RANK_CASES; then at the paths' widest calls (C = 4 B =
-    10,400, the rack goal's table branch and the capacity goals' fallback
-    at 2,600 brokers; 20,800; and C = R = 600,000) with T = 3.  Times per
-    call at C = 2048, T = 3, B = 200 (the record) and at C = 4096 and
-    10,400: the kernel alone (after the lexsort, terms pre-stacked), the
-    dispatch (sort, stacks and kernel) and the plain version."""
+    """K8 against its plain versions on the card, exactly: the acceptance
+    alone (rank_accept, the leadership sweep's form) and with the pass
+    commit (rank_accept_commit: keep, taken_cnt and the cumulants bit for
+    bit), at C = 1, 16, 17, 256, 257, 2048, 4096 and 4097 (B = 200 and
+    2600), T = 0, 1, 3 and 6, in every case of RANK_CASES; then at the
+    paths' widest calls (C = 4 B = 10,400, the rack goal's table branch
+    and the capacity goals' fallback at 2,600 brokers, with its follow-on
+    commit; 20,800; and C = R = 600,000) with T = 3.  Times per pass
+    commit at C = 2048 and 4096 (B = 200, T = 3; the record is C = 2048)
+    and at 10,400 (B = 2600): the new kernel alone (graph replay), and
+    per call with its host work (CUDA events around one call): the new
+    dispatch, the lexsort dispatch (torch lexsort, the kernel on that
+    order, the two ordered scatters) and the plain version."""
     import torch
     from cruise_control_tpu_torch import cuda_kernels
     from cruise_control_tpu_torch.analyzer import kernels as K
     g = torch.Generator(device="cuda").manual_seed(seed)
-    shapes = [(c, b, t) for c in (1, 16, 17, 256, 257, 2048, 4096)
+    shapes = [(c, b, t) for c in (1, 16, 17, 256, 257, 2048, 4096, 4097)
               for b in (200, 2600) for t in (0, 1, 3, 6)]
     shapes += [(10_400, 2600, 3), (20_800, 2600, 3), (600_000, 2600, 3)]
     n_checked = 0
@@ -1010,41 +1107,129 @@ def check_rank_accept(seed: int) -> dict:
                                 list(d_w), list(hr))
             want = K.rank_accept_plain(dest, gain, has, b, taken, cap,
                                        list(cum), list(d_w), list(hr))
+            taken_k, cum_k = taken.clone(), cum.clone()
+            keep_k = K.rank_accept_commit(dest, gain, has, b, taken_k, cap,
+                                          cum_k, d_w, hr)
+            taken_p, cum_p = taken.clone(), cum.clone()
+            keep_p = K.rank_accept_commit_plain(dest, gain, has, b, taken_p,
+                                                cap, cum_p, d_w, hr)
             torch.cuda.synchronize()
-            if not equal_exact(got, want):
-                bad = int((got != want).sum())
+            for what, x, y in (("acceptance", got, want),
+                               ("keep", keep_k, keep_p),
+                               ("taken_cnt", taken_k, taken_p),
+                               ("cumulants", cum_k, cum_p)):
+                if not equal_exact(x, y):
+                    bad = int((x != y).sum())
+                    raise AssertionError(
+                        f"rank_accept C={c} B={b} T={t} case {case!r}: "
+                        f"{what}: {bad} entries differ from the plain "
+                        "version")
+            if not equal_exact(keep_k, want):
                 raise AssertionError(f"rank_accept C={c} B={b} T={t} case "
-                                     f"{case!r}: {bad} flags differ from the "
-                                     "plain version")
+                                     f"{case!r}: the commit's keep differs "
+                                     "from the acceptance alone")
             n_checked += 1
             accepted += int(got.sum())
     log(f"  rank_accept: exact match in all {n_checked} checks ({accepted} "
-        f"acceptances), C up to 600,000")
+        "acceptances), acceptance alone and with the commit (keep, counts "
+        "and cumulants bit for bit), C up to 600,000")
     rec = None
     for c, b, t in ((2048, 200, 3), (4096, 200, 3), (10_400, 2600, 3)):
         dest, gain, has, taken, cap, cum, d_w, hr = _rank_inputs(
             c, b, t, "random", g)
+        tk, cm = taken.clone(), cum.clone()
+        args = (dest, gain, has, b, tk, cap, cm, d_w, hr)
+        order = (None if c <= cuda_kernels.RANK_ONE_BLOCK_MAX
+                 else K._lexsort_dest_gain(
+                     torch.where(has, dest.long(),
+                                 torch.full_like(dest, b).long()), gain))
+
+        def reset():
+            tk.copy_(taken)
+            cm.copy_(cum)
+
+        def kernel():
+            reset()
+            cuda_kernels.rank_accept(dest, gain, has, b, tk, cap, cm, d_w,
+                                     hr, order=order, commit=True)
+
+        def timed(fn):
+            def call():
+                reset()
+                fn(*args)
+            return cuda_time_ms(call)
+        # graph replay: the kernel with the two resets, less the resets
+        t_kernel = graph_time_ms(kernel) - graph_time_ms(reset)
+        t_reset = cuda_time_ms(reset)
+        times = (t_kernel, timed(K.rank_accept_commit) - t_reset,
+                 timed(lexsort_rank_accept_commit) - t_reset,
+                 timed(K.rank_accept_commit_plain) - t_reset)
+        launches = 1 if c <= cuda_kernels.RANK_ONE_BLOCK_MAX else None
+        # destinations, gains, flags and the T weight rows in, the flags
+        # out; per broker the caps, the counts in and out, the T
+        # headrooms in and the T cumulants in and out
+        nbytes = c * (4 + 4 + 1 + 4 * t + 1) + b * (4 + 8 + 12 * t)
+        t_b, by = bound(nbytes, c * t * 4)
+        log(f"  rank_accept with the commit C={c} B={b} T={t}: kernel "
+            f"{times[0]:.4f} ms per call (graph replay"
+            f"{', one launch' if launches else ''}); per call with its host "
+            f"work (CUDA events): new dispatch {times[1]:.4f} ms, lexsort "
+            f"dispatch {times[2]:.4f} ms, plain {times[3]:.4f} ms; bound "
+            f"{t_b:.6f} ms ({by}, {nbytes} bytes)")
+        if rec is None:
+            rec = dict(max_abs_err=0.0, ms=times[0], plain_ms=times[3],
+                       dispatch_ms=times[1], lexsort_dispatch_ms=times[2],
+                       bound_ms=t_b, bound_by=by, library_ms=None,
+                       shape=f"C={c} B={b} T={t}, with the commit")
+        else:
+            rec.setdefault("wider", []).append(dict(
+                c=c, b=b, t=t, ms=times[0], dispatch_ms=times[1],
+                lexsort_dispatch_ms=times[2], plain_ms=times[3], bound_ms=t_b))
+    return rec
+
+
+def rank_accept_breakdown(seed: int) -> list:
+    """Where K8's time goes: device time per call (graph replay, less the
+    resets of the counts and cumulants) of the kernel given the lexsort
+    order or sorting itself, without and with the commit; at C = 2048 and
+    4096, T = 3, B = 200 and 2600 (one block), and at C = 10,400, B = 2600
+    (the multi-launch path, given the order: its commit is one more
+    launch)."""
+    import torch
+    from cruise_control_tpu_torch import cuda_kernels
+    from cruise_control_tpu_torch.analyzer import kernels as K
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rows = []
+    for c, b in ((2048, 200), (4096, 200), (2048, 2600), (4096, 2600),
+                 (10_400, 2600)):
+        dest, gain, has, taken, cap, cum, d_w, hr = _rank_inputs(
+            c, b, 3, "random", g)
         seg = torch.where(has, dest.long(), torch.full_like(dest, b).long())
         order = K._lexsort_dest_gain(seg, gain)
-        args = (dest, gain, has, b, taken, cap, list(cum), list(d_w),
-                list(hr))
-        times = (graph_time_ms(lambda: cuda_kernels.rank_accept(
-                     order, dest, has, b, taken, cap, cum, d_w, hr)),
-                 graph_time_ms(lambda: K.rank_accept(*args)),
-                 graph_time_ms(lambda: K.rank_accept_plain(*args)))
-        # the order, destinations and flags, the T weight rows in, the
-        # flags out; per broker the counts and the T cumulants/headrooms
-        nbytes = c * (8 + 4 + 1 + 4 * t + 1) + b * (8 + 8 * t)
-        t_b, by = bound(nbytes, c * t * 4)
-        log(f"  rank_accept C={c} B={b} T={t}: device time per call: kernel "
-            f"{times[0]:.4f} ms, dispatch with the sort {times[1]:.4f} ms, "
-            f"plain {times[2]:.4f} ms; bound {t_b:.6f} ms ({by}, {nbytes} "
-            "bytes)")
-        if rec is None:
-            rec = dict(max_abs_err=0.0, ms=times[0], plain_ms=times[2],
-                       dispatch_ms=times[1], bound_ms=t_b, bound_by=by,
-                       library_ms=None, shape=f"C={c} B={b} T={t}")
-    return rec
+        tk, cm = taken.clone(), cum.clone()
+
+        def reset():
+            tk.copy_(taken)
+            cm.copy_(cum)
+
+        t_reset = graph_time_ms(reset)
+        row = dict(c=c, b=b)
+        for label, kw in (("order, no commit", dict(order=order)),
+                          ("sort, no commit", {}),
+                          ("order, commit", dict(order=order, commit=True)),
+                          ("sort, commit", dict(commit=True))):
+            if "order" not in kw and c > cuda_kernels.RANK_ONE_BLOCK_MAX:
+                continue
+            def call(kw=kw):
+                reset()
+                cuda_kernels.rank_accept(dest, gain, has, b, tk, cap, cm,
+                                         d_w, hr, **kw)
+            row[label] = graph_time_ms(call) - t_reset
+        rows.append(row)
+        log(f"  rank_accept C={c} B={b} T=3, device ms per call: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in row.items()
+                        if k not in ("c", "b")))
+    return rows
 
 
 def _argmax_inputs(n: int, s: int, g):
@@ -1383,6 +1568,109 @@ def _sweep_rounds(fn_solve):
         return fn_solve(), counts
 
 
+def pass_region_counts(solve: dict) -> dict:
+    """One card solve of `solve` with every torch.sort, ops.scatter_add_seq
+    and ops.segment_sum call and every host sync (torch's sync debug
+    warnings) counted inside the multi-commit passes -- assign_destinations
+    with destination terms, and run_tail from a multi-commit K4 pass to the
+    end of its rank_accept_commit -- and elsewhere.  The wrappers bind
+    their arguments by name.  Raises if a pass sorts, scatters, sums or
+    syncs, or if the rank_accept_commit calls seen inside the passes are
+    not every K8 launch with the commit (so that the passes were found)."""
+    import inspect
+    import torch
+    import warnings
+    from cruise_control_tpu_torch import cuda_kernels, ops
+    from cruise_control_tpu_torch.analyzer import kernels as K
+    region = {"assign": 0, "tail": False}
+    counts = {f"{n} {w}": 0 for n in ("sort", "scatter_add_seq",
+                                      "segment_sum", "sync",
+                                      "rank_accept_commit")
+              for w in ("in passes", "elsewhere")}
+    counts["K8 launches with the commit"] = 0
+
+    def where():
+        return ("in passes" if region["assign"] or region["tail"]
+                else "elsewhere")
+
+    def arg(fn, name, a, kw):
+        bound = inspect.signature(fn).bind(*a, **kw)
+        bound.apply_defaults()
+        return bound.arguments[name]
+
+    def counted(fn, name):
+        def call(*a, **kw):
+            counts[f"{name} {where()}"] += 1
+            return fn(*a, **kw)
+        return call
+
+    def assign(fn, name):
+        def call(*a, **kw):
+            multi = arg(fn, "dest_terms", a, kw) is not None
+            region["assign"] += multi
+            try:
+                return fn(*a, **kw)
+            finally:
+                region["assign"] -= multi
+        return call
+
+    def tail_open(fn, name):
+        def call(*a, **kw):
+            if arg(fn, "multi", a, kw):
+                region["tail"] = True
+            return fn(*a, **kw)
+        return call
+
+    def tail_close(fn, name):
+        def call(*a, **kw):
+            counts[f"rank_accept_commit {where()}"] += 1
+            try:
+                return fn(*a, **kw)
+            finally:
+                region["tail"] = False
+        return call
+
+    def k8(fn, name):
+        def call(*a, **kw):
+            counts["K8 launches with the commit"] += bool(
+                arg(fn, "commit", a, kw))
+            return fn(*a, **kw)
+        return call
+
+    def on_warning(message, *a, **kw):
+        if "synchroniz" in str(message):
+            counts[f"sync {where()}"] += 1
+    with _wrapped([(torch, "sort"), (ops, "scatter_add_seq"),
+                   (ops, "segment_sum")], counted), \
+            _wrapped([(K, "assign_destinations")], assign), \
+            _wrapped([(K, "leader_assign_pass")], tail_open), \
+            _wrapped([(K, "rank_accept_commit")], tail_close), \
+            _wrapped([(cuda_kernels, "rank_accept")], k8), \
+            warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = on_warning
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            _solve(solve, "cuda")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    log(f"    calls inside and outside the multi-commit passes: {counts}")
+    bad = {k: v for k, v in counts.items() if k.endswith("in passes")
+           and v and not k.startswith("rank_accept_commit")}
+    if bad:
+        raise AssertionError(f"the multi-commit passes still sort, scatter "
+                             f"or sync: {bad}")
+    seen = counts["rank_accept_commit in passes"]
+    if not seen or seen != counts["K8 launches with the commit"] or counts[
+            "rank_accept_commit elsewhere"]:
+        raise AssertionError(
+            f"the passes were not all found: {seen} rank_accept_commit "
+            f"calls inside them, {counts['rank_accept_commit elsewhere']} "
+            f"outside, {counts['K8 launches with the commit']} K8 "
+            "launches with the commit")
+    return counts
+
+
 def _report(label: str, result, seconds: float, sweeps=None) -> None:
     log(f"  {label}: solve {seconds:.3f} s")
     log(f"    self-healing: {result.heal_rounds} rounds, "
@@ -1570,6 +1858,9 @@ def run_slice(results: dict) -> None:
     results["_launches_stack"] = launches
     results["_stack_s"] = secs
     _card_equals_cpu(SLICE_STACK, result, "default stack slice")
+    log("  -- the same solve once more, counting sorts, ordered sums and "
+        "host syncs inside the multi-commit passes")
+    results["_pass_counts"] = pass_region_counts(SLICE_STACK)
     log("  -- add-broker (bench config 4): 10 empty brokers appended, the "
         "default stack")
     _, _, result, secs, launches = _timed_path(
@@ -1597,11 +1888,12 @@ def run_slice(results: dict) -> None:
 
 
 def profile_slice(solve: dict, device: str = "cuda",
-                  plain_rank_accept: bool = False) -> None:
+                  lexsort_dispatch: bool = False) -> None:
     """torch.profiler over one solve on the card: wall time, the device's
     busy and idle share, and the device time by kernel.  With
-    `plain_rank_accept` the solve runs rank_accept's plain version in
-    place of K8 (to compare its host time per call)."""
+    `lexsort_dispatch` the solve runs K8's lexsort dispatch (the torch
+    lexsort, the kernel on that order and, after each multi-commit pass,
+    the ordered scatters) in place of the one-launch K8."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -1618,6 +1910,7 @@ def profile_slice(solve: dict, device: str = "cuda",
     targets = [(ops, "segment_sum"), (ops, "scatter_add_seq"),
                (ops, "cumsum_f32"), (ops, "sum_f32"),
                (K, "row_topk"), (K, "assign_pass"), (K, "rank_accept"),
+               (K, "rank_accept_commit"),
                (K, "resolve_dest_conflicts"), (K, "assign_destinations"),
                (K, "move_round"), (K, "swap_round"),
                (K, "commit_moves_cached"), (K, "commit_swaps_cached"),
@@ -1641,13 +1934,7 @@ def profile_slice(solve: dict, device: str = "cuda",
                 return fn(*a, **kw)
         return labelled
 
-    swap = ([(K, "rank_accept")] if plain_rank_accept else [])
-    def to_plain(fn, name):
-        def plain(*a, **kw):
-            return K.rank_accept_plain(*a, **kw)
-        return plain
-
-    with _wrapped(swap, to_plain), \
+    with (lexsort_k8() if lexsort_dispatch else contextlib.nullcontext()), \
             _wrapped(targets, wrap), profile(
                 activities=[ProfilerActivity.CPU,
                             ProfilerActivity.CUDA]) as prof:
@@ -1744,9 +2031,9 @@ def main(argv=None) -> int:
     widest = [0]
 
     def widest_call(fn, name):
-        def call(order, *a, **kw):
-            widest[0] = max(widest[0], order.shape[0])
-            return fn(order, *a, **kw)
+        def call(dest, *a, **kw):
+            widest[0] = max(widest[0], dest.shape[0])
+            return fn(dest, *a, **kw)
         return call
 
     if 2 in phases:
@@ -1761,7 +2048,11 @@ def main(argv=None) -> int:
                                                                seed=15)
         results["sweep_pick"] = check_sweep_pick(SLICE_SPEC, seed=16)
         results["forced_select"] = check_forced_select(SLICE_SPEC, seed=17)
+        log("[2] K7 with k = R on a small cluster (24 brokers)")
+        results["_forced_select_small"] = check_forced_select(
+            dict(SLICE_SPEC, num_brokers=24, num_partitions=1000), seed=40)
         results["rank_accept"] = check_rank_accept(seed=30)
+        results["_rank_accept_breakdown"] = rank_accept_breakdown(seed=36)
         results["_commit_moves_tableless"] = check_commit_moves_tableless(
             SLICE_SPEC, seed=18)
         results["segment_argmax"] = check_segment_argmax(seed=31)
@@ -1808,10 +2099,14 @@ def main(argv=None) -> int:
         raise AssertionError(f"a path called rank_accept at C = {widest[0]}, "
                              f"wider than phase 2 checks ({RANK_CHECKED_C})")
     if args.profile:
+        log("[3p] default-stack slice solves in turns, K8's lexsort "
+            "dispatch against the one-launch K8 (unprofiled)")
+        results["_k8_turns"] = k8_solve_turns(SLICE_STACK)
         log("[3p] profile of one default-stack slice solve on the card")
         profile_slice(SLICE_STACK)
-        log("[3p] the same with rank_accept's plain version in place of K8")
-        profile_slice(SLICE_STACK, plain_rank_accept=True)
+        log("[3p] the same with K8's lexsort dispatch (torch lexsort, the "
+            "kernel on its order, the ordered scatters after each pass)")
+        profile_slice(SLICE_STACK, lexsort_dispatch=True)
         log("[3p] profile of one config 5 slice solve on the card")
         profile_slice(SLICE_CONFIG5)
         log("[3p] profile of one kafka-assigner and one intra-broker slice "
@@ -1857,6 +2152,8 @@ def main(argv=None) -> int:
             "demote", "kafka_assigner", "intra", "intra_broken",
             "north_demote", "north_kafka_assigner", "north_intra")},
         "rank_accept_widest_c": widest[0],
+        "stack_slice_pass_counts": results.get("_pass_counts"),
+        "stack_slice_k8_turns_s": results.get("_k8_turns"),
         "card_cpu_identical": results.get("_identical"),
         "row_topk_deep": results.get("row_topk", {}).get("deep")}))
     log("[5] " + json.dumps({
@@ -1864,6 +2161,8 @@ def main(argv=None) -> int:
         "commit_moves_tableless_north":
             results.get("_commit_moves_tableless_north"),
         "forced_select_north": results.get("_forced_select_north"),
+        "forced_select_k_equals_r": results.get("_forced_select_small"),
+        "rank_accept_breakdown": results.get("_rank_accept_breakdown"),
         "assign_pass_C4096": results.get("_assign_pass_4096"),
         "swap_pair_north": results.get("_swap_pair_north"),
         "dest_feasibility_north": results.get("_dest_feasibility_north"),

@@ -13,7 +13,9 @@ functions are hand-written CUDA kernels on the card:
 * K7 `forced_select` (csrc/forced_select.cu), the candidate selection of
   a table-less `forced_move_round`;
 * K8 `rank_accept` (csrc/rank_accept.cu), the multi-commit acceptance of
-  every assignment pass and of the leadership sweep;
+  every assignment pass (`rank_accept_commit`: with its lexsort and the
+  pass's commit of arrival counts and cumulants, one launch up to 4,096
+  candidates) and of the leadership sweep (`rank_accept`);
 * K9 `segment_argmax` (csrc/segment_argmax.cu) behind
   `per_segment_argmax`;
 * K10 `swap_pair` (csrc/swap_pair.cu), the swap round's pair plane;
@@ -22,10 +24,10 @@ functions are hand-written CUDA kernels on the card:
   `feasible_dest_exists`.
 
 Their plain versions (`row_topk_plain`, `assign_pass_plain`,
-`forced_select_plain`, `rank_accept_plain`, `per_segment_argmax_plain`,
-`swap_pair_plain`, `dest_struct_plain`, `dest_has_plain`) live here; a
-CPU tensor runs them.  The reference's `lax.cond` branches are host `if`s on a 0-d tensor
-(one sync each).
+`forced_select_plain`, `rank_accept_plain`, `rank_accept_commit_plain`,
+`per_segment_argmax_plain`, `swap_pair_plain`, `dest_struct_plain`,
+`dest_has_plain`) live here; a CPU tensor runs them.  The reference's
+`lax.cond` branches are host `if`s on a 0-d tensor (one sync each).
 """
 from __future__ import annotations
 
@@ -179,8 +181,9 @@ def segment_rank(seg: torch.Tensor, num_segments: int,
 
 def _lexsort_dest_gain(seg: torch.Tensor, gain: torch.Tensor):
     """`jnp.lexsort((arange, -gain, seg))`: by seg, then gain descending,
-    then index."""
-    o1 = ops.argsort_stable(-gain)
+    then index.  -0.0 is made +0.0 first (`gain + 0.0`): jnp.lexsort ties
+    them, and a radix sort on the bits would not."""
+    o1 = ops.argsort_stable(-(gain + 0.0))
     return o1[ops.argsort_stable(seg[o1])]
 
 
@@ -223,17 +226,83 @@ def rank_accept_plain(dest, gain, has, num_b: int, taken_cnt, cap, cum_d,
 
 def rank_accept(dest, gain, has, num_b: int, taken_cnt, cap, cum_d, d_w,
                 hr_d) -> torch.Tensor:
-    """K8 dispatch: the plain version on the CPU; on the card the lexsort
-    (a torch sort) then csrc/rank_accept.cu for everything after it."""
+    """K8 dispatch without the commit: the plain version on the CPU,
+    csrc/rank_accept.cu on the card (up to C = 4096 one launch that sorts
+    too; above, the torch lexsort first)."""
     if not dest.is_cuda:
         return rank_accept_plain(dest, gain, has, num_b, taken_cnt, cap,
                                  cum_d, d_w, hr_d)
     from cruise_control_tpu_torch import cuda_kernels
-    seg = torch.where(has, dest.long(), torch.full_like(dest, num_b).long())
+    dest32 = dest.to(torch.int32).contiguous()
     return cuda_kernels.rank_accept(
-        _lexsort_dest_gain(seg, gain), dest.to(torch.int32).contiguous(),
-        has.contiguous(), num_b, taken_cnt.to(torch.int32).contiguous(),
-        cap.to(torch.int32).contiguous(), cum_d, d_w, hr_d)
+        dest32, gain.contiguous(), has.contiguous(), num_b,
+        taken_cnt.to(torch.int32).contiguous(),
+        cap.to(torch.int32).contiguous(), cum_d, d_w, hr_d,
+        order=_order_above_one_block(dest32, gain, has, num_b))
+
+
+def _order_above_one_block(dest, gain, has, num_b: int):
+    """The torch lexsort K8 takes above its one-block width (None below:
+    the kernel sorts)."""
+    from cruise_control_tpu_torch.cuda_kernels import RANK_ONE_BLOCK_MAX
+    if dest.shape[0] <= RANK_ONE_BLOCK_MAX:
+        return None
+    seg = torch.where(has, dest.long(), torch.full_like(dest, num_b).long())
+    return _lexsort_dest_gain(seg, gain)
+
+
+def rank_key(dest, gain, has, num_b: int) -> torch.Tensor:
+    """K8's 64-bit sort key (csrc/rank_accept.cu `rank_key`), for C <=
+    65,536 candidates and B <= 65,534: the segment (has ? dest : B) in
+    bits 48-63, the complemented order-preserving bits of the gain (-0.0
+    made +0.0) in bits 16-47, the index in bits 0-15.  Unique, and
+    ascending keys are `jnp.lexsort((arange, -gain, seg))`.  Returned as
+    int64 less 2**63, so that a signed sort gives the unsigned order."""
+    c = dest.shape[0]
+    seg = torch.where(has, dest.long(), torch.full_like(dest.long(), num_b))
+    g = torch.where(gain == 0, torch.zeros_like(gain), gain)
+    u = g.contiguous().view(torch.int32).long() & 0xFFFFFFFF
+    bits = torch.where(u >= 0x80000000, u ^ 0xFFFFFFFF, u | 0x80000000)
+    low = ((bits ^ 0xFFFFFFFF) << 16) | _arange(c, dest.device)
+    return (seg - (1 << 15)) * (1 << 48) + low
+
+
+def rank_accept_commit_plain(dest, gain, has, num_b: int, taken_cnt, cap,
+                             cum, d_w, hr) -> torch.Tensor:
+    """Plain version of K8 with the pass commit: `rank_accept_plain`, then
+    the reference's `taken_cnt.at[kept_d].add(1)` and, for each term t,
+    `cum[t].at[kept_d].add(where(keep, d_w[t], 0))` in candidate order.
+    `cum` f32[T, B], `d_w` f32[T, C], `hr` f32[T, B]; `taken_cnt` and
+    `cum` are updated in place.  Returns keep bool[C]."""
+    keep = rank_accept_plain(dest, gain, has, num_b, taken_cnt, cap,
+                             list(cum), list(d_w), list(hr))
+    kept_d = torch.where(keep, dest, torch.full_like(dest, num_b))
+    taken_cnt += ops.segment_sum(torch.ones_like(kept_d), kept_d, num_b)
+    if cum.shape[0]:
+        cum.T.copy_(ops.scatter_add_seq(
+            cum.T, kept_d, torch.where(keep[:, None], d_w.T,
+                                       torch.zeros((), device=cum.device))))
+    return keep
+
+
+def rank_accept_commit(dest, gain, has, num_b: int, taken_cnt, cap, cum,
+                       d_w, hr) -> torch.Tensor:
+    """K8 dispatch with the pass commit: keep bool[C], and `taken_cnt`
+    (i32[B]) and `cum` (f32[T, B]) updated in place.  The plain version on
+    the CPU; on the card csrc/rank_accept.cu, one launch up to C = 4096
+    (sort, acceptance and commit), above it the torch lexsort and the
+    kernel's separate launches."""
+    if not dest.is_cuda:
+        return rank_accept_commit_plain(dest, gain, has, num_b, taken_cnt,
+                                        cap, cum, d_w, hr)
+    from cruise_control_tpu_torch import cuda_kernels
+    dest32 = dest.to(torch.int32).contiguous()
+    return cuda_kernels.rank_accept(
+        dest32, gain.contiguous(), has.contiguous(), num_b, taken_cnt,
+        cap.to(torch.int32).contiguous(), cum, d_w.contiguous(),
+        hr.contiguous(), order=_order_above_one_block(dest32, gain, has,
+                                                      num_b),
+        commit=True)
 
 
 def resolve_dest_conflicts(dest, gain, valid, num_brokers: int):
@@ -645,6 +714,13 @@ def assign_pass(pref, dest_open, assigned, cand_has, k: int, amp):
                                     amp)
 
 
+def _stack_rows(rows, n: int, dev) -> torch.Tensor:
+    """f32[T, n] of T f32[n] rows (f32[0, n] for none), contiguous."""
+    if not rows:
+        return torch.zeros((0, n), device=dev)
+    return torch.stack(list(rows)).contiguous()
+
+
 def assign_destinations(pref, gain, cand_has, num_b: int, dest_ids=None,
                         dest_terms=None, dest_cap=None):
     """Assign candidates to destination brokers over ASSIGN_PASSES passes
@@ -667,21 +743,17 @@ def assign_destinations(pref, gain, cand_has, num_b: int, dest_ids=None,
     amp = 0.35 * spread + 1e-6
 
     taken_cnt = torch.zeros(num_b, dtype=torch.int32, device=dev)
-    n_terms = len(dest_terms or ())
-    # the terms' cumulants as the columns of one [B, terms] tensor: one
-    # ordered scatter per pass updates them all
-    cum = torch.zeros((num_b, n_terms), device=dev)
     assigned = torch.zeros(c, dtype=torch.bool, device=dev)
     dest = torch.zeros(c, dtype=torch.int32, device=dev)
     if multi:
         cap_b = (dest_cap if dest_cap is not None
                  else torch.full((num_b,), MAX_ARRIVALS_PER_ROUND,
                                  dtype=torch.int32, device=dev))
-        d_w = [w_c for w_c, _ in dest_terms]
-        hr = [hr_d for _, hr_d in dest_terms]
-        if n_terms:
-            w_all = torch.stack(d_w, 1)
-            zero = torch.zeros((), device=dev)
+        # the terms stacked once: K8 ranks, accepts and commits each pass,
+        # updating taken_cnt and the [T, B] cumulants in place
+        cum = torch.zeros((len(dest_terms), num_b), device=dev)
+        d_w = _stack_rows([w_c for w_c, _ in dest_terms], c, dev)
+        hr = _stack_rows([hr_d for _, hr_d in dest_terms], num_b, dev)
     for k in range(MULTI_ASSIGN_PASSES if multi else ASSIGN_PASSES):
         if not multi:
             open_d = taken_cnt[dest_ids] == 0
@@ -690,19 +762,16 @@ def assign_destinations(pref, gain, cand_has, num_b: int, dest_ids=None,
         best_slot, has = assign_pass(pref, open_d, assigned, cand_has, k,
                                      amp)
         best = dest_ids[best_slot.long()].to(torch.int32)
-        if not multi:
-            keep = resolve_dest_conflicts(best, gain, has, num_b)
+        if multi:
+            keep = rank_accept_commit(best, gain, has, num_b, taken_cnt,
+                                      cap_b, cum, d_w, hr)
         else:
-            keep = rank_accept(best, gain, has, num_b, taken_cnt, cap_b,
-                               list(cum.unbind(1)), d_w, hr)
+            keep = resolve_dest_conflicts(best, gain, has, num_b)
+            kept_d = torch.where(keep, best, torch.full_like(best, num_b))
+            taken_cnt = taken_cnt + ops.segment_sum(
+                torch.ones_like(kept_d), kept_d, num_b)
         dest = torch.where(keep, best, dest)
         assigned = assigned | keep
-        kept_d = torch.where(keep, best, torch.full_like(best, num_b))
-        taken_cnt = taken_cnt + ops.segment_sum(
-            torch.ones_like(kept_d), kept_d, num_b)
-        if multi and n_terms:
-            cum = ops.scatter_add_seq(
-                cum, kept_d, torch.where(keep[:, None], w_all, zero))
     return dest, assigned
 
 
@@ -1123,8 +1192,6 @@ def leadership_round(state: ClusterState, bonus_w, src_excess, movable,
         src_of_cand = rb[cand_r_safe]
         taken_cnt = torch.zeros(num_b, dtype=torch.int32, device=dev)
         dep_cnt = torch.zeros(num_b, dtype=torch.int32, device=dev)
-        n_terms = len(dest_terms or ())
-        cum = torch.zeros((num_b, n_terms), device=dev)
         assigned = torch.zeros(c, dtype=torch.bool, device=dev)
         dest_replica = torch.zeros(c, dtype=torch.int32, device=dev)
         finite = pref_c > NEG / 2
@@ -1140,32 +1207,33 @@ def leadership_round(state: ClusterState, bonus_w, src_excess, movable,
         if multi:
             cap = torch.full((num_b,), MAX_ARRIVALS_PER_ROUND,
                              dtype=torch.int32, device=dev)
-            hrs = [hr for _, hr in dest_terms]
+            # stacked once; K8 commits into taken_cnt and cum in place
+            t_ws = _stack_rows([t_w for t_w, _ in dest_terms],
+                               bonus_w.shape[0], dev)
+            hrs = _stack_rows([hr for _, hr in dest_terms], num_b, dev)
+            cum = torch.zeros((len(dest_terms), num_b), device=dev)
         for k in range(MULTI_ASSIGN_PASSES if multi else ASSIGN_PASSES):
             _, db, dr, has = leader_assign_pass(
                 pref_c, sib_b32, sib_r32, src32, taken_cnt, dep_cnt,
                 assigned, cand_has, k, amp, multi)
             if multi:
-                # dest weights index the promoted replica of this pass
-                d_w = [t_w[dr.long()] for t_w, _ in dest_terms]
-                keep = rank_accept(db, gain, has, num_b, taken_cnt, cap,
-                                   list(cum.unbind(1)), d_w, hrs)
+                # dest weights index the promoted replica of this pass;
+                # dep_cnt gates single-commit passes only
+                keep = rank_accept_commit(db, gain, has, num_b, taken_cnt,
+                                          cap, cum, t_ws[:, dr.long()],
+                                          hrs)
             else:
                 keep = resolve_dest_conflicts(db, gain, has, num_b)
                 keep = resolve_dest_conflicts(src32, gain, keep, num_b)
+                kept_d = torch.where(keep, db, torch.full_like(db, num_b))
+                kept_s = torch.where(keep, src32,
+                                     torch.full_like(src32, num_b))
+                taken_cnt = taken_cnt + ops.segment_sum(
+                    torch.ones_like(kept_d), kept_d, num_b)
+                dep_cnt = dep_cnt + ops.segment_sum(
+                    torch.ones_like(kept_s), kept_s, num_b)
             dest_replica = torch.where(keep, dr, dest_replica)
             assigned = assigned | keep
-            kept_d = torch.where(keep, db, torch.full_like(db, num_b))
-            kept_s = torch.where(keep, src32, torch.full_like(src32, num_b))
-            taken_cnt = taken_cnt + ops.segment_sum(
-                torch.ones_like(kept_d), kept_d, num_b)
-            dep_cnt = dep_cnt + ops.segment_sum(
-                torch.ones_like(kept_s), kept_s, num_b)
-            if n_terms:
-                cum = ops.scatter_add_seq(
-                    cum, kept_d,
-                    torch.where(keep[:, None], torch.stack(d_w, 1),
-                                torch.zeros((), device=dev)))
         return dest_replica, assigned
 
     def lead_eligible():

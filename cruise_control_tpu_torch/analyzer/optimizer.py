@@ -326,7 +326,7 @@ class GoalOptimizer:
             proposals=proposals,
             stats_before=stats_before,
             stats_after=(stats_by_goal[goals[-1].name] if goals
-                         else stats_before),
+                         else compute_stats(state).cpu()),
             stats_by_goal=stats_by_goal,
             violated_goals_before=violated_before,
             violated_goals_after=violated_after,

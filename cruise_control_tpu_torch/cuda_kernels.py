@@ -38,7 +38,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES = {"row_topk": 0, "assign_pass": 0, "commit_moves": 0,
             "leader_assign_pass": 0, "commit_leadership": 0, "sweep_pick": 0,
             "forced_select": 0, "rank_accept": 0, "segment_argmax": 0,
-            "swap_pair": 0, "dest_feasibility": 0}
+            "swap_pair": 0, "dest_feasibility": 0,
+            # K8's launches split by path: one block (C <= 4096) and the
+            # multi-launch path above
+            "rank_accept_one_block": 0, "rank_accept_multi_launch": 0}
+#: K8's one-block path takes up to this many candidates
+RANK_ONE_BLOCK_MAX = 4096
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -119,8 +124,9 @@ def build() -> ctypes.CDLL:
         lib.cc_commit_leadership.argtypes = [_I] * 4 + [_P] * 19
         lib.cc_sweep_pick.argtypes = [_I, _I] + [_P] * 14 + [
             ctypes.c_float, _I] + [_P] * 4
-        lib.cc_forced_select.argtypes = [_I] * 4 + [_P] * 14 + [_P]
-        lib.cc_rank_accept.argtypes = [_I] * 3 + [_P] * 13 + [_P]
+        lib.cc_forced_select.argtypes = [_I] * 4 + [_P] * 13 + [_P]
+        lib.cc_rank_accept.argtypes = [_I] * 3 + [_P] * 9 + [_I] + [
+            _P] * 6
         lib.cc_rank_accept_level_floats.argtypes = [_I]
         lib.cc_rank_accept_level_floats.restype = ctypes.c_longlong
         lib.cc_segment_argmax.argtypes = [_P, _P, _P, _I, _I] + [_P] * 5
@@ -130,7 +136,8 @@ def build() -> ctypes.CDLL:
         for fn in (lib.cc_row_topk, lib.cc_assign_pass, lib.cc_commit_moves,
                    lib.cc_leader_assign_pass, lib.cc_commit_leadership,
                    lib.cc_sweep_pick, lib.cc_forced_select,
-                   lib.cc_rank_accept, lib.cc_segment_argmax,
+                   lib.cc_rank_accept,
+                   lib.cc_segment_argmax,
                    lib.cc_swap_pair, lib.cc_dest_struct, lib.cc_dest_has):
             fn.restype = ctypes.c_int
         BUILD_INFO.update(seconds=time.time() - t0, log="\n".join(log),
@@ -490,7 +497,8 @@ def forced_select(forced: torch.Tensor, w: torch.Tensor,
                   partition_replicas: torch.Tensor, top_b: torch.Tensor,
                   top_h: torch.Tensor, k: int):
     """K7 launch: (cand_r i32[k], cand_has bool[k], forced_ok bool[R]);
-    with k == 0 only the guard runs and the first two are None."""
+    with k == 0 only the guard runs and the first two are None.  For k >
+    0 one cooperative launch."""
     lib = build()
     num_r = forced.shape[0]
     num_p, rf = partition_replicas.shape
@@ -514,44 +522,57 @@ def forced_select(forced: torch.Tensor, w: torch.Tensor,
     dev = forced.device
     forced_ok = torch.empty(num_r, dtype=torch.bool, device=dev)
     if k:
-        keys = torch.empty(num_r, dtype=torch.int64, device=dev)
-        hist = torch.empty(8 * 256, dtype=torch.int32, device=dev)
-        sel = torch.empty(3, dtype=torch.int64, device=dev)
-        out_keys = torch.empty(k, dtype=torch.int64, device=dev)
+        # the guarded keys, the digit counts with two counters (zeroed by
+        # the kernel), the selected keys
+        listed = torch.empty(num_r, dtype=torch.int64, device=dev)
+        hist = torch.empty(8 * 256 + 2, dtype=torch.int32, device=dev)
+        sel_keys = torch.empty(k, dtype=torch.int64, device=dev)
         cand_r = torch.empty(k, dtype=torch.int32, device=dev)
         cand_has = torch.empty(k, dtype=torch.bool, device=dev)
-        scratch = [keys.data_ptr(), hist.data_ptr(), sel.data_ptr(),
-                   out_keys.data_ptr(), cand_r.data_ptr(),
-                   cand_has.data_ptr()]
+        scratch = [listed.data_ptr(), hist.data_ptr(), sel_keys.data_ptr(),
+                   cand_r.data_ptr(), cand_has.data_ptr()]
     else:
         cand_r = cand_has = None
-        scratch = [None] * 6
+        scratch = [None] * 5
     err = lib.cc_forced_select(
-        num_r, rf, nb, int(k), forced.data_ptr(), w.data_ptr(),
-        replica_partition.data_ptr(), replica_broker.data_ptr(),
-        partition_replicas.data_ptr(), top_b.data_ptr(), top_h.data_ptr(),
-        forced_ok.data_ptr(), *scratch, _stream())
+        num_r, rf, nb, int(k), forced.data_ptr(),
+        w.data_ptr(), replica_partition.data_ptr(),
+        replica_broker.data_ptr(), partition_replicas.data_ptr(),
+        top_b.data_ptr(), top_h.data_ptr(), forced_ok.data_ptr(), *scratch,
+        _stream())
     LAUNCHES["forced_select"] += 1
     _raise_on(err, "forced_select")
     return cand_r, cand_has, forced_ok
 
 
-def rank_accept(order: torch.Tensor, dest: torch.Tensor, has: torch.Tensor,
+def rank_accept(dest: torch.Tensor, gain: torch.Tensor, has: torch.Tensor,
                 num_b: int, taken_cnt: torch.Tensor, cap: torch.Tensor,
-                cum_d, d_w, hr_d) -> torch.Tensor:
-    """K8 launch: bool[C] acceptance after the lexsort `order` (int64[C]).
-    `cum_d` / `hr_d` are T tensors f32[B] (or one f32[T, B]), `d_w` T
-    tensors f32[C] (or one f32[T, C]); lists are stacked here."""
+                cum_d, d_w, hr_d, order=None,
+                commit: bool = False) -> torch.Tensor:
+    """K8 launch: bool[C] acceptance.  Up to C = 4096 one block sorts
+    (unless the lexsort `order`, int64[C], is given), accepts and, with
+    `commit`, commits; above, `order` is required, the steps are separate
+    launches and the commit one more.  With `commit`, `taken_cnt` (i32[B])
+    and `cum_d` (one f32[T, B] tensor) are updated in place.  `cum_d` /
+    `hr_d` are T tensors f32[B] (or one f32[T, B]), `d_w` T tensors f32[C]
+    (or one f32[T, C]); lists are stacked here."""
     lib = build()
-    c = order.shape[0]
+    c = dest.shape[0]
     n_terms = len(d_w)
     if not (len(cum_d) == len(hr_d) == n_terms):
         raise ValueError("rank_accept takes as many cumulants and headrooms "
                          "as weights")
-    if num_b < 1 or c >= 2 ** 31 - 1:
-        raise ValueError(f"rank_accept takes B >= 1 and C < 2**31 - 1, got "
-                         f"B={num_b}, C={c}")
-    dev = order.device
+    if not 1 <= num_b <= 65534 or c * (n_terms + 1) >= 2 ** 31 - 1:
+        raise ValueError(f"rank_accept takes 1 <= B <= 65534 and C * (T + "
+                         f"1) < 2**31 - 1, got B={num_b}, C={c}, "
+                         f"T={n_terms}")
+    if c > RANK_ONE_BLOCK_MAX and order is None:
+        raise ValueError(f"rank_accept above C = {RANK_ONE_BLOCK_MAX} takes "
+                         "the lexsort order")
+    if commit and not isinstance(cum_d, torch.Tensor):
+        raise ValueError("rank_accept's commit updates one f32[T, B] "
+                         "cumulant tensor in place")
+    dev = dest.device
 
     def rows(x, n):
         if isinstance(x, torch.Tensor):
@@ -560,8 +581,8 @@ def rank_accept(order: torch.Tensor, dest: torch.Tensor, has: torch.Tensor,
                 else torch.empty((0, n), device=dev))
     cum, dw, hr = rows(cum_d, num_b), rows(d_w, c), rows(hr_d, num_b)
     for name, t, dt, shape in (
-            ("order", order, torch.int64, (c,)),
             ("dest", dest, torch.int32, (c,)),
+            ("gain", gain, torch.float32, (c,)),
             ("has", has, torch.bool, (c,)),
             ("taken_cnt", taken_cnt, torch.int32, (num_b,)),
             ("cap", cap, torch.int32, (num_b,)),
@@ -569,10 +590,13 @@ def rank_accept(order: torch.Tensor, dest: torch.Tensor, has: torch.Tensor,
             ("d_w", dw, torch.float32, (n_terms, c)),
             ("hr", hr, torch.float32, (n_terms, num_b))):
         _check(t, name, dt, shape)
+    if order is not None:
+        _check(order, "order", torch.int64, (c,))
     out = torch.empty(c, dtype=torch.bool, device=dev)
-    if c > 4096:
+    one_block = c <= RANK_ONE_BLOCK_MAX
+    if not one_block:
         levels = lib.cc_rank_accept_level_floats(c)
-        s_i = torch.empty(3 * c, dtype=torch.int32, device=dev)
+        s_i = torch.empty(4 * c, dtype=torch.int32, device=dev)
         s_ok = torch.empty(c, dtype=torch.bool, device=dev)
         s_ws = torch.empty(max(n_terms * c, 1), device=dev)
         s_cs = torch.empty(max(n_terms * levels, 1), device=dev)
@@ -581,10 +605,14 @@ def rank_accept(order: torch.Tensor, dest: torch.Tensor, has: torch.Tensor,
     else:
         scratch = [None] * 4
     err = lib.cc_rank_accept(
-        c, num_b, n_terms, order.data_ptr(), dest.data_ptr(), has.data_ptr(),
+        c, num_b, n_terms, order.data_ptr() if order is not None else None,
+        dest.data_ptr(), gain.data_ptr(), has.data_ptr(),
         taken_cnt.data_ptr(), cap.data_ptr(), cum.data_ptr(), dw.data_ptr(),
-        hr.data_ptr(), *scratch, out.data_ptr(), _stream())
+        hr.data_ptr(), int(bool(commit)), *scratch, out.data_ptr(),
+        _stream())
     LAUNCHES["rank_accept"] += 1
+    LAUNCHES["rank_accept_one_block" if one_block
+             else "rank_accept_multi_launch"] += 1
     _raise_on(err, "rank_accept")
     return out
 

@@ -1,9 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
 card, at the slice's shapes (marker `torch_cuda`).
 
-K7 (`forced_select`) and K3's table-less mode are held here too, K2 at
-the forced-move round's 4,096 candidates, K8 (`rank_accept`) on both of
-its paths, K9 (`segment_argmax`), K10 (`swap_pair`) and K11
+K7 (`forced_select`, also at k = R) and K3's table-less
+mode are held here too, K2 at the forced-move round's 4,096 candidates,
+K8 (`rank_accept`) on both of its paths, without and with the pass
+commit, K9 (`segment_argmax`), K10 (`swap_pair`) and K11
 (`dest_feasibility`, both entries), a short default-stack solve and the
 demote, kafka-assigner and intra-broker solves against the port's CPU
 path.
@@ -301,6 +302,34 @@ def test_forced_select_matches_plain(case):
         assert 0 < int(want[2].sum()) < 4096
 
 
+@pytest.mark.parametrize("share", [0.01, 0.5, 1.0])
+def test_forced_select_k_equals_r_on_a_small_cluster(share):
+    """K7 with k = R (every replica a candidate): the guarded replicas by
+    score, then every other replica in index order; and with fewer
+    guarded than k, the shortcut that runs no select."""
+    ck = _card()
+    spec = dict(SLICE, num_brokers=12, num_partitions=400)
+    state, _ = random_cluster(RandomClusterSpec(**spec), device="cuda")
+    ctx = C.make_context(state, C.BalancingConstraint(),
+                         C.OptimizationOptions())
+    rng = np.random.default_rng(int(share * 100))
+    num_r = state.num_replicas
+    forced = torch.from_numpy(rng.random(num_r) < share).cuda()
+    w = torch.round(state.replica_base_load[:, 3] * 4.0).contiguous()
+    dest_ok = torch.ones(state.num_brokers, dtype=torch.bool, device="cuda")
+    inf_room = torch.full((state.num_brokers,), float("inf"), device="cuda")
+    top_b, top_h = K.top_headroom(dest_ok, inf_room,
+                                  ctx.partition_replicas.shape[1])
+    args = (forced, w, state.replica_partition, state.replica_broker,
+            ctx.partition_replicas, top_b.to(torch.int32).contiguous(),
+            top_h)
+    got = ck.forced_select(*args, num_r)
+    want = K.forced_select_plain(*args, num_r)
+    torch.cuda.synchronize()
+    assert all(_same(a, b) for a, b in zip(got, want))
+    assert 0 < int(want[2].sum()) <= num_r
+
+
 @pytest.mark.parametrize("c", [17, 2048, 4096, 10_400])
 @pytest.mark.parametrize("t", [0, 3, 6])
 def test_rank_accept_matches_plain(c, t):
@@ -326,6 +355,65 @@ def test_rank_accept_matches_plain(c, t):
     torch.cuda.synchronize()
     assert _same(got, want)
     assert bool(got.any())
+
+
+@pytest.mark.parametrize("case", ["random", "one destination",
+                                  "signed zeros"])
+@pytest.mark.parametrize("t", [0, 1, 3, 6])
+@pytest.mark.parametrize("c,b", [(1, 200), (17, 200), (2048, 200),
+                                 (4096, 200), (4097, 200), (17, 2600),
+                                 (2048, 2600), (4096, 2600), (4097, 2600),
+                                 (10_400, 2600)])
+def test_rank_accept_commit_matches_plain(c, b, t, case):
+    """K8 with the pass commit (one launch up to C = 4096; above, the
+    multi-launch path and its follow-on commit) against
+    rank_accept_commit_plain: keep, the arrival counts and the cumulants
+    bit for bit, with weights whose sums change with the order of the
+    adds."""
+    _check_rank_accept_commit(c, b, t, case)
+
+
+@pytest.mark.parametrize("c,b", [(4096, 200), (10_400, 2600)])
+def test_rank_accept_commit_above_eight_terms(c, b):
+    """K8 with the commit at T = 9: the multi-launch path's commit walks
+    the candidates once for each eight terms."""
+    _check_rank_accept_commit(c, b, 9, "random")
+
+
+def _check_rank_accept_commit(c, b, t, case):
+    _card()
+    rng = np.random.default_rng(c + b + 10 * t + len(case))
+    dest = rng.integers(0, min(b, c // 8 + 1), c).astype(np.int32)
+    gain = (np.round(rng.random(c) * 8.0) / 4.0).astype(np.float32)
+    has = rng.random(c) < 0.85
+    taken = np.where(rng.random(b) < 0.7, 0,
+                     rng.integers(1, 4, b)).astype(np.int32)
+    cap = rng.integers(24, 65, b).astype(np.int32)
+    scale = rng.choice(np.array([1.0, 0.1, 3.0, 1.5e7], np.float32), (t, c))
+    d_w = (scale * (np.round(rng.random((t, c)) * 3.0) + 1.0) / 3.0).astype(
+        np.float32)
+    cum = (np.round(rng.random((t, b)) * 16.0) * 250.0).astype(np.float32)
+    hr = np.full((t, b), 3e9, np.float32)
+    if case == "one destination":
+        dest[:] = b // 2
+        cap[:] = 1 << 20
+    elif case == "signed zeros":
+        gain = np.where(rng.random(c) < 0.5, np.float32(0.0),
+                        np.float32(-0.0)).astype(np.float32)
+    cu = [torch.from_numpy(x).cuda() for x in (dest, gain, has, cap, d_w, hr)]
+    taken_k, cum_k = (torch.from_numpy(taken).cuda(),
+                      torch.from_numpy(cum).cuda())
+    taken_p, cum_p = taken_k.clone(), cum_k.clone()
+    got = K.rank_accept_commit(cu[0], cu[1], cu[2], b, taken_k, cu[3], cum_k,
+                               cu[4], cu[5])
+    want = K.rank_accept_commit_plain(cu[0], cu[1], cu[2], b, taken_p, cu[3],
+                                      cum_p, cu[4], cu[5])
+    torch.cuda.synchronize()
+    assert _same(got, want)
+    assert _same(taken_k, taken_p)
+    assert torch.equal(cum_k.view(torch.int32), cum_p.view(torch.int32))
+    # headrooms and caps leave room: a candidate with a destination lands
+    assert bool(got.any()) == bool(has.any())
 
 
 def test_default_stack_solve_on_the_card_equals_the_cpu_path():

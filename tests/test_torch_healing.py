@@ -412,6 +412,27 @@ def test_config5_shape_solve_matches():
                                    pres.final_cache) == []
 
 
+def test_empty_goal_list_reports_the_healed_stats():
+    """No goals, 2 dead brokers: both packages heal and propose the same
+    moves, and `stats_after` is the stats of the final, healed state (not
+    the pre-heal `stats_before`)."""
+    js, jt, ps, pt = _both(DEAD)
+    jres = JOptimizer([]).optimizations(js, jt)
+    pres = GoalOptimizer([]).optimizations(ps, pt, device="cpu")
+    _assert_same_solve(jres, pres)
+    assert len(pres.proposals) == len(jres.proposals) == 126
+    assert pres.heal_moves > 0
+    moved = False
+    for f, v in vars(pres.stats_after).items():
+        a = np.asarray(getattr(jres.stats_after, f))
+        if v.dtype.is_floating_point:
+            np.testing.assert_allclose(v.numpy(), a, rtol=1e-6, err_msg=f)
+        else:
+            assert np.array_equal(a, v.numpy()), f
+        moved |= not torch.equal(v, getattr(pres.stats_before, f))
+    assert moved
+
+
 def test_table_overflow_rerun_matches(caplog):
     """A broker table narrower than the largest row re-runs the solve with
     the width the reference computes, in both packages."""

@@ -120,3 +120,107 @@ def test_rank_accept_dispatch_runs_the_plain_version_on_the_cpu():
     args = (tt(dest), tt(gain), tt(has), 200, tt(taken), tt(cap),
             list(tt(cum)), list(tt(d_w)), list(tt(hr)))
     assert torch.equal(K.rank_accept(*args), K.rank_accept_plain(*args))
+
+
+_j_lexsort = jax.jit(lambda seg, gain: jnp.lexsort(
+    (jnp.arange(seg.shape[0], dtype=jnp.int32), -gain, seg)))
+
+
+@pytest.mark.parametrize("case", ["ties and signed zeros", "NEG and -inf",
+                                  "invalid"])
+@pytest.mark.parametrize("c", [1, 17, 2048, 4096])
+def test_rank_key_sorts_as_the_reference_lexsort(c, case):
+    b = 2600
+    rng = np.random.default_rng(c + len(case))
+    dest = rng.integers(0, min(b, max(1, c // 8) + 1), c).astype(np.int32)
+    gain = (np.round(rng.random(c) * 4.0) - 2.0).astype(np.float32)
+    has = rng.random(c) < 0.85
+    if case == "ties and signed zeros":
+        gain = np.where(rng.random(c) < 0.5, np.float32(0.0),
+                        np.float32(-0.0)).astype(np.float32)
+        gain[rng.random(c) < 0.2] = 1.0
+    elif case == "NEG and -inf":
+        pick = rng.random(c)
+        gain[pick < 0.3] = K.NEG
+        gain[pick > 0.7] = -np.inf
+    else:
+        has = rng.random(c) < 0.3
+    seg = np.where(has, dest, b).astype(np.int32)
+    want = np.asarray(_j_lexsort(jnp.asarray(seg), jnp.asarray(gain)))
+    key = K.rank_key(torch.from_numpy(dest), torch.from_numpy(gain),
+                     torch.from_numpy(has), b)
+    assert len(set(key.tolist())) == c
+    got = torch.sort(key).indices.numpy()
+    assert np.array_equal(want, got)
+
+
+def _j_commit(dest, gain, has, b, taken, cap, cum, d_w, hr):
+    """The reference's multi-commit pass after the assignment:
+    rank_accept, then assign_destinations' `.at[kept_d].add` lines."""
+    keep = J.rank_accept(dest, gain, has, b, taken, cap, list(cum),
+                         list(d_w), list(hr))
+    kept_d = jnp.where(keep, dest, b)
+    taken = taken.at[kept_d].add(1, mode="drop")
+    cum = [cum[t].at[kept_d].add(jnp.where(keep, d_w[t], 0.0), mode="drop")
+           for t in range(cum.shape[0])]
+    return keep, taken, (jnp.stack(cum) if cum else jnp.zeros((0, b)))
+
+
+_j_commit_jit = jax.jit(_j_commit, static_argnums=(3,))
+
+
+def _order_sensitive_weights(t, c, rng):
+    """Weights whose float sums depend on the order of the adds: a mix of
+    magnitudes 2**24 apart, with many ties."""
+    scale = rng.choice(np.array([1.0, 0.1, 3.0, 1.5e7], np.float32),
+                       (t, c))
+    return (scale * np.round(rng.random((t, c)) * 3.0 + 1.0) / 3.0).astype(
+        np.float32)
+
+
+@pytest.mark.parametrize("t", [0, 1, 3])
+@pytest.mark.parametrize("b", [200, 2600])
+@pytest.mark.parametrize("c", [17, 2048, 4096])
+def test_rank_accept_commit_plain_matches_reference(c, b, t):
+    rng = np.random.default_rng(7 * c + b + t)
+    for case in ("random", "one segment", "equal gains", "signed zeros"):
+        dest, gain, has, taken, cap, cum, _, _ = _inputs(c, b, t, case, rng)
+        d_w = _order_sensitive_weights(t, c, rng)
+        cum = (cum * np.float32(1e3)).astype(np.float32)
+        hr = np.full((t, b), 3e9, np.float32)
+        jkeep, jtaken, jcum = _j_commit_jit(
+            jnp.asarray(dest), jnp.asarray(gain), jnp.asarray(has), b,
+            jnp.asarray(taken), jnp.asarray(cap), jnp.asarray(cum),
+            jnp.asarray(d_w), jnp.asarray(hr))
+        taken_t = torch.from_numpy(taken.copy())
+        cum_t = torch.from_numpy(cum.copy())
+        keep = K.rank_accept_commit(
+            torch.from_numpy(dest), torch.from_numpy(gain),
+            torch.from_numpy(has), b, taken_t, torch.from_numpy(cap), cum_t,
+            torch.from_numpy(d_w), torch.from_numpy(hr))
+        assert np.array_equal(np.asarray(jkeep), keep.numpy()), case
+        assert np.array_equal(np.asarray(jtaken), taken_t.numpy()), case
+        assert np.array_equal(np.asarray(jcum).view(np.int32),
+                              cum_t.numpy().view(np.int32)), case
+        assert int(keep.sum()) > 0 or not has.any()
+
+
+def test_commit_order_is_visible_in_the_weights():
+    """The planted weights make the order of the adds show: the committed
+    cumulants in candidate order differ from those in reverse order."""
+    rng = np.random.default_rng(3)
+    c, b, t = 2048, 200, 3
+    dest, gain, has, taken, cap, cum, _, _ = _inputs(c, b, t, "one segment",
+                                                     rng)
+    d_w = torch.from_numpy(_order_sensitive_weights(t, c, rng))
+    hr = torch.full((t, b), 3e9)
+    args = (torch.from_numpy(dest), torch.from_numpy(gain),
+            torch.from_numpy(has), b)
+    fwd = torch.from_numpy(cum.copy())
+    keep = K.rank_accept_commit(*args, torch.from_numpy(taken.copy()),
+                                torch.from_numpy(cap), fwd, d_w, hr)
+    rev = torch.from_numpy(cum.copy())
+    for i in reversed(torch.nonzero(keep)[:, 0].tolist()):
+        rev[:, int(dest[i])] += d_w[:, i]
+    assert int(keep.sum()) > 100
+    assert not torch.equal(fwd, rev)
