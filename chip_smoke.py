@@ -7,7 +7,7 @@ Run from the repository root on a machine with one CUDA card:
 
 Phases:
   1. the card's name and power limit (nvidia-smi), then the build of the
-     port's eleven CUDA kernels from csrc/ (one nvcc per source, started
+     port's fourteen CUDA kernels from csrc/ (one nvcc per source, started
      together, with nvcc's resource report);
   2. each kernel against its plain PyTorch version on the card at the
      slice's shapes and again at the 2,600-broker shapes of phase 4
@@ -29,9 +29,17 @@ Phases:
      (ties, -0.0 against +0.0, empty and all-invalid segments, NEG and
      -inf scores, out-of-range ids), K10
      at H = C = 128 with tied improvements, with and without the band and
-     with an all-False acceptance plane, and K11's plane at C = 2048 x K =
+     with an all-False acceptance plane, K11's plane at C = 2048 x K =
      200 and 256 and C = 4096 x K = 2600 (sibling rows with -1) and its
-     guard on candidates and on every replica.  Device times per call (20
+     guard on candidates and on every replica, K12 at [60,000, 4] into
+     200, [60,000] into 800, [600,000, 4] into 2,600, [600,000] into
+     10,400 and [800] into 200 (dropped and negative ids, empty segments,
+     signed zeros, one segment holding 60,000 and 600,000 entries; with
+     `init` against the ordered scatter), K13 at [200, 4], [2,600, 4],
+     [2,600, 100], [600,000, 4], the stats' [B, RES + 3 + T] planes and
+     1 to 33 terms, and K14 at [200, 4], [200, 8], [2,600, 8], [3, 2,048]
+     and rows of 1 to 5,000 with a leading -0.0 (the three bit for bit:
+     int32 views).  Device times per call (20
      calls captured in a CUDA graph, median of 5 replays timed with CUDA
      events; K3 and K5 also without the wrapper's copies of the cache
      planes) beside the bound for the bytes the function needs and a
@@ -64,9 +72,12 @@ Phases:
      no-self-regression gates (and for the intra-broker solves no alive
      logdir above 0.8 of its capacity), and each solve but the first
      again on the port's CPU path: its proposals (logdirs included) and
-     final leader flags must equal the card's; the default stack once more
-     with the sorts, ordered sums and host syncs inside its multi-commit
-     passes counted (there must be none);
+     final leader flags must equal the card's, and so must its statistics
+     (before, after and each goal's) bit for bit; the default stack once
+     more with the sorts, ordered sums and host syncs inside its
+     multi-commit passes counted (there must be none), every call of a
+     plain version of K12-K14 on a card tensor (there must be none) and
+     the host syncs inside the float ordered sums (none);
   4. scale, 2,600 brokers / 200K partitions / 26 racks / 100 topics: the
      whole default stack (bench.py's "north" preset), the four-goal solve,
      config 5 (52 broken logdirs), the six hard goals with brokers 0,
@@ -78,7 +89,9 @@ With --profile, default-stack solves in turns and two more profiled (with
 K8, then with K8's lexsort dispatch: the torch lexsort, the kernel on its
 order and the ordered scatters after each pass) and one more config-5,
 kafka-assigner and intra-broker solve each run under torch.profiler and
-the device's busy share and time by kernel are printed.
+the device's busy share and time by kernel are printed; then the
+default-stack and intra-broker solves in turns with K12-K14 and with
+their plain versions (the column-loop torch ops).
 
 Every phase that fails raises, so the run exits non-zero.  The line
 before the last is the kernel JSON; the last line is the device JSON.
@@ -115,6 +128,9 @@ REPLACES = {
     "segment_argmax": "cruise_control_tpu/analyzer/kernels.py:31",
     "swap_pair": "cruise_control_tpu/analyzer/kernels.py:1376",
     "dest_feasibility": "cruise_control_tpu/analyzer/kernels.py:208",
+    "segment_sum": "cruise_control_tpu/model/state.py:140",
+    "ordered_sum": "cruise_control_tpu/model/stats.py:67",
+    "cumsum_blocks": "cruise_control_tpu/analyzer/kernels.py:429",
 }
 SOURCES = {
     "row_topk": "cruise_control_tpu_torch/csrc/row_topk.cu",
@@ -129,12 +145,17 @@ SOURCES = {
     "segment_argmax": "cruise_control_tpu_torch/csrc/segment_argmax.cu",
     "swap_pair": "cruise_control_tpu_torch/csrc/swap_pair.cu",
     "dest_feasibility": "cruise_control_tpu_torch/csrc/dest_feasibility.cu",
+    "segment_sum": "cruise_control_tpu_torch/csrc/segment_sum.cu",
+    "ordered_sum": "cruise_control_tpu_torch/csrc/ordered_sum.cu",
+    "cumsum_blocks": "cruise_control_tpu_torch/csrc/cumsum_blocks.cu",
 }
 #: the kernels each solve must launch: the leadership table rounds (K4)
 #: run only when a sweep leaves an over-limit broker; every path runs
 #: multi-commit passes or sweeps, so K8 in all; every move round resolves
-#: its conflicts with K9 and builds its destination plane with K11
-MOVE_KERNELS = ("segment_argmax", "dest_feasibility")
+#: its conflicts with K9 and builds its destination plane with K11; every
+#: solve's stats sum broker loads with K12 and reduce them with K13
+SUM_KERNELS = ("segment_sum", "ordered_sum")
+MOVE_KERNELS = ("segment_argmax", "dest_feasibility") + SUM_KERNELS
 TWO_GOAL_KERNELS = ("row_topk", "assign_pass", "commit_moves",
                     "rank_accept") + MOVE_KERNELS
 FOUR_GOAL_KERNELS = ("row_topk", "assign_pass", "commit_moves",
@@ -148,8 +169,9 @@ CONFIG5_KERNELS = ("forced_select", "commit_moves", "assign_pass",
                    "rank_accept") + MOVE_KERNELS
 HARD_KERNELS = ("forced_select", "commit_moves", "assign_pass", "row_topk",
                 "rank_accept") + MOVE_KERNELS
-#: the whole default stack: the leader-count goal's transfer rounds run K4
-STACK_KERNELS = FOUR_GOAL_KERNELS
+#: the whole default stack: the leader-count goal's transfer rounds run K4,
+#: the pre-balance and the multi-candidate move rounds' prefix gates K14
+STACK_KERNELS = FOUR_GOAL_KERNELS + ("cumsum_blocks",)
 #: the kafka-assigner mode: the rack rounds and the count-evening pass
 #: (K1, K2, K3, K9, K11), then swap rounds (K10, K3); demote runs none of
 #: the hand kernels (preferred leader election is one batched pass of
@@ -157,10 +179,13 @@ STACK_KERNELS = FOUR_GOAL_KERNELS
 #: logdirs self-healing adds K7, K3 and K11
 KAFKA_ASSIGNER_KERNELS = ("row_topk", "assign_pass", "commit_moves",
                           "swap_pair") + MOVE_KERNELS
-DEMOTE_KERNELS = ()
-INTRA_KERNELS = ("segment_argmax",)
+DEMOTE_KERNELS = SUM_KERNELS
+INTRA_KERNELS = ("segment_argmax",) + SUM_KERNELS
 INTRA_BROKEN_KERNELS = ("segment_argmax", "forced_select", "commit_moves",
-                        "dest_feasibility")
+                        "dest_feasibility") + SUM_KERNELS
+#: the plain versions of K12-K14, which a card solve must never call
+PLAIN_SUMS = ("segment_sum_plain", "scatter_add_seq_plain", "sum_f32_plain",
+              "cumsum_f32_plain")
 #: the widest rank_accept call phase 2 checks (C = R at 2,600 brokers)
 RANK_CHECKED_C = 600_000
 
@@ -1040,7 +1065,7 @@ def lexsort_rank_accept_commit(dest, gain, has, num_b, taken_cnt, cap, cum,
     kept_d = torch.where(keep, dest, torch.full_like(dest, num_b))
     taken_cnt += ops.segment_sum(torch.ones_like(kept_d), kept_d, num_b)
     if cum.shape[0]:
-        cum.T.copy_(ops.scatter_add_seq(
+        cum.T.copy_(ops.scatter_add_seq_plain(
             cum.T, kept_d, torch.where(keep[:, None], d_w.T,
                                        torch.zeros((), device=cum.device))))
     return keep
@@ -1059,20 +1084,31 @@ def lexsort_k8():
                     to_lexsort)
 
 
-def k8_solve_turns(solve: dict) -> dict:
-    """A warm-up solve of `solve`, then unprofiled solves in turns: K8's
-    lexsort dispatch, the one-launch K8, K8, the lexsort dispatch; the
-    wall times."""
+def plain_sums():
+    """Inside the block the card runs the plain versions of K12-K14 (the
+    column-loop torch ops of the earlier dispatch) in place of the
+    kernels."""
+    from cruise_control_tpu_torch import ops
+    plain = {"segment_sum": ops.segment_sum_plain,
+             "scatter_add_seq": ops.scatter_add_seq_plain,
+             "sum_f32": ops.sum_f32_plain, "cumsum_f32": ops.cumsum_f32_plain}
+    return _wrapped([(ops, name) for name in plain],
+                    lambda fn, name: lambda *a, **kw: plain[name](*a, **kw))
+
+
+def dispatch_turns(solve: dict, other, labels=("kernel", "other")) -> dict:
+    """A warm-up solve of `solve`, then unprofiled solves in turns: the
+    dispatch `other()` (a context manager), the port's own, its own, the
+    other; the wall times by label."""
     _, _, _, warm = _solve(solve, "cuda")
     log(f"  warm-up solve {warm:.3f} s")
-    times = {"k8": [], "lexsort": []}
-    for which in ("lexsort", "k8", "k8", "lexsort"):
-        lexsort = which == "lexsort"
-        with (lexsort_k8() if lexsort else contextlib.nullcontext()):
+    times = {label: [] for label in labels}
+    for label in (labels[1], labels[0], labels[0], labels[1]):
+        with (other() if label == labels[1] else contextlib.nullcontext()):
             _, _, result, secs = _solve(solve, "cuda")
-        times[which].append(secs)
-        log(f"  {'lexsort dispatch' if lexsort else 'one-launch K8'}: "
-            f"solve {secs:.3f} s, {len(result.proposals)} proposals")
+        times[label].append(secs)
+        log(f"  {label}: solve {secs:.3f} s, {len(result.proposals)} "
+            "proposals")
     return times
 
 
@@ -1459,6 +1495,200 @@ def check_dest_feasibility(spec: dict, widths, seed: int) -> dict:
     return rec
 
 
+def bits_equal(a, b) -> bool:
+    """Bit for bit: floats compared through their int32 views (so -0.0
+    differs from +0.0)."""
+    import torch
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype.is_floating_point:
+        return bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
+    return bool(torch.equal(a, b))
+
+
+def _signed_values(shape, g):
+    """Magnitudes spread over many binades, both signs, with +0.0 and
+    -0.0 sprinkled in (so the order of the adds shows in the rounding)."""
+    import torch
+    dev = "cuda"
+    x = torch.exp(torch.randn(shape, generator=g, device=dev) * 3.0)
+    x = torch.where(torch.rand(shape, generator=g, device=dev) < 0.3, -x, x)
+    x = torch.where(torch.rand(shape, generator=g, device=dev) < 0.02,
+                    torch.full((), 0.0, device=dev), x)
+    return torch.where(torch.rand(shape, generator=g, device=dev) < 0.02,
+                       torch.full((), -0.0, device=dev), x)
+
+
+#: K12's phase-2 cases: (label, rows, row width (None: 1-d), segments,
+#: id pattern); the first is the record
+SEGMENT_SUM_CASES = (
+    ("broker_load", 60_000, 4, 200, "random"),
+    ("disk_load", 60_000, None, 800, "random"),
+    ("broker_load north", 600_000, 4, 2600, "random"),
+    ("disk_load north", 600_000, None, 10_400, "random"),
+    ("logdirs into brokers", 800, None, 200, "random"),
+    ("dropped ids", 60_000, 4, 200, "dropped"),
+    ("signed zeros", 60_000, 4, 200, "zeros"),
+    ("one segment of 60,000", 60_000, 4, 8, "one"),
+    ("one segment of 600,000", 600_000, None, 8, "one"),
+)
+
+
+def _segment_case(num, width, n, pattern, g):
+    import torch
+    dev = "cuda"
+    shape = (num,) if width is None else (num, width)
+    x = _signed_values(shape, g)
+    # the last tenth of the segments stays empty
+    ids = torch.randint(0, max(1, n - n // 10), (num,), generator=g,
+                        device=dev, dtype=torch.int32)
+    if pattern == "dropped":
+        bad = torch.tensor([-1, -7, n, n + 3, 2 ** 30], device=dev,
+                           dtype=torch.int32)
+        pick = torch.rand(num, generator=g, device=dev) < 0.05
+        ids = torch.where(pick, bad[torch.randint(0, 5, (num,), generator=g,
+                                                  device=dev)], ids)
+    elif pattern == "zeros":
+        x = torch.where(torch.rand(shape, generator=g, device=dev) < 0.5,
+                        torch.full((), -0.0, device=dev), x)
+    elif pattern == "one":
+        ids = torch.full((num,), n // 2, device=dev, dtype=torch.int32)
+    return x, ids
+
+
+def check_segment_sum(seed: int) -> dict:
+    """K12 against ops.segment_sum_plain on the card, bit for bit, at the
+    slice's and the 2,600-broker shapes (broker_load's [R, 4] into B,
+    disk_load's [R] into D, the logdirs' [D] into B), with dropped and
+    negative ids, signed zeros, empty segments and one segment holding
+    every entry; with `init` against ops.scatter_add_seq_plain.  Device
+    time per call beside the plain version (host-synced: it reads its
+    width) and `index_add_` (atomics, no fixed order).  The record of
+    broker_load at 200 brokers."""
+    import torch
+    from cruise_control_tpu_torch import cuda_kernels, ops
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rec = None
+    for label, num, width, n, pattern in SEGMENT_SUM_CASES:
+        x, ids = _segment_case(num, width, n, pattern, g)
+        got = cuda_kernels.segment_sum(x, ids, n)
+        want = ops.segment_sum_plain(x, ids, n)
+        torch.cuda.synchronize()
+        if not bits_equal(got, want):
+            raise AssertionError(f"segment_sum {label}: differs from the "
+                                 "plain version")
+        # with init (scatter_add_seq), but for the one segment of 600,000
+        # (the plain version makes a launch per entry)
+        with_init = not (pattern == "one" and num > 60_000)
+        if with_init:
+            init = _signed_values(tuple(want.shape), g)
+            spill = torch.where(ids < 0, torch.full_like(ids, n), ids)
+            got_i = cuda_kernels.segment_sum(x, spill, n, init=init)
+            want_i = ops.scatter_add_seq_plain(init, spill, x)
+            torch.cuda.synchronize()
+            if not bits_equal(got_i, want_i):
+                raise AssertionError(f"segment_sum {label} with init: "
+                                     "differs from scatter_add_seq_plain")
+        t_k = graph_time_ms(lambda: cuda_kernels.segment_sum(x, ids, n))
+        t_p = (cuda_time_ms(lambda: ops.segment_sum_plain(x, ids, n), reps=5)
+               if pattern != "one" else None)
+        safe = ops._spill_ids(ids, n)
+        lib_out = torch.zeros((n + 1,) + tuple(x.shape[1:]), device="cuda")
+        t_l = graph_time_ms(lambda: lib_out.index_add_(0, safe, x))
+        # x and its ids in, the sums out
+        nbytes = x.numel() * 4 + num * 4 + want.numel() * 4
+        t_b, by = bound(nbytes, x.numel())
+        plain = f"{t_p:.4f} ms" if t_p is not None else "not measured"
+        log(f"  segment_sum {label} ([{num}{', ' + str(width) if width else ''}]"
+            f" into {n}): bit for bit{', with init too' if with_init else ''};"
+            " device time per call: "
+            f"kernel {t_k:.4f} ms, plain {plain}; bound {t_b:.6f} ms "
+            f"({nbytes} bytes); index_add_ {t_l:.4f} ms")
+        if rec is None:
+            rec = dict(max_abs_err=0.0, ms=t_k, plain_ms=t_p, bound_ms=t_b,
+                       bound_by=by, library_ms=t_l,
+                       shape=f"[{num}, {width}] into {n}")
+        rec.setdefault("cases", {})[label] = dict(ms=t_k, plain_ms=t_p,
+                                                  bound_ms=t_b, library_ms=t_l)
+    return rec
+
+
+def check_ordered_sum(seed: int) -> dict:
+    """K13 against ops.sum_f32_plain on the card, bit for bit: the stats'
+    [B, RES + 3 + T] planes at 200 and 2,600 brokers (the widths [B, 4]
+    and [B, 100] of the topics), cluster_load's [R, 4] at 2,600 brokers,
+    a -0.0 at a window start, a single -0.0 (copied) and 31 to 33 terms.
+    Device time per call beside the plain version and `torch.sum`.  The
+    record of [200, 4]."""
+    import torch
+    from cruise_control_tpu_torch import cuda_kernels, ops
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rec = None
+    for n, m in ((200, 4), (2600, 4), (2600, 100), (600_000, 4), (200, 17),
+                 (2600, 107), (1, 4), (31, 3), (32, 3), (33, 3)):
+        x = _signed_values((n, m), g)
+        x[0] = -0.0
+        if n > 32:
+            w = -(-n // 32)
+            x[32 - (w * 32 - n) // 2] = -0.0
+        got = cuda_kernels.ordered_sum(x)
+        want = ops.sum_f32_plain(x)
+        torch.cuda.synchronize()
+        if not bits_equal(got, want):
+            raise AssertionError(f"ordered_sum [{n}, {m}]: differs from the "
+                                 "plain version")
+        t = (graph_time_ms(lambda: cuda_kernels.ordered_sum(x)),
+             graph_time_ms(lambda: ops.sum_f32_plain(x)),
+             graph_time_ms(lambda: torch.sum(x, 0)))
+        nbytes = x.numel() * 4 + m * 4
+        t_b, by = bound(nbytes, x.numel())
+        log(f"  ordered_sum [{n}, {m}]: bit for bit; device time per call: "
+            f"kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms; bound {t_b:.6f} ms "
+            f"({nbytes} bytes); torch.sum {t[2]:.4f} ms")
+        if rec is None:
+            rec = dict(max_abs_err=0.0, ms=t[0], plain_ms=t[1], bound_ms=t_b,
+                       bound_by=by, library_ms=t[2], shape=f"[{n}, {m}]")
+        rec.setdefault("cases", {})[f"[{n}, {m}]"] = dict(
+            ms=t[0], plain_ms=t[1], bound_ms=t_b, library_ms=t[2])
+    return rec
+
+
+def check_cumsum_blocks(seed: int) -> dict:
+    """K14 against ops.cumsum_f32_plain on the card, bit for bit: the
+    round bodies' [B, k] prefix gates at 200 and 2,600 brokers (k = 4 and
+    8), rows of 17, 256 and 2,048 (the block-16 recursion), a row of one
+    (copied) and a leading -0.0 in every row.  Device time per call beside
+    the plain version and `torch.cumsum`.  The record of [200, 4]."""
+    import torch
+    from cruise_control_tpu_torch import cuda_kernels, ops
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rec = None
+    for rows, n in ((200, 4), (200, 8), (2600, 8), (3, 2048), (3, 17),
+                    (3, 256), (5, 1), (3, 5000)):
+        x = _signed_values((rows, n), g)
+        x[:, 0] = -0.0
+        got = cuda_kernels.cumsum_blocks(x)
+        want = ops.cumsum_f32_plain(x, 1)
+        torch.cuda.synchronize()
+        if not bits_equal(got, want):
+            raise AssertionError(f"cumsum_blocks [{rows}, {n}]: differs "
+                                 "from the plain version")
+        t = (graph_time_ms(lambda: cuda_kernels.cumsum_blocks(x)),
+             graph_time_ms(lambda: ops.cumsum_f32_plain(x, 1)),
+             graph_time_ms(lambda: torch.cumsum(x, 1)))
+        nbytes = 2 * x.numel() * 4
+        t_b, by = bound(nbytes, x.numel())
+        log(f"  cumsum_blocks [{rows}, {n}]: bit for bit; device time per "
+            f"call: kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms; bound "
+            f"{t_b:.6f} ms ({nbytes} bytes); torch.cumsum {t[2]:.4f} ms")
+        if rec is None:
+            rec = dict(max_abs_err=0.0, ms=t[0], plain_ms=t[1], bound_ms=t_b,
+                       bound_by=by, library_ms=t[2], shape=f"[{rows}, {n}]")
+        rec.setdefault("cases", {})[f"[{rows}, {n}]"] = dict(
+            ms=t[0], plain_ms=t[1], bound_ms=t_b, library_ms=t[2])
+    return rec
+
+
 # ---------------------------------------------------------------------------
 # phases 3 and 4: the solve
 # ---------------------------------------------------------------------------
@@ -1573,8 +1803,11 @@ def pass_region_counts(solve: dict) -> dict:
     and ops.segment_sum call and every host sync (torch's sync debug
     warnings) counted inside the multi-commit passes -- assign_destinations
     with destination terms, and run_tail from a multi-commit K4 pass to the
-    end of its rank_accept_commit -- and elsewhere.  The wrappers bind
-    their arguments by name.  Raises if a pass sorts, scatters, sums or
+    end of its rank_accept_commit -- and elsewhere; every call of a plain
+    version of K12-K14 on a card tensor; and the host syncs made inside a
+    float ops.segment_sum, scatter_add_seq, sum_f32 or cumsum_f32 call.
+    The wrappers bind their arguments by name.  Raises if a pass sorts,
+    scatters, sums or syncs, if a plain ordered sum runs or an ordered sum
     syncs, or if the rank_accept_commit calls seen inside the passes are
     not every K8 launch with the commit (so that the passes were found)."""
     import inspect
@@ -1588,6 +1821,11 @@ def pass_region_counts(solve: dict) -> dict:
                                       "rank_accept_commit")
               for w in ("in passes", "elsewhere")}
     counts["K8 launches with the commit"] = 0
+    for name in PLAIN_SUMS:
+        counts[f"{name} on the card"] = 0
+    counts["float ordered sums"] = 0
+    counts["syncs inside float ordered sums"] = 0
+    in_sum = [0]
 
     def where():
         return ("in passes" if region["assign"] or region["tail"]
@@ -1602,6 +1840,25 @@ def pass_region_counts(solve: dict) -> dict:
         def call(*a, **kw):
             counts[f"{name} {where()}"] += 1
             return fn(*a, **kw)
+        return call
+
+    def ordered(fn, name):
+        def call(x, *a, **kw):
+            if f"{name} in passes" in counts:
+                counts[f"{name} {where()}"] += 1
+            floats = x.dtype.is_floating_point
+            counts["float ordered sums"] += floats
+            in_sum[0] += floats
+            try:
+                return fn(x, *a, **kw)
+            finally:
+                in_sum[0] -= floats
+        return call
+
+    def plain(fn, name):
+        def call(x, *a, **kw):
+            counts[f"{name} on the card"] += bool(x.is_cuda)
+            return fn(x, *a, **kw)
         return call
 
     def assign(fn, name):
@@ -1640,8 +1897,11 @@ def pass_region_counts(solve: dict) -> dict:
     def on_warning(message, *a, **kw):
         if "synchroniz" in str(message):
             counts[f"sync {where()}"] += 1
-    with _wrapped([(torch, "sort"), (ops, "scatter_add_seq"),
-                   (ops, "segment_sum")], counted), \
+            counts["syncs inside float ordered sums"] += bool(in_sum[0])
+    with _wrapped([(torch, "sort")], counted), \
+            _wrapped([(ops, "scatter_add_seq"), (ops, "segment_sum"),
+                      (ops, "sum_f32"), (ops, "cumsum_f32")], ordered), \
+            _wrapped([(ops, name) for name in PLAIN_SUMS], plain), \
             _wrapped([(K, "assign_destinations")], assign), \
             _wrapped([(K, "leader_assign_pass")], tail_open), \
             _wrapped([(K, "rank_accept_commit")], tail_close), \
@@ -1660,6 +1920,15 @@ def pass_region_counts(solve: dict) -> dict:
     if bad:
         raise AssertionError(f"the multi-commit passes still sort, scatter "
                              f"or sync: {bad}")
+    plain_calls = {k: v for k, v in counts.items()
+                   if k.endswith("on the card") and v}
+    if plain_calls or counts["syncs inside float ordered sums"]:
+        raise AssertionError(
+            f"the card solve ran a plain ordered sum ({plain_calls}) or "
+            f"synced inside an ordered sum "
+            f"({counts['syncs inside float ordered sums']} syncs)")
+    if not counts["float ordered sums"]:
+        raise AssertionError("the counted solve saw no float ordered sum")
     seen = counts["rank_accept_commit in passes"]
     if not seen or seen != counts["K8 launches with the commit"] or counts[
             "rank_accept_commit elsewhere"]:
@@ -1741,11 +2010,29 @@ def _timed_path(solve: dict, kernels, label: str, warm: bool = True):
     return state, topo, result, secs, launches
 
 
+def _stats_differences(a, b) -> list:
+    """(stats, field) of every statistic two results do not share bit for
+    bit: stats_before, stats_after and each goal's stats."""
+    import dataclasses
+    if set(a.stats_by_goal) != set(b.stats_by_goal):
+        return [("goals", sorted(a.stats_by_goal), sorted(b.stats_by_goal))]
+    pairs = [("before", a.stats_before, b.stats_before),
+             ("after", a.stats_after, b.stats_after)]
+    pairs += [(g, a.stats_by_goal[g], b.stats_by_goal[g])
+              for g in a.stats_by_goal]
+    return [(which, f.name, getattr(x, f.name).tolist(),
+             getattr(y, f.name).tolist())
+            for which, x, y in pairs for f in dataclasses.fields(x)
+            if not bits_equal(getattr(x, f.name).cpu(),
+                              getattr(y, f.name).cpu())]
+
+
 def _card_equals_cpu(solve: dict, result, label: str) -> None:
     """The same solve on the port's CPU path: its proposals, final leader
-    flags and proposals' new leaders must equal the card's; on a
-    difference, both solves rerun with every commit logged and the first
-    differing commit is named."""
+    flags, proposals' new leaders and statistics (before, after and each
+    goal's, bit for bit) must equal the card's; on a difference in the
+    proposals or leaders, both solves rerun with every commit logged and
+    the first differing commit is named."""
     import torch
     from cruise_control_tpu_torch.analyzer.optimizer import proposal_set
     torch.set_num_threads(min(8, os.cpu_count() or 1))
@@ -1760,9 +2047,11 @@ def _card_equals_cpu(solve: dict, result, label: str) -> None:
                          for p in cpu_result.proposals}
                         == {(p.partition, p.new_leader)
                             for p in result.proposals})
+    stats_diff = _stats_differences(result, cpu_result)
     log(f"    card and CPU: proposals identical {same}, final leader flags "
         f"identical {same_leaders}, proposals' new leaders identical "
-        f"{same_new_leaders}")
+        f"{same_new_leaders}, stats identical bit for bit "
+        f"{not stats_diff} ({2 + len(result.stats_by_goal)} sets)")
     if not (same and same_leaders and same_new_leaders):
         card_log = _commit_log(solve, "cuda")
         cpu_log = _commit_log(solve, "cpu")
@@ -1772,6 +2061,9 @@ def _card_equals_cpu(solve: dict, result, label: str) -> None:
             f"commits, CPU {len(cpu_log)})")
         raise AssertionError(f"the card's {label} solve differs from the "
                              "port's CPU path")
+    if stats_diff:
+        raise AssertionError(f"the card's {label} stats differ from the "
+                             f"port's CPU path (card, CPU): {stats_diff[:8]}")
 
 
 def _logdir_moves(result) -> set:
@@ -1903,7 +2195,6 @@ def profile_slice(solve: dict, device: str = "cuda",
     from cruise_control_tpu_torch.analyzer import leadership as L
     from cruise_control_tpu_torch.analyzer import optimizer as O
     from cruise_control_tpu_torch.analyzer import prebalance as P
-    from cruise_control_tpu_torch.model import stats as ST
 
     # label the port's hot functions so the trace attributes host and
     # device time to them (restored afterwards)
@@ -1916,7 +2207,7 @@ def profile_slice(solve: dict, device: str = "cuda",
                (K, "commit_moves_cached"), (K, "commit_swaps_cached"),
                (C, "commit_moves"), (C, "arrival_rank"),
                (C, "make_round_cache"), (C, "refresh_float_aggregates"),
-               (P, "prebalance"), (ST, "sum_f32"),
+               (P, "prebalance"),
                (K, "leadership_round"), (K, "leader_assign_pass"),
                (K, "commit_leadership_cached"), (K, "rotation_salt"),
                (C, "commit_leadership"), (L, "run_sweep_threaded"),
@@ -2079,6 +2370,11 @@ def main(argv=None) -> int:
         results["_swap_pair_north"] = check_swap_pair(NORTH_SPEC, seed=34)
         results["_dest_feasibility_north"] = check_dest_feasibility(
             NORTH_SPEC, ((2048, 256), (4096, 2600)), seed=35)
+        log("[2] the ordered sums K12-K14, at the slice's and the "
+            "2,600-broker shapes and their edge cases")
+        results["segment_sum"] = check_segment_sum(seed=41)
+        results["ordered_sum"] = check_ordered_sum(seed=42)
+        results["cumsum_blocks"] = check_cumsum_blocks(seed=43)
     log(f"[t] {time.time() - t_run:.1f} s")
     with _wrapped([(cuda_kernels, "rank_accept")], widest_call):
         if 3 in phases:
@@ -2101,7 +2397,8 @@ def main(argv=None) -> int:
     if args.profile:
         log("[3p] default-stack slice solves in turns, K8's lexsort "
             "dispatch against the one-launch K8 (unprofiled)")
-        results["_k8_turns"] = k8_solve_turns(SLICE_STACK)
+        results["_k8_turns"] = dispatch_turns(
+            SLICE_STACK, lexsort_k8, ("one-launch K8", "lexsort dispatch"))
         log("[3p] profile of one default-stack slice solve on the card")
         profile_slice(SLICE_STACK)
         log("[3p] the same with K8's lexsort dispatch (torch lexsort, the "
@@ -2113,6 +2410,13 @@ def main(argv=None) -> int:
             "solve on the card")
         profile_slice(SLICE_KAFKA_ASSIGNER)
         profile_slice(SLICE_INTRA)
+        log("[3p] the default-stack and intra-broker slice solves in turns, "
+            "K12-K14 against their plain versions (unprofiled)")
+        results["_sums_turns"] = {
+            key: dispatch_turns(solve, plain_sums,
+                                ("K12-K14", "plain ordered sums"))
+            for key, solve in (("stack", SLICE_STACK),
+                               ("intra", SLICE_INTRA))}
         log(f"[t] {time.time() - t_run:.1f} s")
 
     # a kernel the default stack did not launch reports its own path's
@@ -2154,6 +2458,7 @@ def main(argv=None) -> int:
         "rank_accept_widest_c": widest[0],
         "stack_slice_pass_counts": results.get("_pass_counts"),
         "stack_slice_k8_turns_s": results.get("_k8_turns"),
+        "sums_turns_s": results.get("_sums_turns"),
         "card_cpu_identical": results.get("_identical"),
         "row_topk_deep": results.get("row_topk", {}).get("deep")}))
     log("[5] " + json.dumps({
@@ -2175,6 +2480,8 @@ def main(argv=None) -> int:
             "north_config5", "north_hard", "north_demote",
             "north_kafka_assigner", "north_intra")}))
     log("[5] rank_accept: " + json.dumps(results.get("rank_accept")))
+    for k in ("segment_sum", "ordered_sum", "cumsum_blocks"):
+        log(f"[5] {k} cases: " + json.dumps(results.get(k, {}).get("cases")))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

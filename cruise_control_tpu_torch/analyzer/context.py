@@ -389,8 +389,10 @@ def _scatter_pm(arr: torch.Tensor, s: torch.Tensor, d: torch.Tensor,
                 x: torch.Tensor) -> torch.Tensor:
     """`arr.at[[s;d]].add([-x;+x])` (out-of-range rows dropped), adding
     in that order — removals first, then arrivals, each in batch order —
-    as the reference's one fused scatter does."""
-    return ops.scatter_add_seq(arr, torch.cat([s, d]), torch.cat([-x, x]))
+    as the reference's one fused scatter does (the plain primitive: this
+    is the plain versions' helper)."""
+    return ops.scatter_add_seq_plain(arr, torch.cat([s, d]),
+                                     torch.cat([-x, x]))
 
 
 def _row_slot_of(table: torch.Tensor, brokers: torch.Tensor,
@@ -504,7 +506,7 @@ def commit_moves_plain(state_before: ClusterState, cache: RoundCache,
     a_idx = torch.where(valid & (aslot < sw), dst * sw + aslot,
                         torch.full_like(aslot, oob_t))
     flat = ops.scatter_set(flat, a_idx, r.to(torch.int32))
-    fill = cache.table_fill + ops.segment_sum(
+    fill = cache.table_fill + ops.segment_sum_plain(
         valid.to(torch.int32), dst, num_b)
     bonus = state_before.partition_leader_bonus[
         state_before.replica_partition[r].long()]
@@ -649,9 +651,10 @@ def commit_leadership_plain(state_before: ClusterState, cache: RoundCache,
     leader_count = _scatter_pm(cache.leader_count, s, d,
                                valid.to(torch.int32))
     nw_in = state_before.replica_base_load[:, Resource.NW_IN]
-    lbi = ops.scatter_add_seq(cache.leader_bytes_in, torch.cat([s, d]),
-                              torch.cat([-nw_in[sr] * valid,
-                                         nw_in[dr] * valid]))
+    lbi = ops.scatter_add_seq_plain(cache.leader_bytes_in,
+                                    torch.cat([s, d]),
+                                    torch.cat([-nw_in[sr] * valid,
+                                               nw_in[dr] * valid]))
     out = dict(broker_load=broker_load, broker_util=broker_load / cap,
                replica_load=replica_load, leader_count=leader_count,
                leader_bytes_in=lbi)
@@ -666,7 +669,7 @@ def commit_leadership_plain(state_before: ClusterState, cache: RoundCache,
                               torch.full_like(b_src, oob))
         dst_idx = torch.where(valid & dst_found, b_dst * sw + dst_slot,
                               torch.full_like(b_dst, oob))
-        t_load = ops.scatter_add_seq(
+        t_load = ops.scatter_add_seq_plain(
             cache.table_load.reshape(-1, NUM_RESOURCES),
             torch.cat([src_idx, dst_idx]), torch.cat([-bonus, bonus]))
         t_lead = ops.scatter_set(cache.table_leader.reshape(-1), src_idx,

@@ -210,7 +210,7 @@ def rank_accept_plain(dest, gain, has, num_b: int, taken_cnt, cap, cum_d,
         zero = torch.zeros((), device=dev)
         w_s = torch.where(seg_valid[None, :],
                           torch.stack(list(d_w))[:, order], zero)
-        excl = ops.cumsum_f32(w_s, 1) - w_s
+        excl = ops.cumsum_f32_plain(w_s, 1) - w_s
         within_before = excl - excl[:, start[segc]]
         fits = torch.all(torch.stack(list(cum_d))[:, segc] + within_before
                          + w_s <= torch.stack(list(hr_d))[:, segc], 0)
@@ -277,9 +277,10 @@ def rank_accept_commit_plain(dest, gain, has, num_b: int, taken_cnt, cap,
     keep = rank_accept_plain(dest, gain, has, num_b, taken_cnt, cap,
                              list(cum), list(d_w), list(hr))
     kept_d = torch.where(keep, dest, torch.full_like(dest, num_b))
-    taken_cnt += ops.segment_sum(torch.ones_like(kept_d), kept_d, num_b)
+    taken_cnt += ops.segment_sum_plain(torch.ones_like(kept_d), kept_d,
+                                       num_b)
     if cum.shape[0]:
-        cum.T.copy_(ops.scatter_add_seq(
+        cum.T.copy_(ops.scatter_add_seq_plain(
             cum.T, kept_d, torch.where(keep[:, None], d_w.T,
                                        torch.zeros((), device=cum.device))))
     return keep

@@ -31,19 +31,27 @@ BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 SOURCES = ("row_topk.cu", "assign_pass.cu", "commit_moves.cu",
            "leader_assign.cu", "commit_leadership.cu", "sweep_pick.cu",
            "forced_select.cu", "rank_accept.cu", "segment_argmax.cu",
-           "swap_pair.cu", "dest_feasibility.cu")
+           "swap_pair.cu", "dest_feasibility.cu", "segment_sum.cu",
+           "ordered_sum.cu", "cumsum_blocks.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES = {"row_topk": 0, "assign_pass": 0, "commit_moves": 0,
             "leader_assign_pass": 0, "commit_leadership": 0, "sweep_pick": 0,
             "forced_select": 0, "rank_accept": 0, "segment_argmax": 0,
-            "swap_pair": 0, "dest_feasibility": 0,
+            "swap_pair": 0, "dest_feasibility": 0, "segment_sum": 0,
+            "ordered_sum": 0, "cumsum_blocks": 0,
             # K8's launches split by path: one block (C <= 4096) and the
             # multi-launch path above
             "rank_accept_one_block": 0, "rank_accept_multi_launch": 0}
 #: K8's one-block path takes up to this many candidates
 RANK_ONE_BLOCK_MAX = 4096
+#: K12's tile (entries a warp ranks) and its most segments (the tile's
+#: running counts live in shared memory)
+SEGMENT_TILE = 2048
+SEGMENT_MAX = 57_344
+#: K14's longest row (the levels above a row live in shared memory)
+CUMSUM_MAX = 131_072
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -133,12 +141,19 @@ def build() -> ctypes.CDLL:
         lib.cc_swap_pair.argtypes = [_I] * 3 + [_P] * 19 + [_P]
         lib.cc_dest_struct.argtypes = [_I] * 3 + [_P] * 7 + [_P]
         lib.cc_dest_has.argtypes = [_I] * 3 + [_P] * 8 + [_P]
+        lib.cc_segment_sum.argtypes = [_P, _P] + [_I] * 4 + [_P, _I] + [
+            _P] * 7
+        lib.cc_ordered_sum.argtypes = [_P, _I, _I, _P, ctypes.c_longlong,
+                                       _P, _P]
+        lib.cc_cumsum_blocks.argtypes = [_P, _I, _I, _P, _P]
         for fn in (lib.cc_row_topk, lib.cc_assign_pass, lib.cc_commit_moves,
                    lib.cc_leader_assign_pass, lib.cc_commit_leadership,
                    lib.cc_sweep_pick, lib.cc_forced_select,
                    lib.cc_rank_accept,
                    lib.cc_segment_argmax,
-                   lib.cc_swap_pair, lib.cc_dest_struct, lib.cc_dest_has):
+                   lib.cc_swap_pair, lib.cc_dest_struct, lib.cc_dest_has,
+                   lib.cc_segment_sum, lib.cc_ordered_sum,
+                   lib.cc_cumsum_blocks):
             fn.restype = ctypes.c_int
         BUILD_INFO.update(seconds=time.time() - t0, log="\n".join(log),
                           path=str(so))
@@ -751,4 +766,90 @@ def dest_has(cand_r, w_c, top_b, top_h, replica_broker, replica_partition,
         out.data_ptr(), _stream())
     LAUNCHES["dest_feasibility"] += 1
     _raise_on(err, "dest_has")
+    return out
+
+
+def segment_sum(x: torch.Tensor, ids: torch.Tensor, n: int,
+                init=None) -> torch.Tensor:
+    """K12 launch: f32[n, ...] per-segment sums of x (f32[N, ...]) over
+    ids (int32 or int64 [N], ids outside [0, n) dropped), each adding its
+    entries in index order from `init` (f32[n, ...]) or +0.0."""
+    lib = build()
+    num = x.shape[0]
+    rest = tuple(x.shape[1:])
+    _check(x, "x", torch.float32)
+    if ids.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"ids must be int32 or int64, got {ids.dtype}")
+    _check(ids, "ids", ids.dtype, (num,))
+    if init is not None:
+        _check(init, "init", torch.float32, (n,) + rest)
+    if not 0 <= n <= SEGMENT_MAX or num >= 2 ** 31 - 1:
+        raise ValueError(f"segment_sum takes 0 <= n <= {SEGMENT_MAX} and N "
+                         f"< 2**31 - 1, got n={n}, N={num}")
+    m = 1
+    for d in rest:
+        m *= d
+    dev = x.device
+    out = torch.empty((n,) + rest, dtype=torch.float32, device=dev)
+    if n == 0 or m == 0:
+        return out if init is None else init.clone()
+    tiles = -(-num // SEGMENT_TILE)
+    hist = torch.empty(max(tiles * n, 1), dtype=torch.int32, device=dev)
+    rank = torch.empty(max(num, 1), dtype=torch.int32, device=dev)
+    starts = torch.empty(2 * n + 1, dtype=torch.int32, device=dev)
+    xs = torch.empty(max(num * m, 1), dtype=torch.float32, device=dev)
+    err = lib.cc_segment_sum(
+        x.data_ptr(), ids.data_ptr(), int(ids.dtype == torch.int64), num, n,
+        m, init.data_ptr() if init is not None else None, SEGMENT_TILE,
+        hist.data_ptr(), rank.data_ptr(), starts.data_ptr(),
+        starts[n:].data_ptr(), xs.data_ptr(), out.data_ptr(), _stream())
+    LAUNCHES["segment_sum"] += 1
+    _raise_on(err, "segment_sum")
+    return out
+
+
+def ordered_sum(x: torch.Tensor) -> torch.Tensor:
+    """K13 launch: f32[m] column sums of x (f32[n, m]) in XLA:CPU's
+    windowed order."""
+    lib = build()
+    if x.dim() != 2:
+        raise ValueError(f"ordered_sum takes a 2-d tensor, got {x.dim()}")
+    _check(x, "x", torch.float32)
+    n, m = x.shape
+    if n >= 2 ** 31 - 1:
+        raise ValueError(f"ordered_sum takes n < 2**31 - 1, got n={n}")
+    per_col, left = 0, n
+    while left > 32:
+        left = -(-left // 32)
+        per_col += left
+    out = torch.empty(m, dtype=torch.float32, device=x.device)
+    if m == 0:
+        return out
+    scratch = torch.empty(max(m * per_col, 1), dtype=torch.float32,
+                          device=x.device)
+    err = lib.cc_ordered_sum(x.data_ptr(), n, m, scratch.data_ptr(), per_col,
+                             out.data_ptr(), _stream())
+    LAUNCHES["ordered_sum"] += 1
+    _raise_on(err, "ordered_sum")
+    return out
+
+
+def cumsum_blocks(x: torch.Tensor) -> torch.Tensor:
+    """K14 launch: f32[rows, n] inclusive scan of each row of x in
+    XLA:CPU's block-16 order."""
+    lib = build()
+    if x.dim() != 2:
+        raise ValueError(f"cumsum_blocks takes a 2-d tensor, got {x.dim()}")
+    _check(x, "x", torch.float32)
+    rows, n = x.shape
+    if n > CUMSUM_MAX or rows >= 2 ** 31 - 1:
+        raise ValueError(f"cumsum_blocks takes n <= {CUMSUM_MAX} and rows < "
+                         f"2**31 - 1, got n={n}, rows={rows}")
+    out = torch.empty_like(x)
+    if rows == 0 or n == 0:
+        return out
+    err = lib.cc_cumsum_blocks(x.data_ptr(), rows, n, out.data_ptr(),
+                               _stream())
+    LAUNCHES["cumsum_blocks"] += 1
+    _raise_on(err, "cumsum_blocks")
     return out

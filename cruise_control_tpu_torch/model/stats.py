@@ -8,7 +8,7 @@ import dataclasses
 import torch
 
 from cruise_control_tpu_torch.common.resources import NUM_RESOURCES
-from cruise_control_tpu_torch.ops import sum_f32
+from cruise_control_tpu_torch import ops
 from cruise_control_tpu_torch.model import state as S
 from cruise_control_tpu_torch.model.state import ClusterState
 
@@ -36,19 +36,6 @@ class ClusterModelStats:
     def cpu(self) -> "ClusterModelStats":
         return ClusterModelStats(**{f.name: getattr(self, f.name).cpu()
                                     for f in dataclasses.fields(self)})
-
-
-def _masked_stats(values: torch.Tensor, mask: torch.Tensor):
-    count = torch.clamp_min(torch.sum(mask), 1)
-    total = sum_f32(values * mask)
-    avg = total / count
-    inf = torch.full((), float("inf"), device=values.device)
-    vmax = torch.max(torch.where(mask, values, -inf))
-    vmin = torch.min(torch.where(mask, values, inf))
-    var = sum_f32(torch.where(mask, (values - avg) ** 2,
-                              torch.zeros((), device=values.device))
-                  ) / count
-    return avg, vmax, vmin, torch.sqrt(var)
 
 
 def compute_stats(state: ClusterState) -> ClusterModelStats:
@@ -80,33 +67,45 @@ def compute_stats_fresh_loads(state: ClusterState,
 
 def _stats_from(state: ClusterState, util, replica_counts, leader_counts,
                 topic_counts, pot_nw) -> ClusterModelStats:
+    """The reference's `_stats_from`: per column, the alive-broker total,
+    average, max, min and population st.dev (the topics' st.devs then
+    averaged).  Each column's sums are the reference's 1-d or axis-0
+    `jnp.sum` in XLA:CPU's order (`ops.sum_f32`), so one sum over the
+    stacked [B, RES + 3 + T] columns gives the same bits as one per
+    column, in three launches on the card."""
     alive = state.broker_alive
-    parts = [_masked_stats(util[:, res], alive)
-             for res in range(NUM_RESOURCES)]
-    avg, vmax, vmin, vstd = (torch.stack([p[i] for p in parts])
-                             for i in range(4))
-    rc_avg, rc_max, rc_min, rc_std = _masked_stats(replica_counts, alive)
-    _, _, _, lc_std = _masked_stats(leader_counts, alive)
-
-    # st.dev of per-broker replica count within each topic, averaged
-    t_count = torch.clamp_min(torch.sum(alive), 1)
-    t_avg = sum_f32(topic_counts * alive[:, None]) / t_count
-    t_var = sum_f32(torch.where(alive[:, None],
-                                (topic_counts - t_avg[None, :]) ** 2,
-                                torch.zeros((), device=util.device))
-                    ) / t_count
-    t_std = torch.sqrt(t_var)
-    topic_std = sum_f32(t_std) / t_std.shape[0]
-
+    alive_col = alive[:, None]
+    num_t = topic_counts.shape[1]
+    cols = torch.cat([util, replica_counts[:, None], leader_counts[:, None],
+                      topic_counts, pot_nw[:, None]], 1)
+    count = torch.clamp_min(torch.sum(alive), 1)
+    totals = ops.sum_f32(cols * alive_col)
+    avg = totals[:-1] / count
+    zero = torch.zeros((), device=util.device)
+    var = ops.sum_f32(torch.where(alive_col, (cols[:, :-1] - avg) ** 2,
+                                  zero)) / count
+    # correctly rounded, as XLA and the card round it: torch's CPU sqrt
+    # can miss the nearest float32 by an ulp; a float64 root rounded to
+    # float32 cannot (53 >= 2 * 24 + 2 bits)
+    std = torch.sqrt(var.double()).float()
     inf = torch.full((), float("inf"), device=util.device)
-    pot_max = torch.max(torch.where(alive, pot_nw, -inf))
-    pot_total = sum_f32(pot_nw * alive)
+    vmax = torch.amax(torch.where(alive_col, cols, -inf), 0)
+    vmin = torch.amin(torch.where(alive_col, cols[:, :-1], inf), 0)
+
+    res = slice(0, NUM_RESOURCES)
+    rc, lc = NUM_RESOURCES, NUM_RESOURCES + 1
+    t_std = std[NUM_RESOURCES + 2:]
+    # the mean divides by a tensor: the card divides a tensor by a Python
+    # number as a product with its reciprocal, which rounds differently
+    num_t = torch.full((), float(num_t), device=util.device)
     return ClusterModelStats(
-        util_avg=avg, util_max=vmax, util_min=vmin, util_std=vstd,
-        replica_count_avg=rc_avg, replica_count_max=rc_max,
-        replica_count_min=rc_min, replica_count_std=rc_std,
-        leader_count_std=lc_std, topic_replica_count_std=topic_std,
-        potential_nw_out_max=pot_max, potential_nw_out_total=pot_total,
+        util_avg=avg[res], util_max=vmax[res], util_min=vmin[res],
+        util_std=std[res],
+        replica_count_avg=avg[rc], replica_count_max=vmax[rc],
+        replica_count_min=vmin[rc], replica_count_std=std[rc],
+        leader_count_std=std[lc],
+        topic_replica_count_std=ops.sum_f32(t_std) / num_t,
+        potential_nw_out_max=vmax[-1], potential_nw_out_total=totals[-1],
         num_alive_brokers=torch.sum(alive).to(torch.int32),
         num_replicas=torch.sum(state.replica_valid).to(torch.int32),
         num_offline_replicas=torch.sum(

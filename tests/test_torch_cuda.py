@@ -5,9 +5,11 @@ K7 (`forced_select`, also at k = R) and K3's table-less
 mode are held here too, K2 at the forced-move round's 4,096 candidates,
 K8 (`rank_accept`) on both of its paths, without and with the pass
 commit, K9 (`segment_argmax`), K10 (`swap_pair`) and K11
-(`dest_feasibility`, both entries), a short default-stack solve and the
-demote, kafka-assigner and intra-broker solves against the port's CPU
-path.
+(`dest_feasibility`, both entries), the ordered sums K12
+(`segment_sum`, also with `init`), K13 (`ordered_sum`) and K14
+(`cumsum_blocks`) bit for bit with signed zeros and dropped ids, the
+slice's stats, a short default-stack solve and the demote,
+kafka-assigner and intra-broker solves against the port's CPU path.
 
 Each test decides inside itself whether a card is present and skips
 with a reason when none is; run them on a machine with the card with
@@ -576,3 +578,108 @@ def test_mode_solve_on_the_card_equals_the_cpu_path(mode):
     assert torch.equal(out["cuda"].final_state.replica_is_leader.cpu(),
                        out["cpu"].final_state.replica_is_leader)
     assert out["cuda"].rounds_by_goal == out["cpu"].rounds_by_goal
+
+
+def _bits(a, b):
+    """Bit for bit: floats through their int32 views (-0.0 is not +0.0)."""
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and bool(torch.equal(a.view(torch.int32), b.view(torch.int32))))
+
+
+def _signed(rng, shape):
+    """Lognormal magnitudes of both signs with +0.0 and -0.0 in them."""
+    x = rng.lognormal(0, 3, size=shape).astype(np.float32)
+    x *= np.where(rng.random(shape) < 0.3, -1, 1).astype(np.float32)
+    x[rng.random(shape) < 0.05] = -0.0
+    x[rng.random(shape) < 0.02] = 0.0
+    return x
+
+
+@pytest.mark.parametrize("case", ["random", "dropped ids", "signed zeros",
+                                  "one segment"])
+@pytest.mark.parametrize("num,width,n", [(60_000, 4, 200),
+                                         (60_000, None, 800),
+                                         (800, None, 200)],
+                         ids=["broker_load", "disk_load", "logdirs"])
+def test_segment_sum_matches_plain(num, width, n, case):
+    """K12 against segment_sum_plain bit for bit (and through the
+    dispatch with int64 ids), and with `init` against
+    scatter_add_seq_plain."""
+    from cruise_control_tpu_torch import ops
+    ck = _card()
+    rng = np.random.default_rng(num + n + len(case))
+    x = _signed(rng, (num,) if width is None else (num, width))
+    ids = rng.integers(0, n - n // 10, num).astype(np.int32)
+    if case == "dropped ids":
+        pick = rng.random(num) < 0.05
+        ids[pick] = rng.choice(np.array([-1, -9, n, n + 5], dtype=np.int32),
+                               int(pick.sum()))
+    elif case == "signed zeros":
+        x[rng.random(x.shape) < 0.5] = -0.0
+    elif case == "one segment":
+        ids[:] = n // 2
+    xt, it = torch.from_numpy(x).cuda(), torch.from_numpy(ids).cuda()
+    want = ops.segment_sum_plain(xt, it, n)
+    assert _bits(ck.segment_sum(xt, it, n), want)
+    assert _bits(ops.segment_sum(xt, it.long(), n), want)
+    init = torch.from_numpy(_signed(rng, tuple(want.shape))).cuda()
+    spill = torch.where(it < 0, torch.full_like(it, n), it)
+    assert _bits(ck.segment_sum(xt, spill, n, init=init),
+                 ops.scatter_add_seq_plain(init, spill, xt))
+    assert _bits(ops.scatter_add_seq(init, spill, xt),
+                 ops.scatter_add_seq_plain(init, spill, xt))
+
+
+@pytest.mark.parametrize("n,m", [(200, 4), (200, 17), (2600, 4),
+                                 (2600, 100), (60_000, 4), (1, 4), (33, 3)])
+def test_ordered_sum_matches_plain(n, m):
+    """K13 against sum_f32_plain bit for bit, with a -0.0 in the first
+    row and at a window start (a single -0.0 is copied)."""
+    from cruise_control_tpu_torch import ops
+    ck = _card()
+    rng = np.random.default_rng(n * 7 + m)
+    x = _signed(rng, (n, m))
+    x[0] = -0.0
+    if n > 32:
+        x[32 - (-(-n // 32) * 32 - n) // 2] = -0.0
+    xt = torch.from_numpy(x).cuda()
+    want = ops.sum_f32_plain(xt)
+    assert _bits(ck.ordered_sum(xt), want)
+    assert _bits(ops.sum_f32(xt), want)
+    assert _bits(ops.sum_f32(xt[:, 0].contiguous()), want[0])
+
+
+@pytest.mark.parametrize("rows,n", [(200, 4), (200, 8), (2600, 8), (3, 17),
+                                    (3, 2048), (5, 1)])
+def test_cumsum_blocks_matches_plain(rows, n):
+    """K14 against cumsum_f32_plain bit for bit, with a leading -0.0 in
+    every row (+0.0 after a scan of two or more, kept in a row of one)."""
+    from cruise_control_tpu_torch import ops
+    ck = _card()
+    rng = np.random.default_rng(rows + n)
+    x = _signed(rng, (rows, n))
+    x[:, 0] = -0.0
+    xt = torch.from_numpy(x).cuda()
+    want = ops.cumsum_f32_plain(xt, 1)
+    assert _bits(ck.cumsum_blocks(xt), want)
+    assert _bits(ops.cumsum_f32(xt, 1), want)
+    assert _bits(ops.cumsum_f32(xt.T, 0), want.T)
+
+
+def test_stats_on_the_card_equal_the_cpu_path():
+    """compute_stats of the slice cluster on the card (K12, K13) against
+    the CPU path, every field bit for bit."""
+    import dataclasses
+    from cruise_control_tpu_torch.model import stats as ST
+    ck = _card()
+    out = {}
+    for dev in ("cuda", "cpu"):
+        state, _ = random_cluster(RandomClusterSpec(**SLICE), device=dev)
+        ck.reset_launches()
+        out[dev] = ST.compute_stats(state).cpu()
+        if dev == "cuda":
+            assert ck.LAUNCHES["segment_sum"] > 0
+            assert ck.LAUNCHES["ordered_sum"] > 0
+    for f in dataclasses.fields(out["cpu"]):
+        a, b = getattr(out["cuda"], f.name), getattr(out["cpu"], f.name)
+        assert bool(torch.equal(a.view(torch.int32), b.view(torch.int32))), f
