@@ -33,17 +33,24 @@ Phases:
      200 and 256 and C = 4096 x K = 2600 (sibling rows with -1) and its
      guard on candidates and on every replica, K12 at [60,000, 4] into
      200, [60,000] into 800, [600,000, 4] into 2,600, [600,000] into
-     10,400 and [800] into 200 (dropped and negative ids, empty segments,
-     signed zeros, one segment holding 60,000 and 600,000 entries; with
-     `init` against the ordered scatter), K13 at [200, 4], [2,600, 4],
-     [2,600, 100], [600,000, 4], the stats' [B, RES + 3 + T] planes and
-     1 to 33 terms, and K14 at [200, 4], [200, 8], [2,600, 8], [3, 2,048]
-     and rows of 1 to 5,000 with a leading -0.0 (the three bit for bit:
-     int32 views).  Device times per call (20
+     10,400 and [800] into 200 (dropped and negative ids, every id
+     dropped, N = 0, n = SEGMENT_MAX, empty segments, signed zeros, one
+     segment holding 60,000 and 600,000 entries, segment lengths around
+     the walk's stage; with `init` and int32 and int64 ids against the
+     ordered scatter), K13 at [200, 4], [2,600, 4], [2,600, 100],
+     [60,000, 4], [600,000, 4] and [600,000, 1], the stats' [B, RES + 3 +
+     T] planes, 1 to 33 terms and 1,024 to 32,770 rows (the second
+     level's window offsets), and both of its paths at the shapes around
+     the wrapper's choice, and K14 at [200, 4], [200, 8], [2,600, 8],
+     [3, 2,048] and rows of 1 to 5,000 with a leading -0.0 (the three bit
+     for bit: int32 views).  Device times per call (20
      calls captured in a CUDA graph, median of 5 replays timed with CUDA
      events; K3 and K5 also without the wrapper's copies of the cache
      planes) beside the bound for the bytes the function needs and a
-     one-call PyTorch yardstick where one exists; K8 also per call with
+     one-call PyTorch yardstick where one exists; K12 and K13 also with
+     the wrapper's host time per call, the device launches per call and
+     (K12) the chain bound, and K12 with each of its two walks at the
+     main path's shapes; K8 also per call with
      its host work against its lexsort dispatch (the torch lexsort, the
      kernel on that order, the ordered scatters), and its one-block time
      split
@@ -1531,7 +1538,32 @@ SEGMENT_SUM_CASES = (
     ("signed zeros", 60_000, 4, 200, "zeros"),
     ("one segment of 60,000", 60_000, 4, 8, "one"),
     ("one segment of 600,000", 600_000, None, 8, "one"),
+    ("stage lengths", 58_980, 4, 140, "stages"),
+    ("stage lengths, 1-d", 58_980, None, 140, "stages"),
+    ("n = SEGMENT_MAX", 60_000, 4, 57_344, "random"),
+    ("all ids dropped", 60_000, 4, 200, "all dropped"),
+    ("N = 0", 0, 4, 200, "random"),
 )
+#: segment lengths of the "stages" pattern, in turn: one below, at and one
+#: above K12's walk stage (128 rows of 4 floats, 512 of one) and several
+#: stages; 140 segments take 20 turns, 58,980 entries
+STAGE_LENGTHS = (127, 128, 129, 511, 512, 513, 1029)
+#: dependent float32 adds: cycles from one to the next on the card's SMs
+FADD_LATENCY_CYCLES = 4
+#: K12's two walks, forced by the wrapper's threshold (average entries a
+#: segment): a thread per (segment, column) or a warp per segment
+SEGMENT_WALKS = {"lane": 2 ** 31, "warp": 0}
+#: the main path's K12 shapes (label, N, width, n) and four between them:
+#: average segment lengths from 4 to 300
+SEGMENT_WALK_SHAPES = (
+    ("broker_load", 60_000, 4, 200), ("disk_load", 60_000, None, 800),
+    ("broker_load north", 600_000, 4, 2600),
+    ("disk_load north", 600_000, None, 10_400),
+    ("logdirs into brokers", 800, None, 200),
+    ("[60,000] into 2,600", 60_000, None, 2600),
+    ("[60,000] into 5,000", 60_000, None, 5000),
+    ("[60,000] into 7,500", 60_000, None, 7500),
+    ("[60,000, 4] into 2,600", 60_000, 4, 2600))
 
 
 def _segment_case(num, width, n, pattern, g):
@@ -1542,32 +1574,112 @@ def _segment_case(num, width, n, pattern, g):
     # the last tenth of the segments stays empty
     ids = torch.randint(0, max(1, n - n // 10), (num,), generator=g,
                         device=dev, dtype=torch.int32)
+    bad = torch.tensor([-1, -7, n, n + 3, 2 ** 30], device=dev,
+                       dtype=torch.int32)
     if pattern == "dropped":
-        bad = torch.tensor([-1, -7, n, n + 3, 2 ** 30], device=dev,
-                           dtype=torch.int32)
         pick = torch.rand(num, generator=g, device=dev) < 0.05
         ids = torch.where(pick, bad[torch.randint(0, 5, (num,), generator=g,
                                                   device=dev)], ids)
+    elif pattern == "all dropped":
+        ids = bad[torch.randint(0, 5, (num,), generator=g, device=dev)]
     elif pattern == "zeros":
         x = torch.where(torch.rand(shape, generator=g, device=dev) < 0.5,
                         torch.full((), -0.0, device=dev), x)
     elif pattern == "one":
         ids = torch.full((num,), n // 2, device=dev, dtype=torch.int32)
+    elif pattern == "stages":
+        lengths = torch.tensor([STAGE_LENGTHS[s % len(STAGE_LENGTHS)]
+                                for s in range(n)], device=dev)
+        assert int(lengths.sum()) == num, "stage lengths must sum to N"
+        runs = torch.repeat_interleave(
+            torch.arange(n, device=dev, dtype=torch.int32), lengths)
+        ids = runs[torch.randperm(num, generator=g, device=dev)]
     return x, ids
+
+
+def sm_clock_hz() -> float:
+    """The card's highest SM clock (nvidia-smi clocks.max.sm)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True).stdout
+    return float(out.split()[0]) * 1e6
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Host time per call (µs): `calls` calls of a wrapper (its checks, its
+    allocations and the launch) in a loop that ends in one synchronize;
+    where the device takes longer than the host, its time."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def launches_per_call(fn, names, calls: int = 10) -> float:
+    """Device kernels per call of `fn` whose names hold one of `names`,
+    by torch.profiler.  A first kernel and a pause open the trace, so that
+    the profiler's start-up does not drop the calls' own records."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and any(k in e.key for k in names)) / calls
+
+
+#: the launch counts of phase 2's K12 and K13 cases, taken after all of its
+#: timings: a torch.profiler session slows the small kernels timed after it
+_DEFERRED_COUNTS: list = []
+
+
+def defer_launch_count(case: dict, label: str, fn, names, calls: int = 10):
+    """Count `fn`'s launches into case["launches_per_call"] later, by
+    take_launch_counts."""
+    _DEFERRED_COUNTS.append((case, label, fn, names, calls))
+
+
+def take_launch_counts() -> None:
+    """The launch counts that phase 2's checks deferred."""
+    for case, label, fn, names, calls in _DEFERRED_COUNTS:
+        case["launches_per_call"] = launches_per_call(fn, names, calls)
+        log(f"  {label}: {case['launches_per_call']:g} kernel launches a "
+            "call")
+    _DEFERRED_COUNTS.clear()
 
 
 def check_segment_sum(seed: int) -> dict:
     """K12 against ops.segment_sum_plain on the card, bit for bit, at the
     slice's and the 2,600-broker shapes (broker_load's [R, 4] into B,
     disk_load's [R] into D, the logdirs' [D] into B), with dropped and
-    negative ids, signed zeros, empty segments and one segment holding
-    every entry; with `init` against ops.scatter_add_seq_plain.  Device
-    time per call beside the plain version (host-synced: it reads its
-    width) and `index_add_` (atomics, no fixed order).  The record of
-    broker_load at 200 brokers."""
+    negative ids, signed zeros, empty segments, one segment holding every
+    entry, segment lengths around the walk's stage size, n = SEGMENT_MAX,
+    every id dropped and N = 0; with `init` (int32 and int64 ids) against
+    ops.scatter_add_seq_plain.  Device time per call beside the plain
+    version (host-synced: it reads its width), `index_add_` (atomics, no
+    fixed order), the bytes bound, the chain bound (the longest segment's
+    dependent adds at the card's highest SM clock), the wrapper's host time
+    per call and the device launches per call; then both walks at
+    SEGMENT_WALK_SHAPES (bit for bit too).  The record of broker_load at
+    200 brokers."""
     import torch
     from cruise_control_tpu_torch import cuda_kernels, ops
     g = torch.Generator(device="cuda").manual_seed(seed)
+    clock = sm_clock_hz()
+    log(f"  SM clock (clocks.max.sm): {clock / 1e6:.0f} MHz; chain bound = "
+        f"longest segment x {FADD_LATENCY_CYCLES} cycles")
     rec = None
     for label, num, width, n, pattern in SEGMENT_SUM_CASES:
         x, ids = _segment_case(num, width, n, pattern, g)
@@ -1577,60 +1689,123 @@ def check_segment_sum(seed: int) -> dict:
         if not bits_equal(got, want):
             raise AssertionError(f"segment_sum {label}: differs from the "
                                  "plain version")
-        # with init (scatter_add_seq), but for the one segment of 600,000
-        # (the plain version makes a launch per entry)
+        # with init (scatter_add_seq), int32 and int64 ids, but for the one
+        # segment of 600,000 (the plain version makes a launch per entry)
         with_init = not (pattern == "one" and num > 60_000)
         if with_init:
             init = _signed_values(tuple(want.shape), g)
             spill = torch.where(ids < 0, torch.full_like(ids, n), ids)
-            got_i = cuda_kernels.segment_sum(x, spill, n, init=init)
             want_i = ops.scatter_add_seq_plain(init, spill, x)
-            torch.cuda.synchronize()
-            if not bits_equal(got_i, want_i):
-                raise AssertionError(f"segment_sum {label} with init: "
-                                     "differs from scatter_add_seq_plain")
+            for idx in (spill, spill.long()):
+                got_i = cuda_kernels.segment_sum(x, idx, n, init=init)
+                torch.cuda.synchronize()
+                if not bits_equal(got_i, want_i):
+                    raise AssertionError(
+                        f"segment_sum {label} with init ({idx.dtype} ids): "
+                        "differs from scatter_add_seq_plain")
         t_k = graph_time_ms(lambda: cuda_kernels.segment_sum(x, ids, n))
         t_p = (cuda_time_ms(lambda: ops.segment_sum_plain(x, ids, n), reps=5)
                if pattern != "one" else None)
         safe = ops._spill_ids(ids, n)
         lib_out = torch.zeros((n + 1,) + tuple(x.shape[1:]), device="cuda")
         t_l = graph_time_ms(lambda: lib_out.index_add_(0, safe, x))
+        h_us = host_us(lambda: cuda_kernels.segment_sum(x, ids, n),
+                       calls=20 if pattern == "one" else 200)
         # x and its ids in, the sums out
         nbytes = x.numel() * 4 + num * 4 + want.numel() * 4
         t_b, by = bound(nbytes, x.numel())
+        longest = int(torch.bincount(safe, minlength=n + 1)[:n].max())
+        t_chain = longest * FADD_LATENCY_CYCLES / clock * 1e3
         plain = f"{t_p:.4f} ms" if t_p is not None else "not measured"
         log(f"  segment_sum {label} ([{num}{', ' + str(width) if width else ''}]"
             f" into {n}): bit for bit{', with init too' if with_init else ''};"
-            " device time per call: "
-            f"kernel {t_k:.4f} ms, plain {plain}; bound {t_b:.6f} ms "
-            f"({nbytes} bytes); index_add_ {t_l:.4f} ms")
+            f" device time per call: kernel {t_k:.4f} ms, plain {plain}; bounds: bytes {t_b:.6f} ms ({nbytes} bytes), chain "
+            f"{t_chain:.6f} ms (longest segment {longest}); index_add_ "
+            f"{t_l:.4f} ms; host {h_us:.1f} us a call")
+        case = dict(ms=t_k, plain_ms=t_p, bound_ms=t_b, chain_bound_ms=t_chain,
+                    library_ms=t_l, host_us=h_us)
+        defer_launch_count(
+            case, f"segment_sum {label}",
+            lambda x=x, ids=ids, n=n: cuda_kernels.segment_sum(x, ids, n),
+            ("segment_sum_kernel",), calls=2 if pattern == "one" else 10)
         if rec is None:
             rec = dict(max_abs_err=0.0, ms=t_k, plain_ms=t_p, bound_ms=t_b,
                        bound_by=by, library_ms=t_l,
                        shape=f"[{num}, {width}] into {n}")
-        rec.setdefault("cases", {})[label] = dict(ms=t_k, plain_ms=t_p,
-                                                  bound_ms=t_b, library_ms=t_l)
+        rec.setdefault("cases", {})[label] = case
+    # the wrapper's choice of walk: each walk at the main path's shapes,
+    # bit for bit and timed
+    walks = {}
+    default = cuda_kernels.SEGMENT_WARP_WALK_AVG
+    try:
+        for label, num, width, n in SEGMENT_WALK_SHAPES:
+            x, ids = _segment_case(num, width, n, "random", g)
+            want = ops.segment_sum_plain(x, ids, n)
+            row = {}
+            for name, avg in SEGMENT_WALKS.items():
+                cuda_kernels.SEGMENT_WARP_WALK_AVG = avg
+                got = cuda_kernels.segment_sum(x, ids, n)
+                torch.cuda.synchronize()
+                if not bits_equal(got, want):
+                    raise AssertionError(f"segment_sum {label}, {name} walk: "
+                                         "differs from the plain version")
+                row[name] = graph_time_ms(
+                    lambda: cuda_kernels.segment_sum(x, ids, n))
+            walks[label] = row
+            log(f"  segment_sum {label} by walk (bit for bit; {num / n:.1f} "
+                f"entries a segment): lane {row['lane']:.4f} ms, warp "
+                f"{row['warp']:.4f} ms")
+    finally:
+        cuda_kernels.SEGMENT_WARP_WALK_AVG = default
+    rec["walks"] = walks
     return rec
 
 
+#: K13's phase-2 shapes: the stats' planes at 200 and 2,600 brokers,
+#: cluster_load's [R, 4] at the slice (60,000) and at 2,600 brokers, the
+#: window offsets of the second level (1,024 to 32,770 rows) and 1 to 33
+#: terms
+ORDERED_SUM_SHAPES = ((200, 4), (2600, 4), (2600, 100), (600_000, 4),
+                      (200, 17), (2600, 107), (1, 4), (31, 3), (32, 3),
+                      (33, 3), (60_000, 4), (1024, 4), (1025, 4),
+                      (32_768, 4), (32_769, 4), (32_770, 4), (600_000, 1))
+
+
+#: K13's two paths, forced by the wrapper's spread threshold (rows)
+ORDERED_PATHS = {"column": 2 ** 31, "spread": 1024}
+#: the shapes around the wrapper's choice of K13's path
+ORDERED_PATH_SHAPES = ((1025, 4), (2600, 4), (2600, 100), (4096, 4),
+                       (8192, 4), (16_384, 4), (60_000, 4))
+
+
+def _ordered_input(n, m, g):
+    """Signed values with a -0.0 in the first row, at the start of a
+    first-level window and at the start of a second-level window."""
+    x = _signed_values((n, m), g)
+    x[0] = -0.0
+    if n > 32:
+        w0 = -(-n // 32)
+        lo0 = (w0 * 32 - n) // 2
+        x[32 - lo0] = -0.0
+        if w0 > 32:
+            w1 = -(-w0 // 32)
+            lo1 = (w1 * 32 - w0) // 2
+            x[(32 - lo1) * 32 - lo0] = -0.0
+    return x
+
+
 def check_ordered_sum(seed: int) -> dict:
-    """K13 against ops.sum_f32_plain on the card, bit for bit: the stats'
-    [B, RES + 3 + T] planes at 200 and 2,600 brokers (the widths [B, 4]
-    and [B, 100] of the topics), cluster_load's [R, 4] at 2,600 brokers,
-    a -0.0 at a window start, a single -0.0 (copied) and 31 to 33 terms.
-    Device time per call beside the plain version and `torch.sum`.  The
-    record of [200, 4]."""
+    """K13 against ops.sum_f32_plain on the card, bit for bit, at
+    ORDERED_SUM_SHAPES.  Device time per call beside the plain version,
+    `torch.sum` and the bytes bound, the wrapper's host time per call and the device launches per call; then both of K13's paths at
+    the shapes around the wrapper's choice (bit for bit too).  The record
+    of [200, 4]."""
     import torch
     from cruise_control_tpu_torch import cuda_kernels, ops
     g = torch.Generator(device="cuda").manual_seed(seed)
     rec = None
-    for n, m in ((200, 4), (2600, 4), (2600, 100), (600_000, 4), (200, 17),
-                 (2600, 107), (1, 4), (31, 3), (32, 3), (33, 3)):
-        x = _signed_values((n, m), g)
-        x[0] = -0.0
-        if n > 32:
-            w = -(-n // 32)
-            x[32 - (w * 32 - n) // 2] = -0.0
+    for n, m in ORDERED_SUM_SHAPES:
+        x = _ordered_input(n, m, g)
         got = cuda_kernels.ordered_sum(x)
         want = ops.sum_f32_plain(x)
         torch.cuda.synchronize()
@@ -1640,16 +1815,45 @@ def check_ordered_sum(seed: int) -> dict:
         t = (graph_time_ms(lambda: cuda_kernels.ordered_sum(x)),
              graph_time_ms(lambda: ops.sum_f32_plain(x)),
              graph_time_ms(lambda: torch.sum(x, 0)))
+        h_us = host_us(lambda: cuda_kernels.ordered_sum(x))
         nbytes = x.numel() * 4 + m * 4
         t_b, by = bound(nbytes, x.numel())
-        log(f"  ordered_sum [{n}, {m}]: bit for bit; device time per call: "
-            f"kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms; bound {t_b:.6f} ms "
-            f"({nbytes} bytes); torch.sum {t[2]:.4f} ms")
+        key = f"[{n}, {m}]"
+        log(f"  ordered_sum {key}: bit for bit; device time per call: "
+            f"kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms; bound {t_b:.6f} ms ({nbytes} bytes); torch.sum "
+            f"{t[2]:.4f} ms; host {h_us:.1f} us a call")
         if rec is None:
             rec = dict(max_abs_err=0.0, ms=t[0], plain_ms=t[1], bound_ms=t_b,
-                       bound_by=by, library_ms=t[2], shape=f"[{n}, {m}]")
-        rec.setdefault("cases", {})[f"[{n}, {m}]"] = dict(
-            ms=t[0], plain_ms=t[1], bound_ms=t_b, library_ms=t[2])
+                       bound_by=by, library_ms=t[2], shape=key)
+        case = rec.setdefault("cases", {})[key] = dict(
+            ms=t[0], plain_ms=t[1], bound_ms=t_b, library_ms=t[2],
+            host_us=h_us)
+        defer_launch_count(case, f"ordered_sum {key}",
+                           lambda x=x: cuda_kernels.ordered_sum(x),
+                           ("column_kernel", "spread_kernel"))
+    # the wrapper's choice of path: each path that takes the shape, bit for
+    # bit and timed
+    paths = {}
+    default = cuda_kernels.ORDERED_SPREAD_ROWS
+    try:
+        for n, m in ORDERED_PATH_SHAPES:
+            x = _ordered_input(n, m, g)
+            want = ops.sum_f32_plain(x)
+            row = {}
+            for name, rows in ORDERED_PATHS.items():
+                cuda_kernels.ORDERED_SPREAD_ROWS = rows
+                got = cuda_kernels.ordered_sum(x)
+                torch.cuda.synchronize()
+                if not bits_equal(got, want):
+                    raise AssertionError(f"ordered_sum [{n}, {m}], {name} "
+                                         "path: differs from the plain version")
+                row[name] = graph_time_ms(lambda: cuda_kernels.ordered_sum(x))
+            paths[f"[{n}, {m}]"] = row
+            log(f"  ordered_sum [{n}, {m}] by path (bit for bit): column "
+                f"{row['column']:.4f} ms, spread {row['spread']:.4f} ms")
+    finally:
+        cuda_kernels.ORDERED_SPREAD_ROWS = default
+    rec["paths"] = paths
     return rec
 
 
@@ -2320,7 +2524,6 @@ def main(argv=None) -> int:
     t_run = time.time()
     results: dict = {}
     widest = [0]
-
     def widest_call(fn, name):
         def call(dest, *a, **kw):
             widest[0] = max(widest[0], dest.shape[0])
@@ -2375,6 +2578,9 @@ def main(argv=None) -> int:
         results["segment_sum"] = check_segment_sum(seed=41)
         results["ordered_sum"] = check_ordered_sum(seed=42)
         results["cumsum_blocks"] = check_cumsum_blocks(seed=43)
+        log("[2] K12 and K13's device launches a call (torch.profiler), "
+            "after every timing")
+        take_launch_counts()
     log(f"[t] {time.time() - t_run:.1f} s")
     with _wrapped([(cuda_kernels, "rank_accept")], widest_call):
         if 3 in phases:

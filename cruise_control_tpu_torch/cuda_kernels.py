@@ -15,6 +15,7 @@ adds one exactly where it launches its kernel.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -46,10 +47,23 @@ LAUNCHES = {"row_topk": 0, "assign_pass": 0, "commit_moves": 0,
             "rank_accept_one_block": 0, "rank_accept_multi_launch": 0}
 #: K8's one-block path takes up to this many candidates
 RANK_ONE_BLOCK_MAX = 4096
-#: K12's tile (entries a warp ranks) and its most segments (the tile's
-#: running counts live in shared memory)
-SEGMENT_TILE = 2048
+#: K12's most segments (a tile's running counts live in shared memory)
 SEGMENT_MAX = 57_344
+#: K12 walks a warp per segment when the segments average at least this
+#: many entries, and a thread per (segment, column) below it.  chip_smoke.py
+#: phase 2 times both walks: the thread walk is ahead at 4 to 12 entries and
+#: at disk_load's 57.7 over 10,400 segments, the warp walk at 23 over 2,600
+#: and from 75; 64 puts every shape of the main path on its faster walk
+SEGMENT_WARP_WALK_AVG = 64
+#: K13 takes its spread path (a block per 1,024 rows) above this many
+#: rows, and a block per column at or below it
+ORDERED_SPREAD_ROWS = 4096
+#: the spread path's columns a block and its most column tiles
+ORDERED_TILE_COLS = 8
+ORDERED_MAX_COLUMN_TILES = 4096
+#: the spread path's counter sets on a device: one for each stream that
+#: launches it
+ORDERED_COUNTER_SLOTS = 72
 #: K14's longest row (the levels above a row live in shared memory)
 CUMSUM_MAX = 131_072
 
@@ -141,10 +155,12 @@ def build() -> ctypes.CDLL:
         lib.cc_swap_pair.argtypes = [_I] * 3 + [_P] * 19 + [_P]
         lib.cc_dest_struct.argtypes = [_I] * 3 + [_P] * 7 + [_P]
         lib.cc_dest_has.argtypes = [_I] * 3 + [_P] * 8 + [_P]
-        lib.cc_segment_sum.argtypes = [_P, _P] + [_I] * 4 + [_P, _I] + [
-            _P] * 7
+        lib.cc_segment_sum.argtypes = [_P, _P] + [_I] * 4 + [
+            _P, _P, ctypes.c_longlong, _I, _P, _P]
+        lib.cc_segment_sum_scratch.argtypes = [_I, _I, _I]
+        lib.cc_segment_sum_scratch.restype = ctypes.c_longlong
         lib.cc_ordered_sum.argtypes = [_P, _I, _I, _P, ctypes.c_longlong,
-                                       _P, _P]
+                                       _I, _I, _P, _P]
         lib.cc_cumsum_blocks.argtypes = [_P, _I, _I, _P, _P]
         for fn in (lib.cc_row_topk, lib.cc_assign_pass, lib.cc_commit_moves,
                    lib.cc_leader_assign_pass, lib.cc_commit_leadership,
@@ -769,6 +785,15 @@ def dest_has(cand_r, w_c, top_b, top_h, replica_broker, replica_partition,
     return out
 
 
+@functools.lru_cache(maxsize=512)
+def _segment_scratch_bytes(num: int, n: int, m: int) -> int:
+    """Bytes of K12's one scratch allocation (its plan, from the library)."""
+    nbytes = int(build().cc_segment_sum_scratch(num, n, m))
+    if nbytes < 0:
+        raise ValueError(f"segment_sum cannot plan N={num}, n={n}, M={m}")
+    return nbytes
+
+
 def segment_sum(x: torch.Tensor, ids: torch.Tensor, n: int,
                 init=None) -> torch.Tensor:
     """K12 launch: f32[n, ...] per-segment sums of x (f32[N, ...]) over
@@ -793,19 +818,50 @@ def segment_sum(x: torch.Tensor, ids: torch.Tensor, n: int,
     out = torch.empty((n,) + rest, dtype=torch.float32, device=dev)
     if n == 0 or m == 0:
         return out if init is None else init.clone()
-    tiles = -(-num // SEGMENT_TILE)
-    hist = torch.empty(max(tiles * n, 1), dtype=torch.int32, device=dev)
-    rank = torch.empty(max(num, 1), dtype=torch.int32, device=dev)
-    starts = torch.empty(2 * n + 1, dtype=torch.int32, device=dev)
-    xs = torch.empty(max(num * m, 1), dtype=torch.float32, device=dev)
+    nbytes = _segment_scratch_bytes(num, n, m)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     err = lib.cc_segment_sum(
         x.data_ptr(), ids.data_ptr(), int(ids.dtype == torch.int64), num, n,
-        m, init.data_ptr() if init is not None else None, SEGMENT_TILE,
-        hist.data_ptr(), rank.data_ptr(), starts.data_ptr(),
-        starts[n:].data_ptr(), xs.data_ptr(), out.data_ptr(), _stream())
+        m, init.data_ptr() if init is not None else None, scratch.data_ptr(),
+        nbytes, int(num < SEGMENT_WARP_WALK_AVG * n), out.data_ptr(),
+        _stream())
     LAUNCHES["segment_sum"] += 1
     _raise_on(err, "segment_sum")
     return out
+
+
+@functools.lru_cache(maxsize=512)
+def _ordered_plan(n: int, m: int, spread_rows: int) -> tuple:
+    """(spread, window sums a column over the levels above 32 terms) of
+    K13 for an [n, m] plane: the spread path (a block per 1,024 rows) or
+    the column path (a block per column)."""
+    per_col, left = 0, n
+    while left > 32:
+        left = -(-left // 32)
+        per_col += left
+    # the spread path needs a second level: more than 1,024 rows
+    spread = (n > max(spread_rows, 1024)
+              and -(-m // ORDERED_TILE_COLS) <= ORDERED_MAX_COLUMN_TILES)
+    return spread, per_col
+
+
+_ORDERED_SLOTS: dict = {}
+
+
+def _ordered_slot(device: int, stream: int) -> int:
+    """K13's spread-path counter set for a stream of a device: each stream
+    gets its own, so that launches on two streams never share a counter."""
+    slots = _ORDERED_SLOTS.get(device)
+    if slots is None or stream not in slots:
+        with _LOCK:
+            slots = _ORDERED_SLOTS.setdefault(device, {})
+            if stream not in slots:
+                if len(slots) >= ORDERED_COUNTER_SLOTS:
+                    raise RuntimeError(
+                        f"ordered_sum: more than {ORDERED_COUNTER_SLOTS} "
+                        f"streams on device {device} launched its spread path")
+                slots[stream] = len(slots)
+    return slots[stream]
 
 
 def ordered_sum(x: torch.Tensor) -> torch.Tensor:
@@ -818,17 +874,19 @@ def ordered_sum(x: torch.Tensor) -> torch.Tensor:
     n, m = x.shape
     if n >= 2 ** 31 - 1:
         raise ValueError(f"ordered_sum takes n < 2**31 - 1, got n={n}")
-    per_col, left = 0, n
-    while left > 32:
-        left = -(-left // 32)
-        per_col += left
     out = torch.empty(m, dtype=torch.float32, device=x.device)
     if m == 0:
         return out
-    scratch = torch.empty(max(m * per_col, 1), dtype=torch.float32,
-                          device=x.device)
-    err = lib.cc_ordered_sum(x.data_ptr(), n, m, scratch.data_ptr(), per_col,
-                             out.data_ptr(), _stream())
+    spread, per_col = _ordered_plan(n, m, ORDERED_SPREAD_ROWS)
+    scratch = None
+    if per_col > 0:
+        scratch = torch.empty(m * per_col, dtype=torch.float32,
+                              device=x.device)
+    stream = _stream()
+    slot = _ordered_slot(x.device.index, stream) if spread else 0
+    err = lib.cc_ordered_sum(
+        x.data_ptr(), n, m, scratch.data_ptr() if scratch is not None
+        else None, per_col, int(spread), slot, out.data_ptr(), stream)
     LAUNCHES["ordered_sum"] += 1
     _raise_on(err, "ordered_sum")
     return out

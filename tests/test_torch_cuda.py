@@ -595,58 +595,169 @@ def _signed(rng, shape):
     return x
 
 
-@pytest.mark.parametrize("case", ["random", "dropped ids", "signed zeros",
-                                  "one segment"])
-@pytest.mark.parametrize("num,width,n", [(60_000, 4, 200),
-                                         (60_000, None, 800),
-                                         (800, None, 200)],
-                         ids=["broker_load", "disk_load", "logdirs"])
-def test_segment_sum_matches_plain(num, width, n, case):
-    """K12 against segment_sum_plain bit for bit (and through the
-    dispatch with int64 ids), and with `init` against
-    scatter_add_seq_plain."""
-    from cruise_control_tpu_torch import ops
-    ck = _card()
-    rng = np.random.default_rng(num + n + len(case))
-    x = _signed(rng, (num,) if width is None else (num, width))
+#: segment lengths in turn around K12's walk stage (128 rows of 4 floats,
+#: 512 of one): one below, at, one above, and several stages
+STAGE_LENGTHS = (127, 128, 129, 511, 512, 513, 1029)
+
+
+def _segment_ids(rng, case, num, n):
     ids = rng.integers(0, n - n // 10, num).astype(np.int32)
     if case == "dropped ids":
         pick = rng.random(num) < 0.05
         ids[pick] = rng.choice(np.array([-1, -9, n, n + 5], dtype=np.int32),
                                int(pick.sum()))
-    elif case == "signed zeros":
-        x[rng.random(x.shape) < 0.5] = -0.0
+    elif case == "all dropped":
+        ids = rng.choice(np.array([-1, -9, n, n + 5, 2 ** 30],
+                                  dtype=np.int32), num)
     elif case == "one segment":
         ids[:] = n // 2
+    elif case == "stage lengths":
+        # runs of STAGE_LENGTHS in turn, cut at num entries; entries past
+        # the last segment are dropped
+        runs = np.concatenate([np.full(STAGE_LENGTHS[s % 7], s, np.int32)
+                               for s in range(n)])[:num]
+        ids = np.concatenate([runs, np.full(num - runs.size, n, np.int32)])
+        ids = ids[rng.permutation(num)]
+    return ids
+
+
+@pytest.mark.parametrize("case", ["random", "dropped ids", "signed zeros",
+                                  "one segment", "stage lengths",
+                                  "all dropped"])
+@pytest.mark.parametrize("num,width,n", [(60_000, 4, 200),
+                                         (60_000, None, 800),
+                                         (800, None, 200),
+                                         (60_000, 4, 57_344),
+                                         (0, 4, 200),
+                                         (6_000, 40, 200)],
+                         ids=["broker_load", "disk_load", "logdirs",
+                              "n = SEGMENT_MAX", "N = 0", "wide rows"])
+def test_segment_sum_matches_plain(num, width, n, case):
+    """K12 against segment_sum_plain bit for bit (and through the
+    dispatch with int64 ids), and with `init` (int32 and int64 ids)
+    against scatter_add_seq_plain."""
+    from cruise_control_tpu_torch import ops
+    ck = _card()
+    rng = np.random.default_rng(num + n + len(case))
+    x = _signed(rng, (num,) if width is None else (num, width))
+    ids = _segment_ids(rng, case, num, n)
+    if case == "signed zeros":
+        x[rng.random(x.shape) < 0.5] = -0.0
     xt, it = torch.from_numpy(x).cuda(), torch.from_numpy(ids).cuda()
     want = ops.segment_sum_plain(xt, it, n)
     assert _bits(ck.segment_sum(xt, it, n), want)
     assert _bits(ops.segment_sum(xt, it.long(), n), want)
     init = torch.from_numpy(_signed(rng, tuple(want.shape))).cuda()
     spill = torch.where(it < 0, torch.full_like(it, n), it)
-    assert _bits(ck.segment_sum(xt, spill, n, init=init),
-                 ops.scatter_add_seq_plain(init, spill, xt))
-    assert _bits(ops.scatter_add_seq(init, spill, xt),
-                 ops.scatter_add_seq_plain(init, spill, xt))
+    want_i = ops.scatter_add_seq_plain(init, spill, xt)
+    assert _bits(ck.segment_sum(xt, spill, n, init=init), want_i)
+    assert _bits(ck.segment_sum(xt, spill.long(), n, init=init), want_i)
+    assert _bits(ops.scatter_add_seq(init, spill, xt), want_i)
 
 
-@pytest.mark.parametrize("n,m", [(200, 4), (200, 17), (2600, 4),
-                                 (2600, 100), (60_000, 4), (1, 4), (33, 3)])
-def test_ordered_sum_matches_plain(n, m):
-    """K13 against sum_f32_plain bit for bit, with a -0.0 in the first
-    row and at a window start (a single -0.0 is copied)."""
+#: K12's two walks, forced by the wrapper's threshold (average entries a
+#: segment): a thread per (segment, column) or a warp per segment
+SEGMENT_WALKS = {"lane": 2 ** 31, "warp": 0}
+
+
+@pytest.mark.parametrize("walk", list(SEGMENT_WALKS))
+@pytest.mark.parametrize("num,width,n", [(800, None, 200), (60_000, 4, 5000),
+                                         (60_000, None, 2600),
+                                         (60_000, 4, 800)])
+def test_segment_sum_walks_match_plain(num, width, n, walk, monkeypatch):
+    """Both of K12's walks, whichever the wrapper would pick, at 4 to 75
+    entries a segment, against segment_sum_plain bit for bit (with `init`
+    too)."""
     from cruise_control_tpu_torch import ops
     ck = _card()
-    rng = np.random.default_rng(n * 7 + m)
+    monkeypatch.setattr(ck, "SEGMENT_WARP_WALK_AVG", SEGMENT_WALKS[walk])
+    rng = np.random.default_rng(num + n)
+    x = _signed(rng, (num,) if width is None else (num, width))
+    xt = torch.from_numpy(x).cuda()
+    it = torch.from_numpy(_segment_ids(rng, "dropped ids", num, n)).cuda()
+    assert _bits(ck.segment_sum(xt, it, n), ops.segment_sum_plain(xt, it, n))
+    init = torch.from_numpy(_signed(rng, (n,) + x.shape[1:])).cuda()
+    spill = torch.where(it < 0, torch.full_like(it, n), it)
+    assert _bits(ck.segment_sum(xt, spill, n, init=init),
+                 ops.scatter_add_seq_plain(init, spill, xt))
+
+
+def _ordered_input(rng, n, m):
+    """Signed values with a -0.0 in the first row and at the start of a
+    first- and a second-level window."""
     x = _signed(rng, (n, m))
     x[0] = -0.0
     if n > 32:
-        x[32 - (-(-n // 32) * 32 - n) // 2] = -0.0
-    xt = torch.from_numpy(x).cuda()
+        w0 = -(-n // 32)
+        lo0 = (w0 * 32 - n) // 2
+        x[32 - lo0] = -0.0
+        if w0 > 32:
+            w1 = -(-w0 // 32)
+            x[(32 - (w1 * 32 - w0) // 2) * 32 - lo0] = -0.0
+    return x
+
+
+@pytest.mark.parametrize("n,m", [(200, 4), (200, 17), (2600, 4),
+                                 (2600, 100), (60_000, 4), (1, 4), (33, 3),
+                                 (1_025, 4), (32_769, 4), (600_000, 1)])
+def test_ordered_sum_matches_plain(n, m):
+    """K13 against sum_f32_plain bit for bit, with a -0.0 in the first
+    row and at window starts (a single -0.0 is copied)."""
+    from cruise_control_tpu_torch import ops
+    ck = _card()
+    rng = np.random.default_rng(n * 7 + m)
+    xt = torch.from_numpy(_ordered_input(rng, n, m)).cuda()
     want = ops.sum_f32_plain(xt)
     assert _bits(ck.ordered_sum(xt), want)
     assert _bits(ops.sum_f32(xt), want)
     assert _bits(ops.sum_f32(xt[:, 0].contiguous()), want[0])
+
+
+#: K13's two paths, forced by the wrapper's spread threshold (rows)
+ORDERED_PATHS = {"column": 2 ** 31, "spread": 1024}
+
+
+@pytest.mark.parametrize("path", list(ORDERED_PATHS))
+@pytest.mark.parametrize("n,m", [(1_025, 4), (2600, 4), (2600, 100),
+                                 (32_770, 4), (60_000, 9)])
+def test_ordered_sum_paths_match_plain(n, m, path, monkeypatch):
+    """Both of K13's paths, whichever the wrapper would pick for the
+    shape, against sum_f32_plain bit for bit (the spread path runs two
+    column tiles at m = 9)."""
+    from cruise_control_tpu_torch import ops
+    ck = _card()
+    rows = ORDERED_PATHS[path]
+    monkeypatch.setattr(ck, "ORDERED_SPREAD_ROWS", rows)
+    assert ck._ordered_plan(n, m, rows)[0] == (path == "spread")
+    rng = np.random.default_rng(n + m)
+    xt = torch.from_numpy(_ordered_input(rng, n, m)).cuda()
+    assert _bits(ck.ordered_sum(xt), ops.sum_f32_plain(xt))
+
+
+def test_ordered_sum_spread_on_two_streams():
+    """K13's spread path on two streams at once, 20 launches each without a
+    synchronize between them: each stream keeps its own last-block
+    counters, so every sum equals sum_f32_plain bit for bit."""
+    from cruise_control_tpu_torch import ops
+    ck = _card()
+    rng = np.random.default_rng(8)
+    planes = [torch.from_numpy(_ordered_input(rng, n, m)).cuda()
+              for n, m in ((600_000, 4), (60_000, 9))]
+    assert all(ck._ordered_plan(*x.shape, ck.ORDERED_SPREAD_ROWS)[0]
+               for x in planes)
+    wants = [ops.sum_f32_plain(x) for x in planes]
+    streams = [torch.cuda.Stream() for _ in planes]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for _ in range(20):
+        for k, (x, st) in enumerate(zip(planes, streams)):
+            with torch.cuda.stream(st):
+                outs[k].append(ck.ordered_sum(x))
+    torch.cuda.synchronize()
+    slots = {ck._ordered_slot(0, st.cuda_stream) for st in streams}
+    assert len(slots) == 2
+    for k, want in enumerate(wants):
+        assert all(_bits(got, want) for got in outs[k])
 
 
 @pytest.mark.parametrize("rows,n", [(200, 4), (200, 8), (2600, 8), (3, 17),

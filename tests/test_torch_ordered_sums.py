@@ -109,6 +109,68 @@ def test_sum_matches_jax(n, m):
     assert _bits_equal(want1, ops.sum_f32(xt[:, -1].contiguous()).numpy())
 
 
+@pytest.mark.parametrize("m", [1, 4])
+@pytest.mark.parametrize("n", [1_025, 32_769, 32_770])
+def test_sum_window_levels_match_jax(n, m):
+    """The offsets of the second windowed level (more than 1,024 and more
+    than 32,768 rows): -0.0 at the first row and at the start of a first-
+    and a second-level window."""
+    rng = np.random.default_rng(n + m)
+    x = _values(rng, (n, m))
+    w0 = -(-n // 32)
+    lo0 = (w0 * 32 - n) // 2
+    w1 = -(-w0 // 32)
+    lo1 = (w1 * 32 - w0) // 2
+    x[0] = -0.0
+    x[32 - lo0] = -0.0
+    x[(32 - lo1) * 32 - lo0] = -0.0
+    want = np.asarray(jnp.sum(jnp.asarray(x), axis=0))
+    xt = torch.from_numpy(x)
+    assert _bits_equal(want, ops.sum_f32(xt).numpy())
+    assert _bits_equal(want, ops.sum_f32_plain(xt).numpy())
+
+
+#: segment lengths in turn around K12's walk stage (128 rows of 4 floats,
+#: 512 of one): one below, at, one above, and several stages
+STAGE_LENGTHS = (127, 128, 129, 511, 512, 513, 1029)
+
+
+@pytest.mark.parametrize("rest", [(4,), ()], ids=["R x 4", "R"])
+@pytest.mark.parametrize("case", ["one segment of 100,000", "stage lengths"])
+def test_segment_sum_long_and_staged_segments_match_jax(case, rest):
+    """One segment of 100,000 entries, and 140 segments whose lengths run
+    through STAGE_LENGTHS (58,980 entries in a random order)."""
+    rng = np.random.default_rng(len(case) + len(rest))
+    if case == "stage lengths":
+        n = 140
+        ids = np.concatenate([np.full(STAGE_LENGTHS[s % 7], s, np.int32)
+                              for s in range(n)])
+        ids = ids[rng.permutation(ids.size)]
+    else:
+        n = 8
+        ids = np.full(100_000, 3, np.int32)
+    x = _values(rng, (ids.size,) + rest)
+    want = np.asarray(jax.ops.segment_sum(jnp.asarray(x), jnp.asarray(ids),
+                                          num_segments=n))
+    xt, it = torch.from_numpy(x), torch.from_numpy(ids)
+    assert _bits_equal(want, ops.segment_sum(xt, it, n).numpy())
+    assert _bits_equal(want, ops.segment_sum_plain(xt, it.long(), n).numpy())
+
+
+def test_ordered_sum_counter_sets_by_stream(monkeypatch):
+    """K13's spread path takes one counter set per stream of a device, the
+    same set again for the same stream, and raises when a device's sets
+    run out."""
+    from cruise_control_tpu_torch import cuda_kernels as ck
+    monkeypatch.setattr(ck, "_ORDERED_SLOTS", {})
+    monkeypatch.setattr(ck, "ORDERED_COUNTER_SLOTS", 3)
+    assert [ck._ordered_slot(0, s) for s in (11, 22, 11, 33)] == [0, 1, 0, 2]
+    assert ck._ordered_slot(1, 22) == 0
+    with pytest.raises(RuntimeError, match="more than 3 streams"):
+        ck._ordered_slot(0, 44)
+    assert ck._ordered_slot(0, 33) == 2
+
+
 @pytest.mark.parametrize("shape,lead_neg_zero",
                          [((200, 4), False), ((200, 8), False),
                           ((200, 8), True), ((3, 40), True), ((5, 1), True)])
