@@ -13,12 +13,15 @@ Phases:
      slice's shapes and again at the 2,600-broker shapes of phase 4
      (integers and booleans exactly, floats bit for bit): K1 at k = 1, 4,
      8, 16 and 64, K2 (also at the forced-move round's C = 4096 against K
-     = 256 and 2600), K3 with the broker table and table-less
-     (self-healing's commits), K4 in both commit modes for passes 0 and 3
+     = 256 and 2600), K3 on 2,048 moves with the broker table (at 2,600
+     brokers also on 10,400) and on 4,096 table-less (self-healing's
+     commits), in place into a copy of the cache, its in-kernel arrival
+     ranks against arrival_rank, K4 in both commit modes for passes 0 and 3
      (and at C = R, the full-plane width, at 2,600 brokers), K5 on a
-     4,096-transfer table-less batch and on a phase-a batch with the
-     table, K6 on a 4,096-partition window with and without the
-     improvement gate and tiebreak, K7 at R = 60,000 and 600,000, k =
+     4,096-transfer table-less batch and on a phase-a batch of 16 B
+     transfers with the table, undonated and donated, K6 on a
+     4,096-partition window with and without the improvement gate and
+     tiebreak, K7 at R = 60,000 and 600,000, k =
      4096, and at k = R on a 24-broker cluster, with 0.5 % forced, equal
      weights, fewer forced than k and every replica forced (and its
      guard-only launch), K8 at C = 1 to 4097 (B = 200 and 2600, T = 0 to
@@ -42,13 +45,15 @@ Phases:
      T] planes, 1 to 33 terms and 1,024 to 32,770 rows (the second
      level's window offsets), and both of its paths at the shapes around
      the wrapper's choice, and K14 at [200, 4], [200, 8], [2,600, 8],
-     [3, 2,048] and rows of 1 to 5,000 with a leading -0.0 (the three bit
-     for bit: int32 views).  Device times per call (20
-     calls captured in a CUDA graph, median of 5 replays timed with CUDA
-     events; K3 and K5 also without the wrapper's copies of the cache
-     planes) beside the bound for the bytes the function needs and a
-     one-call PyTorch yardstick where one exists; K12 and K13 also with
-     the wrapper's host time per call, the device launches per call and
+     [200, 16], [2,600, 16], [3, 2,048] and rows of 1 to 5,000 with a
+     leading -0.0 (the three bit for bit: int32 views).  Device times
+     per call (20 calls captured in a CUDA graph, median of 5 replays timed with CUDA
+     events; K3 in place and K5 alone and with `donate`, each on cache
+     planes restored before each replay, and each with a copy of the
+     cache's planes) beside
+     the bound for the bytes the function needs and a one-call PyTorch
+     yardstick where one exists; K3, K5, K12 and K13 also with the
+     wrapper's host time per call, the device launches per call and
      (K12) the chain bound, and K12 with each of its two walks at the
      main path's shapes; K8 also per call with
      its host work against its lexsort dispatch (the torch lexsort, the
@@ -83,8 +88,10 @@ Phases:
      (before, after and each goal's) bit for bit; the default stack once
      more with the sorts, ordered sums and host syncs inside its
      multi-commit passes counted (there must be none), every call of a
-     plain version of K12-K14 on a card tensor (there must be none) and
-     the host syncs inside the float ordered sums (none);
+     plain version of K12-K14 or of arrival_rank on a card tensor (there
+     must be none), the host syncs inside the float ordered sums (none)
+     and the tensors K3's wrapper clones and the planes it returns other
+     than the given cache's own (none: it commits in place);
   4. scale, 2,600 brokers / 200K partitions / 26 racks / 100 topics: the
      whole default stack (bench.py's "north" preset), the four-goal solve,
      config 5 (52 broken logdirs), the six hard goals with brokers 0,
@@ -110,6 +117,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import functools
+import gc
 import json
 import os
 import statistics
@@ -490,32 +498,28 @@ def commit_bytes(state, cache, r, dst, valid, rank) -> int:
                + (prc.numel() + btc.numel()) * 8)  # count planes
 
 
-def kernel_only_ms(state, cache, r, dst, valid, rank, reps: int = 20,
-                   trials: int = 5) -> float:
-    """K3's device time per launch without the wrapper's copies: `reps`
-    launches captured in one CUDA graph, each into its own copy of the
-    cache planes, which are restored before each timed replay; the median
-    replay over `reps`."""
+def restored_graph_ms(pristine: dict, launch, reps: int = 20,
+                      trials: int = 5):
+    """Device time per call of `launch(planes)` without the copies a
+    commit would make: `reps` calls captured in one CUDA graph, each on
+    its own copy of the `pristine` planes, which are restored before each
+    timed replay (so every replay commits the same batch into the same
+    cache); the median replay over `reps`.  Returns (ms, the first copy
+    after the last replay)."""
     import torch
-    from cruise_control_tpu_torch import cuda_kernels
-    pristine = {f: getattr(cache, f)
-                for f in cuda_kernels.commit_fields(cache)}
-    bufs = []
-    for _ in range(reps):
-        out = {f: t.clone() for f, t in pristine.items()}
-        out["broker_util"] = torch.empty_like(cache.broker_load)
-        bufs.append(out)
+    launch({f: t.clone() for f, t in pristine.items()})
+    bufs = [{f: t.clone() for f, t in pristine.items()}
+            for _ in range(reps)]
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for out in bufs:
-            cuda_kernels.commit_moves_into(out, state, cache, r, dst, valid,
-                                           rank)
+        for buf in bufs:
+            launch(buf)
     times = []
     for _ in range(trials):
-        for out in bufs:
+        for buf in bufs:
             for f, t in pristine.items():
-                out[f].copy_(t)
+                buf[f].copy_(t)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -523,113 +527,118 @@ def kernel_only_ms(state, cache, r, dst, valid, rank, reps: int = 20,
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
-    got = bufs[0]
-    want = cuda_kernels.commit_moves(state, cache, r, dst, valid, rank)
-    torch.cuda.synchronize()
-    for f in want:
+    return statistics.median(times), bufs[0]
+
+
+def _check_equal(got: dict, want: dict, what: str) -> None:
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{what} writes {sorted(got)}, the plain "
+                             f"version {sorted(want)}")
+    for f in sorted(want):
         if not equal_exact(got[f], want[f]):
-            raise AssertionError(f"commit_moves replay: {f} differs")
-    return statistics.median(times)
+            raise AssertionError(f"{what}: {f} differs from the plain "
+                                 "version")
 
 
-def check_commit_moves(spec: dict, seed: int) -> dict:
-    """K3 on a 2,048-move batch with several arrivals per destination, on
-    the round cache of the cluster `spec`."""
+def _donor(cache, fields):
+    """A copy of `cache` whose `fields` an in-place commit may update."""
+    return cache.replace(**{f: getattr(cache, f).clone() for f in fields})
+
+
+def _move_batch(state, n: int, g, hubs: int):
+    """n distinct replicas moving to `hubs` random destinations (several
+    arrivals each), nine in ten valid; the no-ops among them (a replica
+    already on its destination) are left for the commit to drop."""
     import torch
-    from cruise_control_tpu_torch import cuda_kernels
+    r = torch.randperm(state.num_replicas, generator=g,
+                       device="cuda")[:n].to(torch.int32)
+    pool = torch.randperm(state.num_brokers, generator=g,
+                          device="cuda")[:hubs]
+    dst = pool[torch.randint(0, hubs, (n,), generator=g,
+                             device="cuda")].to(torch.int32)
+    valid = torch.rand(n, generator=g, device="cuda") < 0.9
+    return r, dst, valid
+
+
+def check_commit_moves(spec: dict, seed: int, shapes) -> dict:
+    """K3 on the round cache of the cluster `spec` for each (batch, hubs,
+    table) of `shapes`: against its plain version bit for bit, committed
+    in place into a copy of the cache (the returned planes must be that
+    copy's own), and its in-kernel arrival ranks against `arrival_rank`;
+    then the device time per call of the commit in place (on cache planes
+    restored before each replay) and of a clone of the cache's planes plus
+    the commit (what a caller that keeps its cache would pay), the host
+    time per call of each, the plain version's time and the bound.  The
+    record of the first shape, with every shape under "cases"."""
+    import torch
+    from cruise_control_tpu_torch import cuda_kernels as ck
     from cruise_control_tpu_torch.analyzer import context as C
     from cruise_control_tpu_torch.testing.random_cluster import (
         RandomClusterSpec, random_cluster)
     state, _ = random_cluster(RandomClusterSpec(**spec))
     ctx = C.make_context(state, C.BalancingConstraint(),
                          C.OptimizationOptions())
-    cache = C.make_round_cache(state, ctx.table_slots, ctx)
     g = torch.Generator(device="cuda").manual_seed(seed)
-    n = 2048
-    r = torch.randperm(state.num_replicas, generator=g,
-                       device="cuda")[:n].to(torch.int32)
-    # destinations drawn from 64 brokers: several arrivals each
-    hubs = torch.randperm(state.num_brokers, generator=g, device="cuda")[:64]
-    dst = hubs[torch.randint(0, 64, (n,), generator=g, device="cuda")].to(
-        torch.int32)
-    valid = (torch.rand(n, generator=g, device="cuda") < 0.9) & (
-        state.replica_broker[r.long()] != dst)
-    rank = C.arrival_rank(dst, valid, state.num_brokers)
-    got = cuda_kernels.commit_moves(state, cache, r, dst, valid, rank)
-    want = C.commit_moves_plain(state, cache, r, dst, valid, rank)
-    torch.cuda.synchronize()
-    for f in sorted(want):
-        if not equal_exact(got[f], want[f]):
-            raise AssertionError(f"commit_moves B={state.num_brokers}: {f} "
-                                 "differs from the plain version")
-    err = max_abs_err([(got[f], want[f]) for f in want
-                       if want[f].dtype.is_floating_point])
-    per_dest = torch.bincount(dst[valid].long()).max()
-    kernel = kernel_only_ms(state, cache, r, dst, valid, rank)
-    wrapper = graph_time_ms(lambda: cuda_kernels.commit_moves(
-        state, cache, r, dst, valid, rank))
-    # the plain version synchronises with the host (its ordered float
-    # scatter counts rounds), so it is timed per call with its host time
-    plain = cuda_time_ms(lambda: C.commit_moves_plain(
-        state, cache, r, dst, valid, rank), reps=5)
-    nbytes = commit_bytes(state, cache, r, dst, valid, rank)
-    t_b, by = bound(nbytes, int(valid.sum()) * 2 * 6)
-    log(f"  commit_moves B={state.num_brokers} S={cache.broker_table.shape[1]}"
-        f" batch={n} ({int(valid.sum())} valid, up to {int(per_dest)} "
-        f"arrivals per destination): bit-exact; device time per call: "
-        f"kernel {kernel:.4f} ms, wrapper with its cache-plane copies "
-        f"{wrapper:.4f} ms; plain version, one call with its host time, "
-        f"{plain:.4f} ms; bound {t_b:.5f} ms ({nbytes} bytes)")
-    return dict(max_abs_err=err, ms=kernel, plain_ms=plain, bound_ms=t_b,
-                bound_by=by, library_ms=None,
-                shape=f"B={state.num_brokers} batch={n}")
-
-
-def check_commit_moves_tableless(spec: dict, seed: int) -> dict:
-    """K3's table-less mode (self-healing's commits) on a 4,096-move batch
-    with many arrivals per destination, on the cluster `spec`'s cache
-    without a broker table."""
-    import torch
-    from cruise_control_tpu_torch import cuda_kernels
-    from cruise_control_tpu_torch.analyzer import context as C
-    from cruise_control_tpu_torch.testing.random_cluster import (
-        RandomClusterSpec, random_cluster)
-    state, _ = random_cluster(RandomClusterSpec(**spec))
-    cache = C.make_round_cache(state)
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    n = 4096
-    r = torch.randperm(state.num_replicas, generator=g,
-                       device="cuda")[:n].to(torch.int32)
-    hubs = torch.randperm(state.num_brokers, generator=g, device="cuda")[:64]
-    dst = hubs[torch.randint(0, 64, (n,), generator=g, device="cuda")].to(
-        torch.int32)
-    valid = (torch.rand(n, generator=g, device="cuda") < 0.9) & (
-        state.replica_broker[r.long()] != dst)
-    got = cuda_kernels.commit_moves(state, cache, r, dst, valid, None)
-    want = C.commit_moves_plain(state, cache, r, dst, valid, None)
-    torch.cuda.synchronize()
-    if sorted(got) != sorted(want):
-        raise AssertionError(f"commit_moves table-less writes {sorted(got)},"
-                             f" the plain version {sorted(want)}")
-    for f in sorted(want):
-        if not equal_exact(got[f], want[f]):
-            raise AssertionError(f"commit_moves table-less B="
-                                 f"{state.num_brokers}: {f} differs from "
-                                 "the plain version")
-    err = max_abs_err([(got[f], want[f]) for f in want
-                       if want[f].dtype.is_floating_point])
-    kernel = kernel_only_ms(state, cache, r, dst, valid, None)
-    plain = cuda_time_ms(lambda: C.commit_moves_plain(
-        state, cache, r, dst, valid, None), reps=5)
-    nbytes = commit_bytes(state, cache, r, dst, valid, None)
-    t_b, by = bound(nbytes, int(valid.sum()) * 2 * 6)
-    log(f"  commit_moves table-less B={state.num_brokers} batch={n} "
-        f"({int(valid.sum())} valid): bit-exact; device time per call: "
-        f"kernel {kernel:.4f} ms; plain version, one call with its host "
-        f"time, {plain:.4f} ms; bound {t_b:.5f} ms ({nbytes} bytes)")
-    return dict(max_abs_err=err, ms=kernel, plain_ms=plain, bound_ms=t_b,
-                bound_by=by, library_ms=None,
-                shape=f"B={state.num_brokers} batch={n} table-less")
+    rec = None
+    for n, hubs, table in shapes:
+        cache = C.make_round_cache(state, ctx.table_slots if table else 0,
+                                   ctx)
+        fields = ck.commit_fields(cache)
+        r, dst, valid = _move_batch(state, n, g, hubs)
+        counted = valid & (state.replica_broker[r.long()] != dst)
+        rank = C.arrival_rank(dst, counted, state.num_brokers)
+        t_rank = rank if table else None
+        label = (f"commit_moves B={state.num_brokers} batch={n}"
+                 + ("" if table else " table-less"))
+        want = C.commit_moves_plain(state, cache, r, dst, counted, t_rank)
+        ranks = torch.empty_like(r)
+        donor = _donor(cache, fields)
+        got = ck.commit_moves(state, donor, r, dst, valid, rank_out=ranks)
+        torch.cuda.synchronize()
+        _check_equal(got, want, label)
+        if any(got[f].data_ptr() != getattr(donor, f).data_ptr()
+               for f in want):
+            raise AssertionError(f"{label}: the committed planes are not "
+                                 "the cache's own")
+        if not equal_exact(ranks, torch.where(counted, rank, -1)):
+            raise AssertionError(f"{label}: in-kernel ranks differ from "
+                                 "arrival_rank")
+        err = max_abs_err([(got[f], want[f]) for f in want
+                           if want[f].dtype.is_floating_point])
+        per_dest = int(torch.bincount(dst[counted].long()).max())
+        pristine = {f: getattr(cache, f) for f in fields}
+        kernel, kept = restored_graph_ms(
+            pristine, lambda planes: ck.commit_moves(
+                state, cache.replace(**planes), r, dst, valid))
+        _check_equal(kept, want, label + " replayed")
+        copies = graph_time_ms(lambda: ck.commit_moves(
+            state, _donor(cache, fields), r, dst, valid))
+        host = host_us(lambda: ck.commit_moves(state, donor, r, dst, valid))
+        host_copies = host_us(lambda: ck.commit_moves(
+            state, _donor(cache, fields), r, dst, valid))
+        # the plain version synchronises with the host (its ordered float
+        # scatter counts rounds), so it is timed per call with its host
+        # time
+        plain = cuda_time_ms(lambda: C.commit_moves_plain(
+            state, cache, r, dst, counted, t_rank), reps=5)
+        nbytes = commit_bytes(state, cache, r, dst, counted, t_rank)
+        t_b, by = bound(nbytes, int(counted.sum()) * 2 * 6)
+        log(f"  {label} ({int(counted.sum())} counted, up to {per_dest} "
+            f"arrivals per destination): bit-exact, in place, ranks equal "
+            f"arrival_rank's; device time per call: in place {kernel:.4f} "
+            f"ms, a clone of the {len(fields)} cache planes plus the commit "
+            f"{copies:.4f} ms; host time per call {host:.1f} us in place, "
+            f"{host_copies:.1f} us with the clone; plain version, one call "
+            f"with its host time, {plain:.4f} ms; bound {t_b:.5f} ms "
+            f"({nbytes} bytes)")
+        case = dict(max_abs_err=err, ms=kernel, copies_ms=copies,
+                    host_us=host, host_us_copies=host_copies,
+                    plain_ms=plain, bound_ms=t_b, bound_by=by,
+                    library_ms=None, shape=label[len("commit_moves "):])
+        if rec is None:
+            rec = dict(case)
+        rec.setdefault("cases", {})[case["shape"]] = case
+    return rec
 
 
 #: K7's launches per call: one cooperative launch; the guard alone is one
@@ -824,10 +833,15 @@ def leadership_bytes(state, cache, sr, dr, valid) -> int:
 
 def check_commit_leadership(spec: dict, seed: int) -> dict:
     """K5 on a 4,096-transfer table-less batch (the sweep's commit) and on
-    a B*16-row batch with the broker table (phase a's); the record of the
-    table-less batch."""
+    a B*16-row batch with the broker table (phase a's): against its plain
+    version bit for bit, undonated and donated (into the cache's own
+    planes), then the device time per call of the kernel alone, of the
+    wrapper with `donate` and of the wrapper with copies of the planes it
+    writes, the wrapper's host time per call with and without `donate`,
+    the plain version's time and the bound.  The record of the
+    table-less batch, with both under "cases"."""
     import torch
-    from cruise_control_tpu_torch import cuda_kernels
+    from cruise_control_tpu_torch import cuda_kernels as ck
     from cruise_control_tpu_torch.analyzer import context as C
     from cruise_control_tpu_torch.testing.random_cluster import (
         RandomClusterSpec, random_cluster)
@@ -836,82 +850,60 @@ def check_commit_leadership(spec: dict, seed: int) -> dict:
                          C.OptimizationOptions())
     g = torch.Generator(device="cuda").manual_seed(seed)
     rec = None
-    for label, slots, n, share in (
+    for kind, slots, n, share in (
             ("table-less", 0, 4096, 0.9),
             ("with table", ctx.table_slots, state.num_brokers * 16, 0.5)):
         cache = C.make_round_cache(state, slots, ctx)
         sr, dr, valid = _leadership_batch(state, n, g, share)
-        got = cuda_kernels.commit_leadership(state, cache, sr, dr, valid)
+        label = f"commit_leadership B={state.num_brokers} {kind} batch={n}"
         want = C.commit_leadership_plain(state, cache, sr, dr, valid)
+        got = ck.commit_leadership(state, cache, sr, dr, valid)
+        donor = _donor(cache, want)
+        donated = ck.commit_leadership(state, donor, sr, dr, valid,
+                                       donate=True)
         torch.cuda.synchronize()
-        for f in sorted(want):
-            if not equal_exact(got[f], want[f]):
-                raise AssertionError(
-                    f"commit_leadership B={state.num_brokers} {label}: {f} "
-                    "differs from the plain version")
+        _check_equal(got, want, label)
+        _check_equal(donated, want, label + " donated")
+        if any(donated[f].data_ptr() != getattr(donor, f).data_ptr()
+               for f in want):
+            raise AssertionError(f"{label}: donated planes are copies")
         err = max_abs_err([(got[f], want[f]) for f in want
                            if want[f].dtype.is_floating_point])
-        kernel = kernel_only_leadership_ms(state, cache, sr, dr, valid)
-        wrapper = graph_time_ms(lambda: cuda_kernels.commit_leadership(
+        pristine = {f: getattr(cache, f) for f in want}
+        kernel, kept = restored_graph_ms(
+            pristine, lambda out: ck.commit_leadership_into(
+                out, state, cache, sr, dr, valid))
+        _check_equal(kept, want, label + " replayed")
+        donate_ms, kept = restored_graph_ms(
+            pristine, lambda planes: ck.commit_leadership(
+                state, cache.replace(**planes), sr, dr, valid, donate=True))
+        _check_equal(kept, want, label + " donated, replayed")
+        wrapper = graph_time_ms(lambda: ck.commit_leadership(
             state, cache, sr, dr, valid))
+        host_copy = host_us(lambda: ck.commit_leadership(state, cache, sr,
+                                                         dr, valid))
+        host_donate = host_us(lambda: ck.commit_leadership(
+            state, donor, sr, dr, valid, donate=True))
         plain = cuda_time_ms(lambda: C.commit_leadership_plain(
             state, cache, sr, dr, valid), reps=5)
         nbytes = leadership_bytes(state, cache, sr, dr, valid)
         t_b, by = bound(nbytes, int(valid.sum()) * 2 * 5)
-        log(f"  commit_leadership B={state.num_brokers} {label} batch={n} "
-            f"({int(valid.sum())} valid): bit-exact; device time per call: "
-            f"kernel {kernel:.4f} ms, wrapper with copies of the planes it "
-            f"writes {wrapper:.4f} ms; plain version, one call with its "
-            f"host time, {plain:.4f} ms; bound {t_b:.5f} ms ({nbytes} "
-            "bytes)")
+        log(f"  {label} ({int(valid.sum())} valid): bit-exact, donated "
+            f"too; device time per call: kernel {kernel:.4f} ms, wrapper "
+            f"with donate {donate_ms:.4f} ms, wrapper with copies of the "
+            f"planes it writes {wrapper:.4f} ms; host time per call "
+            f"{host_donate:.1f} us with donate, {host_copy:.1f} us with "
+            f"copies; plain version, one call with its host time, "
+            f"{plain:.4f} ms; bound {t_b:.5f} ms ({nbytes} bytes)")
+        case = dict(max_abs_err=err, ms=kernel, donate_ms=donate_ms,
+                    wrapper_ms=wrapper, host_us_donate=host_donate,
+                    host_us_copies=host_copy, plain_ms=plain, bound_ms=t_b,
+                    bound_by=by, library_ms=None,
+                    shape=label[len("commit_leadership "):])
         if rec is None:
-            rec = dict(max_abs_err=err, ms=kernel, plain_ms=plain,
-                       bound_ms=t_b, bound_by=by, library_ms=None,
-                       shape=f"B={state.num_brokers} batch={n} table-less")
+            rec = dict(case)
+        rec.setdefault("cases", {})[case["shape"]] = case
     return rec
-
-
-def kernel_only_leadership_ms(state, cache, sr, dr, valid, reps: int = 20,
-                              trials: int = 5) -> float:
-    """K5's device time per launch without the wrapper's copies: `reps`
-    launches captured in one CUDA graph, each into its own copy of the
-    planes, restored before each timed replay; the median replay over
-    `reps`.  The first copy's result must equal a wrapper call's."""
-    import torch
-    from cruise_control_tpu_torch import cuda_kernels
-    from cruise_control_tpu_torch.analyzer.context import LEADERSHIP_FIELDS
-    sw = cache.broker_table.shape[1]
-    pristine = {f: getattr(cache, f) for f in LEADERSHIP_FIELDS
-                if f != "broker_util" and (sw or not f.startswith("table_"))}
-    bufs = []
-    for _ in range(reps):
-        out = {f: t.clone() for f, t in pristine.items()}
-        out["broker_util"] = torch.empty_like(cache.broker_load)
-        bufs.append(out)
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for out in bufs:
-            cuda_kernels.commit_leadership_into(out, state, cache, sr, dr,
-                                                valid)
-    times = []
-    for _ in range(trials):
-        for out in bufs:
-            for f, t in pristine.items():
-                out[f].copy_(t)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / reps)
-    want = cuda_kernels.commit_leadership(state, cache, sr, dr, valid)
-    torch.cuda.synchronize()
-    for f in want:
-        if not equal_exact(bufs[0][f], want[f]):
-            raise AssertionError(f"commit_leadership replay: {f} differs")
-    return statistics.median(times)
 
 
 def check_sweep_pick(spec: dict, seed: int) -> dict:
@@ -1861,14 +1853,16 @@ def check_cumsum_blocks(seed: int) -> dict:
     """K14 against ops.cumsum_f32_plain on the card, bit for bit: the
     round bodies' [B, k] prefix gates at 200 and 2,600 brokers (k = 4 and
     8), rows of 17, 256 and 2,048 (the block-16 recursion), a row of one
-    (copied) and a leading -0.0 in every row.  Device time per call beside
-    the plain version and `torch.cumsum`.  The record of [200, 4]."""
+    (copied) and a leading -0.0 in every row, and the widest prefix gate
+    the card paths can run, k = 16 (analyzer/kernels.py's k0), at 200 and
+    2,600 brokers.  Device time per call beside the plain version and
+    `torch.cumsum`.  The record of [200, 4]."""
     import torch
     from cruise_control_tpu_torch import cuda_kernels, ops
     g = torch.Generator(device="cuda").manual_seed(seed)
     rec = None
-    for rows, n in ((200, 4), (200, 8), (2600, 8), (3, 2048), (3, 17),
-                    (3, 256), (5, 1), (3, 5000)):
+    for rows, n in ((200, 4), (200, 8), (2600, 8), (200, 16), (2600, 16),
+                    (3, 2048), (3, 17), (3, 256), (5, 1), (3, 5000)):
         x = _signed_values((rows, n), g)
         x[:, 0] = -0.0
         got = cuda_kernels.cumsum_blocks(x)
@@ -2008,16 +2002,23 @@ def pass_region_counts(solve: dict) -> dict:
     warnings) counted inside the multi-commit passes -- assign_destinations
     with destination terms, and run_tail from a multi-commit K4 pass to the
     end of its rank_accept_commit -- and elsewhere; every call of a plain
-    version of K12-K14 on a card tensor; and the host syncs made inside a
-    float ops.segment_sum, scatter_add_seq, sum_f32 or cumsum_f32 call.
-    The wrappers bind their arguments by name.  Raises if a pass sorts,
-    scatters, sums or syncs, if a plain ordered sum runs or an ordered sum
-    syncs, or if the rank_accept_commit calls seen inside the passes are
-    not every K8 launch with the commit (so that the passes were found)."""
+    version of K12-K14 or of arrival_rank (K3 ranks its arrivals itself)
+    on a card tensor; the host syncs made inside a float ops.segment_sum,
+    scatter_add_seq, sum_f32 or cumsum_f32 call; K3's wrapper calls, the
+    tensors cloned (torch clone or empty_like) inside them and the planes
+    they return that are not the given cache's own; and K14's calls by
+    row length (the prefix gates' k).  The wrappers bind their arguments
+    by name.  Raises if a pass sorts, scatters, sums or syncs, if a plain
+    ordered sum or arrival_rank runs on the card or an ordered sum syncs,
+    if K3 never ran, cloned a tensor or returned a plane other than the
+    cache's own, or if the rank_accept_commit calls seen inside the passes
+    are not every K8 launch with the commit (so that the passes were
+    found)."""
     import inspect
     import torch
     import warnings
     from cruise_control_tpu_torch import cuda_kernels, ops
+    from cruise_control_tpu_torch.analyzer import context as C
     from cruise_control_tpu_torch.analyzer import kernels as K
     region = {"assign": 0, "tail": False}
     counts = {f"{n} {w}": 0 for n in ("sort", "scatter_add_seq",
@@ -2025,8 +2026,13 @@ def pass_region_counts(solve: dict) -> dict:
                                       "rank_accept_commit")
               for w in ("in passes", "elsewhere")}
     counts["K8 launches with the commit"] = 0
-    for name in PLAIN_SUMS:
+    for name in PLAIN_SUMS + ("arrival_rank",):
         counts[f"{name} on the card"] = 0
+    counts["K3 calls"] = 0
+    counts["K3 cache-plane copies"] = 0
+    counts["K3 planes not the cache's own"] = 0
+    in_k3 = [False]
+    k14 = counts.setdefault("K14 calls by row length", {})
     counts["float ordered sums"] = 0
     counts["syncs inside float ordered sums"] = 0
     in_sum = [0]
@@ -2098,6 +2104,35 @@ def pass_region_counts(solve: dict) -> dict:
             return fn(*a, **kw)
         return call
 
+    def k3(fn, name):
+        def call(*a, **kw):
+            counts["K3 calls"] += 1
+            cache = arg(fn, "cache", a, kw)
+            own = {f: getattr(cache, f).data_ptr()
+                   for f in cuda_kernels.commit_fields(cache)}
+            in_k3[0] = True
+            try:
+                out = fn(*a, **kw)
+            finally:
+                in_k3[0] = False
+            counts["K3 planes not the cache's own"] += sum(
+                out[f].data_ptr() != p for f, p in own.items())
+            return out
+        return call
+
+    def k3_copy(fn, name):
+        def call(*a, **kw):
+            counts["K3 cache-plane copies"] += in_k3[0]
+            return fn(*a, **kw)
+        return call
+
+    def k14_width(fn, name):
+        def call(x, *a, **kw):
+            k = int(x.shape[-1])
+            k14[k] = k14.get(k, 0) + 1
+            return fn(x, *a, **kw)
+        return call
+
     def on_warning(message, *a, **kw):
         if "synchroniz" in str(message):
             counts[f"sync {where()}"] += 1
@@ -2105,7 +2140,12 @@ def pass_region_counts(solve: dict) -> dict:
     with _wrapped([(torch, "sort")], counted), \
             _wrapped([(ops, "scatter_add_seq"), (ops, "segment_sum"),
                       (ops, "sum_f32"), (ops, "cumsum_f32")], ordered), \
-            _wrapped([(ops, name) for name in PLAIN_SUMS], plain), \
+            _wrapped([(ops, name) for name in PLAIN_SUMS]
+                     + [(C, "arrival_rank")], plain), \
+            _wrapped([(cuda_kernels, "commit_moves")], k3), \
+            _wrapped([(torch.Tensor, "clone"), (torch, "clone"),
+                      (torch, "empty_like")], k3_copy), \
+            _wrapped([(cuda_kernels, "cumsum_blocks")], k14_width), \
             _wrapped([(K, "assign_destinations")], assign), \
             _wrapped([(K, "leader_assign_pass")], tail_open), \
             _wrapped([(K, "rank_accept_commit")], tail_close), \
@@ -2128,9 +2168,17 @@ def pass_region_counts(solve: dict) -> dict:
                    if k.endswith("on the card") and v}
     if plain_calls or counts["syncs inside float ordered sums"]:
         raise AssertionError(
-            f"the card solve ran a plain ordered sum ({plain_calls}) or "
-            f"synced inside an ordered sum "
+            f"the card solve ran a plain ordered sum or arrival_rank "
+            f"({plain_calls}) or synced inside an ordered sum "
             f"({counts['syncs inside float ordered sums']} syncs)")
+    foreign = counts["K3 planes not the cache's own"]
+    if (not counts["K3 calls"] or counts["K3 cache-plane copies"]
+            or foreign):
+        raise AssertionError(
+            f"K3's wrapper ran {counts['K3 calls']} times, cloned "
+            f"{counts['K3 cache-plane copies']} tensors and returned "
+            f"{foreign} planes other than the cache's own: it must commit "
+            "in place")
     if not counts["float ordered sums"]:
         raise AssertionError("the counted solve saw no float ordered sum")
     seen = counts["rank_accept_commit in passes"]
@@ -2386,7 +2434,9 @@ def run_slice(results: dict) -> None:
 def profile_slice(solve: dict, device: str = "cuda",
                   lexsort_dispatch: bool = False) -> None:
     """torch.profiler over one solve on the card: wall time, the device's
-    busy and idle share, and the device time by kernel.  With
+    busy and idle share, the Python garbage collector's passes, host and
+    device time by labelled port function, the device time by kernel and
+    the host's self time by torch op and CUDA runtime call.  With
     `lexsort_dispatch` the solve runs K8's lexsort dispatch (the torch
     lexsort, the kernel on that order and, after each multi-commit pass,
     the ordered scatters) in place of the one-launch K8."""
@@ -2399,6 +2449,7 @@ def profile_slice(solve: dict, device: str = "cuda",
     from cruise_control_tpu_torch.analyzer import leadership as L
     from cruise_control_tpu_torch.analyzer import optimizer as O
     from cruise_control_tpu_torch.analyzer import prebalance as P
+    from cruise_control_tpu_torch.analyzer.goals import kafkaassigner as KA
 
     # label the port's hot functions so the trace attributes host and
     # device time to them (restored afterwards)
@@ -2421,7 +2472,9 @@ def profile_slice(solve: dict, device: str = "cuda",
                (K, "forced_move_round"), (K, "forced_select"),
                (K, "per_segment_argmax"), (K, "swap_pair"),
                (K, "dest_struct"), (K, "dest_has"),
-               (O, "heal_offline_replicas")]
+               (O, "heal_offline_replicas"), (O, "diff_proposals_host"),
+               (KA.KafkaAssignerEvenRackAwareGoal, "optimize_cached"),
+               (KA.KafkaAssignerDiskUsageDistributionGoal, "optimize")]
 
     def wrap(fn, name):
         def labelled(*a, **kw):
@@ -2429,11 +2482,26 @@ def profile_slice(solve: dict, device: str = "cuda",
                 return fn(*a, **kw)
         return labelled
 
-    with (lexsort_k8() if lexsort_dispatch else contextlib.nullcontext()), \
-            _wrapped(targets, wrap), profile(
-                activities=[ProfilerActivity.CPU,
-                            ProfilerActivity.CUDA]) as prof:
-        _, _, _, secs = _solve(solve, device)
+    # Python's garbage collector pauses the host: time each pass
+    gc_passes, gc_start = [], [0.0]
+
+    def on_gc(phase, info):
+        if phase == "start":
+            gc_start[0] = time.perf_counter()
+        else:
+            gc_passes.append((time.perf_counter() - gc_start[0],
+                              info["generation"]))
+
+    gc.callbacks.append(on_gc)
+    try:
+        with (lexsort_k8() if lexsort_dispatch
+              else contextlib.nullcontext()), \
+                _wrapped(targets, wrap), profile(
+                    activities=[ProfilerActivity.CPU,
+                                ProfilerActivity.CUDA]) as prof:
+            _, _, _, secs = _solve(solve, device)
+    finally:
+        gc.callbacks.remove(on_gc)
     kernels, labels = [], []
     for evt in prof.key_averages():
         if evt.key.startswith("port::") and evt.device_type == DeviceType.CUDA:
@@ -2449,6 +2517,10 @@ def profile_slice(solve: dict, device: str = "cuda",
         f"{busy_ms:.1f} ms = {100 * busy_ms / (secs * 1e3):.1f}% of the "
         f"wall (idle {100 - 100 * busy_ms / (secs * 1e3):.1f}%); "
         f"{launches} device activities (kernels and copies)")
+    longest = max(gc_passes, default=(0.0, None))
+    log(f"  Python garbage collection in the solve: {len(gc_passes)} "
+        f"passes, {sum(t for t, _ in gc_passes) * 1e3:.1f} ms, the longest "
+        f"{longest[0] * 1e3:.1f} ms (generation {longest[1]})")
     log("  by port function (nested: totals include callees): host ms, "
         "calls, device ms")
     for cpu_us, count, key, dev_us in sorted(labels, reverse=True):
@@ -2457,6 +2529,14 @@ def profile_slice(solve: dict, device: str = "cuda",
     log("  top device activities: ms, count, name")
     for dev_us, count, key in sorted(kernels, reverse=True)[:10]:
         log(f"    {dev_us / 1e3:9.2f} ms {count:6d}x  {key[:80]}")
+    host = sorted(((evt.self_cpu_time_total, evt.count, evt.key)
+                   for evt in prof.key_averages()
+                   if evt.device_type == DeviceType.CPU
+                   and not evt.key.startswith("port::")), reverse=True)
+    log("  top host activities by self time (torch ops and CUDA runtime "
+        "calls): ms, count, name")
+    for cpu_us, count, key in host[:12]:
+        log(f"    {cpu_us / 1e3:9.1f} ms {count:6d}x  {key[:80]}")
     torch.cuda.synchronize()
 
 
@@ -2535,7 +2615,9 @@ def main(argv=None) -> int:
             "slice's shapes")
         results["row_topk"] = check_row_topk(200, 1152, seed=11)
         results["assign_pass"] = check_assign_pass(2048, (256, 200), seed=12)
-        results["commit_moves"] = check_commit_moves(SLICE_SPEC, seed=13)
+        results["commit_moves"] = check_commit_moves(
+            SLICE_SPEC, seed=13, shapes=((2048, 64, True),
+                                         (4096, 64, False)))
         results["leader_assign_pass"] = check_leader_assign(2048, 200,
                                                             seed=14)
         results["commit_leadership"] = check_commit_leadership(SLICE_SPEC,
@@ -2547,8 +2629,6 @@ def main(argv=None) -> int:
             dict(SLICE_SPEC, num_brokers=24, num_partitions=1000), seed=40)
         results["rank_accept"] = check_rank_accept(seed=30)
         results["_rank_accept_breakdown"] = rank_accept_breakdown(seed=36)
-        results["_commit_moves_tableless"] = check_commit_moves_tableless(
-            SLICE_SPEC, seed=18)
         results["segment_argmax"] = check_segment_argmax(seed=31)
         results["swap_pair"] = check_swap_pair(SLICE_SPEC, seed=32)
         results["dest_feasibility"] = check_dest_feasibility(
@@ -2561,15 +2641,17 @@ def main(argv=None) -> int:
             "escalated width K = B, K4 also at C = R)")
         check_row_topk(2600, 1024, seed=21)
         check_assign_pass(2048, (2600,), seed=22)
-        check_commit_moves(NORTH_SPEC, seed=23)
+        results["_commit_moves_north"] = check_commit_moves(
+            NORTH_SPEC, seed=23, shapes=((2048, 64, True),
+                                         (10_400, 2600, True),
+                                         (4096, 64, False)))
         check_leader_assign(2048, 2600, seed=24)
         check_leader_assign(600_000, 2600, seed=25)
-        check_commit_leadership(NORTH_SPEC, seed=26)
+        results["_commit_leadership_north"] = check_commit_leadership(
+            NORTH_SPEC, seed=26)
         check_sweep_pick(NORTH_SPEC, seed=27)
         results["_forced_select_north"] = check_forced_select(NORTH_SPEC,
                                                               seed=28)
-        results["_commit_moves_tableless_north"] = \
-            check_commit_moves_tableless(NORTH_SPEC, seed=29)
         results["_swap_pair_north"] = check_swap_pair(NORTH_SPEC, seed=34)
         results["_dest_feasibility_north"] = check_dest_feasibility(
             NORTH_SPEC, ((2048, 256), (4096, 2600)), seed=35)
@@ -2668,9 +2750,6 @@ def main(argv=None) -> int:
         "card_cpu_identical": results.get("_identical"),
         "row_topk_deep": results.get("row_topk", {}).get("deep")}))
     log("[5] " + json.dumps({
-        "commit_moves_tableless": results.get("_commit_moves_tableless"),
-        "commit_moves_tableless_north":
-            results.get("_commit_moves_tableless_north"),
         "forced_select_north": results.get("_forced_select_north"),
         "forced_select_k_equals_r": results.get("_forced_select_small"),
         "rank_accept_breakdown": results.get("_rank_accept_breakdown"),
@@ -2686,8 +2765,11 @@ def main(argv=None) -> int:
             "north_config5", "north_hard", "north_demote",
             "north_kafka_assigner", "north_intra")}))
     log("[5] rank_accept: " + json.dumps(results.get("rank_accept")))
-    for k in ("segment_sum", "ordered_sum", "cumsum_blocks"):
-        log(f"[5] {k} cases: " + json.dumps(results.get(k, {}).get("cases")))
+    for k in ("commit_moves", "_commit_moves_north", "commit_leadership",
+              "_commit_leadership_north", "segment_sum", "ordered_sum",
+              "cumsum_blocks"):
+        log(f"[5] {k.strip('_')} cases: "
+            + json.dumps(results.get(k, {}).get("cases")))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

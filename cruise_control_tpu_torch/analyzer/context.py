@@ -529,16 +529,34 @@ def commit_moves_plain(state_before: ClusterState, cache: RoundCache,
     return out
 
 
+def _donated(cache: RoundCache, fields: dict) -> dict:
+    """The plain result written into the cache's own planes: a commit
+    updates the cache it is given in place on the CPU too, as the card's
+    kernels do, so a caller that still reads a given-up cache shows up
+    here as well."""
+    for f, t in fields.items():
+        getattr(cache, f).copy_(t)
+    return {f: getattr(cache, f) for f in fields}
+
+
 def commit_moves(state_before: ClusterState, cache: RoundCache,
-                 r: torch.Tensor, dst: torch.Tensor, valid: torch.Tensor,
-                 rank: Optional[torch.Tensor]) -> dict:
-    """K3 dispatch: the plain version for a CPU cache, the CUDA kernel
-    (csrc/commit_moves.cu) for a cache on the card."""
-    if not cache.broker_load.is_cuda:
-        return commit_moves_plain(state_before, cache, r, dst, valid, rank)
-    from cruise_control_tpu_torch import cuda_kernels
-    return cuda_kernels.commit_moves(state_before, cache, r, dst, valid,
-                                     rank)
+                 r: torch.Tensor, dst: torch.Tensor,
+                 valid: torch.Tensor) -> dict:
+    """K3 dispatch: commit the moves that are `valid` and not no-ops (the
+    replica already on its destination) into the cache's own planes, in
+    place, and return them: the caller gives `cache` up.  On the card the
+    kernel (csrc/commit_moves.cu) drops the no-ops and ranks the arrivals
+    itself; on the CPU the plain version gets `valid & (src != dst)` and
+    `arrival_rank`, and its result is copied into the planes."""
+    if cache.broker_load.is_cuda:
+        from cruise_control_tpu_torch import cuda_kernels
+        return cuda_kernels.commit_moves(state_before, cache, r, dst, valid)
+    src = state_before.replica_broker[r.long()]
+    valid = valid & (src != dst)
+    rank = (arrival_rank(dst, valid, state_before.num_brokers)
+            if cache.broker_table.shape[1] else None)
+    return _donated(cache, commit_moves_plain(state_before, cache, r, dst,
+                                              valid, rank))
 
 
 def _repack(cache: RoundCache, num_r: int) -> RoundCache:
@@ -567,18 +585,14 @@ def update_cache_for_moves(state_before: ClusterState, cache: RoundCache,
     """Cache after `apply_moves(state_before, replicas, dest_brokers,
     valid)`.  `state_before` must be the pre-commit state.  Precondition
     (the search kernels guarantee it): the valid rows name each replica
-    at most once."""
-    r = replicas.to(torch.int32)
-    dst = dest_brokers.to(torch.int32)
-    src = state_before.replica_broker[r.long()]
-    valid = valid & (src != dst)
+    at most once.  The caller gives up `cache`: the commit updates its
+    planes in place."""
+    fields = commit_moves(state_before, cache, replicas.to(torch.int32),
+                          dest_brokers.to(torch.int32), valid)
+    new = cache.replace(**fields)
     if not cache.broker_table.shape[1]:
-        # table-less mode (self-healing): the aggregates only
-        return cache.replace(**commit_moves(state_before, cache, r, dst,
-                                            valid, None))
-    rank = arrival_rank(dst, valid, state_before.num_brokers)
-    fields = commit_moves(state_before, cache, r, dst, valid, rank)
-    return _repack(cache.replace(**fields), state_before.num_replicas)
+        return new          # table-less mode (self-healing)
+    return _repack(new, state_before.num_replicas)
 
 
 # ---------------------------------------------------------------------------
@@ -684,10 +698,11 @@ def commit_leadership(state_before: ClusterState, cache: RoundCache,
                       sr: torch.Tensor, dr: torch.Tensor,
                       valid: torch.Tensor, donate: bool = False) -> dict:
     """K5 dispatch: the plain version for a CPU cache, the CUDA kernel
-    (csrc/commit_leadership.cu) for a cache on the card; `donate` lets
-    the kernel update the cache's own planes."""
+    (csrc/commit_leadership.cu) for a cache on the card.  With `donate`
+    the caller gives `cache` up and its planes carry the result."""
     if not cache.broker_load.is_cuda:
-        return commit_leadership_plain(state_before, cache, sr, dr, valid)
+        fields = commit_leadership_plain(state_before, cache, sr, dr, valid)
+        return _donated(cache, fields) if donate else fields
     from cruise_control_tpu_torch import cuda_kernels
     return cuda_kernels.commit_leadership(state_before, cache, sr, dr, valid,
                                           donate=donate)

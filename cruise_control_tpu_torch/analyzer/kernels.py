@@ -1067,6 +1067,8 @@ def _swap_moves(state: ClusterState, out_r, in_r, cold, valid):
 
 def commit_moves_cached(state: ClusterState, cache, cand_r, cand_dest,
                         cand_valid):
+    """Apply a move round to the state and the cache.  The caller gives
+    up `cache`: the commit (K3 on the card) updates its planes in place."""
     from cruise_control_tpu_torch.analyzer.context import \
         update_cache_for_moves
     r = torch.clamp_min(cand_r, 0)
@@ -1077,6 +1079,8 @@ def commit_moves_cached(state: ClusterState, cache, cand_r, cand_dest,
 
 def commit_swaps_cached(state: ClusterState, cache, out_r, in_r, cold,
                         valid):
+    """Apply a swap round as one move batch; `cache` is given up as in
+    `commit_moves_cached`."""
     from cruise_control_tpu_torch.analyzer.context import \
         update_cache_for_moves
     replicas, dests, ok = _swap_moves(state, out_r, in_r, cold, valid)

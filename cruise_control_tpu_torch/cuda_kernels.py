@@ -34,6 +34,8 @@ SOURCES = ("row_topk.cu", "assign_pass.cu", "commit_moves.cu",
            "forced_select.cu", "rank_accept.cu", "segment_argmax.cu",
            "swap_pair.cu", "dest_feasibility.cu", "segment_sum.cu",
            "ordered_sum.cu", "cumsum_blocks.cu")
+#: headers the sources include (K3 and K5 share their bucketing)
+HEADERS = ("commit_bucket.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -100,7 +102,7 @@ def build() -> ctypes.CDLL:
             return _LIB
         t0 = time.time()
         digest = hashlib.sha256()
-        for name in SOURCES:
+        for name in SOURCES + HEADERS:
             digest.update((CSRC / name).read_bytes())
         digest.update(" ".join(NVCC_FLAGS).encode())
         tag = digest.hexdigest()[:16]
@@ -140,10 +142,16 @@ def build() -> ctypes.CDLL:
         lib.cc_row_topk.argtypes = [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P]
         lib.cc_assign_pass.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P, _P,
                                        _P, _P]
-        lib.cc_commit_moves.argtypes = [_I] * 7 + [_P] * 31 + [_P]
+        lib.cc_commit_moves.argtypes = [_I] * 7 + [_P] * 29 + [
+            ctypes.c_longlong, _P]
+        lib.cc_commit_moves_scratch.argtypes = [_I, _I]
+        lib.cc_commit_moves_scratch.restype = ctypes.c_longlong
         lib.cc_leader_assign_pass.argtypes = [_P] * 8 + [_I] * 3 + [
             _P, _I, _I] + [_P] * 5
-        lib.cc_commit_leadership.argtypes = [_I] * 4 + [_P] * 19
+        lib.cc_commit_leadership.argtypes = [_I] * 4 + [_P] * 18 + [
+            ctypes.c_longlong, _P]
+        lib.cc_commit_leadership_scratch.argtypes = [_I, _I]
+        lib.cc_commit_leadership_scratch.restype = ctypes.c_longlong
         lib.cc_sweep_pick.argtypes = [_I, _I] + [_P] * 14 + [
             ctypes.c_float, _I] + [_P] * 4
         lib.cc_forced_select.argtypes = [_I] * 4 + [_P] * 13 + [_P]
@@ -191,6 +199,12 @@ def _check(t: torch.Tensor, name: str, dtype, shape=None) -> None:
                          f"got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def _check_rows4(t: torch.Tensor, name: str) -> None:
+    """A plane the kernel reads or writes four floats at a time."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
 
 
 def _raise_on(err: int, name: str) -> None:
@@ -243,111 +257,119 @@ def assign_pass(pref: torch.Tensor, dest_open: torch.Tensor,
 
 
 #: the cache fields K3 writes in both modes, and with a broker table
-AGGREGATE_FIELDS = ("broker_load", "replica_count", "leader_count",
-                    "partition_rack_count", "broker_topic_count",
-                    "potential_nw_out", "leader_bytes_in")
+AGGREGATE_FIELDS = ("broker_load", "broker_util", "replica_count",
+                    "leader_count", "partition_rack_count",
+                    "broker_topic_count", "potential_nw_out",
+                    "leader_bytes_in")
 TABLE_FIELDS = ("broker_table", "table_fill", "table_load", "table_bonus",
                 "table_leader", "table_ok")
 
 
 def commit_fields(cache) -> tuple:
-    """The cache fields K3 writes for `cache` (`commit_moves` hands the
-    kernel copies of them): the aggregates, and the table planes when the
-    cache carries a table."""
+    """The cache fields K3 writes for `cache`: the aggregates, and the
+    table planes when the cache carries a table."""
     if cache.broker_table.shape[1]:
         return AGGREGATE_FIELDS + TABLE_FIELDS
     return AGGREGATE_FIELDS
 
 
+def _planes(cache, fields, donate: bool) -> dict:
+    """The planes K5 updates in place: with `donate` the cache's own (the
+    caller gives the cache up), else copies; `broker_util` is written,
+    not read, so its copy is left unfilled."""
+    if donate:
+        return {f: getattr(cache, f) for f in fields}
+    return {f: (torch.empty_like(cache.broker_util) if f == "broker_util"
+                else getattr(cache, f).clone()) for f in fields}
+
+
+@functools.lru_cache(maxsize=256)
+def _commit_scratch_bytes(kernel: str, n: int, num_b: int) -> int:
+    got = getattr(build(), f"cc_{kernel}_scratch")(n, num_b)
+    if got < 0:
+        raise ValueError(f"{kernel} cannot bucket {n} rows into {num_b} "
+                         "brokers: past the limits of csrc/commit_bucket.cuh "
+                         "(at most 17,066 brokers; 1,048,576 rows up to "
+                         "5,120 brokers, fewer above)")
+    return got
+
+
+def _commit_scratch(kernel: str, n: int, num_b: int, device):
+    """One scratch allocation per commit: the bucket metadata and the
+    keys' rows in bucket order."""
+    return torch.empty(_commit_scratch_bytes(kernel, n, num_b),
+                       dtype=torch.uint8, device=device)
+
+
 def commit_moves(state_before, cache, r: torch.Tensor, dst: torch.Tensor,
-                 valid: torch.Tensor, rank) -> dict:
-    """K3: the cache fields after committing the batch (fresh tensors; the
-    inputs are not modified).  Without a broker table (table-less mode)
-    the aggregates only, and `rank` may be None."""
-    out = {f: getattr(cache, f).clone() for f in commit_fields(cache)}
-    out["broker_util"] = torch.empty_like(cache.broker_load)
-    commit_moves_into(out, state_before, cache, r, dst, valid, rank)
-    return out
-
-
-def commit_moves_into(out: dict, state_before, cache, r: torch.Tensor,
-                      dst: torch.Tensor, valid: torch.Tensor,
-                      rank) -> None:
-    """K3 launch into `out`, which holds a copy of each of the cache's
-    `commit_fields` (updated in place) and a `broker_util` plane
-    (written); with a table, `cache.table_fill` is read as the fill
-    before the batch."""
+                 valid: torch.Tensor, rank_out=None) -> dict:
+    """K3: commit the batch into the cache's own planes, in place (the
+    caller gives the cache up; a caller that keeps it commits into a
+    copy), and return them.  A move counts when valid[i] and its replica
+    is not on dst[i] already; the kernel ranks the arrivals at each
+    destination itself.  Without a broker table (table-less mode) the
+    aggregates only.  `rank_out` (i32[n], a test's probe) gets each
+    counted arrival's rank at its destination and -1 for a move that does
+    not count."""
+    out = {f: getattr(cache, f) for f in commit_fields(cache)}
     lib = build()
     n = r.shape[0]
-    num_b = state_before.num_brokers
-    num_r = state_before.num_replicas
+    s = state_before
+    num_b = s.num_brokers
+    num_r = s.num_replicas
     sw = cache.broker_table.shape[1]
-    if sw:
-        _check(rank, "rank", torch.int32, (n,))
     for name, t, dt, shape in (
             ("r", r, torch.int32, (n,)), ("dst", dst, torch.int32, (n,)),
             ("valid", valid, torch.bool, (n,)),
-            ("replica_broker", state_before.replica_broker, torch.int32,
+            ("replica_broker", s.replica_broker, torch.int32, (num_r,)),
+            ("replica_partition", s.replica_partition, torch.int32,
              (num_r,)),
-            ("replica_partition", state_before.replica_partition,
-             torch.int32, (num_r,)),
-            ("replica_is_leader", state_before.replica_is_leader,
-             torch.bool, (num_r,)),
-            ("replica_base_load", state_before.replica_base_load,
-             torch.float32, (num_r, 4)),
-            ("partition_leader_bonus", state_before.partition_leader_bonus,
-             torch.float32, (state_before.num_partitions, 4)),
-            ("partition_topic", state_before.partition_topic, torch.int32,
-             None),
-            ("broker_rack", state_before.broker_rack, torch.int32,
-             (num_b,)),
-            ("broker_capacity", state_before.broker_capacity, torch.float32,
+            ("replica_is_leader", s.replica_is_leader, torch.bool,
+             (num_r,)),
+            ("replica_base_load", s.replica_base_load, torch.float32,
+             (num_r, 4)),
+            ("partition_leader_bonus", s.partition_leader_bonus,
+             torch.float32, (s.num_partitions, 4)),
+            ("partition_topic", s.partition_topic, torch.int32,
+             (s.num_partitions,)),
+            ("broker_rack", s.broker_rack, torch.int32, (num_b,)),
+            ("broker_capacity", s.broker_capacity, torch.float32,
              (num_b, 4)),
             ("replica_load", cache.replica_load, torch.float32, (num_r, 4)),
-            ("replica_ok", cache.replica_ok, torch.bool, None),
-            ("broker_load", cache.broker_load, torch.float32, (num_b, 4)),
-            ("replica_count", cache.replica_count, torch.int32, (num_b,)),
-            ("leader_count", cache.leader_count, torch.int32, (num_b,)),
-            ("partition_rack_count", cache.partition_rack_count,
-             torch.int32, None),
-            ("broker_topic_count", cache.broker_topic_count, torch.int32,
-             None),
-            ("potential_nw_out", cache.potential_nw_out, torch.float32,
-             (num_b,)),
-            ("leader_bytes_in", cache.leader_bytes_in, torch.float32,
-             (num_b,)),
-            ("broker_table", cache.broker_table, torch.int32, (num_b, sw)),
-            ("table_fill", cache.table_fill, torch.int32, (num_b,)),
-            ("table_load", cache.table_load, torch.float32, (num_b, sw, 4)),
-            ("table_bonus", cache.table_bonus, torch.float32,
-             (num_b, sw, 4)),
-            ("table_leader", cache.table_leader, torch.bool, (num_b, sw)),
-            ("table_ok", cache.table_ok, torch.bool, (num_b, sw))):
+            ("replica_ok", cache.replica_ok, torch.bool, None)):
         _check(t, name, dt, shape)
-    for f in (*commit_fields(cache), "broker_util"):
-        like = cache.broker_load if f == "broker_util" else getattr(cache, f)
-        _check(out[f], f"out[{f!r}]", like.dtype, like.shape)
-    if sw:
-        # the kernel reads the fill before the batch while it counts
-        # arrivals
-        if out["table_fill"].data_ptr() == cache.table_fill.data_ptr():
-            raise ValueError("out['table_fill'] must be a copy of the "
-                             "cache's")
-        table = {f: out[f] for f in TABLE_FIELDS}
-    else:
-        # table-less mode: the kernel touches no table plane
-        table = {f: None for f in TABLE_FIELDS}
+    f32, i32, b8 = torch.float32, torch.int32, torch.bool
+    planes = {"broker_load": (f32, (num_b, 4)),
+              "broker_util": (f32, (num_b, 4)),
+              "replica_count": (i32, (num_b,)),
+              "leader_count": (i32, (num_b,)),
+              "partition_rack_count": (i32, (s.num_partitions, s.num_racks)),
+              "broker_topic_count": (i32, (num_b, s.num_topics)),
+              "potential_nw_out": (f32, (num_b,)),
+              "leader_bytes_in": (f32, (num_b,)),
+              "broker_table": (i32, (num_b, sw)),
+              "table_fill": (i32, (num_b,)),
+              "table_load": (f32, (num_b, sw, 4)),
+              "table_bonus": (f32, (num_b, sw, 4)),
+              "table_leader": (b8, (num_b, sw)),
+              "table_ok": (b8, (num_b, sw))}
+    for f, t in out.items():
+        _check(t, f, *planes[f])
+    for name, t in (("replica_load", cache.replica_load),
+                    ("partition_leader_bonus", s.partition_leader_bonus),
+                    *((f, out[f]) for f in ("table_load", "table_bonus")
+                      if sw)):
+        _check_rows4(t, name)
+    if rank_out is not None:
+        _check(rank_out, "rank_out", torch.int32, (n,))
 
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-    # per-move scratch: the float contribution row and the two ends
-    contrib = torch.empty((n, 8), dtype=torch.float32, device=r.device)
-    ends = torch.empty((2, n), dtype=torch.int32, device=r.device)
-    s = state_before
+    def ptr(f):
+        return out[f].data_ptr() if sw else None
+    scratch = _commit_scratch("commit_moves", n, num_b, r.device)
     err = lib.cc_commit_moves(
         n, num_b, sw, num_r, s.num_racks, s.num_topics,
         cache.replica_ok.shape[0],
-        r.data_ptr(), dst.data_ptr(), valid.data_ptr(), ptr(rank),
+        r.data_ptr(), dst.data_ptr(), valid.data_ptr(),
         s.replica_broker.data_ptr(), s.replica_partition.data_ptr(),
         s.replica_is_leader.data_ptr(), s.replica_base_load.data_ptr(),
         s.partition_leader_bonus.data_ptr(), s.partition_topic.data_ptr(),
@@ -358,14 +380,14 @@ def commit_moves_into(out: dict, state_before, cache, r: torch.Tensor,
         out["partition_rack_count"].data_ptr(),
         out["broker_topic_count"].data_ptr(),
         out["potential_nw_out"].data_ptr(),
-        out["leader_bytes_in"].data_ptr(), ptr(table["broker_table"]),
-        cache.table_fill.data_ptr() if sw else None,
-        ptr(table["table_fill"]), ptr(table["table_load"]),
-        ptr(table["table_bonus"]), ptr(table["table_leader"]),
-        ptr(table["table_ok"]),
-        contrib.data_ptr(), ends.data_ptr(), _stream())
+        out["leader_bytes_in"].data_ptr(), ptr("broker_table"),
+        ptr("table_fill"), ptr("table_load"), ptr("table_bonus"),
+        ptr("table_leader"), ptr("table_ok"),
+        None if rank_out is None else rank_out.data_ptr(),
+        scratch.data_ptr(), scratch.numel(), _stream())
     LAUNCHES["commit_moves"] += 1
     _raise_on(err, "commit_moves")
+    return out
 
 
 def leader_assign_pass(pref: torch.Tensor, sib_broker: torch.Tensor,
@@ -411,13 +433,8 @@ def commit_leadership(state_before, cache, sr: torch.Tensor,
     caller gives the cache up); otherwise it writes into copies."""
     from cruise_control_tpu_torch.analyzer.context import LEADERSHIP_FIELDS
     sw = cache.broker_table.shape[1]
-    fields = [f for f in LEADERSHIP_FIELDS if f != "broker_util"
-              and (sw or not f.startswith("table_"))]
-    if donate:
-        out = {f: getattr(cache, f) for f in fields}
-    else:
-        out = {f: getattr(cache, f).clone() for f in fields}
-    out["broker_util"] = torch.empty_like(cache.broker_load)
+    out = _planes(cache, [f for f in LEADERSHIP_FIELDS
+                          if sw or not f.startswith("table_")], donate)
     commit_leadership_into(out, state_before, cache, sr, dr, valid)
     return out
 
@@ -456,26 +473,31 @@ def commit_leadership_into(out: dict, state_before, cache, sr: torch.Tensor,
             ("out[leader_bytes_in]", out["leader_bytes_in"], torch.float32,
              (num_b,))):
         _check(t, name, dt, shape)
+    for name, t in (("partition_leader_bonus", s.partition_leader_bonus),
+                    ("out[replica_load]", out["replica_load"])):
+        _check_rows4(t, name)
     if sw:
         _check(out["table_load"], "out[table_load]", torch.float32,
                (num_b, sw, 4))
+        _check_rows4(out["table_load"], "out[table_load]")
         _check(out["table_leader"], "out[table_leader]", torch.bool,
                (num_b, sw))
-        t_load, t_leader = out["table_load"], out["table_leader"]
+        _check(cache.table_fill, "table_fill", torch.int32, (num_b,))
+        t_load = out["table_load"].data_ptr()
+        t_leader = out["table_leader"].data_ptr()
+        fill = cache.table_fill.data_ptr()
     else:
-        t_load, t_leader = cache.table_load, cache.table_leader
-    contrib = torch.empty((n, 8), dtype=torch.float32, device=sr.device)
-    ends = torch.empty((2, n), dtype=torch.int32, device=sr.device)
+        t_load = t_leader = fill = None
+    scratch = _commit_scratch("commit_leadership", n, num_b, sr.device)
     err = lib.cc_commit_leadership(
         n, num_b, sw, num_r, sr.data_ptr(), dr.data_ptr(), valid.data_ptr(),
         s.replica_broker.data_ptr(), s.replica_partition.data_ptr(),
         s.replica_base_load.data_ptr(), s.partition_leader_bonus.data_ptr(),
-        s.broker_capacity.data_ptr(), cache.broker_table.data_ptr(),
+        s.broker_capacity.data_ptr(), cache.broker_table.data_ptr(), fill,
         out["broker_load"].data_ptr(), out["broker_util"].data_ptr(),
         out["replica_load"].data_ptr(), out["leader_count"].data_ptr(),
-        out["leader_bytes_in"].data_ptr(), t_load.data_ptr(),
-        t_leader.data_ptr(), contrib.data_ptr(), ends.data_ptr(),
-        _stream())
+        out["leader_bytes_in"].data_ptr(), t_load, t_leader,
+        scratch.data_ptr(), scratch.numel(), _stream())
     LAUNCHES["commit_leadership"] += 1
     _raise_on(err, "commit_leadership")
 

@@ -162,3 +162,92 @@ def test_duplicate_replica_in_batch_is_refused(setup):
     with pytest.raises(AssertionError, match="twice"):
         C.update_cache_for_moves(ps, pcache, r, d,
                                  torch.ones(2, dtype=torch.bool))
+
+
+def _edge_batch(js, case, s):
+    """The commit batches at K3's edges on the 16-broker cluster, n = 32
+    (0 for "empty"): every move dropped, every move into one broker, one
+    broker the source and the destination of many moves, a row pushed past
+    the table's width S, and valid moves whose replica is already on the
+    destination (no-ops, which the commit drops)."""
+    rb = np.asarray(js.replica_broker)
+    rng = np.random.default_rng(11)
+    n = 32
+    reps = rng.choice(js.num_replicas, size=n, replace=False).astype(np.int32)
+    dests = ((rb[reps] + 1 + rng.integers(0, 15, size=n)) % 16).astype(
+        np.int32)
+    valid = np.ones(n, dtype=bool)
+    if case == "empty":
+        return reps[:0], dests[:0], valid[:0]
+    if case == "all invalid":
+        valid[:] = False
+    elif case == "one destination":
+        reps = rng.choice(np.nonzero(rb != 3)[0], size=n,
+                          replace=False).astype(np.int32)
+        dests[:] = 3
+    elif case == "source and destination":
+        out = rng.choice(np.nonzero(rb == 5)[0], size=n // 2, replace=False)
+        into = rng.choice(np.nonzero(rb != 5)[0], size=n // 2, replace=False)
+        reps = np.stack([out, into], 1).reshape(-1).astype(np.int32)
+        dests = np.where(rb[reps] == 5, (reps % 15 + 6) % 16, 5).astype(
+            np.int32)
+    elif case == "overflow":
+        counts = np.bincount(rb, minlength=16)
+        full = int(np.argmax(counts))
+        reps = rng.choice(np.nonzero(rb != full)[0], size=n,
+                          replace=False).astype(np.int32)
+        dests[:] = full
+        assert counts[full] + n > s
+    elif case == "no-ops":
+        dests[::3] = rb[reps[::3]]
+    return reps, dests, valid
+
+
+EDGE_CASES = ["empty", "all invalid", "one destination",
+              "source and destination", "overflow", "no-ops"]
+
+
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_update_cache_for_moves_edge_batches(setup, case):
+    """K3's edge batches (its plain version on the CPU) against the
+    reference, committed into the cache's own planes."""
+    js, ps, jctx, pctx = setup
+    narrow = case == "overflow"
+    s = (int(np.bincount(np.asarray(js.replica_broker)).max()) + 6
+         if narrow else pctx.table_slots)
+    reps, dests, valid = _edge_batch(js, case, s)
+    jcache = JC.make_round_cache(js, s, jctx)
+    pcache = C.make_round_cache(ps, s, pctx)
+    planes = {f: getattr(pcache, f) for f in C.CACHE_FIELDS}
+    jnew, pnew = _run_both(js, ps, jctx, pctx, jcache, pcache, reps, dests,
+                           valid)
+    _assert_cache_equal(jnew, pnew, case)
+    # the commit wrote into the given cache's planes (a re-pack, which the
+    # overflow triggers, then rebuilds the table planes)
+    kept = (C.CACHE_FIELDS if not narrow else
+            [f for f in C.CACHE_FIELDS if not f.startswith("table_")
+             and f != "broker_table"])
+    for f in kept:
+        assert getattr(pnew, f) is planes[f], f
+
+
+@pytest.mark.parametrize("slots", [0, None])
+def test_commit_moves_donate_writes_the_cache_planes(setup, slots):
+    """K3's dispatch commits in place: the returned planes are the given
+    cache's own tensors and equal the plain version's result on an
+    untouched copy of the cache."""
+    js, ps, _, pctx = setup
+    s = pctx.table_slots if slots is None else slots
+    reps, dests, valid = _edge_batch(js, "source and destination", s)
+    r, d, v = (torch.from_numpy(reps), torch.from_numpy(dests),
+               torch.from_numpy(valid))
+    cache = C.make_round_cache(ps, s, pctx)
+    counted = v & (ps.replica_broker[r.long()] != d)
+    rank = C.arrival_rank(d, counted, ps.num_brokers) if s else None
+    want = C.commit_moves_plain(ps, cache, r, d, counted, rank)
+    assert all(want[f] is not getattr(cache, f) for f in want)
+    got = C.commit_moves(ps, cache, r, d, v)
+    assert set(got) == set(want)
+    for f in want:
+        assert got[f] is getattr(cache, f), f
+        assert torch.equal(got[f], want[f]), f

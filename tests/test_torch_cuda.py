@@ -1,11 +1,15 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
 card, at the slice's shapes (marker `torch_cuda`).
 
-K7 (`forced_select`, also at k = R) and K3's table-less
-mode are held here too, K2 at the forced-move round's 4,096 candidates,
-K8 (`rank_accept`) on both of its paths, without and with the pass
-commit, K9 (`segment_argmax`), K10 (`swap_pair`) and K11
-(`dest_feasibility`, both entries), the ordered sums K12
+K3 (`commit_moves`, with and without a table) and K5
+(`commit_leadership`) at their edges (no move, every move dropped, one
+bucket of the whole batch, a row pushed past its end, no-ops, 2,600
+brokers), K3 in place and K5 donated and not, and K3's in-kernel
+arrival ranks against `arrival_rank`; K7 (`forced_select`, also at k = R) is held here too,
+K2 at the forced-move round's 4,096 candidates, K8 (`rank_accept`) on
+both of its paths, without and with the pass commit, K9
+(`segment_argmax`), K10 (`swap_pair`) and K11 (`dest_feasibility`, both
+entries), the ordered sums K12
 (`segment_sum`, also with `init`), K13 (`ordered_sum`) and K14
 (`cumsum_blocks`) bit for bit with signed zeros and dropped ids, the
 slice's stats, a short default-stack solve and the demote,
@@ -85,26 +89,112 @@ def test_assign_pass_matches_plain(kk, k):
     assert all(_same(a, b) for a, b in zip(got, want))
 
 
-def test_commit_moves_matches_plain_bit_for_bit():
+#: the 2,600-broker cluster of K3's and K5's wide cases, cut to 60,000
+#: partitions
+WIDE = dict(SLICE, num_brokers=2600, num_partitions=60_000, num_racks=26,
+            num_topics=100)
+COMMIT_CASES = ["random", "empty", "all invalid", "one destination",
+                "source and destination", "overflow", "no-ops",
+                "2600 brokers"]
+
+
+def _move_batch(state, cache, case, rng):
+    """K3's batches at its edges (r, dst, valid on the card): 2,048 moves
+    into 64 destinations; none; every move dropped; every move into one
+    broker (one bucket of 2,048, past the row's end); one broker the
+    source of all its replicas and the destination of as many; a row
+    pushed 40 past its end among random moves; a third of the moves
+    no-ops (the kernel drops them itself); 4 B moves at 2,600 brokers."""
+    rb = state.replica_broker.cpu().numpy()
+    num_b = state.num_brokers
+    n = 4 * num_b if case == "2600 brokers" else 2048
+    r = rng.choice(state.num_replicas, size=n, replace=False)
+    dst = (rng.integers(0, 64, size=n) * 3 % num_b
+           if case != "2600 brokers" else rng.integers(0, num_b, size=n))
+    valid = rng.random(n) < 0.9
+    if case == "empty":
+        r, dst, valid = r[:0], dst[:0], valid[:0]
+    elif case == "all invalid":
+        valid[:] = False
+    elif case == "one destination":
+        r = rng.choice(np.nonzero(rb != 7)[0], size=n, replace=False)
+        dst[:] = 7
+    elif case == "source and destination":
+        out = np.nonzero(rb == 9)[0]
+        into = rng.choice(np.nonzero(rb != 9)[0], size=out.size,
+                          replace=False)
+        r = np.stack([out, into], 1).reshape(-1)
+        dst = np.where(rb[r] == 9, (r % 150) + 10, 9)
+        valid = np.ones(r.size, dtype=bool)
+    elif case == "overflow":
+        fill = cache.table_fill.cpu().numpy()
+        room = cache.broker_table.shape[1] - int(fill[11]) + 40
+        pick = rng.choice(np.nonzero(rb != 11)[0], size=room, replace=False)
+        keep = ~np.isin(r, pick)
+        r = np.concatenate([pick, r[keep][:n - room]])
+        dst = np.concatenate([np.full(room, 11), dst[keep][:n - room]])
+        valid = np.concatenate([np.ones(room, bool), valid[keep][:n - room]])
+    elif case == "no-ops":
+        dst[::3] = rb[r[::3]]
+    return [torch.from_numpy(np.ascontiguousarray(x).astype(dt)).cuda()
+            for x, dt in ((r, np.int32), (dst, np.int32), (valid, bool))]
+
+
+def _donatable(cache):
+    """A copy of the cache whose planes an in-place commit may update."""
+    return cache.replace(**{f: getattr(cache, f).clone()
+                            for f in C.CACHE_FIELDS})
+
+
+def _check_commit_moves(ck, state, cache, r, dst, valid):
+    """K3 against its plain version bit for bit, committed in place into
+    a copy of the cache (the returned planes are that copy's own
+    tensors), and its in-kernel arrival ranks against `arrival_rank`."""
+    counted = valid & (state.replica_broker[r.long()] != dst)
+    table = cache.broker_table.shape[1] > 0
+    rank = (C.arrival_rank(dst, counted, state.num_brokers) if table
+            else None)
+    want = C.commit_moves_plain(state, cache, r, dst, counted, rank)
+    ranks = torch.full_like(r, 7)
+    donor = _donatable(cache)
+    got = ck.commit_moves(state, donor, r, dst, valid, rank_out=ranks)
+    torch.cuda.synchronize()
+    assert set(got) == set(want)
+    for f in want:
+        assert _same(got[f], want[f]), f
+        assert got[f].data_ptr() == getattr(donor, f).data_ptr(), f
+    want_rank = C.arrival_rank(dst, counted, state.num_brokers)
+    assert _same(ranks, torch.where(counted, want_rank, -1))
+
+
+#: (brokers, the largest batch the shared bucketing takes there): the
+#: limits stated in csrc/commit_bucket.cuh
+BUCKET_LIMITS = [(200, 1_048_576), (5_120, 1_048_576), (5_121, 917_504),
+                 (10_400, 262_144), (17_066, 131_072), (17_067, 0)]
+
+
+@pytest.mark.parametrize("kernel", ["commit_moves", "commit_leadership"])
+@pytest.mark.parametrize("num_b,most", BUCKET_LIMITS)
+def test_commit_bucketing_limits(kernel, num_b, most):
+    """K3 and K5 size their one scratch allocation up to the stated
+    limits and raise (no fallback) one move past them."""
     ck = _card()
-    state, _ = random_cluster(RandomClusterSpec(**SLICE), device="cuda")
+    if most:
+        assert ck._commit_scratch_bytes(kernel, most, num_b) > 0
+    with pytest.raises(ValueError, match="cannot bucket"):
+        ck._commit_scratch_bytes(kernel, most + 1 if most else 1, num_b)
+
+
+@pytest.mark.parametrize("case", COMMIT_CASES)
+def test_commit_moves_matches_plain_bit_for_bit(case):
+    ck = _card()
+    spec = WIDE if case == "2600 brokers" else SLICE
+    state, _ = random_cluster(RandomClusterSpec(**spec), device="cuda")
     ctx = C.make_context(state, C.BalancingConstraint(),
                          C.OptimizationOptions())
     cache = C.make_round_cache(state, ctx.table_slots, ctx)
-    rng = np.random.default_rng(0)
-    n = 2048
-    r = torch.from_numpy(rng.choice(state.num_replicas, size=n,
-                                    replace=False).astype(np.int32)).cuda()
-    dst = torch.from_numpy((rng.integers(0, 64, size=n) * 3 % 200).astype(
-        np.int32)).cuda()
-    valid = (torch.from_numpy(rng.random(n) < 0.9).cuda()
-             & (state.replica_broker[r.long()] != dst))
-    rank = C.arrival_rank(dst, valid, state.num_brokers)
-    got = ck.commit_moves(state, cache, r, dst, valid, rank)
-    want = C.commit_moves_plain(state, cache, r, dst, valid, rank)
-    torch.cuda.synchronize()
-    for f in want:
-        assert _same(got[f], want[f]), f
+    r, dst, valid = _move_batch(state, cache, case, np.random.default_rng(0))
+    _check_commit_moves(ck, state, cache, r, dst, valid)
 
 
 def test_reference_stays_on_the_cpu():
@@ -156,39 +246,68 @@ def test_leader_assign_pass_matches_plain(multi, k):
     assert all(_same(a, b) for a, b in zip(got, want))
 
 
-def _transfer_batch(state, ctx, n, rng):
+LEADERSHIP_CASES = ["random", "empty", "all invalid", "one destination",
+                    "source and destination", "2600 brokers"]
+
+
+def _transfer_batch(state, ctx, case, rng, n):
+    """Transfers on distinct partitions, the leader to another replica:
+    n random ones, a fifth dropped; none; all dropped; every one into
+    broker 7; broker 9 the source of every other one and the destination
+    of the rest."""
     from cruise_control_tpu_torch.model import state as S
     rows = ctx.partition_replicas.cpu().numpy()
+    rb = state.replica_broker.cpu().numpy()
     cur = S.partition_leader_replica(state).cpu().numpy()
-    parts = rng.choice(rows.shape[0], size=n, replace=False)
-    src = cur[parts].astype(np.int32)
-    dst = np.array([[r for r in rows[p] if r >= 0 and r != s][0]
-                    for p, s in zip(parts, src)], dtype=np.int32)
-    return [torch.from_numpy(x).cuda()
-            for x in (src, dst, rng.random(n) < 0.8)]
+    if case in ("one destination", "source and destination"):
+        b = 7 if case == "one destination" else 9
+        led, into = [], []
+        for p in range(rows.shape[0]):
+            others = [r for r in rows[p] if r >= 0 and r != cur[p]]
+            to = [r for r in others if rb[r] == b]
+            if case != "one destination" and rb[cur[p]] == b:
+                led.append((cur[p], others[0]))
+            elif to:
+                into.append((cur[p], to[0]))
+        pairs = (into if case == "one destination" else
+                 [x for two in zip(led, into) for x in two])
+        src, dst = (np.array(x, dtype=np.int32) for x in zip(*pairs))
+        valid = np.ones(src.size, dtype=bool)
+    else:
+        parts = rng.choice(rows.shape[0], size=n if case != "empty" else 0,
+                           replace=False)
+        src = cur[parts].astype(np.int32)
+        dst = np.array([[r for r in rows[p] if r >= 0 and r != s][0]
+                        for p, s in zip(parts, src)], dtype=np.int32)
+        valid = (rng.random(src.size) < 0.8) & (case != "all invalid")
+    return [torch.from_numpy(x).cuda() for x in (src, dst, valid)]
 
 
+@pytest.mark.parametrize("case", LEADERSHIP_CASES)
 @pytest.mark.parametrize("table", [False, True])
-def test_commit_leadership_matches_plain_bit_for_bit(table):
+def test_commit_leadership_matches_plain_bit_for_bit(table, case):
+    """K5 against its plain version bit for bit, undonated and donated
+    (the donated planes are the cache's own tensors)."""
     ck = _card()
-    state, _ = random_cluster(RandomClusterSpec(**SLICE), device="cuda")
+    spec = WIDE if case == "2600 brokers" else SLICE
+    state, _ = random_cluster(RandomClusterSpec(**spec), device="cuda")
     ctx = C.make_context(state, C.BalancingConstraint(),
                          C.OptimizationOptions())
     cache = C.make_round_cache(state, ctx.table_slots if table else 0, ctx)
-    sr, dr, valid = _transfer_batch(state, ctx, 4096 if not table else 3200,
-                                    np.random.default_rng(int(table)))
+    n = (16 * state.num_brokers if case == "2600 brokers"
+         else 3200 if table else 4096)
+    sr, dr, valid = _transfer_batch(state, ctx, case,
+                                    np.random.default_rng(int(table)), n)
     want = C.commit_leadership_plain(state, cache, sr, dr, valid)
     got = ck.commit_leadership(state, cache, sr, dr, valid)
+    donor = _donatable(cache)
+    donated = ck.commit_leadership(state, donor, sr, dr, valid, donate=True)
     torch.cuda.synchronize()
+    assert set(got) == set(want) == set(donated)
     for f in want:
         assert _same(got[f], want[f]), f
-    # donated: the cache's own planes carry the result
-    donated = ck.commit_leadership(state, cache, sr, dr, valid, donate=True)
-    torch.cuda.synchronize()
-    assert donated["replica_load"].data_ptr() == \
-        cache.replica_load.data_ptr()
-    for f in want:
         assert _same(donated[f], want[f]), f
+        assert donated[f].data_ptr() == getattr(donor, f).data_ptr(), f
 
 
 @pytest.mark.parametrize("improve_gate", [False, True])
@@ -244,26 +363,19 @@ def test_assign_pass_at_4096_candidates(kk):
         assert all(_same(a, b) for a, b in zip(got, want))
 
 
-def test_commit_moves_tableless_matches_plain_bit_for_bit():
+@pytest.mark.parametrize("case", COMMIT_CASES)
+def test_commit_moves_tableless_matches_plain_bit_for_bit(case):
     """K3's table-less mode (self-healing's commits): the aggregates only,
     equal to the plain aggregates bit for bit."""
     ck = _card()
-    state, _ = random_cluster(RandomClusterSpec(**SLICE), device="cuda")
-    cache = C.make_round_cache(state)
-    rng = np.random.default_rng(3)
-    n = 4096
-    r = torch.from_numpy(rng.choice(state.num_replicas, size=n,
-                                    replace=False).astype(np.int32)).cuda()
-    dst = torch.from_numpy(rng.integers(0, 40, size=n).astype(
-        np.int32)).cuda()
-    valid = (torch.from_numpy(rng.random(n) < 0.9).cuda()
-             & (state.replica_broker[r.long()] != dst))
-    got = ck.commit_moves(state, cache, r, dst, valid, None)
-    want = C._aggregates_plain(state, cache, r.long(), dst.long(), valid)
-    torch.cuda.synchronize()
-    assert set(got) == set(want)
-    for f in want:
-        assert _same(got[f], want[f]), f
+    spec = WIDE if case == "2600 brokers" else SLICE
+    state, _ = random_cluster(RandomClusterSpec(**spec), device="cuda")
+    ctx = C.make_context(state, C.BalancingConstraint(),
+                         C.OptimizationOptions())
+    table_cache = C.make_round_cache(state, ctx.table_slots, ctx)
+    r, dst, valid = _move_batch(state, table_cache, case,
+                                np.random.default_rng(3))
+    _check_commit_moves(ck, state, C.make_round_cache(state), r, dst, valid)
 
 
 @pytest.mark.parametrize("case", ["sparse", "ties", "tail", "all"])

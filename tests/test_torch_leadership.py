@@ -203,6 +203,56 @@ def test_update_cache_for_leadership(setup, table):
                                   _t(np.ones(2 * len(src), bool)))
 
 
+def _edge_transfers(setup, case):
+    """K5's edge batches on the 20-broker cluster: no transfer, every
+    transfer dropped, every transfer into broker 3, and broker 5 the
+    source of every other transfer and the destination of the rest; one
+    transfer a partition, n = 24 (0 for "empty")."""
+    js, _, jctx, _ = setup
+    cur = np.asarray(JS.partition_leader_replica(js))
+    rb = np.asarray(js.replica_broker)
+    target = 3 if case == "one destination" else 5
+    led, into = [], []
+    for p, row in enumerate(np.asarray(jctx.partition_replicas)):
+        others = [r for r in row if r >= 0 and r != cur[p]]
+        to = [r for r in others if rb[r] == target]
+        if case == "source and destination" and rb[cur[p]] == 5:
+            led.append((cur[p], others[0]))
+        elif to:
+            into.append((cur[p], to[0]))
+    if case == "source and destination":
+        pairs = [x for two in zip(led[:12], into[:12]) for x in two]
+    else:
+        pairs = into[:24 if case != "empty" else 0]
+    src, dst = (np.array(x, dtype=np.int32).reshape(-1)
+                for x in zip(*pairs)) if pairs else (
+        np.zeros(0, np.int32), np.zeros(0, np.int32))
+    return src, dst, np.full(len(src), case != "all invalid")
+
+
+@pytest.mark.parametrize("case", ["empty", "all invalid", "one destination",
+                                  "source and destination"])
+@pytest.mark.parametrize("table", [False, True])
+def test_update_cache_for_leadership_edge_batches(setup, table, case):
+    """K5's edge batches (its plain version on the CPU) against the
+    reference, and with `donate` the cache's own planes carry the same
+    result."""
+    js, ps, _, _ = setup
+    jcache, pcache = _caches(setup, table)
+    src, dst, valid = _edge_transfers(setup, case)
+    jb = JC.update_cache_for_leadership(js, jcache, jnp.asarray(src),
+                                        jnp.asarray(dst), jnp.asarray(valid))
+    pb = C.update_cache_for_leadership(ps, pcache, _t(src), _t(dst),
+                                       _t(valid))
+    _assert_cache_equal(jb, pb, case)
+    planes = {f: getattr(pcache, f) for f in C.CACHE_FIELDS}
+    got = C.update_cache_for_leadership(ps, pcache, _t(src), _t(dst),
+                                        _t(valid), donate=True)
+    _assert_cache_equal(jb, got, case + ", donated")
+    for f in C.CACHE_FIELDS:
+        assert getattr(got, f) is planes[f], f
+
+
 def test_cache_carried_across_drives_the_commit(setup):
     """A reference RoundCache carried across as numpy (every field the
     leadership path reads, the table planes included) gives the same
