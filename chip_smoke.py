@@ -12,8 +12,12 @@ Phases:
   2. each kernel against its plain PyTorch version on the card at the
      slice's shapes and again at the 2,600-broker shapes of phase 4
      (integers and booleans exactly, floats bit for bit): K1 at k = 1, 4,
-     8, 16 and 64, K2 (also at the forced-move round's C = 4096 against K
-     = 256 and 2600), K3 on 2,048 moves with the broker table (at 2,600
+     8, 16 and 64, K2 with caps, its fold of the pass before and pass 0's
+     amplitude (also at the forced-move round's C = 4096 against K = 256
+     and 2600), and through a chain of eight multi-commit passes (K2, then
+     K8 with the commit) at the slice's and the 2,600-broker shortlist,
+     each pass checked and timed with the rows it still reads, K3 on
+     2,048 moves with the broker table (at 2,600
      brokers also on 10,400) and on 4,096 table-less (self-healing's
      commits), in place into a copy of the cache, its in-kernel arrival
      ranks against arrival_rank, K4 in both commit modes for passes 0 and 3
@@ -44,9 +48,10 @@ Phases:
      [60,000, 4], [600,000, 4] and [600,000, 1], the stats' [B, RES + 3 +
      T] planes, 1 to 33 terms and 1,024 to 32,770 rows (the second
      level's window offsets), and both of its paths at the shapes around
-     the wrapper's choice, and K14 at [200, 4], [200, 8], [2,600, 8],
-     [200, 16], [2,600, 16], [3, 2,048] and rows of 1 to 5,000 with a
-     leading -0.0 (the three bit for bit: int32 views).  Device times
+     the wrapper's choice, and K14, the prefix gate, at [200, k] and
+     [2,600, k] for k = 4, 8, 16 and 0 to 3 terms and at k = 8 with 5
+     (bounds hit exactly, a leading -0.0; K12 and K13 bit for bit: int32
+     views).  Device times
      per call (20 calls captured in a CUDA graph, median of 5 replays timed with CUDA
      events; K3 in place and K5 alone and with `donate`, each on cache
      planes restored before each replay, and each with a copy of the
@@ -75,8 +80,10 @@ Phases:
      and 100 (preferred leader election), the kafka-assigner goal order,
      and the intra-broker goals on config 5's geometry without load skew,
      without and with 4 broken logdirs.  One warm-up and one timed solve
-     each, the kernels' launch counts of each timed solve (every kernel
-     the path reaches must be > 0; the default stack's counts go into the
+     each, the garbage collector's passes inside each timed solve, the
+     kernels' launch counts of
+     each timed solve (every kernel the path reaches must be > 0; the
+     default stack's counts go into the
      kernel JSON, the kafka-assigner solve's for K10 if the stack runs no
      swap round, config 5's for K7), self-healing's rounds and moves, the
      per-goal violated counts, the sanity / no offline replica left /
@@ -85,13 +92,17 @@ Phases:
      logdir above 0.8 of its capacity), and each solve but the first
      again on the port's CPU path: its proposals (logdirs included) and
      final leader flags must equal the card's, and so must its statistics
-     (before, after and each goal's) bit for bit; the default stack once
+     (before, after and each goal's) bit for bit; per solve K2's and
+     K14's launches; the default stack once
      more with the sorts, ordered sums and host syncs inside its
      multi-commit passes counted (there must be none), every call of a
      plain version of K12-K14 or of arrival_rank on a card tensor (there
-     must be none), the host syncs inside the float ordered sums (none)
-     and the tensors K3's wrapper clones and the planes it returns other
-     than the given cache's own (none: it commits in place);
+     must be none), the host syncs inside the float ordered sums (none),
+     the tensors K3's wrapper clones and the planes it returns other
+     than the given cache's own (none: it commits in place) and the torch
+     ops inside assign_destinations, those between the first K2 and the
+     last K8 of a multi-commit call among them (none: a pass is K2 and
+     K8);
   4. scale, 2,600 brokers / 200K partitions / 26 racks / 100 topics: the
      whole default stack (bench.py's "north" preset), the four-goal solve,
      config 5 (52 broken logdirs), the six hard goals with brokers 0,
@@ -411,8 +422,61 @@ def check_row_topk(b: int, s: int, seed: int) -> dict:
     return rec
 
 
+def _assign_pass_inputs(c: int, kk: int, num_b: int, g) -> dict:
+    """K2's inputs on the card: a [C, K] plane (30 % NEG, two tied slots),
+    shortlist ids, arrival counts and caps, the rows' flags, and a
+    previous pass's keep and broker ids to fold."""
+    import torch
+    from cruise_control_tpu_torch.analyzer import kernels as K
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g, device="cuda")
+
+    def ints(hi, n):
+        return torch.randint(0, hi, (n,), generator=g, device="cuda",
+                             dtype=torch.int32)
+    pref = -rand(c, kk)
+    pref = torch.where(rand(c, kk) < 0.3, torch.full((), K.NEG,
+                                                     device="cuda"), pref)
+    pref[:, 5 % kk] = pref[:, 3 % kk]          # planted ties between slots
+    taken = torch.where(rand(num_b) < 0.5, torch.zeros((), device="cuda",
+                                                       dtype=torch.int32),
+                        ints(3, num_b))
+    assigned = rand(c) < 0.2
+    return dict(pref=pref, dest_ids=torch.randperm(
+                    num_b, generator=g, device="cuda")[:kk].to(torch.int32),
+                taken_cnt=taken, cap=1 + ints(3, num_b),
+                cand_has=rand(c) < 0.9, assigned=assigned,
+                dest=ints(num_b, c), keep=(rand(c) < 0.3) & ~assigned,
+                prev_best=ints(num_b, c))
+
+
+def _assign_pass_call(fn, x: dict, k: int, amp):
+    """One K2 call (or its plain version) on copies of the in-place
+    arguments: (best, has, dest, assigned, amp)."""
+    dest, assigned = x["dest"].clone(), x["assigned"].clone()
+    best, has = fn(x["pref"], x["dest_ids"], x["taken_cnt"], x["cap"],
+                   x["cand_has"], k, amp, assigned, dest,
+                   x["keep"] if k else None, x["prev_best"] if k else None)
+    return best, has, dest, assigned, amp
+
+
+def assign_pass_bytes(x: dict, k: int) -> int:
+    """The bytes one K2 pass must move: the rows it still has to read
+    (every row in pass 0), the shortlist's ids, counts and caps, the
+    rows' flags, fold inputs and outputs."""
+    c, kk = x["pref"].shape
+    live = c if k == 0 else int((~(x["assigned"] | x["keep"])).sum())
+    fold = int(x["keep"].sum()) if k else 0
+    return (live * kk * 4 + kk * 12 + c * (1 + 1 + 4 + 1)
+            + fold * (4 + 1) + c * (4 + 1)), live
+
+
 def check_assign_pass(c: int, widths, seed: int) -> dict:
-    """K2 at C x K for each K in `widths`, passes 0 and 3; the record of
+    """K2 at C x K for each K in `widths` (shortlist ids of max(K, 200)
+    brokers, with caps), passes 0 (with the amplitude) and 3 (with the
+    previous pass's fold): best broker, has, the folded dest and assigned
+    and the amplitude against assign_pass_plain, exactly; the record of
     the first width's pass 3."""
     import torch
     from cruise_control_tpu_torch import cuda_kernels
@@ -420,42 +484,85 @@ def check_assign_pass(c: int, widths, seed: int) -> dict:
     g = torch.Generator(device="cuda").manual_seed(seed)
     timed = None
     for kk in widths:
-        pref = -torch.rand((c, kk), generator=g, device="cuda")
-        pref = torch.where(torch.rand((c, kk), generator=g, device="cuda")
-                           < 0.3, torch.full((), K.NEG, device="cuda"), pref)
-        pref[:, 5] = pref[:, 3]          # planted ties between slots
-        dest_open = torch.rand(kk, generator=g, device="cuda") < 0.8
-        assigned = torch.rand(c, generator=g, device="cuda") < 0.2
-        cand_has = torch.rand(c, generator=g, device="cuda") < 0.9
-        finite = pref > K.NEG / 2
-        inf = torch.full((), float("inf"), device="cuda")
-        spread = (torch.max(torch.where(finite, pref, -inf))
-                  - torch.min(torch.where(finite, pref, inf)))
-        amp = 0.35 * spread + 1e-6
+        x = _assign_pass_inputs(c, kk, max(kk, 200), g)
         for k in (0, 3):
-            got = cuda_kernels.assign_pass(pref, dest_open, assigned,
-                                           cand_has, k, amp)
-            want = K.assign_pass_plain(pref, dest_open, assigned, cand_has,
-                                       k, amp)
+            amp0 = torch.full((), 0.35 + 1e-6, device="cuda")
+            got = _assign_pass_call(cuda_kernels.assign_pass, x, k,
+                                    amp0.clone())
+            want = _assign_pass_call(K.assign_pass_plain, x, k, amp0.clone())
             torch.cuda.synchronize()
-            for x, y, what in zip(got, want, ("best_slot", "has")):
-                if not equal_exact(x, y):
+            for a, b, what in zip(got, want, ("best", "has", "dest",
+                                              "assigned", "amp")):
+                if not equal_exact(a, b):
                     raise AssertionError(
                         f"assign_pass C={c} K={kk} pass {k}: {what} "
                         "differs from the plain version")
-            t = (graph_time_ms(lambda: cuda_kernels.assign_pass(
-                     pref, dest_open, assigned, cand_has, k, amp)),
-                 graph_time_ms(lambda: K.assign_pass_plain(
-                     pref, dest_open, assigned, cand_has, k, amp)))
+            args = (x["pref"], x["dest_ids"], x["taken_cnt"], x["cap"],
+                    x["cand_has"], k, amp0, x["assigned"].clone(),
+                    x["dest"].clone(), x["keep"] if k else None,
+                    x["prev_best"] if k else None)
+            t = (graph_time_ms(lambda: cuda_kernels.assign_pass(*args)),
+                 graph_time_ms(lambda: K.assign_pass_plain(*args)))
+            nbytes, live = assign_pass_bytes(x, k)
+            t_b, by = bound(nbytes, live * kk * 2)
             log(f"  assign_pass C={c} K={kk} pass {k}: exact match; device "
-                f"time per call: kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms")
+                f"time per call: kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms; "
+                f"{live} rows read; bound {t_b:.5f} ms ({nbytes} bytes)")
             if timed is None and k == 3:
-                timed = (kk, t)
-    kk, t = timed
-    # pref once, the masks, then per row the slot and the flag
-    t_b, by = bound(c * kk * 4 + kk + c * 2 + c * 5, c * kk * 2)
+                timed = (kk, t, t_b, by)
+    kk, t, t_b, by = timed
     return dict(max_abs_err=0.0, ms=t[0], plain_ms=t[1], bound_ms=t_b,
                 bound_by=by, library_ms=None, shape=f"C={c} K={kk} pass 3")
+
+
+def check_assign_chain(c: int, kk: int, num_b: int, seed: int) -> dict:
+    """K2 on the late passes of a real chain: assign_destinations'
+    multi-commit loop (K2, then K8 with the commit, T = 3 terms, the
+    default cap) on a [C, K] plane, each pass against assign_pass_plain on
+    the same state (exactly) and timed, with the rows it still reads."""
+    import torch
+    from cruise_control_tpu_torch import cuda_kernels
+    from cruise_control_tpu_torch.analyzer import kernels as K
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = _assign_pass_inputs(c, kk, num_b, g)
+    pref, ids, has_c = x["pref"], x["dest_ids"], x["cand_has"]
+    gain = torch.round(torch.rand(c, generator=g, device="cuda") * 8.0)
+    d_w = torch.rand((3, c), generator=g, device="cuda")
+    hr = torch.rand((3, num_b), generator=g, device="cuda") * 40.0
+    cap = torch.full((num_b,), K.MAX_ARRIVALS_PER_ROUND, dtype=torch.int32,
+                     device="cuda")
+    taken = torch.zeros(num_b, dtype=torch.int32, device="cuda")
+    cum = torch.zeros((3, num_b), device="cuda")
+    amp = torch.empty((), device="cuda")
+    assigned = torch.zeros(c, dtype=torch.bool, device="cuda")
+    dest = torch.zeros(c, dtype=torch.int32, device="cuda")
+    keep = best = None
+    passes = {}
+    for k in range(K.MULTI_ASSIGN_PASSES):
+        state = dict(x, taken_cnt=taken.clone(), cap=cap, assigned=assigned,
+                     dest=dest, keep=keep if k else assigned.clone(),
+                     prev_best=best if k else dest.clone())
+        got = _assign_pass_call(cuda_kernels.assign_pass, state, k,
+                                amp.clone())
+        want = _assign_pass_call(K.assign_pass_plain, state, k, amp.clone())
+        torch.cuda.synchronize()
+        if not all(equal_exact(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"assign_pass chain C={c} K={kk} pass {k}: "
+                                 "differs from the plain version")
+        args = (pref, ids, state["taken_cnt"], cap, has_c, k, amp.clone(),
+                assigned.clone(), dest.clone(), keep, best)
+        ms = graph_time_ms(lambda: cuda_kernels.assign_pass(*args))
+        nbytes, live = assign_pass_bytes(state, k)
+        t_b, by = bound(nbytes, live * kk * 2)
+        passes[k] = dict(ms=ms, live_rows=live, bound_ms=t_b, bound_by=by)
+        log(f"  assign_pass chain C={c} K={kk} B={num_b} pass {k}: exact "
+            f"match; {live} of {c} rows read; kernel {ms:.4f} ms; bound "
+            f"{t_b:.5f} ms")
+        best, h = cuda_kernels.assign_pass(pref, ids, taken, cap, has_c, k,
+                                           amp, assigned, dest, keep, best)
+        keep = K.rank_accept_commit(best, gain, h, num_b, taken, cap, cum,
+                                    d_w, hr)
+    return passes
 
 
 def commit_bytes(state, cache, r, dst, valid, rank) -> int:
@@ -1085,13 +1192,15 @@ def lexsort_k8():
 
 def plain_sums():
     """Inside the block the card runs the plain versions of K12-K14 (the
-    column-loop torch ops of the earlier dispatch) in place of the
-    kernels."""
+    column-loop torch ops of the earlier dispatch, and the prefix gate's
+    torch ops) in place of the kernels."""
     from cruise_control_tpu_torch import ops
+    from cruise_control_tpu_torch.analyzer import kernels as K
     plain = {"segment_sum": ops.segment_sum_plain,
              "scatter_add_seq": ops.scatter_add_seq_plain,
-             "sum_f32": ops.sum_f32_plain, "cumsum_f32": ops.cumsum_f32_plain}
-    return _wrapped([(ops, name) for name in plain],
+             "sum_f32": ops.sum_f32_plain, "prefix_gate": K.prefix_gate_plain}
+    return _wrapped([(K if name == "prefix_gate" else ops, name)
+                     for name in plain],
                     lambda fn, name: lambda *a, **kw: plain[name](*a, **kw))
 
 
@@ -1849,41 +1958,85 @@ def check_ordered_sum(seed: int) -> dict:
     return rec
 
 
-def check_cumsum_blocks(seed: int) -> dict:
-    """K14 against ops.cumsum_f32_plain on the card, bit for bit: the
-    round bodies' [B, k] prefix gates at 200 and 2,600 brokers (k = 4 and
-    8), rows of 17, 256 and 2,048 (the block-16 recursion), a row of one
-    (copied) and a leading -0.0 in every row, and the widest prefix gate
-    the card paths can run, k = 16 (analyzer/kernels.py's k0), at 200 and
-    2,600 brokers.  Device time per call beside the plain version and
-    `torch.cumsum`.  The record of [200, 4]."""
+def _gate_case(num_b: int, k: int, n_terms: int, g):
+    """A [B, k] candidate table on quarter steps (sums exact, bounds hit)
+    over R = 300 B replicas, with a leading -0.0, its excess and up to
+    five terms in the round bodies' forms: columns of the [R, 4] load
+    plane against columns of a [B, 4] plane, the count term (weights
+    1.0), a plain [R] vector."""
     import torch
-    from cruise_control_tpu_torch import cuda_kernels, ops
+    dev = "cuda"
+    num_r = 300 * num_b
+    n = num_b * k
+
+    def quarters(hi, *shape):
+        return torch.randint(0, hi, shape, generator=g,
+                             device=dev).float() * 0.25
+    has = torch.rand(n, generator=g, device=dev) < 0.85
+    w = quarters(9, n)
+    w[::k] = -0.0
+    cand = torch.randint(0, num_r, (n,), generator=g, device=dev,
+                         dtype=torch.int32)
+    cand = torch.where(torch.rand(n, generator=g, device=dev) < 0.1,
+                       torch.full_like(cand, -1), cand)
+    excess = quarters(4 * k + 2, num_b)
+    excess[0] = torch.sum(w[:k - 1])            # before == excess
+    loads, room = quarters(9, num_r, 4), quarters(3 * k + 2, num_b, 4)
+    vec, hr = quarters(5, num_r), quarters(3 * k + 2, num_b)
+    terms = [(loads[:, 1], room[:, 2]), (None, hr), (vec, room[:, 0]),
+             (loads[:, 3], room[:, 1]), (loads[:, 0], room[:, 3])]
+    return (has, w, excess, cand), terms[:n_terms]
+
+
+def gate_bytes(num_b: int, k: int, n_terms: int) -> int:
+    """The bytes one gate must move: the table's flags, weights and ids,
+    the excess, each term's k gathered weights a row and its headroom,
+    the flags written."""
+    return num_b * (k * (1 + 4 + 4) + 4 + n_terms * (k * 4 + 4) + k)
+
+
+def check_prefix_gate(seed: int) -> dict:
+    """K14, the prefix gate, against prefix_gate_plain on the card,
+    exactly, at [200, k] and [2,600, k] for k = 4, 8, 16 and T = 0 to 3
+    terms, and the pre-balance's k = 8 with T = 5; device
+    time per call beside the plain version and one `torch.cumsum` launch
+    on the same [B, k] table (the scan alone: no PyTorch call computes the
+    gate).  The record of [200, 8] with T = 3."""
+    import torch
+    from cruise_control_tpu_torch import cuda_kernels
+    from cruise_control_tpu_torch.analyzer import kernels as K
     g = torch.Generator(device="cuda").manual_seed(seed)
     rec = None
-    for rows, n in ((200, 4), (200, 8), (2600, 8), (200, 16), (2600, 16),
-                    (3, 2048), (3, 17), (3, 256), (5, 1), (3, 5000)):
-        x = _signed_values((rows, n), g)
-        x[:, 0] = -0.0
-        got = cuda_kernels.cumsum_blocks(x)
-        want = ops.cumsum_f32_plain(x, 1)
-        torch.cuda.synchronize()
-        if not bits_equal(got, want):
-            raise AssertionError(f"cumsum_blocks [{rows}, {n}]: differs "
-                                 "from the plain version")
-        t = (graph_time_ms(lambda: cuda_kernels.cumsum_blocks(x)),
-             graph_time_ms(lambda: ops.cumsum_f32_plain(x, 1)),
-             graph_time_ms(lambda: torch.cumsum(x, 1)))
-        nbytes = 2 * x.numel() * 4
-        t_b, by = bound(nbytes, x.numel())
-        log(f"  cumsum_blocks [{rows}, {n}]: bit for bit; device time per "
-            f"call: kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms; bound "
-            f"{t_b:.6f} ms ({nbytes} bytes); torch.cumsum {t[2]:.4f} ms")
-        if rec is None:
-            rec = dict(max_abs_err=0.0, ms=t[0], plain_ms=t[1], bound_ms=t_b,
-                       bound_by=by, library_ms=t[2], shape=f"[{rows}, {n}]")
-        rec.setdefault("cases", {})[f"[{rows}, {n}]"] = dict(
-            ms=t[0], plain_ms=t[1], bound_ms=t_b, library_ms=t[2])
+    for num_b in (200, 2600):
+        for k in (8, 4, 16):
+            for n_terms in (3, 0, 1, 2) + ((5,) if k == 8 else ()):
+                args, terms = _gate_case(num_b, k, n_terms, g)
+                got = cuda_kernels.prefix_gate(*args, terms, k)
+                want = K.prefix_gate_plain(*args, terms, k)
+                torch.cuda.synchronize()
+                label = f"[{num_b}, {k}] T={n_terms}"
+                if not equal_exact(got, want):
+                    raise AssertionError(f"prefix_gate {label}: differs from "
+                                         "the plain version")
+                table = args[1].reshape(num_b, k)
+                t = (graph_time_ms(
+                         lambda: cuda_kernels.prefix_gate(*args, terms, k)),
+                     graph_time_ms(
+                         lambda: K.prefix_gate_plain(*args, terms, k)),
+                     graph_time_ms(lambda: torch.cumsum(table, 1)))
+                nbytes = gate_bytes(num_b, k, n_terms)
+                t_b, by = bound(nbytes, 2 * num_b * k * (1 + n_terms))
+                log(f"  prefix_gate {label}: exact match, {int(got.sum())} "
+                    f"of {got.numel()} kept; device time per call: kernel "
+                    f"{t[0]:.4f} ms, plain {t[1]:.4f} ms; bound {t_b:.6f} ms "
+                    f"({nbytes} bytes); one torch.cumsum {t[2]:.4f} ms")
+                case = dict(ms=t[0], plain_ms=t[1], bound_ms=t_b,
+                            cumsum_ms=t[2])
+                if rec is None:
+                    rec = dict(max_abs_err=0.0, ms=t[0], plain_ms=t[1],
+                               bound_ms=t_b, bound_by=by, library_ms=None,
+                               shape=f"gate {label}")
+                rec.setdefault("cases", {})[label] = case
     return rec
 
 
@@ -1936,6 +2089,91 @@ def _wrapped(targets, wrap):
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
+
+
+def _arg(fn, name: str, a, kw):
+    """The argument `name` of the call fn(*a, **kw), bound by name."""
+    import inspect
+    bound = inspect.signature(fn).bind(*a, **kw)
+    bound.apply_defaults()
+    return bound.arguments[name]
+
+
+#: torch ops that launch no device work: views and allocations
+NO_LAUNCH_OPS = ("empty", "empty_strided", "empty_like", "lift_fresh",
+                 "detach", "alias")
+
+
+def torch_op_counter(on_op):
+    """A torch dispatch mode that calls on_op(name) for every torch op
+    inside it that touches a card tensor, views and allocations
+    excepted (the hand kernels' ctypes launches are not torch ops)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten
+
+    class Counter(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = func.overloadpacket.__name__
+            if not (func.is_view or name in NO_LAUNCH_OPS):
+                flat, _ = tree_flatten((args, kwargs or {}, out))
+                if any(isinstance(t, torch.Tensor) and t.is_cuda
+                       for t in flat):
+                    on_op(name)
+            return out
+    return Counter()
+
+
+def assign_torch_ops(fn_solve):
+    """(fn_solve(), counts): the torch ops inside assign_destinations --
+    its calls, the multi-commit ones among them, the torch ops inside all
+    of them, and inside the multi-commit ones those between the first K2
+    launch and the last K8 launch of a call (the passes, which should
+    launch K2 and K8 alone) and after the last (the final fold)."""
+    from cruise_control_tpu_torch import cuda_kernels
+    from cruise_control_tpu_torch.analyzer import kernels as K
+    counts = {"calls": 0, "multi-commit calls": 0, "torch ops": 0,
+              "torch ops in multi-commit passes": 0,
+              "torch ops after the last pass": 0}
+    # per call: multi-commit, K2 seen, ops since the last K8
+    call = {"multi": False, "started": False, "pending": 0}
+
+    def on_op(name):
+        counts["torch ops"] += 1
+        call["pending"] += call["multi"] and call["started"]
+
+    def assign(fn, name):
+        def run(*a, **kw):
+            multi = _arg(fn, "dest_terms", a, kw) is not None
+            counts["calls"] += 1
+            counts["multi-commit calls"] += multi
+            call.update(multi=multi, started=False, pending=0)
+            try:
+                with torch_op_counter(on_op):
+                    return fn(*a, **kw)
+            finally:
+                counts["torch ops after the last pass"] += call["pending"]
+                call.update(multi=False, started=False, pending=0)
+        return run
+
+    def k2(fn, name):
+        def run(*a, **kw):
+            call["started"] = True
+            return fn(*a, **kw)
+        return run
+
+    def k8(fn, name):
+        def run(*a, **kw):
+            out = fn(*a, **kw)
+            counts["torch ops in multi-commit passes"] += call["pending"]
+            call["pending"] = 0
+            return out
+        return run
+    with _wrapped([(K, "assign_destinations")], assign), \
+            _wrapped([(cuda_kernels, "assign_pass")], k2), \
+            _wrapped([(cuda_kernels, "rank_accept")], k8):
+        return fn_solve(), counts
 
 
 def _commit_log(solve: dict, device: str) -> list:
@@ -2004,17 +2242,18 @@ def pass_region_counts(solve: dict) -> dict:
     end of its rank_accept_commit -- and elsewhere; every call of a plain
     version of K12-K14 or of arrival_rank (K3 ranks its arrivals itself)
     on a card tensor; the host syncs made inside a float ops.segment_sum,
-    scatter_add_seq, sum_f32 or cumsum_f32 call; K3's wrapper calls, the
+    scatter_add_seq or sum_f32 call; K3's wrapper calls, the
     tensors cloned (torch clone or empty_like) inside them and the planes
-    they return that are not the given cache's own; and K14's calls by
-    row length (the prefix gates' k).  The wrappers bind their arguments
-    by name.  Raises if a pass sorts, scatters, sums or syncs, if a plain
-    ordered sum or arrival_rank runs on the card or an ordered sum syncs,
-    if K3 never ran, cloned a tensor or returned a plane other than the
-    cache's own, or if the rank_accept_commit calls seen inside the passes
-    are not every K8 launch with the commit (so that the passes were
-    found)."""
-    import inspect
+    they return that are not the given cache's own; K14's calls by entry
+    (a prefix gate's k and terms); and the torch ops
+    inside assign_destinations (`assign_torch_ops`).  The wrappers bind
+    their arguments by name.  Raises if a pass sorts, scatters, sums or
+    syncs, if a multi-commit pass launches a torch op between its first K2
+    and its last K8, if a plain ordered sum or arrival_rank runs on the
+    card or an ordered sum syncs, if K3 never ran, cloned a tensor or
+    returned a plane other than the cache's own, or if the
+    rank_accept_commit calls seen inside the passes are not every K8
+    launch with the commit (so that the passes were found)."""
     import torch
     import warnings
     from cruise_control_tpu_torch import cuda_kernels, ops
@@ -2032,7 +2271,7 @@ def pass_region_counts(solve: dict) -> dict:
     counts["K3 cache-plane copies"] = 0
     counts["K3 planes not the cache's own"] = 0
     in_k3 = [False]
-    k14 = counts.setdefault("K14 calls by row length", {})
+    k14 = counts.setdefault("K14 gates by k and terms", {})
     counts["float ordered sums"] = 0
     counts["syncs inside float ordered sums"] = 0
     in_sum = [0]
@@ -2041,10 +2280,6 @@ def pass_region_counts(solve: dict) -> dict:
         return ("in passes" if region["assign"] or region["tail"]
                 else "elsewhere")
 
-    def arg(fn, name, a, kw):
-        bound = inspect.signature(fn).bind(*a, **kw)
-        bound.apply_defaults()
-        return bound.arguments[name]
 
     def counted(fn, name):
         def call(*a, **kw):
@@ -2073,7 +2308,7 @@ def pass_region_counts(solve: dict) -> dict:
 
     def assign(fn, name):
         def call(*a, **kw):
-            multi = arg(fn, "dest_terms", a, kw) is not None
+            multi = _arg(fn, "dest_terms", a, kw) is not None
             region["assign"] += multi
             try:
                 return fn(*a, **kw)
@@ -2083,7 +2318,7 @@ def pass_region_counts(solve: dict) -> dict:
 
     def tail_open(fn, name):
         def call(*a, **kw):
-            if arg(fn, "multi", a, kw):
+            if _arg(fn, "multi", a, kw):
                 region["tail"] = True
             return fn(*a, **kw)
         return call
@@ -2100,14 +2335,14 @@ def pass_region_counts(solve: dict) -> dict:
     def k8(fn, name):
         def call(*a, **kw):
             counts["K8 launches with the commit"] += bool(
-                arg(fn, "commit", a, kw))
+                _arg(fn, "commit", a, kw))
             return fn(*a, **kw)
         return call
 
     def k3(fn, name):
         def call(*a, **kw):
             counts["K3 calls"] += 1
-            cache = arg(fn, "cache", a, kw)
+            cache = _arg(fn, "cache", a, kw)
             own = {f: getattr(cache, f).data_ptr()
                    for f in cuda_kernels.commit_fields(cache)}
             in_k3[0] = True
@@ -2126,11 +2361,12 @@ def pass_region_counts(solve: dict) -> dict:
             return fn(*a, **kw)
         return call
 
-    def k14_width(fn, name):
-        def call(x, *a, **kw):
-            k = int(x.shape[-1])
+    def k14_gate(fn, name):
+        def call(*a, **kw):
+            k = (f"gate k={_arg(fn, 'k', a, kw)} "
+                 f"T={len(_arg(fn, 'terms', a, kw))}")
             k14[k] = k14.get(k, 0) + 1
-            return fn(x, *a, **kw)
+            return fn(*a, **kw)
         return call
 
     def on_warning(message, *a, **kw):
@@ -2139,13 +2375,13 @@ def pass_region_counts(solve: dict) -> dict:
             counts["syncs inside float ordered sums"] += bool(in_sum[0])
     with _wrapped([(torch, "sort")], counted), \
             _wrapped([(ops, "scatter_add_seq"), (ops, "segment_sum"),
-                      (ops, "sum_f32"), (ops, "cumsum_f32")], ordered), \
+                      (ops, "sum_f32")], ordered), \
             _wrapped([(ops, name) for name in PLAIN_SUMS]
                      + [(C, "arrival_rank")], plain), \
             _wrapped([(cuda_kernels, "commit_moves")], k3), \
             _wrapped([(torch.Tensor, "clone"), (torch, "clone"),
                       (torch, "empty_like")], k3_copy), \
-            _wrapped([(cuda_kernels, "cumsum_blocks")], k14_width), \
+            _wrapped([(cuda_kernels, "prefix_gate")], k14_gate), \
             _wrapped([(K, "assign_destinations")], assign), \
             _wrapped([(K, "leader_assign_pass")], tail_open), \
             _wrapped([(K, "rank_accept_commit")], tail_close), \
@@ -2155,10 +2391,14 @@ def pass_region_counts(solve: dict) -> dict:
         warnings.showwarning = on_warning
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            _solve(solve, "cuda")
+            _, torch_ops = assign_torch_ops(lambda: _solve(solve, "cuda"))
         finally:
             torch.cuda.set_sync_debug_mode("default")
+    counts["torch ops in assign_destinations"] = torch_ops
     log(f"    calls inside and outside the multi-commit passes: {counts}")
+    if torch_ops["torch ops in multi-commit passes"]:
+        raise AssertionError(f"the multi-commit passes launch torch ops "
+                             f"between K2 and K8: {torch_ops}")
     bad = {k: v for k, v in counts.items() if k.endswith("in passes")
            and v and not k.startswith("rank_accept_commit")}
     if bad:
@@ -2239,21 +2479,49 @@ def _gates(state, topo, result) -> None:
     log("    no goal self-regression: ok")
 
 
+@contextlib.contextmanager
+def collector_passes():
+    """Python's garbage-collector passes inside the block, which pause the
+    host: a list of (seconds, generation), one entry as each pass ends."""
+    passes, start = [], [0.0]
+
+    def on_gc(phase, info):
+        if phase == "start":
+            start[0] = time.perf_counter()
+        else:
+            passes.append((time.perf_counter() - start[0],
+                           info["generation"]))
+
+    gc.callbacks.append(on_gc)
+    try:
+        yield passes
+    finally:
+        gc.callbacks.remove(on_gc)
+
+
 def _timed_path(solve: dict, kernels, label: str, warm: bool = True):
     """One warm-up (unless `warm` is False) and one timed card solve; the
     launches of the timed solve (counts set to 0 just before it, read just
-    after), each of `kernels` > 0."""
+    after), each of `kernels` > 0, and the garbage-collector passes inside
+    it."""
     from cruise_control_tpu_torch import cuda_kernels
     if warm:
         _, _, _, warm_s = _solve(solve, "cuda")
         log(f"  {label}: warm-up solve {warm_s:.3f} s")
     cuda_kernels.reset_launches()
-    (state, topo, result, secs), sweeps = _sweep_rounds(
-        lambda: _solve(solve, "cuda"))
+    with collector_passes() as gc_passes:
+        (state, topo, result, secs), sweeps = _sweep_rounds(
+            lambda: _solve(solve, "cuda"))
     launches = dict(cuda_kernels.LAUNCHES)
     four = solve["goals"] == FOUR_GOALS
     _report(f"{label} on the card", result, secs, sweeps if four else None)
+    log(f"    garbage collector in the timed solve: {len(gc_passes)} passes, "
+        f"{sum(t for t, _ in gc_passes) * 1e3:.1f} ms; generation 2: "
+        f"{sum(1 for _, g in gc_passes if g == 2)} passes, "
+        f"{sum(t for t, g in gc_passes if g == 2) * 1e3:.1f} ms")
     log(f"    kernel launches in the timed solve {launches}")
+    log(f"    K2 launches {launches['assign_pass']}; K14 launches (prefix "
+        f"gates) {launches['cumsum_blocks']}")
     for name in kernels:
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched by the "
@@ -2454,8 +2722,9 @@ def profile_slice(solve: dict, device: str = "cuda",
     # label the port's hot functions so the trace attributes host and
     # device time to them (restored afterwards)
     targets = [(ops, "segment_sum"), (ops, "scatter_add_seq"),
-               (ops, "cumsum_f32"), (ops, "sum_f32"),
-               (K, "row_topk"), (K, "assign_pass"), (K, "rank_accept"),
+               (ops, "sum_f32"),
+               (K, "row_topk"), (K, "assign_pass"), (K, "prefix_gate"),
+               (K, "rank_accept"),
                (K, "rank_accept_commit"),
                (K, "resolve_dest_conflicts"), (K, "assign_destinations"),
                (K, "move_round"), (K, "swap_round"),
@@ -2482,26 +2751,13 @@ def profile_slice(solve: dict, device: str = "cuda",
                 return fn(*a, **kw)
         return labelled
 
-    # Python's garbage collector pauses the host: time each pass
-    gc_passes, gc_start = [], [0.0]
-
-    def on_gc(phase, info):
-        if phase == "start":
-            gc_start[0] = time.perf_counter()
-        else:
-            gc_passes.append((time.perf_counter() - gc_start[0],
-                              info["generation"]))
-
-    gc.callbacks.append(on_gc)
-    try:
-        with (lexsort_k8() if lexsort_dispatch
-              else contextlib.nullcontext()), \
-                _wrapped(targets, wrap), profile(
-                    activities=[ProfilerActivity.CPU,
-                                ProfilerActivity.CUDA]) as prof:
-            _, _, _, secs = _solve(solve, device)
-    finally:
-        gc.callbacks.remove(on_gc)
+    with collector_passes() as gc_passes, \
+            (lexsort_k8() if lexsort_dispatch
+             else contextlib.nullcontext()), \
+            _wrapped(targets, wrap), profile(
+                activities=[ProfilerActivity.CPU,
+                            ProfilerActivity.CUDA]) as prof:
+        _, _, _, secs = _solve(solve, device)
     kernels, labels = [], []
     for evt in prof.key_averages():
         if evt.key.startswith("port::") and evt.device_type == DeviceType.CUDA:
@@ -2615,6 +2871,10 @@ def main(argv=None) -> int:
             "slice's shapes")
         results["row_topk"] = check_row_topk(200, 1152, seed=11)
         results["assign_pass"] = check_assign_pass(2048, (256, 200), seed=12)
+        log("[2] K2 through a chain of multi-commit passes (K2, K8 with the "
+            "commit), each pass against its plain version")
+        results["_assign_chain"] = check_assign_chain(2048, 200, 200,
+                                                      seed=18)
         results["commit_moves"] = check_commit_moves(
             SLICE_SPEC, seed=13, shapes=((2048, 64, True),
                                          (4096, 64, False)))
@@ -2641,6 +2901,8 @@ def main(argv=None) -> int:
             "escalated width K = B, K4 also at C = R)")
         check_row_topk(2600, 1024, seed=21)
         check_assign_pass(2048, (2600,), seed=22)
+        results["_assign_chain_north"] = check_assign_chain(2048, 256, 2600,
+                                                            seed=29)
         results["_commit_moves_north"] = check_commit_moves(
             NORTH_SPEC, seed=23, shapes=((2048, 64, True),
                                          (10_400, 2600, True),
@@ -2659,7 +2921,7 @@ def main(argv=None) -> int:
             "2,600-broker shapes and their edge cases")
         results["segment_sum"] = check_segment_sum(seed=41)
         results["ordered_sum"] = check_ordered_sum(seed=42)
-        results["cumsum_blocks"] = check_cumsum_blocks(seed=43)
+        results["cumsum_blocks"] = check_prefix_gate(seed=44)
         log("[2] K12 and K13's device launches a call (torch.profiler), "
             "after every timing")
         take_launch_counts()
@@ -2754,6 +3016,8 @@ def main(argv=None) -> int:
         "forced_select_k_equals_r": results.get("_forced_select_small"),
         "rank_accept_breakdown": results.get("_rank_accept_breakdown"),
         "assign_pass_C4096": results.get("_assign_pass_4096"),
+        "assign_pass_chain": results.get("_assign_chain"),
+        "assign_pass_chain_north": results.get("_assign_chain_north"),
         "swap_pair_north": results.get("_swap_pair_north"),
         "dest_feasibility_north": results.get("_dest_feasibility_north"),
         "dest_feasibility_guard": results.get("dest_feasibility", {}).get(

@@ -9,7 +9,8 @@ functions are hand-written CUDA kernels on the card:
 * K1 `row_topk` (csrc/row_topk.cu) behind `rows_pick_topk` /
   `rows_pick_best`;
 * K2 `assign_pass` (csrc/assign_pass.cu), one pass of
-  `assign_destinations`;
+  `assign_destinations` with its open mask, broker ids, the fold of the
+  pass before it and, in pass 0, the jitter amplitude;
 * K7 `forced_select` (csrc/forced_select.cu), the candidate selection of
   a table-less `forced_move_round`;
 * K8 `rank_accept` (csrc/rank_accept.cu), the multi-commit acceptance of
@@ -21,13 +22,16 @@ functions are hand-written CUDA kernels on the card:
 * K10 `swap_pair` (csrc/swap_pair.cu), the swap round's pair plane;
 * K11 `dest_feasibility` (csrc/dest_feasibility.cu), the structural terms
   of `_dest_feasibility` and the guard of `cand_has_dest` /
-  `feasible_dest_exists`.
+  `feasible_dest_exists`;
+* K14 `cumsum_blocks` (csrc/cumsum_blocks.cu), the source-side prefix
+  gate of the move, leadership and pre-balance rounds (`prefix_gate`).
 
 Their plain versions (`row_topk_plain`, `assign_pass_plain`,
 `forced_select_plain`, `rank_accept_plain`, `rank_accept_commit_plain`,
 `per_segment_argmax_plain`, `swap_pair_plain`, `dest_struct_plain`,
-`dest_has_plain`) live here; a CPU tensor runs them.  The reference's
-`lax.cond` branches are host `if`s on a 0-d tensor (one sync each).
+`dest_has_plain`, `prefix_gate_plain`) live here; a CPU tensor runs
+them.  The reference's `lax.cond` branches are host `if`s on a 0-d
+tensor (one sync each).
 """
 from __future__ import annotations
 
@@ -440,6 +444,49 @@ def shed_score(w: torch.Tensor, excess_r: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# K14: the source-side prefix gate of a [B, k] candidate table
+# ---------------------------------------------------------------------------
+
+def prefix_gate_plain(has, w, excess, cand, terms, k: int) -> torch.Tensor:
+    """Plain version of K14: bool[B*k], the pessimistic source-side
+    prefix gate over each broker's rank-ordered row of k candidates (the
+    reference's round bodies, `jnp.cumsum` in XLA:CPU's order).  First
+    `wm = has ? w : 0` and `has &= scan(wm) - wm < excess[b]`; then for
+    each term (t_w, t_hr) in order `tw = has ? t_w[max(cand, 0)] : 0`
+    (t_w None: weight 1.0) and `has &= (j == 0) | (scan(tw) <=
+    t_hr[b])`, each term on the `has` the one before left.
+    `w` f32[B*k] per candidate, `cand` the candidate replica ids (-1 for
+    none), `t_w` f32[R], `excess` and `t_hr` f32[B]."""
+    num_b = excess.shape[0]
+    zero = torch.zeros((), device=w.device)
+    wm = torch.where(has, w, zero).reshape(num_b, k)
+    before = ops.cumsum_f32_plain(wm, 1) - wm
+    has = has & (before < excess[:, None]).reshape(-1)
+    rank = _arange(k, w.device)[None, :]
+    safe = torch.clamp_min(cand, 0).long()
+    one = torch.ones((), device=w.device)
+    for t_w, t_hr in terms:
+        tw = torch.where(has, one if t_w is None else t_w[safe],
+                         zero).reshape(num_b, k)
+        incl = ops.cumsum_f32_plain(tw, 1)
+        has = has & ((rank == 0) | (incl <= t_hr[:, None])).reshape(-1)
+    return has
+
+
+def prefix_gate(has, w, excess, cand, terms, k: int) -> torch.Tensor:
+    """K14 dispatch (see `prefix_gate_plain`): the plain version on the
+    CPU, one launch of csrc/cumsum_blocks.cu on the card."""
+    from cruise_control_tpu_torch import cuda_kernels
+    terms = list(terms)
+    cuda_kernels.check_gate(k, len(terms))
+    if not w.is_cuda:
+        return prefix_gate_plain(has, w, excess, cand, terms, k)
+    return cuda_kernels.prefix_gate(has.contiguous(), w.contiguous(), excess,
+                                    cand.to(torch.int32).contiguous(), terms,
+                                    k)
+
+
+# ---------------------------------------------------------------------------
 # Move round
 # ---------------------------------------------------------------------------
 
@@ -476,17 +523,8 @@ def move_round(state: ClusterState, w, src_ok, src_excess, movable, dest_ok,
         if kk > 1:
             # cumulative-excess gate, prefix-pessimistic (rank 0 free for
             # the source-side terms)
-            w_bk = torch.where(cand_has, cand_w, zero).reshape(num_b, kk)
-            cum_before = ops.cumsum_f32(w_bk, 1) - w_bk
-            cand_has &= (cum_before < src_excess[:, None]).reshape(-1)
-            if multi:
-                rank = _arange(kk, dev)[None, :]
-                for t_w, t_hr in (src_terms or ()):
-                    tw_bk = torch.where(cand_has, t_w[cand_r_safe],
-                                        zero).reshape(num_b, kk)
-                    cum_incl = ops.cumsum_f32(tw_bk, 1)
-                    ok = (rank == 0) | (cum_incl <= t_hr[:, None])
-                    cand_has &= ok.reshape(-1)
+            cand_has = prefix_gate(cand_has, cand_w, src_excess, cand_r,
+                                   (src_terms or ()) if multi else (), kk)
 
         # starvation escalation, thin-progress form
         struct_any = torch.any(sc_rows > NEG / 2, 1)
@@ -686,33 +724,68 @@ def rotation_salt(leader_count: torch.Tensor,
     return _wrap_i32(as_int + _wrap_i32(int_mix).to(torch.int64))
 
 
-def assign_pass_plain(pref, dest_open, assigned, cand_has, k: int, amp):
-    """Plain version of K2: one pass of assign_destinations — per
-    candidate row, the first-max slot of the (jittered, for k > 0)
-    preference over open destinations, and whether it is usable.
-    Returns (best_slot i32[C], has bool[C])."""
+def assign_amp(pref) -> torch.Tensor:
+    """f32 0-d jitter amplitude of an assignment: 0.35 times the spread of
+    the finite (> NEG / 2) preferences, 0 when there is none or the spread
+    is not finite, plus 1e-6, rounded once (one FMA, as the reference's
+    compiled program contracts it)."""
+    dev = pref.device
+    finite = pref > NEG / 2
+    inf = torch.full((), float("inf"), device=dev)
+    pmax = torch.max(torch.where(finite, pref, -inf))
+    pmin = torch.min(torch.where(finite, pref, inf))
+    spread = torch.where(torch.isfinite(pmax - pmin), pmax - pmin,
+                         torch.zeros((), device=dev))
+    return ops.fma_f32(torch.full((), 0.35, device=dev), spread,
+                       torch.full((), 1e-6, device=dev))
+
+
+def assign_pass_plain(pref, dest_ids, taken_cnt, cap, cand_has, k: int, amp,
+                      assigned, dest, keep=None, prev_best=None):
+    """Plain version of K2: one pass of assign_destinations.  First the
+    previous pass's fold: where `keep`, dest = prev_best and assigned =
+    True (`dest` and `assigned` are updated in place).  Pass 0 writes
+    the jitter amplitude (assign_amp) into the 0-d `amp`; later passes
+    read it.  Then, per candidate row, the first-max slot of the
+    (jittered for k > 0: fma(amp, jitter, pref), one rounding, as the
+    reference's compiled pass) preference over the open destination
+    slots -- slot j is open while taken_cnt[dest_ids[j]] <
+    cap[dest_ids[j]] (cap None: 1, one arrival a destination) -- for rows
+    not yet assigned.
+    Returns (best i32[C], the broker id dest_ids[slot]; has bool[C],
+    whether the row has a usable slot)."""
     c, kk = pref.shape
+    if keep is not None:
+        dest.copy_(torch.where(keep, prev_best, dest))
+        assigned |= keep
+    if k == 0:
+        amp.copy_(assign_amp(pref))
+    ids = dest_ids.long()
+    dest_open = taken_cnt[ids] < (cap[ids] if cap is not None else 1)
     neg = torch.full((), NEG, dtype=pref.dtype, device=pref.device)
     if k == 0:
         pass_pref = pref
     else:
         finite = pref > NEG / 2
         jit = _pairwise_jitter(c, kk, salt=k, device=pref.device)
-        pass_pref = torch.where(finite, pref + amp * jit, neg)
+        pass_pref = torch.where(finite, ops.fma_f32(amp, jit, pref), neg)
     open_pref = torch.where(dest_open[None, :], pass_pref, neg)
     open_pref = torch.where(assigned[:, None], neg, open_pref)
     mx, best_slot = torch.max(open_pref, 1)
-    return best_slot.to(torch.int32), cand_has & (mx > NEG / 2)
+    return (dest_ids[best_slot].to(torch.int32),
+            cand_has & (mx > NEG / 2))
 
 
-def assign_pass(pref, dest_open, assigned, cand_has, k: int, amp):
-    """K2 dispatch: the plain version on the CPU, csrc/assign_pass.cu on
-    the card."""
+def assign_pass(pref, dest_ids, taken_cnt, cap, cand_has, k: int, amp,
+                assigned, dest, keep=None, prev_best=None):
+    """K2 dispatch (see `assign_pass_plain`): the plain version on the
+    CPU, one launch of csrc/assign_pass.cu on the card."""
     if not pref.is_cuda:
-        return assign_pass_plain(pref, dest_open, assigned, cand_has, k, amp)
+        return assign_pass_plain(pref, dest_ids, taken_cnt, cap, cand_has,
+                                 k, amp, assigned, dest, keep, prev_best)
     from cruise_control_tpu_torch import cuda_kernels
-    return cuda_kernels.assign_pass(pref, dest_open, assigned, cand_has, k,
-                                    amp)
+    return cuda_kernels.assign_pass(pref, dest_ids, taken_cnt, cap, cand_has,
+                                    k, amp, assigned, dest, keep, prev_best)
 
 
 def _stack_rows(rows, n: int, dev) -> torch.Tensor:
@@ -728,24 +801,21 @@ def assign_destinations(pref, gain, cand_has, num_b: int, dest_ids=None,
     (pass 0 un-jittered, later passes jittered per pass).  Single-commit
     (`dest_terms` None): one arrival per destination per round.
     Multi-commit: each destination accepts a gain-ranked prefix
-    (rank_accept).  Returns (dest i32[C], valid bool[C])."""
+    (rank_accept).  A multi-commit pass is K2 (which folds the pass
+    before it into `dest` and `assigned`, builds the open mask and, in
+    pass 0, the jitter amplitude) and K8 (acceptance and commit), with
+    nothing between them.  Returns (dest i32[C], valid bool[C])."""
     c, kk = pref.shape
     dev = pref.device
     if dest_ids is None:
-        dest_ids = _arange(kk, dev)
-    dest_ids = dest_ids.long()
+        dest_ids = torch.arange(kk, dtype=torch.int32, device=dev)
+    dest_ids = dest_ids.to(torch.int32)
     multi = dest_terms is not None
-    finite = pref > NEG / 2
-    inf = torch.full((), float("inf"), device=dev)
-    pmax = torch.max(torch.where(finite, pref, -inf))
-    pmin = torch.min(torch.where(finite, pref, inf))
-    spread = torch.where(torch.isfinite(pmax - pmin), pmax - pmin,
-                         torch.zeros((), device=dev))
-    amp = 0.35 * spread + 1e-6
-
+    amp = torch.empty((), device=dev)
     taken_cnt = torch.zeros(num_b, dtype=torch.int32, device=dev)
     assigned = torch.zeros(c, dtype=torch.bool, device=dev)
     dest = torch.zeros(c, dtype=torch.int32, device=dev)
+    cap_b = None
     if multi:
         cap_b = (dest_cap if dest_cap is not None
                  else torch.full((num_b,), MAX_ARRIVALS_PER_ROUND,
@@ -755,14 +825,10 @@ def assign_destinations(pref, gain, cand_has, num_b: int, dest_ids=None,
         cum = torch.zeros((len(dest_terms), num_b), device=dev)
         d_w = _stack_rows([w_c for w_c, _ in dest_terms], c, dev)
         hr = _stack_rows([hr_d for _, hr_d in dest_terms], num_b, dev)
+    keep = best = None
     for k in range(MULTI_ASSIGN_PASSES if multi else ASSIGN_PASSES):
-        if not multi:
-            open_d = taken_cnt[dest_ids] == 0
-        else:
-            open_d = taken_cnt[dest_ids] < cap_b[dest_ids]
-        best_slot, has = assign_pass(pref, open_d, assigned, cand_has, k,
-                                     amp)
-        best = dest_ids[best_slot.long()].to(torch.int32)
+        best, has = assign_pass(pref, dest_ids, taken_cnt, cap_b, cand_has,
+                                k, amp, assigned, dest, keep, best)
         if multi:
             keep = rank_accept_commit(best, gain, has, num_b, taken_cnt,
                                       cap_b, cum, d_w, hr)
@@ -771,9 +837,8 @@ def assign_destinations(pref, gain, cand_has, num_b: int, dest_ids=None,
             kept_d = torch.where(keep, best, torch.full_like(best, num_b))
             taken_cnt = taken_cnt + ops.segment_sum(
                 torch.ones_like(kept_d), kept_d, num_b)
-        dest = torch.where(keep, best, dest)
-        assigned = assigned | keep
-    return dest, assigned
+    # the last pass's fold
+    return torch.where(keep, best, dest), assigned | keep
 
 
 # ---------------------------------------------------------------------------
@@ -1097,7 +1162,8 @@ def leader_assign_pass_plain(pref, sib_broker, sib_replica, src_broker,
                              k: int, amp, multi: bool):
     """Plain version of K4: one pass of leadership_round's follower
     assignment.  Per candidate leader row c, the first-max follower slot
-    of the (jittered, for k > 0) preference over the open options —
+    of the (jittered for k > 0: fma(amp, jitter, pref), one rounding)
+    preference over the open options —
     multi-commit: the option's broker has taken fewer than
     MAX_ARRIVALS_PER_ROUND arrivals; single-commit: the option's broker
     took none and the row's source broker handed off none — masked for
@@ -1110,7 +1176,8 @@ def leader_assign_pass_plain(pref, sib_broker, sib_replica, src_broker,
         pass_pref = pref
     else:
         jit = _pairwise_jitter(c, rf, salt=k, device=dev)
-        pass_pref = torch.where(pref > NEG / 2, pref + amp * jit, neg)
+        pass_pref = torch.where(pref > NEG / 2, ops.fma_f32(amp, jit, pref),
+                                neg)
     taken_b = taken_cnt[sib_broker.long()]
     if multi:
         open_pref = torch.where(taken_b < MAX_ARRIVALS_PER_ROUND, pass_pref,
@@ -1199,13 +1266,7 @@ def leadership_round(state: ClusterState, bonus_w, src_excess, movable,
         dep_cnt = torch.zeros(num_b, dtype=torch.int32, device=dev)
         assigned = torch.zeros(c, dtype=torch.bool, device=dev)
         dest_replica = torch.zeros(c, dtype=torch.int32, device=dev)
-        finite = pref_c > NEG / 2
-        inf = torch.full((), float("inf"), device=dev)
-        pmax = torch.max(torch.where(finite, pref_c, -inf))
-        pmin = torch.min(torch.where(finite, pref_c, inf))
-        spread = torch.where(torch.isfinite(pmax - pmin), pmax - pmin,
-                             torch.zeros((), device=dev))
-        amp = 0.35 * spread + 1e-6
+        amp = assign_amp(pref_c)
         sib_b32 = sib_broker_c.to(torch.int32).contiguous()
         sib_r32 = sib_c.to(torch.int32).contiguous()
         src32 = src_of_cand.to(torch.int32)
@@ -1252,23 +1313,11 @@ def leadership_round(state: ClusterState, bonus_w, src_excess, movable,
         cand_r, cand_has, _, _ = row_topk(bonus_rows, cache.broker_table, k0)
         cand_r_safe = torch.clamp_min(cand_r, 0).long()
         cand_bonus_b = bonus_w[cand_r_safe]
-        zero = torch.zeros((), device=dev)
         if multi and k0 > 1:
             # source-side strict bounds, prefix-gated over each broker's
             # rank-ordered candidates (rank 0 free)
-            w_bk = torch.where(cand_has, cand_bonus_b, zero).reshape(num_b,
-                                                                     k0)
-            cum_before = ops.cumsum_f32(w_bk, 1) - w_bk
-            cand_has = cand_has & (cum_before
-                                   < src_excess[:, None]).reshape(-1)
-            rank = _arange(k0, dev)[None, :]
-            for t_w, t_hr in (src_terms or ()):
-                tw_bk = torch.where(cand_has, t_w[cand_r_safe],
-                                    zero).reshape(num_b, k0)
-                cum_incl = ops.cumsum_f32(tw_bk, 1)
-                cand_has = cand_has & ((rank == 0)
-                                       | (cum_incl <= t_hr[:, None])
-                                       ).reshape(-1)
+            cand_has = prefix_gate(cand_has, cand_bonus_b, src_excess,
+                                   cand_r, src_terms or (), k0)
         c_full = cand_r.shape[0]
         sel = None
         if c_full > CAND_COMPACT:

@@ -66,7 +66,6 @@ def prebalance(state: ClusterState, ctx: OptimizationContext,
     dev = state.device
     active = torch.tensor(active_resources, device=dev)
     inf = torch.full((), float("inf"), device=dev)
-    zero = torch.zeros((), device=dev)
 
     def round_body(st: ClusterState, cache: RoundCache):
         cap = torch.clamp_min(st.broker_capacity, 1e-9)
@@ -104,23 +103,14 @@ def prebalance(state: ClusterState, ctx: OptimizationContext,
             [load_c, torch.ones((load_c.shape[0], 1), device=dev)], 1)
         cand_w = torch.gather(load_c_ext, 1, prim_c[:, None])[:, 0]
 
-        # --- source-side prefix gating (pessimistic) ---
-        w_bk = torch.where(cand_has, cand_w, zero).reshape(num_b, kk)
-        from cruise_control_tpu_torch.ops import cumsum_f32
-        cum_before = cumsum_f32(w_bk, 1) - w_bk
-        cand_has = cand_has & (cum_before < excess_b[:, None]).reshape(-1)
-        rank = torch.arange(kk, device=dev)[None, :]
-        for res in range(res_ax):
-            lr = torch.where(cand_has, load_c[:, res], zero).reshape(num_b,
-                                                                     kk)
-            cum_incl = cumsum_f32(lr, 1)
-            ok = (rank == 0) | (cum_incl <= (W - lower)[:, res][:, None])
-            cand_has = cand_has & ok.reshape(-1)
-        cnt_incl = cumsum_f32(
-            torch.where(cand_has, torch.ones((), device=dev),
-                        zero).reshape(num_b, kk), 1)
-        ok_cnt = (rank == 0) | (cnt_incl <= (counts - c_lower)[:, None])
-        cand_has = cand_has & ok_cnt.reshape(-1)
+        # --- source-side prefix gating (pessimistic): the primary excess,
+        # every resource's lower-band floor, then the count floor (weights
+        # 1.0) ---
+        room = W - lower
+        cand_has = kernels.prefix_gate(
+            cand_has, cand_w, excess_b, cand_r,
+            [(cache.replica_load[:, res], room[:, res])
+             for res in range(res_ax)] + [(None, counts - c_lower)], kk)
 
         # --- destination side ---
         dest_ok = new_broker_dest_mask(st, ctx.broker_dest_ok

@@ -5,16 +5,17 @@
 // _pairwise_jitter (cruise_control_tpu/analyzer/kernels.py): per candidate
 // leader row c over its RF follower options j,
 //     pass_pref[c, j] = pref[c, j]                          (pass 0)
-//                     = pref[c, j] + amp * jitter(c, j, k)  (pass k > 0,
-//                                                            finite pref)
+//                     = fma(amp, jitter(c, j, k), pref[c, j])
+//                                               (pass k > 0, finite pref)
 // masked to NEG where the option is closed --
 //   multi-commit:  taken_cnt[sib_broker[c, j]] >= max_arrivals;
 //   single-commit: taken_cnt[sib_broker[c, j]] > 0 or
 //                  dep_cnt[src_broker[c]] > 0 --
 // and for rows already assigned.  Outputs the first-max slot, its broker
 // and replica, and has = cand_has[c] & (max > NEG/2); a row with no open
-// option gives slot 0.  The product and the sum are rounded separately
-// (__fmul_rn/__fadd_rn), as the reference rounds them.
+// option gives slot 0.  The jittered preference is one FMA (__fmaf_rn),
+// rounded once, as the reference's compiled program contracts it
+// (XLA:CPU; the plain version rounds it so with ops.fma_f32).
 //
 // Bound: memory.  Per row RF preferences, RF broker and replica ids and RF
 // counter gathers (RF = 3: ~40 bytes a row); one thread per row keeps the
@@ -60,7 +61,7 @@ __global__ void leader_assign_kernel(
     float pv = v;
     if (k > 0) {
       pv = (v > kNegHalf)
-               ? __fadd_rn(v, __fmul_rn(amp, pairwise_jitter(c, j, k)))
+               ? __fmaf_rn(amp, pairwise_jitter(c, j, k), v)
                : kNeg;
     }
     const int taken = taken_cnt[sib_broker[base + j]];

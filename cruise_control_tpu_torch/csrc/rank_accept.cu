@@ -28,9 +28,10 @@
 //   fits      = AND over the T terms of
 //                 (cum[t][segc] + within_before) + w_s <= hr[t][segc],
 //               w_s = seg_s < B ? d_w[t][o] : 0 over the whole sorted row,
-//               cs = inclusive cumsum of w_s in XLA:CPU's order (ops.
-//               cumsum_f32: sequential within blocks of 16, the zero-padded
-//               block totals scanned by the same rule recursively, each
+//               cs = inclusive cumsum of w_s in XLA:CPU's order
+//               (ops.cumsum_f32_plain: sequential within blocks of 16, the
+//               zero-padded block totals scanned by the same rule
+//               recursively, each
 //               block's exclusive carry added to its sums), excl = cs - w_s,
 //               within_before = excl - excl[start]
 //   ok       &= first_free || fits

@@ -66,8 +66,13 @@ ORDERED_MAX_COLUMN_TILES = 4096
 #: the spread path's counter sets on a device: one for each stream that
 #: launches it
 ORDERED_COUNTER_SLOTS = 72
-#: K14's longest row (the levels above a row live in shared memory)
-CUMSUM_MAX = 131_072
+#: K14's gate: the most candidates a row and terms (csrc/cumsum_blocks.cu
+#: kGroup, kMaxTerms)
+GATE_MAX_K = 16
+GATE_MAX_TERMS = 16
+#: K2's widest shortlist (its broker ids and open mask live in shared
+#: memory)
+ASSIGN_MAX_K = 46_000
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -140,8 +145,8 @@ def build() -> ctypes.CDLL:
             os.replace(tmp, so)
         lib = ctypes.CDLL(str(so))
         lib.cc_row_topk.argtypes = [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P]
-        lib.cc_assign_pass.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P, _P,
-                                       _P, _P]
+        lib.cc_assign_pass.argtypes = [_P, _I, _I] + [_P] * 4 + [
+            _I] + [_P] * 7 + [_I, _P]
         lib.cc_commit_moves.argtypes = [_I] * 7 + [_P] * 29 + [
             ctypes.c_longlong, _P]
         lib.cc_commit_moves_scratch.argtypes = [_I, _I]
@@ -169,7 +174,8 @@ def build() -> ctypes.CDLL:
         lib.cc_segment_sum_scratch.restype = ctypes.c_longlong
         lib.cc_ordered_sum.argtypes = [_P, _I, _I, _P, ctypes.c_longlong,
                                        _I, _I, _P, _P]
-        lib.cc_cumsum_blocks.argtypes = [_P, _I, _I, _P, _P]
+        lib.cc_prefix_gate.argtypes = [_P, _P, _P, ctypes.c_longlong, _P,
+                                       _I, _I, _I, _P, _P, _P]
         for fn in (lib.cc_row_topk, lib.cc_assign_pass, lib.cc_commit_moves,
                    lib.cc_leader_assign_pass, lib.cc_commit_leadership,
                    lib.cc_sweep_pick, lib.cc_forced_select,
@@ -177,7 +183,7 @@ def build() -> ctypes.CDLL:
                    lib.cc_segment_argmax,
                    lib.cc_swap_pair, lib.cc_dest_struct, lib.cc_dest_has,
                    lib.cc_segment_sum, lib.cc_ordered_sum,
-                   lib.cc_cumsum_blocks):
+                   lib.cc_prefix_gate):
             fn.restype = ctypes.c_int
         BUILD_INFO.update(seconds=time.time() - t0, log="\n".join(log),
                           path=str(so))
@@ -234,23 +240,45 @@ def row_topk(sc_rows: torch.Tensor, table: torch.Tensor, k: int):
     return cand, has, top, slot
 
 
-def assign_pass(pref: torch.Tensor, dest_open: torch.Tensor,
-                assigned: torch.Tensor, cand_has: torch.Tensor, k: int,
-                amp: torch.Tensor):
-    """K2 launch: (best_slot i32[C], has bool[C])."""
+def assign_pass(pref: torch.Tensor, dest_ids: torch.Tensor,
+                taken_cnt: torch.Tensor, cap, cand_has: torch.Tensor, k: int,
+                amp: torch.Tensor, assigned: torch.Tensor, dest: torch.Tensor,
+                keep=None, prev_best=None):
+    """K2 launch: (best i32[C] broker ids, has bool[C]).  Folds `keep` /
+    `prev_best` (the pass before, or None) into `dest` and `assigned` in
+    place; pass 0 writes `amp`, later passes read it.  `cap` (i32[B]) None
+    means one arrival a destination."""
     lib = build()
     c, kk = pref.shape
+    if not (1 <= kk <= ASSIGN_MAX_K and c >= 1):
+        raise ValueError(f"assign_pass takes C >= 1 and 1 <= K <= "
+                         f"{ASSIGN_MAX_K}, got C={c}, K={kk}")
+    num_b = taken_cnt.shape[0]
     _check(pref, "pref", torch.float32)
-    _check(dest_open, "dest_open", torch.bool, (kk,))
-    _check(assigned, "assigned", torch.bool, (c,))
+    _check(dest_ids, "dest_ids", torch.int32, (kk,))
+    _check(taken_cnt, "taken_cnt", torch.int32, (num_b,))
+    if cap is not None:
+        _check(cap, "cap", torch.int32, (num_b,))
     _check(cand_has, "cand_has", torch.bool, (c,))
     _check(amp, "amp", torch.float32, ())
+    _check(assigned, "assigned", torch.bool, (c,))
+    _check(dest, "dest", torch.int32, (c,))
+    if (keep is None) != (prev_best is None):
+        raise ValueError("assign_pass folds keep and prev_best together")
+    if keep is not None:
+        _check(keep, "keep", torch.bool, (c,))
+        _check(prev_best, "prev_best", torch.int32, (c,))
     best = torch.empty(c, dtype=torch.int32, device=pref.device)
     has = torch.empty(c, dtype=torch.bool, device=pref.device)
-    err = lib.cc_assign_pass(pref.data_ptr(), dest_open.data_ptr(),
-                             assigned.data_ptr(), cand_has.data_ptr(), c, kk,
-                             int(k), amp.data_ptr(), best.data_ptr(),
-                             has.data_ptr(), _stream())
+    stream = _stream()
+    err = lib.cc_assign_pass(
+        pref.data_ptr(), c, kk, dest_ids.data_ptr(), taken_cnt.data_ptr(),
+        cap.data_ptr() if cap is not None else None, cand_has.data_ptr(),
+        int(k), amp.data_ptr(), assigned.data_ptr(), dest.data_ptr(),
+        keep.data_ptr() if keep is not None else None,
+        prev_best.data_ptr() if prev_best is not None else None,
+        best.data_ptr(), has.data_ptr(),
+        _ordered_slot(pref.device.index, stream) if k == 0 else 0, stream)
     LAUNCHES["assign_pass"] += 1
     _raise_on(err, "assign_pass")
     return best, has
@@ -871,8 +899,10 @@ _ORDERED_SLOTS: dict = {}
 
 
 def _ordered_slot(device: int, stream: int) -> int:
-    """K13's spread-path counter set for a stream of a device: each stream
-    gets its own, so that launches on two streams never share a counter."""
+    """The counter slot of a stream of a device, for K13's spread path and
+    K2's amplitude reduction (each kernel has its own set of slots): each
+    stream gets its own, so that launches on two streams never share a
+    counter."""
     slots = _ORDERED_SLOTS.get(device)
     if slots is None or stream not in slots:
         with _LOCK:
@@ -880,8 +910,8 @@ def _ordered_slot(device: int, stream: int) -> int:
             if stream not in slots:
                 if len(slots) >= ORDERED_COUNTER_SLOTS:
                     raise RuntimeError(
-                        f"ordered_sum: more than {ORDERED_COUNTER_SLOTS} "
-                        f"streams on device {device} launched its spread path")
+                        f"more than {ORDERED_COUNTER_SLOTS} streams on device "
+                        f"{device} launched K13's spread path or K2")
                 slots[stream] = len(slots)
     return slots[stream]
 
@@ -914,22 +944,62 @@ def ordered_sum(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def cumsum_blocks(x: torch.Tensor) -> torch.Tensor:
-    """K14 launch: f32[rows, n] inclusive scan of each row of x in
-    XLA:CPU's block-16 order."""
+class _GateTerms(ctypes.Structure):
+    """csrc/cumsum_blocks.cu GateTerms: per term the weights (None: 1.0)
+    and headrooms, each a pointer and an element stride."""
+    _fields_ = [("w", _P * GATE_MAX_TERMS),
+                ("w_stride", ctypes.c_longlong * GATE_MAX_TERMS),
+                ("hr", _P * GATE_MAX_TERMS),
+                ("hr_stride", ctypes.c_longlong * GATE_MAX_TERMS)]
+
+
+def _check_vector(t: torch.Tensor, name: str, n=None) -> None:
+    """A 1-d float32 card tensor of n entries, any stride."""
+    if not t.is_cuda or t.dtype != torch.float32 or t.dim() != 1:
+        raise ValueError(f"{name} must be a 1-d float32 CUDA tensor")
+    if n is not None and t.shape[0] != n:
+        raise ValueError(f"{name} must have {n} entries, got {t.shape[0]}")
+
+
+def check_gate(k: int, n_terms: int) -> None:
+    """Raise unless K14's gate takes rows of k candidates and n_terms
+    terms."""
+    if not 1 <= k <= GATE_MAX_K or n_terms > GATE_MAX_TERMS:
+        raise ValueError(f"prefix_gate takes 1 <= k <= {GATE_MAX_K} and at "
+                         f"most {GATE_MAX_TERMS} terms, got k={k}, "
+                         f"{n_terms} terms")
+
+
+def prefix_gate(has: torch.Tensor, w: torch.Tensor, excess: torch.Tensor,
+                cand: torch.Tensor, terms, k: int) -> torch.Tensor:
+    """K14 launch: bool[B*k], the source-side prefix gate of
+    a [B, k] candidate table (analyzer/kernels.py prefix_gate_plain).
+    `terms`: (weights f32[R] or None for 1.0, headroom f32[B]) pairs, any
+    stride."""
     lib = build()
-    if x.dim() != 2:
-        raise ValueError(f"cumsum_blocks takes a 2-d tensor, got {x.dim()}")
-    _check(x, "x", torch.float32)
-    rows, n = x.shape
-    if n > CUMSUM_MAX or rows >= 2 ** 31 - 1:
-        raise ValueError(f"cumsum_blocks takes n <= {CUMSUM_MAX} and rows < "
-                         f"2**31 - 1, got n={n}, rows={rows}")
-    out = torch.empty_like(x)
-    if rows == 0 or n == 0:
+    num_b = excess.shape[0]
+    n = num_b * k
+    check_gate(k, len(terms))
+    _check(has, "has", torch.bool, (n,))
+    _check(w, "w", torch.float32, (n,))
+    _check(cand, "cand", torch.int32, (n,))
+    _check_vector(excess, "excess")
+    desc = _GateTerms()
+    for t, (t_w, t_hr) in enumerate(terms):
+        if t_w is not None:
+            _check_vector(t_w, f"terms[{t}] weights")
+            desc.w[t] = t_w.data_ptr()
+            desc.w_stride[t] = t_w.stride(0)
+        _check_vector(t_hr, f"terms[{t}] headroom", num_b)
+        desc.hr[t] = t_hr.data_ptr()
+        desc.hr_stride[t] = t_hr.stride(0)
+    out = torch.empty(n, dtype=torch.bool, device=w.device)
+    if num_b == 0:
         return out
-    err = lib.cc_cumsum_blocks(x.data_ptr(), rows, n, out.data_ptr(),
-                               _stream())
+    err = lib.cc_prefix_gate(has.data_ptr(), w.data_ptr(), excess.data_ptr(),
+                             excess.stride(0), cand.data_ptr(), num_b, int(k),
+                             len(terms), ctypes.byref(desc), out.data_ptr(),
+                             _stream())
     LAUNCHES["cumsum_blocks"] += 1
-    _raise_on(err, "cumsum_blocks")
+    _raise_on(err, "prefix_gate")
     return out

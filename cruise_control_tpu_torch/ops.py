@@ -7,14 +7,16 @@
   scatter does, so that the port's sums equal the reference's bit for bit
   (`segment_sum`, `scatter_add_seq`).
 * Float sums and cumulative sums follow XLA:CPU's order (`sum_f32`,
-  `cumsum_f32`).
+  `cumsum_f32_plain`).
 * top-k and argsort keep JAX's tie rule: equal keys in index order.
 
 The exact-order float primitives run a hand-written kernel on the card
-(K12 `segment_sum`, K13 `ordered_sum`, K14 `cumsum_blocks`, csrc/) and
-their plain versions (`segment_sum_plain`, `scatter_add_seq_plain`,
-`sum_f32_plain`, `cumsum_f32_plain`) on the CPU.  Integer segment sums
-stay `index_add_` everywhere: integer adds are exact in any order.
+(K12 `segment_sum`, K13 `ordered_sum`, csrc/) and their plain versions
+(`segment_sum_plain`, `scatter_add_seq_plain`, `sum_f32_plain`) on the
+CPU.  The row scan `cumsum_f32_plain` is the plain scan of K14's prefix
+gate (analyzer/kernels.py `prefix_gate`) and of K8's plain version.
+Integer segment sums stay `index_add_` everywhere: integer adds are exact
+in any order.
 """
 from __future__ import annotations
 
@@ -183,19 +185,6 @@ def cumsum_f32_plain(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
                        carry_incl[..., :-1]], -1)
     out = (inb + carry[..., None]).reshape(x.shape[:-1] + (m * 16,))
     return out[..., :n].movedim(-1, dim)
-
-
-def cumsum_f32(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
-    """Inclusive float cumsum in XLA:CPU's order (see `cumsum_f32_plain`):
-    K14 on the card, the plain version on the CPU."""
-    if not x.is_cuda:
-        return cumsum_f32_plain(x, dim)
-    from cruise_control_tpu_torch import cuda_kernels
-    xm = x.movedim(dim, -1)
-    n = xm.shape[-1]
-    rows = xm.reshape(xm.numel() // n if n else 0, n).contiguous()
-    return cuda_kernels.cumsum_blocks(rows).reshape(xm.shape).movedim(-1,
-                                                                      dim)
 
 
 def topk_stable(x: torch.Tensor, k: int):

@@ -6,12 +6,15 @@ K3 (`commit_moves`, with and without a table) and K5
 bucket of the whole batch, a row pushed past its end, no-ops, 2,600
 brokers), K3 in place and K5 donated and not, and K3's in-kernel
 arrival ranks against `arrival_rank`; K7 (`forced_select`, also at k = R) is held here too,
-K2 at the forced-move round's 4,096 candidates, K8 (`rank_accept`) on
+K2 (`assign_pass`) on both commit modes with its fold and its amplitude,
+also at the forced-move round's 4,096 candidates, and whole
+`assign_destinations` calls against the CPU path, K8 (`rank_accept`) on
 both of its paths, without and with the pass commit, K9
 (`segment_argmax`), K10 (`swap_pair`) and K11 (`dest_feasibility`, both
 entries), the ordered sums K12
 (`segment_sum`, also with `init`), K13 (`ordered_sum`) and K14
-(`cumsum_blocks`) bit for bit with signed zeros and dropped ids, the
+(`cumsum_blocks`, the prefix gate `prefix_gate`, at 200 and 2,600
+brokers) bit for bit with signed zeros and dropped ids, the
 slice's stats, a short default-stack solve and the demote,
 kafka-assigner and intra-broker solves against the port's CPU path.
 
@@ -72,21 +75,54 @@ def test_row_topk_matches_plain(k):
     assert all(_same(a, b) for a, b in zip(got, want))
 
 
-@pytest.mark.parametrize("kk,k", [(256, 0), (256, 3), (200, 0), (200, 5)])
-def test_assign_pass_matches_plain(kk, k):
-    ck = _card()
-    rng = np.random.default_rng(kk + k)
-    c = 2048
+def _assign_inputs(rng, c, kk, num_b, multi, fold):
+    """K2's inputs on the card: a [C, K] plane (30 % NEG, two tied slots),
+    shortlist ids, arrival counts and (multi) caps, the rows' flags and,
+    with `fold`, a previous pass's keep and broker ids to fold."""
     pref = -rng.random((c, kk)).astype(np.float32)
     pref[rng.random(pref.shape) < 0.3] = K.NEG
-    pref[:, 7] = pref[:, 2]
-    args = [torch.from_numpy(x).cuda() for x in (
-        pref, rng.random(kk) < 0.8, rng.random(c) < 0.2, rng.random(c) < 0.9)]
-    amp = torch.tensor(0.35 * 1.0 + 1e-6, dtype=torch.float32).cuda()
-    got = ck.assign_pass(*args, k, amp)
-    want = K.assign_pass_plain(*args, k, amp)
+    pref[:, min(7, kk - 1)] = pref[:, min(2, kk - 1)]
+    ids = rng.permutation(num_b)[:kk].astype(np.int32)
+    taken = rng.integers(0, 3, num_b).astype(np.int32)
+    taken[rng.random(num_b) < 0.5] = 0
+    cap = rng.integers(1, 4, num_b).astype(np.int32) if multi else None
+    assigned = rng.random(c) < 0.2
+    keep = (rng.random(c) < 0.3) & ~assigned if fold else None
+    prev = rng.integers(0, num_b, c).astype(np.int32) if fold else None
+    return dict(pref=pref, dest_ids=ids, taken_cnt=taken, cap=cap,
+                cand_has=rng.random(c) < 0.9, assigned=assigned,
+                dest=rng.integers(0, num_b, c).astype(np.int32), keep=keep,
+                prev_best=prev)
+
+
+def _check_assign_pass(ck, inputs, k, amp_value):
+    """K2 against assign_pass_plain on the card: best, has, the folded
+    dest and assigned, and pass 0's amp, all exactly."""
+    outs = []
+    for launch in (ck.assign_pass, K.assign_pass_plain):
+        t = {n: None if v is None else torch.from_numpy(v.copy()).cuda()
+             for n, v in inputs.items()}
+        amp = torch.tensor(amp_value, dtype=torch.float32).cuda()
+        best, has = launch(t["pref"], t["dest_ids"], t["taken_cnt"],
+                           t["cap"], t["cand_has"], k, amp, t["assigned"],
+                           t["dest"], t["keep"], t["prev_best"])
+        outs.append((best, has, t["dest"], t["assigned"], amp))
     torch.cuda.synchronize()
-    assert all(_same(a, b) for a, b in zip(got, want))
+    for a, b in zip(*outs):
+        assert _same(a, b)
+
+
+@pytest.mark.parametrize("kk,k", [(256, 0), (256, 3), (200, 0), (200, 5)])
+def test_assign_pass_matches_plain(kk, k):
+    """K2 at the slice's C = 2048 on both commit modes, with and without
+    the previous pass's fold."""
+    ck = _card()
+    for multi in (False, True):
+        for fold in (False, True):
+            rng = np.random.default_rng(kk + k + 2 * multi + fold)
+            _check_assign_pass(ck, _assign_inputs(rng, 2048, kk,
+                                                  max(kk, 200), multi, fold),
+                               k, 0.35 + 1e-6)
 
 
 #: the 2,600-broker cluster of K3's and K5's wide cases, cut to 60,000
@@ -346,21 +382,47 @@ def test_sweep_pick_matches_plain(improve_gate):
 @pytest.mark.parametrize("kk", [256, 2600])
 def test_assign_pass_at_4096_candidates(kk):
     """K2 at the forced-move round's C = 4096 (self-healing's candidates),
-    against the shortlist and the escalated all-broker width."""
+    against the shortlist and the escalated all-broker width; a row width
+    that is not a multiple of 4 takes the scalar walk."""
     ck = _card()
-    rng = np.random.default_rng(kk)
-    c = 4096
+    for width in (kk, kk - 1):
+        for k in (0, 5):
+            rng = np.random.default_rng(width + k)
+            _check_assign_pass(ck, _assign_inputs(rng, 4096, width, 2600,
+                                                  True, k > 0), k,
+                               0.35 + 1e-6)
+
+
+@pytest.mark.parametrize("multi", [False, True])
+@pytest.mark.parametrize("c,kk,num_b", [(2048, 256, 2600), (4096, 200, 200),
+                                        (3, 1, 200)])
+def test_assign_destinations_on_the_card_equals_the_cpu(c, kk, num_b,
+                                                        multi):
+    """All eight passes of assign_destinations on the card (K2 and K8, or
+    K2 and the single-commit conflict resolution) against the CPU path."""
+    ck = _card()
+    rng = np.random.default_rng(c + kk + multi)
     pref = -rng.random((c, kk)).astype(np.float32)
     pref[rng.random(pref.shape) < 0.3] = K.NEG
-    pref[:, 9] = pref[:, 4]
-    args = [torch.from_numpy(x).cuda() for x in (
-        pref, rng.random(kk) < 0.8, rng.random(c) < 0.2, rng.random(c) < 0.9)]
-    amp = torch.tensor(0.35 + 1e-6, dtype=torch.float32).cuda()
-    for k in (0, 5):
-        got = ck.assign_pass(*args, k, amp)
-        want = K.assign_pass_plain(*args, k, amp)
-        torch.cuda.synchronize()
-        assert all(_same(a, b) for a, b in zip(got, want))
+    gain = np.round(rng.random(c) * 8).astype(np.float32)
+    has = rng.random(c) < 0.9
+    ids = rng.permutation(num_b)[:kk].astype(np.int32)
+    terms = [(rng.random(c).astype(np.float32),
+              (rng.random(num_b) * 6).astype(np.float32)) for _ in range(3)]
+    cap = rng.integers(1, 8, num_b).astype(np.int32)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        def on(x):
+            return torch.from_numpy(x).to(dev)
+        kw = (dict(dest_terms=[(on(w), on(h)) for w, h in terms],
+                   dest_cap=on(cap)) if multi else {})
+        ck.reset_launches()
+        out[dev] = K.assign_destinations(on(pref), on(gain), on(has), num_b,
+                                         on(ids), **kw)
+        if dev == "cuda":
+            assert ck.LAUNCHES["assign_pass"] == K.ASSIGN_PASSES
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert _same(a.cpu(), b)
 
 
 @pytest.mark.parametrize("case", COMMIT_CASES)
@@ -872,21 +934,43 @@ def test_ordered_sum_spread_on_two_streams():
         assert all(_bits(got, want) for got in outs[k])
 
 
-@pytest.mark.parametrize("rows,n", [(200, 4), (200, 8), (2600, 8), (3, 17),
-                                    (3, 2048), (5, 1)])
-def test_cumsum_blocks_matches_plain(rows, n):
-    """K14 against cumsum_f32_plain bit for bit, with a leading -0.0 in
-    every row (+0.0 after a scan of two or more, kept in a row of one)."""
-    from cruise_control_tpu_torch import ops
+def _gate_inputs(rng, num_b, k, n_terms):
+    """A [B, k] candidate table on quarter steps (sums exact, bounds hit),
+    its excess and `n_terms` terms: columns of a [R, 4] plane, the count
+    term (weights 1.0) and a plain [R] vector, against columns of a [B, 4]
+    plane and a [B] vector."""
+    num_r = 60_000
+    n = num_b * k
+    q = lambda hi, shape: (rng.integers(0, hi, shape) * 0.25).astype(
+        np.float32)
+    has = rng.random(n) < 0.85
+    w = q(9, n)
+    w[::k] = -0.0
+    cand = rng.integers(0, num_r, n).astype(np.int32)
+    cand[rng.random(n) < 0.1] = -1
+    excess = q(4 * k + 2, num_b)
+    loads, room = q(9, (num_r, 4)), q(3 * k + 2, (num_b, 4))
+    vec, hr = q(5, num_r), q(3 * k + 2, num_b)
+    excess[0] = np.sum(w[:k - 1])      # before == excess on row 0
+    t = [torch.from_numpy(x).cuda() for x in (loads, room, vec, hr)]
+    terms = [(t[0][:, 1], t[1][:, 2]), (None, t[3]), (t[2], t[1][:, 0]),
+             (t[0][:, 3], t[1][:, 1]), (t[0][:, 0], t[1][:, 3])]
+    return ([torch.from_numpy(x).cuda() for x in (has, w, excess, cand)],
+            terms[:n_terms])
+
+
+@pytest.mark.parametrize("n_terms", [0, 1, 3, 5])
+@pytest.mark.parametrize("k", [1, 4, 8, 16])
+@pytest.mark.parametrize("num_b", [200, 2600])
+def test_prefix_gate_matches_plain(num_b, k, n_terms):
+    """K14 against prefix_gate_plain on the card, exactly."""
     ck = _card()
-    rng = np.random.default_rng(rows + n)
-    x = _signed(rng, (rows, n))
-    x[:, 0] = -0.0
-    xt = torch.from_numpy(x).cuda()
-    want = ops.cumsum_f32_plain(xt, 1)
-    assert _bits(ck.cumsum_blocks(xt), want)
-    assert _bits(ops.cumsum_f32(xt, 1), want)
-    assert _bits(ops.cumsum_f32(xt.T, 0), want.T)
+    rng = np.random.default_rng(num_b + 17 * k + n_terms)
+    args, terms = _gate_inputs(rng, num_b, k, n_terms)
+    got = ck.prefix_gate(*args, terms, k)
+    want = K.prefix_gate_plain(*args, terms, k)
+    assert _same(got, want)
+    assert _same(K.prefix_gate(*args, terms, k), want)
 
 
 def test_stats_on_the_card_equal_the_cpu_path():

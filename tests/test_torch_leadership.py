@@ -504,9 +504,11 @@ def test_leader_assign_pass_plain_matches(multi, k):
     amp = np.float32(0.35) * (pref[finite].max() - pref[finite].min()) \
         + np.float32(1e-6)
     jp = jnp.asarray(pref)
-    pass_pref = jp if k == 0 else jnp.where(
-        jp > JK.NEG / 2, jp + amp * JK._pairwise_jitter(c, rf, salt=k),
-        JK.NEG)
+    # compiled, as the reference's goal programs are: XLA:CPU contracts
+    # the jittered preference into one FMA
+    pass_pref = jp if k == 0 else jax.jit(lambda p, a: jnp.where(
+        p > JK.NEG / 2, p + a * JK._pairwise_jitter(c, rf, salt=k),
+        JK.NEG))(jp, amp)
     if multi:
         open_pref = jnp.where(jnp.asarray(taken)[sib_b]
                               < JK.MAX_ARRIVALS_PER_ROUND, pass_pref, JK.NEG)
