@@ -30,15 +30,23 @@ Phases:
      weights, fewer forced than k and every replica forced (and its
      guard-only launch), K8 at C = 1 to 4097 (B = 200 and 2600, T = 0 to
      6 terms) in eight cases and at C = 10,400, 20,800 and 600,000, alone
-     and with the pass commit (keep, arrival counts and cumulants), K9 at
-     n = 2048 and
-     4096 and at R = 60,000 into 800 and 600,000 into 10,400 segments
-     (ties, -0.0 against +0.0, empty and all-invalid segments, NEG and
-     -inf scores, out-of-range ids), K10
-     at H = C = 128 with tied improvements, with and without the band and
-     with an all-False acceptance plane, K11's plane at C = 2048 x K =
-     200 and 256 and C = 4096 x K = 2600 (sibling rows with -1) and its
-     guard on candidates and on every replica, K12 at [60,000, 4] into
+     and with the pass commit (keep, arrival counts and cumulants), K9's
+     dense entry at n = 2048 and 4096, at R = 60,000 into 800 and 600,000
+     into 10,400 segments (the grid path also under each fold: global
+     keys, shared keys at S/4 to 2 S a block) and at n = 2048 into
+     20,000 (int32 and int64 ids), and its keep entry
+     (resolve_dest_conflicts) at n = 2048 into 200, 20,000 and 200,000,
+     128 into 200, 4096 into 20,000 and 41,600 into 2,600 (ties, -0.0
+     against +0.0, empty and all-invalid segments, NEG and -inf scores,
+     out-of-range ids; the key scratch zero after every call), K10 at H =
+     C = 128 with tied improvements, with and without the band and with
+     an all-False acceptance plane, K11's preference plane at C = 2048 x
+     K = 200, 131 and 256 and C = 4096 x K = 2600 (int64 and int32 ids;
+     with and without the sibling test, on sibling rows with -1;
+     acceptance planes [C, K], [C, 1], [1, K] and 0-d; with and without
+     the fit test) and its guard, which selects its own top brokers, on
+     candidates and on every replica (tied headrooms, -0.0, no eligible
+     broker), K12 at [60,000, 4] into
      200, [60,000] into 800, [600,000, 4] into 2,600, [600,000] into
      10,400 and [800] into 200 (dropped and negative ids, every id
      dropped, N = 0, n = SEGMENT_MAX, empty segments, signed zeros, one
@@ -64,7 +72,10 @@ Phases:
      its host work against its lexsort dispatch (the torch lexsort, the
      kernel on that order, the ordered scatters), and its one-block time
      split
-     by the sort and the commit;
+     by the sort and the commit; with --parent (a checkout of the parent
+     tree), K9's and K11's entries also beside the parent's chain at the
+     same shapes: its kernel launches with the torch ops its callers ran
+     around them (the yardstick of the redesign);
   3. the slice geometry (200 brokers / 20K partitions / rf 3, 8 racks, 10
      topics, skew 0.2, default options): the disk + network-inbound solve
      of the first slice (seed 4); config 2 whole — Disk, NwIn, NwOut and
@@ -102,7 +113,10 @@ Phases:
      than the given cache's own (none: it commits in place) and the torch
      ops inside assign_destinations, those between the first K2 and the
      last K8 of a multi-commit call among them (none: a pass is K2 and
-     K8);
+     K8), and inside resolve_dest_conflicts, cand_has_dest and
+     feasible_dest_exists (none: each call is one K9 or K11 launch) and
+     assign_pref (one K11 preference-plane launch a call beside the
+     acceptance stack's ops);
   4. scale, 2,600 brokers / 200K partitions / 26 racks / 100 topics: the
      whole default stack (bench.py's "north" preset), the four-goal solve,
      config 5 (52 broken logdirs), the six hard goals with brokers 0,
@@ -330,7 +344,9 @@ def graph_time_ms(fn, reps: int = 20, trials: int = 5) -> float:
         fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    # captured on the warm-up's stream, whose per-stream scratch (K9's
+    # keys) the warm-up made: the capture allocates none of it
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(reps):
             fn()
     graph.replay()
@@ -1403,27 +1419,135 @@ def _argmax_inputs(n: int, s: int, g):
     return score, seg, valid
 
 
-def check_segment_argmax(seed: int) -> dict:
-    """K9 against per_segment_argmax_plain on the card, exactly (max with
-    ==, so -0.0 equals +0.0), at the conflict-resolution widths (n = 2048
-    and 4096 into 200 and 4096 segments), at R = 60,000 into 800 and at
-    R = 600,000 into 10,400 (the intra-broker candidate pick at 2,600
-    brokers x 4 logdirs).  The record of n = 2048 into 200 segments."""
+def parent_kernels(root):
+    """The parent tree's cuda_kernels module, loaded from the checkout
+    `root` under a name of its own (it builds the parent's csrc/ into that
+    checkout's build directory), for the yardstick chains; None without a
+    checkout."""
+    if not root:
+        return None
+    import importlib.util
+    path = os.path.join(root, "cruise_control_tpu_torch", "cuda_kernels.py")
+    spec = importlib.util.spec_from_file_location("parent_cuda_kernels",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.build()
+    log(f"[2] the parent's kernels ({root}) built in "
+        f"{mod.BUILD_INFO['seconds']:.1f} s")
+    return mod
+
+
+def scratch_is_zero() -> bool:
+    """K9's key scratch of the current stream is all zero (as it must be
+    between launches)."""
+    import torch
+    from cruise_control_tpu_torch import cuda_kernels
+    torch.cuda.synchronize()
+    buf = cuda_kernels.argmax_scratch(torch.cuda.current_device(),
+                                      torch.cuda.current_stream().cuda_stream)
+    return not bool(torch.count_nonzero(buf))
+
+
+def _yardstick(pk, chain) -> str:
+    """The parent's chain's device time per call, or why there is none."""
+    if pk is None:
+        return "parent chain: not measured (no --parent checkout)"
+    return f"parent chain {graph_time_ms(chain):.4f} ms"
+
+
+def parent_argmax(pk, score, seg, valid, s):
+    """The parent tree's per_segment_argmax on the card: its dispatch's
+    int32 copy of the ids and its K9 (a memset, the fold, the decode)."""
+    import torch
+    return pk.segment_argmax(score.contiguous(),
+                             seg.to(torch.int32).contiguous(),
+                             valid.contiguous(), s)
+
+
+def parent_resolve(pk, dest, gain, valid, s):
+    """The parent tree's resolve_dest_conflicts on the card: the torch ops
+    around its dense K9 launch."""
+    import torch
+    seg = torch.where(valid, dest.long(), torch.zeros_like(dest).long())
+    arg, _, _ = parent_argmax(pk, gain, seg, valid, s)
+    idx = torch.arange(dest.shape[0], dtype=torch.int64, device=dest.device)
+    return valid & (arg.long()[seg] == idx)
+
+
+#: K9's grid-path folds phase 2 times at each grid shape: straight into
+#: the global scratch, and into shared keys at shares of 1/4 to 2 S
+ARGMAX_FOLDS = (("global", 0), ("shared S/4", 0.25), ("shared S/2", 0.5),
+                ("shared 1 S", 1.0), ("shared 2 S", 2.0))
+
+
+@contextlib.contextmanager
+def argmax_fold(per_key: float):
+    """K9's grid path with shares of `per_key` S elements a block folded
+    into shared keys, whatever n (0: straight into the global scratch)."""
+    from cruise_control_tpu_torch import cuda_kernels as ck
+    saved = ck.ARGMAX_SHARE_PER_KEY, ck.ARGMAX_SHARED_MIN_AVG
+    ck.ARGMAX_SHARE_PER_KEY, ck.ARGMAX_SHARED_MIN_AVG = per_key, 0
+    try:
+        yield
+    finally:
+        ck.ARGMAX_SHARE_PER_KEY, ck.ARGMAX_SHARED_MIN_AVG = saved
+
+
+def _fold_times(launch, check, entry: str, n: int, s: int) -> dict:
+    """A grid-path K9 call (n elements into s segments) under each fold of
+    ARGMAX_FOLDS: exact (`check`) and the scratch zero after it, then
+    timed.  {fold: ms}."""
+    from cruise_control_tpu_torch import cuda_kernels
+    out = {}
+    for name, per_key in ARGMAX_FOLDS:
+        with argmax_fold(per_key):
+            check(launch())
+            if not scratch_is_zero():
+                raise AssertionError(f"{entry} n={n} S={s} ({name}): the key "
+                                     "scratch is not zero after the call")
+            out[name] = graph_time_ms(launch)
+    log(f"    {entry} n={n} S={s} by fold: " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in out.items())
+        + f"; the wrapper's share here: {cuda_kernels.argmax_share(n, s)}")
+    return out
+
+
+def check_segment_argmax(seed: int, pk=None) -> dict:
+    """K9's dense entry against per_segment_argmax_plain on the card,
+    exactly (max with ==, so -0.0 equals +0.0), at the conflict-resolution
+    widths (n = 2048 and 4096 into 200 and 4096 segments; one block), at
+    R = 60,000 into 800 and at R = 600,000 into 10,400 (the intra-broker
+    candidate pick at 200 and 2,600 brokers x 4 logdirs; the grid path,
+    each fold of ARGMAX_FOLDS timed), and at n = 2048 into 20,000 (the
+    grid path's global keys) with int64 ids; the key scratch zero after
+    every call.  Timed beside the parent's chain (`pk`).  {shape:
+    times}."""
     import torch
     from cruise_control_tpu_torch import cuda_kernels
     from cruise_control_tpu_torch.analyzer import kernels as K
     g = torch.Generator(device="cuda").manual_seed(seed)
-    rec = None
-    for n, s in ((2048, 200), (4096, 4096), (60_000, 800),
-                 (600_000, 10_400)):
+    cases = {}
+    for n, s, ids in ((2048, 200, torch.int32), (4096, 4096, torch.int32),
+                      (60_000, 800, torch.int64),
+                      (600_000, 10_400, torch.int32),
+                      (2048, 20_000, torch.int64)):
         score, seg, valid = _argmax_inputs(n, s, g)
-        got = cuda_kernels.segment_argmax(score, seg, valid, s)
+        seg = seg.to(ids)
         want = K.per_segment_argmax_plain(score, seg, s, valid)
-        torch.cuda.synchronize()
-        if not (equal_exact(got[0], want[0]) and equal_exact(got[2], want[2])
-                and bool(torch.equal(got[1], want[1]))):
-            raise AssertionError(f"segment_argmax n={n} S={s}: differs from "
-                                 "the plain version")
+
+        def check(got, n=n, s=s, want=want):
+            torch.cuda.synchronize()
+            if not (equal_exact(got[0], want[0])
+                    and equal_exact(got[2], want[2])
+                    and bool(torch.equal(got[1], want[1]))):
+                raise AssertionError(f"segment_argmax n={n} S={s}: differs "
+                                     "from the plain version")
+        got = cuda_kernels.segment_argmax(score, seg, valid, s)
+        check(got)
+        if not scratch_is_zero():
+            raise AssertionError(f"segment_argmax n={n} S={s}: the key "
+                                 "scratch is not zero after the call")
         n_has = int(got[2].sum())
         if not 0 < n_has < s:
             raise AssertionError(f"segment_argmax n={n} S={s}: {n_has} "
@@ -1433,18 +1557,83 @@ def check_segment_argmax(seed: int) -> dict:
                  score, seg, valid, s)),
              graph_time_ms(lambda: K.per_segment_argmax_plain(
                  score, seg, s, valid)))
+        yard = _yardstick(pk, lambda: parent_argmax(pk, score, seg, valid,
+                                                    s))
+        if not scratch_is_zero():
+            raise AssertionError("segment_argmax: the key scratch is not "
+                                 "zero after the timed replays")
         # each element's score, id and flag in; each segment's id, max and
         # flag out
-        nbytes = n * 9 + s * 9
+        nbytes = n * (5 + seg.element_size()) + s * 9
+        t_b, _ = bound(nbytes, n)
+        log(f"  segment_argmax n={n} S={s} ({str(ids)[6:]} ids): exact match "
+            f"({n_has} segments with a winner), scratch zero; device time "
+            f"per call: kernel {t[0]:.4f} ms, {yard}, plain {t[1]:.4f} ms; "
+            f"bound {t_b:.6f} ms ({nbytes} bytes); library call: none")
+        cases[f"n={n} S={s}"] = case = dict(ms=t[0], plain_ms=t[1],
+                                            bound_ms=t_b)
+        if n > cuda_kernels.ARGMAX_ONE_BLOCK_N:
+            case["folds"] = _fold_times(
+                lambda: cuda_kernels.segment_argmax(score, seg, valid, s),
+                check, "segment_argmax", n, s)
+    return cases
+
+
+def check_segment_keep(seed: int, pk=None) -> dict:
+    """K9's keep entry (resolve_dest_conflicts on the card) against
+    resolve_dest_conflicts_plain, exactly: n = 2048 candidates into 200
+    brokers and into 20,000 and 200,000 partitions (the partition-keyed
+    resolves of the slice and of 2,600 brokers: one block on global keys),
+    128 into 200 (the swap shortlist), 4096 into 20,000 (the forced
+    round's width) and 41,600 into 2,600 (a
+    full-width fallback; the grid path, each fold of ARGMAX_FOLDS timed),
+    with ties, -0.0, NEG scores and invalid rows; the key scratch zero
+    after every call.  Timed beside the parent's chain (`pk`): its torch
+    ops around the dense K9.  The record of n = 2048 into 20,000 (the
+    slice's partition-keyed resolves), every shape under "cases"."""
+    import torch
+    from cruise_control_tpu_torch import cuda_kernels
+    from cruise_control_tpu_torch.analyzer import kernels as K
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    cases = {}
+    for n, s in ((2048, 200), (2048, 20_000), (2048, 200_000), (128, 200),
+                 (4096, 20_000), (41_600, 2600)):
+        score, seg, valid = _argmax_inputs(n, s, g)
+        dest = torch.clamp(seg, 0, s - 1).long()
+        want = K.resolve_dest_conflicts_plain(dest, score, valid, s)
+
+        def check(got, n=n, s=s, want=want):
+            torch.cuda.synchronize()
+            if not equal_exact(got, want) or not 0 < int(got.sum()) < n:
+                raise AssertionError(f"segment_keep n={n} S={s}: differs "
+                                     "from the plain version or keeps all "
+                                     "or none")
+        got = cuda_kernels.segment_keep(score, dest, valid, s)
+        check(got)
+        if not scratch_is_zero():
+            raise AssertionError(f"segment_keep n={n} S={s}: the key "
+                                 "scratch is not zero after the call")
+        t = (graph_time_ms(lambda: cuda_kernels.segment_keep(
+                 score, dest, valid, s)),
+             graph_time_ms(lambda: K.resolve_dest_conflicts_plain(
+                 dest, score, valid, s)))
+        yard = _yardstick(pk, lambda: parent_resolve(pk, dest, score, valid,
+                                                     s))
+        # each element's score, int64 id and flag in, its keep flag out
+        nbytes = n * (4 + 8 + 1 + 1)
         t_b, by = bound(nbytes, n)
-        log(f"  segment_argmax n={n} S={s}: exact match ({n_has} segments "
-            f"with a winner); device time per call: kernel {t[0]:.4f} ms, "
-            f"plain {t[1]:.4f} ms; bound {t_b:.6f} ms ({nbytes} bytes); "
-            "library call: none")
-        if rec is None:
-            rec = dict(max_abs_err=0.0, ms=t[0], plain_ms=t[1], bound_ms=t_b,
-                       bound_by=by, library_ms=None, shape=f"n={n} S={s}")
-    return rec
+        log(f"  segment_keep n={n} S={s}: exact match ({int(got.sum())} "
+            f"kept), scratch zero; device time per call: kernel "
+            f"{t[0]:.4f} ms, {yard}, plain {t[1]:.4f} ms; bound "
+            f"{t_b:.6f} ms ({nbytes} bytes); library call: none")
+        cases[f"n={n} S={s}"] = case = dict(
+            max_abs_err=0.0, ms=t[0], plain_ms=t[1], bound_ms=t_b,
+            bound_by=by, library_ms=None, shape=f"keep n={n} S={s}")
+        if n > cuda_kernels.ARGMAX_ONE_BLOCK_N:
+            case["folds"] = _fold_times(
+                lambda: cuda_kernels.segment_keep(score, dest, valid, s),
+                check, "segment_keep", n, s)
+    return dict(cases["n=2048 S=20000"], cases=cases)
 
 
 def check_swap_pair(spec: dict, seed: int) -> dict:
@@ -1520,12 +1709,53 @@ def check_swap_pair(spec: dict, seed: int) -> dict:
     return rec
 
 
-def check_dest_feasibility(spec: dict, widths, seed: int) -> dict:
-    """K11 against its plain versions on the card, exactly: the plane
-    entry at C x K for each (C, K) in `widths` (a shortlist of K brokers,
-    or every broker), with and without the sibling test, on partitions
-    whose sibling rows carry -1 (rf below the widest); the guard entry on
-    C candidates and on every replica.  The record of the first plane."""
+def parent_pref(pk, state, cand, dest_ids, dest_ok, dest_pref, accept, pr,
+                ch, w_c, room):
+    """The parent tree's preference plane of move_round's assign_with on
+    the card: the fits gather and compare, its K11 plane launch (after
+    its dispatch's int32 copies), the ANDs, the gather and the where (the
+    acceptance plane given)."""
+    import torch
+    from cruise_control_tpu_torch.analyzer import kernels as K
+    fits = w_c[:, None] <= room[dest_ids][None, :]
+    struct = pk.dest_feasibility(
+        cand.to(torch.int32).contiguous(),
+        dest_ids.to(torch.int32).contiguous(), dest_ok.contiguous(),
+        state.replica_broker, state.replica_partition, pr)
+    feasible = fits & ch[:, None] & (struct & accept)
+    return torch.where(feasible, dest_pref[dest_ids][None, :],
+                       torch.full((), K.NEG, device=w_c.device))
+
+
+def parent_guard(pk, state, cand, w_c, dest_ok, room, pr):
+    """The parent tree's cand_has_dest / feasible_dest_exists on the card:
+    top_headroom's stable sort and where, then its K11 guard launch (after
+    its dispatch's copies)."""
+    import torch
+    from cruise_control_tpu_torch.analyzer import kernels as K
+    top_b, top_h = K.top_headroom(dest_ok, room, pr.shape[1])
+    return pk.dest_has(
+        None if cand is None else cand.to(torch.int32).contiguous(),
+        w_c.contiguous(), top_b.to(torch.int32).contiguous(),
+        top_h.contiguous(), state.replica_broker, state.replica_partition,
+        pr)
+
+
+def check_dest_feasibility(spec: dict, widths, seed: int, pk=None) -> dict:
+    """K11 against its plain versions on the card, exactly.  For each (C,
+    K) in `widths` (a shortlist of K brokers, or every broker): the
+    preference entry (dest_pref) against dest_pref_plain with candidate
+    and destination ids int64 (as the move rounds pass them) and int32,
+    with and without the sibling test (on partitions whose sibling rows
+    carry -1: rf below the widest), with the fit test and the candidates'
+    flags and without, on an acceptance plane [C, K], [C, 1], [1, K] or
+    0-d (broadcast, never materialised).  The guard entry (which selects
+    its top brokers itself) against dest_has_plain on C candidates and on
+    every replica, with tied headrooms, -0.0 and ineligible brokers.  Each
+    timed beside the parent's chain (`pk`): its plane launch with the
+    torch ops the callers ran around it; top_headroom and its guard.  The
+    record of the first preference plane, the other widths under "pref"
+    and the guard under "guard"."""
     import torch
     from cruise_control_tpu_torch import cuda_kernels
     from cruise_control_tpu_torch.analyzer import context as C
@@ -1543,61 +1773,98 @@ def check_dest_feasibility(spec: dict, widths, seed: int) -> dict:
     rf = pr.shape[1]
     dest_ok = torch.rand(nb, generator=g, device="cuda") < 0.85
     rb, rp = state.replica_broker, state.replica_partition
+    w = state.replica_base_load[:, 3].contiguous()
+    # quantized headroom: ties, a -0.0
+    room = torch.round(torch.rand(nb, generator=g, device="cuda") * 8.0) \
+        * float(torch.median(w)) / 4.0
+    room[0] = -0.0
+    dest_pref_b = torch.round(torch.rand(nb, generator=g, device="cuda")
+                              * 16.0) - 8.0
     rec = None
     for c, k in widths:
-        cand = torch.randperm(num_r, generator=g, device="cuda")[:c].to(
-            torch.int32)
+        cand = torch.randperm(num_r, generator=g, device="cuda")[:c]
         dest_ids = (torch.randperm(nb, generator=g, device="cuda")[:k]
-                    if k < nb else torch.arange(nb, device="cuda")).to(
-                        torch.int32)
-        for rows in (pr, None):
-            args = (cand, dest_ids, dest_ok, rb, rp, rows)
-            got = cuda_kernels.dest_feasibility(*args)
-            want = K.dest_struct_plain(*args)
+                    if k < nb else torch.arange(nb, device="cuda"))
+        ch = torch.rand(c, generator=g, device="cuda") < 0.9
+        w_c = w[cand]
+        full = torch.rand((c, k), generator=g, device="cuda") < 0.9
+        planes = {"[C, K]": full, "[C, 1]": full[:, :1], "[1, K]": full[:1],
+                  "0-d": torch.ones((), dtype=torch.bool, device="cuda")}
+        for ids in (torch.int64, torch.int32):
+            cand_t, dest_t = cand.to(ids), dest_ids.to(ids)
+            for rows in (pr, None):
+                for label, acc in planes.items():
+                    for fit in (True, False):
+                        kw = dict(cand_has=ch, w_c=w_c,
+                                  dest_headroom=room) if fit else {}
+                        got = cuda_kernels.dest_pref(
+                            cand_t, dest_t, dest_ok, rb, rp, rows,
+                            kw.get("cand_has"), kw.get("w_c"),
+                            kw.get("dest_headroom"), acc, dest_pref_b)
+                        want = K.dest_pref_plain(
+                            state, cand_t, dest_t, dest_ok, dest_pref_b,
+                            acc, rows, **kw)
+                        torch.cuda.synchronize()
+                        if not equal_exact(got, want) or not bool(
+                                (want > K.NEG / 2).any()):
+                            raise AssertionError(
+                                f"dest_pref C={c} K={k} {str(ids)[6:]} ids "
+                                f"siblings={rows is not None} accept "
+                                f"{label} fit={fit}: differs from the plain "
+                                "version or is all NEG")
+        pargs = (cand, dest_ids, dest_ok, rb, rp, pr, ch, w_c, room, full,
+                 dest_pref_b)
+        t = (graph_time_ms(lambda: cuda_kernels.dest_pref(*pargs)),
+             graph_time_ms(lambda: K.dest_pref_plain(
+                 state, cand, dest_ids, dest_ok, dest_pref_b, full, pr, ch,
+                 w_c, room)))
+        yard = _yardstick(pk, lambda: parent_pref(
+            pk, state, cand, dest_ids, dest_ok, dest_pref_b, full, pr, ch,
+            w_c, room))
+        # the f32 plane out and the acceptance plane in; per candidate its
+        # id, broker, partition, RF sibling ids and brokers, flag and
+        # weight; per destination its id, flag, headroom and preference
+        nbytes = 4 * c * k + c * k + c * (8 + 4 + 4 + 8 * rf + 1 + 4) \
+            + k * 17
+        t_b, by = bound(nbytes, c * k * (rf + 4))
+        log(f"  dest_pref C={c} K={k}: exact match (int64 and int32 ids; "
+            f"with and without the sibling test; accept [C, K], [C, 1], "
+            f"[1, K], 0-d; with and without the fit test); device time per "
+            f"call: kernel {t[0]:.4f} ms, {yard}, plain {t[1]:.4f} ms; "
+            f"bound {t_b:.6f} ms ({by}); library call: none")
+        case = dict(max_abs_err=0.0, ms=t[0], plain_ms=t[1], bound_ms=t_b,
+                    bound_by=by, library_ms=None, shape=f"pref C={c} K={k}")
+        if rec is None:
+            rec = dict(case)
+        rec.setdefault("pref", {})[f"C={c} K={k}"] = case
+    for c in (widths[0][0], None):
+        cand = (None if c is None else
+                torch.randperm(num_r, generator=g, device="cuda")[:c])
+        w_c = w if cand is None else w[cand].contiguous()
+        n = w_c.shape[0]
+        # with no eligible broker every candidate has no destination
+        for ok in (torch.zeros_like(dest_ok), dest_ok):
+            args = (cand, w_c, ok, room, rb, rp, pr)
+            got = cuda_kernels.dest_has(*args)
+            want = K.dest_has_plain(*args)
             torch.cuda.synchronize()
             if not equal_exact(got, want):
-                raise AssertionError(f"dest_feasibility C={c} K={k} siblings="
-                                     f"{rows is not None}: differs from the "
-                                     "plain version")
-        args = (cand, dest_ids, dest_ok, rb, rp, pr)
-        t = (graph_time_ms(lambda: cuda_kernels.dest_feasibility(*args)),
-             graph_time_ms(lambda: K.dest_struct_plain(*args)))
-        # the plane out; per candidate its id, broker, partition and RF
-        # sibling ids and brokers; per destination its id and flag
-        nbytes = c * k + c * (4 + 4 + 4 + 8 * rf) + k * 5
-        t_b, by = bound(nbytes, c * k * (rf + 2))
-        log(f"  dest_feasibility plane C={c} K={k}: exact match with and "
-            f"without the sibling test ({int(want.sum())} feasible); "
-            f"device time per call: kernel {t[0]:.4f} ms, plain "
-            f"{t[1]:.4f} ms; bound {t_b:.6f} ms ({by}); library call: none")
-        if rec is None:
-            rec = dict(max_abs_err=0.0, ms=t[0], plain_ms=t[1], bound_ms=t_b,
-                       bound_by=by, library_ms=None, shape=f"C={c} K={k}")
-    w = state.replica_base_load[:, 3].contiguous()
-    room = torch.rand(nb, generator=g, device="cuda") * float(
-        torch.median(w)) * 2.0
-    top_b, top_h = K.top_headroom(dest_ok, room, rf)
-    top_b = top_b.to(torch.int32).contiguous()
-    for c in (widths[0][0], None):
-        cand = (None if c is None else torch.randperm(
-            num_r, generator=g, device="cuda")[:c].to(torch.int32))
-        w_c = w if cand is None else w[cand.long()].contiguous()
-        args = (cand, w_c, top_b, top_h, rb, rp, pr)
-        got = cuda_kernels.dest_has(*args)
-        want = K.dest_has_plain(*args)
-        torch.cuda.synchronize()
-        n = w_c.shape[0]
-        if not equal_exact(got, want) or not 0 < int(got.sum()) < n:
-            raise AssertionError(f"dest_feasibility guard C={n}: differs "
-                                 "from the plain version or is uniform")
+                raise AssertionError(f"dest_feasibility guard C={n}: "
+                                     "differs from the plain version")
+        if not 0 < int(got.sum()) < n:
+            raise AssertionError(f"dest_feasibility guard C={n}: uniform")
         t = (graph_time_ms(lambda: cuda_kernels.dest_has(*args)),
              graph_time_ms(lambda: K.dest_has_plain(*args)))
-        nbytes = n * (4 + 4 + 4 + 8 * rf + 1) + top_b.numel() * 8
-        t_b, _ = bound(nbytes, n * rf * top_b.numel())
-        log(f"  dest_feasibility guard C={n} (k={top_b.numel()}): exact "
-            f"match ({int(got.sum())} with a destination); device time per "
-            f"call: kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms; bound "
-            f"{t_b:.6f} ms")
+        yard = _yardstick(pk, lambda: parent_guard(pk, state, cand, w_c,
+                                                   dest_ok, room, pr))
+        nt = min(rf + 2, nb)
+        nbytes = n * (8 + 4 + 4 + 8 * rf + 1) + nb * 5
+        t_b, _ = bound(nbytes, n * rf * nt)
+        log(f"  dest_feasibility guard C={n} (top {nt} of {nb} brokers "
+            f"selected in the launch): exact match ({int(got.sum())} with a "
+            f"destination; also with no eligible broker); device time per "
+            f"call: kernel {t[0]:.4f} ms, {yard}, plain {t[1]:.4f} ms; "
+            f"bound {t_b:.6f} ms")
         rec.setdefault("guard", {})[n] = dict(ms=t[0], plain_ms=t[1],
                                               bound_ms=t_b)
     return rec
@@ -2176,6 +2443,67 @@ def assign_torch_ops(fn_solve):
         return fn_solve(), counts
 
 
+#: the functions around K9's and K11's launches whose torch ops phase 3
+#: counts
+K9_K11_CALLERS = ("resolve_dest_conflicts", "cand_has_dest",
+                  "feasible_dest_exists", "assign_pref")
+
+
+def k9_k11_counts(fn_solve):
+    """(fn_solve(), counts): for resolve_dest_conflicts, cand_has_dest,
+    feasible_dest_exists and assign_pref, their calls, the torch ops
+    inside them (the acceptance stack's own ops inside assign_pref among
+    them) and K9's, K11's and K11's preference-entry launches inside
+    them."""
+    from cruise_control_tpu_torch import cuda_kernels
+    from cruise_control_tpu_torch.analyzer import kernels as K
+    launched = {"K9 launches": "segment_argmax",
+                "K11 launches": "dest_feasibility",
+                "dest_pref launches": "dest_pref"}
+    counts = {n: dict({"calls": 0, "torch ops": 0},
+                      **{k: 0 for k in launched}) for n in K9_K11_CALLERS}
+
+    def wrap(fn, name):
+        c = counts[name]
+
+        def on_op(op):
+            c["torch ops"] += 1
+
+        def call(*a, **kw):
+            c["calls"] += 1
+            before = {k: cuda_kernels.LAUNCHES[v] for k, v in launched.items()}
+            try:
+                with torch_op_counter(on_op):
+                    return fn(*a, **kw)
+            finally:
+                for k, v in launched.items():
+                    c[k] += cuda_kernels.LAUNCHES[v] - before[k]
+        return call
+    with _wrapped([(K, n) for n in K9_K11_CALLERS], wrap):
+        return fn_solve(), counts
+
+
+def check_k9_k11_counts(counts: dict) -> None:
+    """Raise unless every resolve_dest_conflicts call was one K9 launch
+    and every cand_has_dest / feasible_dest_exists call one K11 launch,
+    none with a torch op, and every assign_pref call built its plane in
+    one preference-entry launch (beside the acceptance stack's ops)."""
+    bad = []
+    for name, kernel in (("resolve_dest_conflicts", "K9 launches"),
+                         ("cand_has_dest", "K11 launches"),
+                         ("feasible_dest_exists", "K11 launches")):
+        c = counts[name]
+        if c["torch ops"] or c[kernel] != c["calls"]:
+            bad.append(name)
+    c = counts["assign_pref"]
+    if c["dest_pref launches"] != c["calls"] or c["K11 launches"] != c[
+            "calls"]:
+        bad.append("assign_pref")
+    if bad or not counts["resolve_dest_conflicts"]["calls"]:
+        raise AssertionError(f"K9 / K11 callers not one launch each: {bad} "
+                             f"({counts})")
+
+
 def _commit_log(solve: dict, device: str) -> list:
     """Run `solve` once and return every cached commit's sorted
     (kind, replica, destination) triples, one list per commit (a host
@@ -2246,12 +2574,14 @@ def pass_region_counts(solve: dict) -> dict:
     tensors cloned (torch clone or empty_like) inside them and the planes
     they return that are not the given cache's own; K14's calls by entry
     (a prefix gate's k and terms); and the torch ops
-    inside assign_destinations (`assign_torch_ops`).  The wrappers bind
-    their arguments by name.  Raises if a pass sorts, scatters, sums or
-    syncs, if a multi-commit pass launches a torch op between its first K2
-    and its last K8, if a plain ordered sum or arrival_rank runs on the
-    card or an ordered sum syncs, if K3 never ran, cloned a tensor or
-    returned a plane other than the cache's own, or if the
+    inside assign_destinations (`assign_torch_ops`) and around K9 and K11
+    (`k9_k11_counts`).  The wrappers bind their arguments by name.
+    Raises if a pass sorts, scatters, sums or syncs, if a multi-commit
+    pass launches a torch op between its first K2 and its last K8, if a
+    plain ordered sum or arrival_rank runs on the card or an ordered sum
+    syncs, if K3 never ran, cloned a tensor or
+    returned a plane other than the cache's own, if a K9 or K11 caller
+    is not one launch (`check_k9_k11_counts`), or if the
     rank_accept_commit calls seen inside the passes are not every K8
     launch with the commit (so that the passes were found)."""
     import torch
@@ -2391,11 +2721,14 @@ def pass_region_counts(solve: dict) -> dict:
         warnings.showwarning = on_warning
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            _, torch_ops = assign_torch_ops(lambda: _solve(solve, "cuda"))
+            (_, k9_k11), torch_ops = assign_torch_ops(
+                lambda: k9_k11_counts(lambda: _solve(solve, "cuda")))
         finally:
             torch.cuda.set_sync_debug_mode("default")
     counts["torch ops in assign_destinations"] = torch_ops
+    counts["K9 and K11 callers"] = k9_k11
     log(f"    calls inside and outside the multi-commit passes: {counts}")
+    check_k9_k11_counts(k9_k11)
     if torch_ops["torch ops in multi-commit passes"]:
         raise AssertionError(f"the multi-commit passes launch torch ops "
                              f"between K2 and K8: {torch_ops}")
@@ -2740,7 +3073,7 @@ def profile_slice(solve: dict, device: str = "cuda",
                (O, "compute_stats"), (O, "compute_stats_fresh_loads"),
                (K, "forced_move_round"), (K, "forced_select"),
                (K, "per_segment_argmax"), (K, "swap_pair"),
-               (K, "dest_struct"), (K, "dest_has"),
+               (K, "assign_pref"), (K, "dest_has"),
                (O, "heal_offline_replicas"), (O, "diff_proposals_host"),
                (KA.KafkaAssignerEvenRackAwareGoal, "optimize_cached"),
                (KA.KafkaAssignerDiskUsageDistributionGoal, "optimize")]
@@ -2827,6 +3160,9 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default="1,2,3,4")
     ap.add_argument("--profile", action="store_true",
                     help="also profile one slice solve (torch.profiler)")
+    ap.add_argument("--parent", default=None,
+                    help="a checkout of the parent tree: phase 2 times its "
+                         "K9 and K11 chains as yardsticks")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",") if p}
 
@@ -2867,6 +3203,7 @@ def main(argv=None) -> int:
         return call
 
     if 2 in phases:
+        pk = parent_kernels(args.parent)
         log("[2] kernels against their plain versions on the card, at the "
             "slice's shapes")
         results["row_topk"] = check_row_topk(200, 1152, seed=11)
@@ -2889,10 +3226,12 @@ def main(argv=None) -> int:
             dict(SLICE_SPEC, num_brokers=24, num_partitions=1000), seed=40)
         results["rank_accept"] = check_rank_accept(seed=30)
         results["_rank_accept_breakdown"] = rank_accept_breakdown(seed=36)
-        results["segment_argmax"] = check_segment_argmax(seed=31)
+        results["_segment_argmax_dense"] = check_segment_argmax(seed=31,
+                                                                pk=pk)
+        results["segment_argmax"] = check_segment_keep(seed=37, pk=pk)
         results["swap_pair"] = check_swap_pair(SLICE_SPEC, seed=32)
         results["dest_feasibility"] = check_dest_feasibility(
-            SLICE_SPEC, ((2048, 200),), seed=33)
+            SLICE_SPEC, ((2048, 200), (2048, 131)), seed=33, pk=pk)
         log("[2] K2 at the forced-move round's C = 4096, against the "
             "shortlist (K = 256) and every broker (K = 2600)")
         results["_assign_pass_4096"] = check_assign_pass(4096, (256, 2600),
@@ -2916,7 +3255,7 @@ def main(argv=None) -> int:
                                                               seed=28)
         results["_swap_pair_north"] = check_swap_pair(NORTH_SPEC, seed=34)
         results["_dest_feasibility_north"] = check_dest_feasibility(
-            NORTH_SPEC, ((2048, 256), (4096, 2600)), seed=35)
+            NORTH_SPEC, ((2048, 256), (4096, 2600)), seed=35, pk=pk)
         log("[2] the ordered sums K12-K14, at the slice's and the "
             "2,600-broker shapes and their edge cases")
         results["segment_sum"] = check_segment_sum(seed=41)
@@ -3021,7 +3360,10 @@ def main(argv=None) -> int:
         "swap_pair_north": results.get("_swap_pair_north"),
         "dest_feasibility_north": results.get("_dest_feasibility_north"),
         "dest_feasibility_guard": results.get("dest_feasibility", {}).get(
-            "guard")}))
+            "guard"),
+        "dest_pref": results.get("dest_feasibility", {}).get("pref"),
+        "segment_keep": results.get("segment_argmax", {}).get("cases"),
+        "segment_argmax_dense": results.get("_segment_argmax_dense")}))
     log("[5] launches by path: " + json.dumps({
         k: results.get(f"_launches_{k}") for k in (
             "four", "stack", "add", "config5", "hard", "demote",

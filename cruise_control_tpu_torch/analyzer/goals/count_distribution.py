@@ -339,6 +339,15 @@ class LeaderReplicaDistributionGoal(ReplicaDistributionGoal):
         return after.leader_count_std <= before.leader_count_std + 1e-6
 
 
+
+def mover_weights(num_replicas: int, salt: int, device) -> torch.Tensor:
+    """f32[R] the topic goal's mover weights, 1 + 0.25 x a salted jitter.
+    A jitter is a multiple of 2**-24 in [0, 1), so its product with 0.25
+    is exact and one rounding and two give the same sum: whether the
+    reference's compiled round contracts it into an FMA cannot show."""
+    return 1.0 + 0.25 * kernels.salted_jitter(num_replicas, salt,
+                                              device=device)
+
 class TopicReplicaDistributionGoal(Goal):
     """Even per-topic replica counts."""
 
@@ -389,8 +398,7 @@ class TopicReplicaDistributionGoal(Goal):
 
             # salted jitter on the otherwise equal mover weights: a vetoed
             # mover must not win its broker's slot every round
-            w = 1.0 + 0.25 * kernels.salted_jitter(st.num_replicas, salt,
-                                                   device=st.device)
+            w = mover_weights(st.num_replicas, salt, st.device)
             counts = cache.replica_count.to(torch.float32)
             cand_r, cand_d, cand_v = kernels.forced_move_round(
                 st, movable, w, dest_ok_b, accept_all, -counts,

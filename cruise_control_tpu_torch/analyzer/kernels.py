@@ -18,17 +18,20 @@ functions are hand-written CUDA kernels on the card:
   pass's commit of arrival counts and cumulants, one launch up to 4,096
   candidates) and of the leadership sweep (`rank_accept`);
 * K9 `segment_argmax` (csrc/segment_argmax.cu) behind
-  `per_segment_argmax`;
+  `per_segment_argmax`, and its keep entry behind
+  `resolve_dest_conflicts`;
 * K10 `swap_pair` (csrc/swap_pair.cu), the swap round's pair plane;
-* K11 `dest_feasibility` (csrc/dest_feasibility.cu), the structural terms
-  of `_dest_feasibility` and the guard of `cand_has_dest` /
-  `feasible_dest_exists`;
+* K11 `dest_feasibility` (csrc/dest_feasibility.cu), an assignment's
+  whole preference plane (`assign_pref`: `_dest_feasibility`'s terms
+  with the fit test and the preferences) and the guard of `cand_has_dest`
+  / `feasible_dest_exists` with its top-broker selection;
 * K14 `cumsum_blocks` (csrc/cumsum_blocks.cu), the source-side prefix
   gate of the move, leadership and pre-balance rounds (`prefix_gate`).
 
 Their plain versions (`row_topk_plain`, `assign_pass_plain`,
 `forced_select_plain`, `rank_accept_plain`, `rank_accept_commit_plain`,
-`per_segment_argmax_plain`, `swap_pair_plain`, `dest_struct_plain`,
+`per_segment_argmax_plain`, `resolve_dest_conflicts_plain`,
+`swap_pair_plain`, `dest_struct_plain`, `dest_pref_plain`,
 `dest_has_plain`, `prefix_gate_plain`) live here; a CPU tensor runs
 them.  The reference's `lax.cond` branches are host `if`s on a 0-d
 tensor (one sync each).
@@ -81,16 +84,24 @@ def per_segment_argmax_plain(score: torch.Tensor, segment: torch.Tensor,
     return arg, seg_max, has
 
 
+def _int_ids(ids: torch.Tensor) -> torch.Tensor:
+    """Ids as K9 and K11 read them: int32 or int64, contiguous."""
+    if ids.dtype not in (torch.int32, torch.int64):
+        ids = ids.to(torch.int32)
+    return ids.contiguous()
+
+
 def per_segment_argmax(score: torch.Tensor, segment: torch.Tensor,
                        num_segments: int, valid: torch.Tensor):
     """K9 dispatch: the plain version on the CPU, csrc/segment_argmax.cu
-    on the card.  (arg i32[S], max_score f32[S], has bool[S])."""
+    on the card (one launch).  (arg i32[S], max_score f32[S], has
+    bool[S])."""
     if not score.is_cuda:
         return per_segment_argmax_plain(score, segment, num_segments, valid)
     from cruise_control_tpu_torch import cuda_kernels
-    return cuda_kernels.segment_argmax(
-        score.contiguous(), segment.to(torch.int32).contiguous(),
-        valid.contiguous(), num_segments)
+    return cuda_kernels.segment_argmax(score.contiguous(),
+                                       _int_ids(segment),
+                                       valid.contiguous(), num_segments)
 
 
 def _has_table(cache) -> bool:
@@ -310,12 +321,26 @@ def rank_accept_commit(dest, gain, has, num_b: int, taken_cnt, cap, cum,
         commit=True)
 
 
-def resolve_dest_conflicts(dest, gain, valid, num_brokers: int):
-    """Keep at most one winning candidate per destination segment."""
+def resolve_dest_conflicts_plain(dest, gain, valid,
+                                 num_segments: int) -> torch.Tensor:
+    """Plain version of K9's keep entry: bool[C], at most one winning
+    candidate per destination segment (the max gain, ties to the lowest
+    index) among the valid ones."""
     seg = torch.where(valid, dest.long(), torch.zeros_like(dest).long())
-    arg, _, _ = per_segment_argmax(gain, seg, num_brokers, valid)
+    arg, _, _ = per_segment_argmax_plain(gain, seg, num_segments, valid)
     idx = _arange(dest.shape[0], dest.device)
     return valid & (arg.long()[seg] == idx)
+
+
+def resolve_dest_conflicts(dest, gain, valid, num_brokers: int):
+    """Keep at most one winning candidate per destination segment.  The
+    plain version on the CPU; on the card one launch of K9's keep entry
+    (csrc/segment_argmax.cu cc_segment_keep)."""
+    if not gain.is_cuda:
+        return resolve_dest_conflicts_plain(dest, gain, valid, num_brokers)
+    from cruise_control_tpu_torch import cuda_kernels
+    return cuda_kernels.segment_keep(gain.contiguous(), _int_ids(dest),
+                                     valid.contiguous(), num_brokers)
 
 
 # ---------------------------------------------------------------------------
@@ -324,7 +349,7 @@ def resolve_dest_conflicts(dest, gain, valid, num_brokers: int):
 
 def dest_struct_plain(cand_r, dest_ids, dest_ok, replica_broker,
                       replica_partition, partition_replicas) -> torch.Tensor:
-    """Plain version of K11's plane entry: bool[C, K] structural
+    """The structural terms of K11's preference plane (plain): bool[C, K]
     feasibility of moving cand_r[c] to dest_ids[k] -- an eligible broker,
     not the current one, and (with partition_replicas) no second replica
     of the partition there."""
@@ -345,32 +370,66 @@ def dest_struct_plain(cand_r, dest_ids, dest_ok, replica_broker,
     return feasible
 
 
-def dest_struct(cand_r, dest_ids, dest_ok, replica_broker,
-                replica_partition, partition_replicas) -> torch.Tensor:
-    """K11 dispatch (plane entry): the plain version on the CPU,
-    csrc/dest_feasibility.cu on the card."""
-    if not cand_r.is_cuda:
-        return dest_struct_plain(cand_r, dest_ids, dest_ok, replica_broker,
-                                 replica_partition, partition_replicas)
-    from cruise_control_tpu_torch import cuda_kernels
-    return cuda_kernels.dest_feasibility(
-        cand_r.to(torch.int32).contiguous(),
-        dest_ids.to(torch.int32).contiguous(), dest_ok.contiguous(),
-        replica_broker, replica_partition, partition_replicas)
-
-
 def _dest_feasibility(state: ClusterState, cand_r, dest_ok,
                       accept_matrix_fn, partition_replicas=None,
                       dest_ids=None) -> torch.Tensor:
     """bool[C, K] structural destination feasibility: eligible broker,
-    not the current broker, no second replica of the partition (K11),
-    and the composed acceptance stack (torch ops)."""
+    not the current broker, no second replica of the partition, and the
+    composed acceptance stack -- the plain composite of torch ops that
+    the tests hold to the reference (the rounds build the whole
+    preference plane, these terms inside, with `assign_pref`: one K11
+    launch on the card)."""
     if dest_ids is None:
         dest_ids = _arange(state.num_brokers, state.device)
-    feasible = dest_struct(cand_r, dest_ids, dest_ok, state.replica_broker,
-                           state.replica_partition, partition_replicas)
+    feasible = dest_struct_plain(cand_r, dest_ids, dest_ok,
+                                 state.replica_broker,
+                                 state.replica_partition, partition_replicas)
     return feasible & accept_matrix_fn(cand_r.long()[:, None],
                                        dest_ids.long()[None, :])
+
+
+def dest_pref_plain(state: ClusterState, cand_r, dest_ids, dest_ok,
+                    dest_pref, accept, partition_replicas, cand_has=None,
+                    w_c=None, dest_headroom=None) -> torch.Tensor:
+    """Plain version of K11's preference entry: f32[C, K] preference
+    plane of an assignment, dest_pref[d] (d = dest_ids[k]) where the
+    candidate has a pick (cand_has), the move is structurally feasible,
+    it fits (w_c <= dest_headroom[d], when given) and the acceptance
+    plane `accept` (any shape that broadcasts to [C, K]) allows it; NEG
+    elsewhere."""
+    dest_ids = dest_ids.long()
+    feasible = dest_struct_plain(cand_r, dest_ids, dest_ok,
+                                 state.replica_broker,
+                                 state.replica_partition,
+                                 partition_replicas) & accept
+    if w_c is not None:
+        feasible = (w_c[:, None] <= dest_headroom[dest_ids][None, :]) \
+            & feasible
+    if cand_has is not None:
+        feasible = cand_has[:, None] & feasible
+    return torch.where(feasible, dest_pref[dest_ids][None, :],
+                       torch.full((), NEG, device=dest_pref.device))
+
+
+def assign_pref(state: ClusterState, cand_r, dest_ids, dest_ok, dest_pref,
+                accept_matrix_fn, partition_replicas, cand_has=None,
+                w_c=None, dest_headroom=None) -> torch.Tensor:
+    """K11 dispatch (preference entry): the preference plane of an
+    assignment over the shortlist `dest_ids`, the acceptance stack's own
+    torch ops beside it.  The plain version on the CPU, one launch of
+    csrc/dest_feasibility.cu cc_dest_pref on the card."""
+    accept = accept_matrix_fn(cand_r.long()[:, None],
+                              dest_ids.long()[None, :])
+    if not cand_r.is_cuda:
+        return dest_pref_plain(state, cand_r, dest_ids, dest_ok, dest_pref,
+                               accept, partition_replicas, cand_has, w_c,
+                               dest_headroom)
+    from cruise_control_tpu_torch import cuda_kernels
+    return cuda_kernels.dest_pref(
+        _int_ids(cand_r), _int_ids(dest_ids), dest_ok.contiguous(),
+        state.replica_broker, state.replica_partition, partition_replicas,
+        None if cand_has is None else cand_has.contiguous(), w_c,
+        dest_headroom, accept, dest_pref)
 
 
 def top_headroom(dest_ok, dest_headroom, rf: int):
@@ -386,11 +445,14 @@ def top_headroom(dest_ok, dest_headroom, rf: int):
     return top_b, top_h
 
 
-def dest_has_plain(cand_r, w_c, top_b, top_h, replica_broker,
+def dest_has_plain(cand_r, w_c, dest_ok, dest_headroom, replica_broker,
                    replica_partition, partition_replicas) -> torch.Tensor:
     """Plain version of K11's guard entry: bool[C], best[c] >= w_c[c]
-    where best is the most headroom among the top brokers that hold no
-    replica of the candidate's partition (cand_r None: every replica)."""
+    where best is the most headroom among the top min(RF + 2, B) brokers
+    (top_headroom) that hold no replica of the candidate's partition
+    (cand_r None: every replica)."""
+    top_b, top_h = top_headroom(dest_ok, dest_headroom,
+                                partition_replicas.shape[1])
     rows = (replica_partition if cand_r is None
             else replica_partition[cand_r.long()]).long()
     inf = torch.full((), float("inf"), device=top_h.device)
@@ -403,37 +465,35 @@ def dest_has_plain(cand_r, w_c, top_b, top_h, replica_broker,
     return best >= w_c
 
 
-def dest_has(cand_r, w_c, top_b, top_h, replica_broker, replica_partition,
-             partition_replicas) -> torch.Tensor:
-    """K11 dispatch (guard entry): the plain version on the CPU,
-    csrc/dest_feasibility.cu on the card."""
+def dest_has(cand_r, w_c, dest_ok, dest_headroom, replica_broker,
+             replica_partition, partition_replicas) -> torch.Tensor:
+    """K11 dispatch (guard entry): the plain version on the CPU; on the
+    card one launch of csrc/dest_feasibility.cu cc_dest_has, which selects
+    the top brokers itself."""
     if not w_c.is_cuda:
-        return dest_has_plain(cand_r, w_c, top_b, top_h, replica_broker,
-                              replica_partition, partition_replicas)
+        return dest_has_plain(cand_r, w_c, dest_ok, dest_headroom,
+                              replica_broker, replica_partition,
+                              partition_replicas)
     from cruise_control_tpu_torch import cuda_kernels
     return cuda_kernels.dest_has(
-        None if cand_r is None else cand_r.to(torch.int32).contiguous(),
-        w_c.contiguous(), top_b.to(torch.int32).contiguous(),
-        top_h.contiguous(), replica_broker, replica_partition,
-        partition_replicas)
+        None if cand_r is None else _int_ids(cand_r), w_c,
+        dest_ok.contiguous(), dest_headroom, replica_broker,
+        replica_partition, partition_replicas)
 
 
 def cand_has_dest(state, cand_r, w_c, dest_ok, dest_headroom,
                   partition_replicas) -> torch.Tensor:
     """bool[C] — does some destination fit each candidate (top RF+2
     headroom argument)?"""
-    top_b, top_h = top_headroom(dest_ok, dest_headroom,
-                                partition_replicas.shape[1])
-    return dest_has(cand_r, w_c, top_b, top_h, state.replica_broker,
-                    state.replica_partition, partition_replicas)
+    return dest_has(cand_r, w_c, dest_ok, dest_headroom,
+                    state.replica_broker, state.replica_partition,
+                    partition_replicas)
 
 
 def feasible_dest_exists(state, w, dest_ok, dest_headroom,
                          partition_replicas) -> torch.Tensor:
     """bool[R] — replica-level form of cand_has_dest."""
-    top_b, top_h = top_headroom(dest_ok, dest_headroom,
-                                partition_replicas.shape[1])
-    return dest_has(None, w, top_b, top_h, state.replica_broker,
+    return dest_has(None, w, dest_ok, dest_headroom, state.replica_broker,
                     state.replica_partition, partition_replicas)
 
 
@@ -586,13 +646,9 @@ def move_round(state: ClusterState, w, src_ok, src_excess, movable, dest_ok,
             dt = None
 
         def assign_with(dest_ids):
-            fits = cw[:, None] <= dest_headroom[dest_ids][None, :]
-            feasible = (fits & ch[:, None]
-                        & _dest_feasibility(state, crs, dest_ok,
-                                            accept_matrix_fn,
-                                            partition_replicas, dest_ids))
-            pref = torch.where(feasible, dest_pref[dest_ids][None, :],
-                               torch.full((), NEG, device=dev))
+            pref = assign_pref(state, crs, dest_ids, dest_ok, dest_pref,
+                               accept_matrix_fn, partition_replicas, ch, cw,
+                               dest_headroom)
             return assign_destinations(pref, gn, ch, num_b, dest_ids,
                                        dest_terms=dt, dest_cap=dest_cap)
 
@@ -722,6 +778,20 @@ def rotation_salt(leader_count: torch.Tensor,
     as_int = torch.where(torch.isnan(rem), torch.zeros_like(rem), rem)
     as_int = torch.clamp(as_int.to(torch.int64), -2 ** 31, 2 ** 31 - 1)
     return _wrap_i32(as_int + _wrap_i32(int_mix).to(torch.int64))
+
+
+def table_window_gain(cand_bonus_b, cand_has, salt_r) -> torch.Tensor:
+    """f32[C] window selection score of the leadership table round: each
+    candidate's bonus plus 0.35 x the spread of the candidates' bonuses x
+    a salted jitter, the product and the sum rounded once (the
+    reference's compiled round contracts them into one FMA)."""
+    inf = torch.full((), float("inf"), device=cand_bonus_b.device)
+    g_lo = torch.min(torch.where(cand_has, cand_bonus_b, inf))
+    g_hi = torch.max(torch.where(cand_has, cand_bonus_b, -inf))
+    spread_g = torch.where(g_hi > g_lo, g_hi - g_lo,
+                           torch.clamp_min(torch.abs(g_hi), 1.0))
+    jitter = salted_jitter(cand_bonus_b.shape[0], salt_r)
+    return ops.fma_f32(0.35 * spread_g, jitter, cand_bonus_b)
 
 
 def assign_amp(pref) -> torch.Tensor:
@@ -930,7 +1000,6 @@ def forced_move_round(state: ClusterState, forced, w, dest_ok,
             f_cand, f_has = table_pick_topk(
                 cache, torch.where(forced_ok, w + 1.0, neg), forced_ok, k)
             cand_r, cand_has = torch.clamp_min(f_cand, 0), f_has
-        max_candidates = cand_r.shape[0]
     else:
         top_b, top_h = top_headroom(dest_ok, inf_room, rf)
         cand_r, cand_has, _ = forced_select(
@@ -948,11 +1017,8 @@ def forced_move_round(state: ClusterState, forced, w, dest_ok,
         d_terms = [(sw, dest_stack_headroom)] + d_terms
 
     def assign_with(dest_ids):
-        feasible = (cand_has[:, None]
-                    & _dest_feasibility(state, cand_rl, dest_ok,
-                                        accept_matrix_fn,
-                                        partition_replicas, dest_ids))
-        pref = torch.where(feasible, dest_pref[dest_ids][None, :], neg)
+        pref = assign_pref(state, cand_rl, dest_ids, dest_ok, dest_pref,
+                           accept_matrix_fn, partition_replicas, cand_has)
         return assign_destinations(pref, fits_w, cand_has, num_b, dest_ids,
                                    dest_terms=d_terms, dest_cap=dest_cap)
 
@@ -966,13 +1032,8 @@ def forced_move_round(state: ClusterState, forced, w, dest_ok,
         # acceptance snapshot stays valid); dead sources stay uncapped
         src = rb[cand_rl]
         alive_src = state.broker_alive[src]
-        seg = torch.where(alive_src, src, torch.full_like(src, num_b))
-        capped, _, _ = per_segment_argmax(fits_w, seg, num_b + 1,
-                                          cand_valid & alive_src)
-        c_idx = _arange(max_candidates, dev)
-        cand_valid = cand_valid & torch.where(
-            alive_src, capped.long()[seg] == c_idx,
-            torch.ones_like(alive_src))
+        cand_valid = (cand_valid & ~alive_src) | resolve_dest_conflicts(
+            src, fits_w, cand_valid & alive_src, num_b)
     return cand_r, cand_dest, cand_valid
 
 
@@ -1325,13 +1386,7 @@ def leadership_round(state: ClusterState, bonus_w, src_excess, movable,
             # score only; the assignment ranks by the true gain)
             salt_r = rotation_salt(cache.leader_count,
                                    cache.broker_load[:, 0])
-            inf = torch.full((), float("inf"), device=dev)
-            g_lo = torch.min(torch.where(cand_has, cand_bonus_b, inf))
-            g_hi = torch.max(torch.where(cand_has, cand_bonus_b, -inf))
-            spread_g = torch.where(g_hi > g_lo, g_hi - g_lo,
-                                   torch.clamp_min(torch.abs(g_hi), 1.0))
-            gain_sel = cand_bonus_b + 0.35 * spread_g * salted_jitter(
-                c_full, salt_r)
+            gain_sel = table_window_gain(cand_bonus_b, cand_has, salt_r)
             sel, _, ch_c, cr_safe_c = compact_candidates(
                 CAND_COMPACT, gain_sel, cand_has, cand_r_safe)
         else:

@@ -50,9 +50,10 @@ def sweep_pick_plain(sel, has_in, cur_safe, rows, jit_plane, replica_broker,
     sibling option j: feasibility (a live sibling on an alive,
     leader-eligible broker whose load plus the arriving value stays
     within hard_cap; in mean mode the value below twice the deficit),
-    the score deficit + 0.1 * spread * ((jitter + salt) mod 1) (+ 0.5 *
-    spread * tb_norm[broker] with a tiebreak), spread = max(|deficit|
-    over the whole [W, RF] plane, 1e-6); the first-max feasible option.
+    the score fma(0.1 * spread, (jitter + salt) mod 1, deficit) (then
+    fma(0.5 * spread, tb_norm[broker], score) with a tiebreak), spread =
+    max(|deficit| over the whole [W, RF] plane, 1e-6); the first-max
+    feasible option.
     Returns (dst_r i32[W] promoted replica, has bool[W])."""
     sel = sel.long()
     rows_w = rows[sel]
@@ -66,11 +67,13 @@ def sweep_pick_plain(sel, has_in, cur_safe, rows, jit_plane, replica_broker,
     if improve_gate:
         ok &= value_arrive < 2.0 * deficit
     spread = torch.clamp_min(torch.max(torch.abs(deficit)), 1e-6)
-    # a float32 value: the scalar add rounds as a float32 tensor add would
-    score = deficit + 0.1 * spread * ops.remainder_f(
-        jit_plane[sel] + float(np.float32(salt)), 1.0)
+    # a float32 value: the scalar add rounds as a float32 tensor add would;
+    # each product and the sum after it are one FMA in the reference's
+    # compiled sweep
+    score = ops.fma_f32(0.1 * spread, ops.remainder_f(
+        jit_plane[sel] + float(np.float32(salt)), 1.0), deficit)
     if tb_norm is not None:
-        score = score + 0.5 * spread * tb_norm[cand_b]
+        score = ops.fma_f32(0.5 * spread, tb_norm[cand_b], score)
     score = torch.where(ok, score, torch.full((), -float("inf"),
                                               device=score.device))
     best = torch.argmax(score, 1)
@@ -93,6 +96,25 @@ def sweep_pick(sel, has_in, cur_safe, rows, jit_plane, replica_broker,
                                    replica_broker, value_r, static_ok, alive,
                                    leader_ok, W, fill_to, hard_cap, tb_norm,
                                    salt, improve_gate)
+
+
+def sweep_window_gain(gain0, live, failed, salt, select_jitter: float):
+    """f32[P] window selection score of a sweep round: the gain plus a
+    salted rotation of `select_jitter` x the live gains' spread, less the
+    spread and the amplitude for the members of a failed window.  The
+    jitter's product and sum are rounded once (the reference's compiled
+    sweep contracts them into one FMA); `failed` is 0 or 1, so its
+    product is exact."""
+    dev = gain0.device
+    inf = torch.full((), float("inf"), device=dev)
+    g_lo = torch.min(torch.where(live, gain0, inf))
+    g_hi = torch.max(torch.where(live, gain0, -inf))
+    spread0 = torch.where(g_hi > g_lo, g_hi - g_lo,
+                          torch.ones((), device=dev))
+    amp = spread0 * select_jitter
+    salt_i = int(np.float32(salt) * np.float32(100.0))
+    jitter = kernels.salted_jitter(gain0.shape[0], salt_i, device=dev)
+    return ops.fma_f32(amp, jitter, gain0) - failed * (spread0 + amp)
 
 
 def global_leadership_sweep(
@@ -118,7 +140,6 @@ def global_leadership_sweep(
                          device=dev)
     no_taken = torch.zeros((num_b,), dtype=torch.int32, device=dev)
     zero_b = torch.zeros((num_b,), device=dev)
-    inf = torch.full((), float("inf"), device=dev)
     # the loop-invariant [P, RF] jitter plane; rounds read their window
     jit_plane = kernels._pairwise_jitter(num_p, rows.shape[1], salt=0,
                                          device=dev)
@@ -139,17 +160,8 @@ def global_leadership_sweep(
             live &= value_leave0 < 2.0 * (W[sb] - shed_to[sb])
         gain0 = value_leave0
 
-        # window selection on [P]-sized terms: salted rotation, failed
-        # window members penalised below the untried ones
-        g_lo = torch.min(torch.where(live, gain0, inf))
-        g_hi = torch.max(torch.where(live, gain0, -inf))
-        spread0 = torch.where(g_hi > g_lo, g_hi - g_lo,
-                              torch.ones((), device=dev))
-        amp = spread0 * select_jitter
-        salt_i = int(np.float32(salt) * np.float32(100.0))
-        gain_sel = (gain0 + amp * kernels.salted_jitter(num_p, salt_i,
-                                                        device=dev)
-                    - failed * (spread0 + amp))
+        gain_sel = sweep_window_gain(gain0, live, failed, salt,
+                                     select_jitter)
         (sel, _, has, cur_safe, src_b, value_leave,
          gain) = kernels.compact_candidates(
             SWEEP_COMPACT, gain_sel, live, cur_safe0, src_b0, value_leave0,

@@ -147,11 +147,9 @@ def prebalance(state: ClusterState, ctx: OptimizationContext,
             return fits
 
         def assign_with(dest_ids):
-            feasible = cand_has[:, None] & kernels._dest_feasibility(
-                st, cand_r_safe, dest_ok, accept, ctx.partition_replicas,
-                dest_ids)
-            pref = torch.where(feasible, dest_pref[dest_ids][None, :],
-                               torch.full((), kernels.NEG, device=dev))
+            pref = kernels.assign_pref(st, cand_r_safe, dest_ids, dest_ok,
+                                       dest_pref, accept,
+                                       ctx.partition_replicas, cand_has)
             d_terms = [(load_c[:, res], (mid - W)[:, res])
                        for res in range(res_ax)]
             d_terms.append((torch.ones_like(cand_w), c_upper - counts))

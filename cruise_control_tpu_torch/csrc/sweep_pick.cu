@@ -9,14 +9,17 @@
 //            && leader_ok[cb] && W[cb] + value[r] <= hard_cap[cb]
 //            (&& value[r] < 2 * deficit in mean mode);
 //   deficit = fill_to[cb] - W[cb];
-//   score  = deficit + 0.1 * spread * ((jit[p, j] + salt) mod 1)
-//            (+ 0.5 * spread * tb_norm[cb] with a tiebreak);
+//   score  = fma(0.1 * spread, (jit[p, j] + salt) mod 1, deficit)
+//            (then fma(0.5 * spread, tb_norm[cb], score) with a
+//            tiebreak);
 //   spread = max(max |deficit| over the WHOLE [W, RF] plane, feasible or
 //            not, 1e-6).
 // Outputs the promoted replica max(rows[p, j*], 0) of the first-max
 // feasible option j* (option 0 when none is feasible) and has = has_in[w]
-// && any(ok).  Every product and sum is rounded separately, as in the
-// reference; fmodf is exact.
+// && any(ok).  Each score term's product and the sum after it are one
+// FMA (__fmaf_rn), as XLA:CPU contracts them in the reference's compiled
+// sweep; every other product and sum is rounded on its own; fmodf is
+// exact.
 //
 // Bound: latency.  The window holds at most 4096 rows of RF = 3 options;
 // each option is a short chain of dependent gathers (rows -> broker ->
@@ -102,9 +105,11 @@ __global__ void score_kernel(Args a) {
     // (jit + salt) mod 1: the truncated remainder, shifted to be >= 0
     float frac = fmodf(__fadd_rn(a.jit[row0 + j], a.salt), 1.0f);
     if (frac != 0.f && frac < 0.f) frac = __fadd_rn(frac, 1.0f);
-    float sc = __fadd_rn(deficit, __fmul_rn(jit_amp, frac));
+    // each product and the sum after it are one FMA, as the reference's
+    // compiled sweep rounds them
+    float sc = __fmaf_rn(jit_amp, frac, deficit);
     if (a.tb_norm != nullptr)
-      sc = __fadd_rn(sc, __fmul_rn(tb_amp, a.tb_norm[cb]));
+      sc = __fmaf_rn(tb_amp, a.tb_norm[cb], sc);
     sc = ok ? sc : -INFINITY;
     if (j == 0 || sc > best) {
       best = sc;

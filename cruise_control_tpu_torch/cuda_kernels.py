@@ -46,7 +46,10 @@ LAUNCHES = {"row_topk": 0, "assign_pass": 0, "commit_moves": 0,
             "ordered_sum": 0, "cumsum_blocks": 0,
             # K8's launches split by path: one block (C <= 4096) and the
             # multi-launch path above
-            "rank_accept_one_block": 0, "rank_accept_multi_launch": 0}
+            "rank_accept_one_block": 0, "rank_accept_multi_launch": 0,
+            # K9's keep entry and K11's preference plane and guard, each
+            # also counted under its kernel
+            "segment_keep": 0, "dest_pref": 0, "dest_has": 0}
 #: K8's one-block path takes up to this many candidates
 RANK_ONE_BLOCK_MAX = 4096
 #: K12's most segments (a tile's running counts live in shared memory)
@@ -73,6 +76,23 @@ GATE_MAX_TERMS = 16
 #: K2's widest shortlist (its broker ids and open mask live in shared
 #: memory)
 ASSIGN_MAX_K = 46_000
+#: K9 (csrc/segment_argmax.cu): one block takes up to this many elements
+#: (and, the dense entry, segments), its keys in shared memory up to
+#: ARGMAX_ONE_BLOCK_SHARED_KEYS segments; every other call folds into a
+#: global key scratch (wider calls: one cooperative grid)
+ARGMAX_ONE_BLOCK_N = 4096
+ARGMAX_ONE_BLOCK_DENSE_S = 1024
+ARGMAX_ONE_BLOCK_SHARED_KEYS = 4096
+#: the grid path folds into shared-memory keys first, a block per
+#: ARGMAX_SHARE_PER_KEY * S elements (2,048 at least), when S keys fit and
+#: the segments average ARGMAX_SHARED_MIN_AVG elements or more; else
+#: straight into the scratch (28,672 keys: 224 KB of the block's 227 KB
+#: opt-in shared memory)
+ARGMAX_SHARED_KEYS = 28_672
+ARGMAX_SHARE_PER_KEY = 0.5
+ARGMAX_SHARED_MIN_AVG = 32
+#: K11's widest replication factor (csrc/dest_feasibility.cu kMaxRF)
+DEST_MAX_RF = 16
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -164,10 +184,16 @@ def build() -> ctypes.CDLL:
             _P] * 6
         lib.cc_rank_accept_level_floats.argtypes = [_I]
         lib.cc_rank_accept_level_floats.restype = ctypes.c_longlong
-        lib.cc_segment_argmax.argtypes = [_P, _P, _P, _I, _I] + [_P] * 5
+        lib.cc_segment_argmax.argtypes = [_P, _P, _I, _P, _I, _I, _P, _I
+                                          ] + [_P] * 4
+        lib.cc_segment_keep.argtypes = [_P, _P, _I, _P, _I, _I, _P, _I, _P,
+                                        _P]
         lib.cc_swap_pair.argtypes = [_I] * 3 + [_P] * 19 + [_P]
-        lib.cc_dest_struct.argtypes = [_I] * 3 + [_P] * 7 + [_P]
-        lib.cc_dest_has.argtypes = [_I] * 3 + [_P] * 8 + [_P]
+        _L = ctypes.c_longlong
+        lib.cc_dest_pref.argtypes = [_I] * 3 + [_P, _I, _P, _I] + [
+            _P] * 6 + [_L, _P, _L, _P, _L, _L, _P, _L, _P, _P]
+        lib.cc_dest_has.argtypes = [_I] * 3 + [_P, _I, _P, _L, _P, _P,
+                                               _L] + [_P] * 5
         lib.cc_segment_sum.argtypes = [_P, _P] + [_I] * 4 + [
             _P, _P, ctypes.c_longlong, _I, _P, _P]
         lib.cc_segment_sum_scratch.argtypes = [_I, _I, _I]
@@ -180,8 +206,9 @@ def build() -> ctypes.CDLL:
                    lib.cc_leader_assign_pass, lib.cc_commit_leadership,
                    lib.cc_sweep_pick, lib.cc_forced_select,
                    lib.cc_rank_accept,
-                   lib.cc_segment_argmax,
-                   lib.cc_swap_pair, lib.cc_dest_struct, lib.cc_dest_has,
+                   lib.cc_segment_argmax, lib.cc_segment_keep,
+                   lib.cc_swap_pair, lib.cc_dest_pref,
+                   lib.cc_dest_has,
                    lib.cc_segment_sum, lib.cc_ordered_sum,
                    lib.cc_prefix_gate):
             fn.restype = ctypes.c_int
@@ -698,31 +725,114 @@ def rank_accept(dest: torch.Tensor, gain: torch.Tensor, has: torch.Tensor,
     return out
 
 
-def segment_argmax(score: torch.Tensor, segment: torch.Tensor,
-                   valid: torch.Tensor, num_segments: int):
-    """K9 launch: (arg i32[S], max f32[S], has bool[S]) per segment, the
-    lowest index of the max-score valid element."""
-    lib = build()
+_ARGMAX_SCRATCH: dict = {}
+
+
+def argmax_scratch(device: int, stream: int, num_segments: int = 1):
+    """K9's global key scratch of a stream of a device: at least
+    `num_segments` keys (int64), zero between launches (each launch clears
+    what it set); grown, zeroed, when a call needs more.  It is never
+    allocated or grown while the stream captures a CUDA graph (a graph
+    would keep the address of a buffer that a later growth frees): run one
+    call of the widest S on the stream before the capture."""
+    key = (device, stream)
+    buf = _ARGMAX_SCRATCH.get(key)
+    if buf is None or buf.numel() < num_segments:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"segment_argmax needs {num_segments} scratch keys on a "
+                f"stream that is capturing a CUDA graph and holds "
+                f"{0 if buf is None else buf.numel()}: call it once on this "
+                "stream before the capture")
+        with _LOCK:
+            buf = _ARGMAX_SCRATCH.get(key)
+            if buf is None or buf.numel() < num_segments:
+                size = max(num_segments, 1,
+                           0 if buf is None else 2 * buf.numel())
+                buf = torch.zeros(size, dtype=torch.int64,
+                                  device=torch.device("cuda", device))
+                _ARGMAX_SCRATCH[key] = buf
+    return buf
+
+
+def argmax_share(n: int, num_segments: int) -> int:
+    """Elements a block of K9's grid path folds into shared-memory keys,
+    or 0 to fold straight into the global scratch: shared keys when S
+    keys fit (ARGMAX_SHARED_KEYS) and the segments average at least
+    ARGMAX_SHARED_MIN_AVG elements, a block per ARGMAX_SHARE_PER_KEY * S
+    of them."""
+    share = int(ARGMAX_SHARE_PER_KEY * num_segments)
+    if (share <= 0 or num_segments > ARGMAX_SHARED_KEYS
+            or n < ARGMAX_SHARED_MIN_AVG * num_segments):
+        return 0
+    return share
+
+
+def _argmax_inputs(score, segment, valid, num_segments: int, keep: bool):
+    """Check K9's inputs: (n, seg64, the scratch's address (None when the
+    launch keeps its keys in shared memory), share, stream)."""
     n = score.shape[0]
     if num_segments < 0 or n >= 2 ** 31 - 1:
         raise ValueError(f"segment_argmax takes S >= 0 and n < 2**31 - 1, "
                          f"got S={num_segments}, n={n}")
+    if segment.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"segment must be int32 or int64, got "
+                        f"{segment.dtype}")
     for name, t, dt in (("score", score, torch.float32),
-                        ("segment", segment, torch.int32),
+                        ("segment", segment, segment.dtype),
                         ("valid", valid, torch.bool)):
         _check(t, name, dt, (n,))
-    dev = score.device
-    keys = torch.empty(max(num_segments, 1), dtype=torch.int64, device=dev)
-    arg = torch.empty(num_segments, dtype=torch.int32, device=dev)
-    mx = torch.empty(num_segments, dtype=torch.float32, device=dev)
-    has = torch.empty(num_segments, dtype=torch.bool, device=dev)
-    err = lib.cc_segment_argmax(score.data_ptr(), segment.data_ptr(),
-                                valid.data_ptr(), n, num_segments,
-                                keys.data_ptr(), arg.data_ptr(),
-                                mx.data_ptr(), has.data_ptr(), _stream())
+    stream = _stream()
+    one_block = n <= ARGMAX_ONE_BLOCK_N and (
+        keep or num_segments <= ARGMAX_ONE_BLOCK_DENSE_S)
+    if one_block and num_segments <= ARGMAX_ONE_BLOCK_SHARED_KEYS:
+        return n, int(segment.dtype == torch.int64), None, 0, stream
+    share = 0 if one_block else argmax_share(n, num_segments)
+    scratch = argmax_scratch(score.device.index, stream, num_segments)
+    return (n, int(segment.dtype == torch.int64), scratch.data_ptr(), share,
+            stream)
+
+
+def segment_argmax(score: torch.Tensor, segment: torch.Tensor,
+                   valid: torch.Tensor, num_segments: int):
+    """K9 launch, dense entry: (arg i32[S], max f32[S], has bool[S]) per
+    segment, the lowest index of the max-score valid element (segment ids
+    int32 or int64, ids outside [0, S) dropped).  One allocation holds
+    the three outputs."""
+    lib = build()
+    n, seg64, scratch, share, stream = _argmax_inputs(
+        score, segment, valid, num_segments, keep=False)
+    s = num_segments
+    out = torch.empty(9 * s, dtype=torch.uint8, device=score.device)
+    arg = out[:4 * s].view(torch.int32)
+    mx = out[4 * s:8 * s].view(torch.float32)
+    has = out[8 * s:].view(torch.bool)
+    err = lib.cc_segment_argmax(score.data_ptr(), segment.data_ptr(), seg64,
+                                valid.data_ptr(), n, s, scratch, share,
+                                arg.data_ptr(), mx.data_ptr(),
+                                has.data_ptr(), stream)
     LAUNCHES["segment_argmax"] += 1
     _raise_on(err, "segment_argmax")
     return arg, mx, has
+
+
+def segment_keep(score: torch.Tensor, segment: torch.Tensor,
+                 valid: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """K9 launch, keep entry: bool[n], valid[i] and i the lowest-index
+    max-score valid element of its segment (analyzer/kernels.py
+    resolve_dest_conflicts_plain with dest = segment); nothing S long is
+    written or read."""
+    lib = build()
+    n, seg64, scratch, share, stream = _argmax_inputs(
+        score, segment, valid, num_segments, keep=True)
+    keep = torch.empty(n, dtype=torch.bool, device=score.device)
+    err = lib.cc_segment_keep(score.data_ptr(), segment.data_ptr(), seg64,
+                              valid.data_ptr(), n, num_segments, scratch,
+                              share, keep.data_ptr(), stream)
+    LAUNCHES["segment_argmax"] += 1
+    LAUNCHES["segment_keep"] += 1
+    _raise_on(err, "segment_keep")
+    return keep
 
 
 def swap_pair(h_ids, c_ids, out_r, in_r, out_has, in_has, hot, cold, w,
@@ -781,56 +891,101 @@ def _check_ids(replica_broker, replica_partition, partition_replicas):
     if partition_replicas is not None:
         _check(partition_replicas, "partition_replicas", torch.int32,
                (partition_replicas.shape[0], partition_replicas.shape[1]))
+        if partition_replicas.shape[1] > DEST_MAX_RF:
+            raise ValueError(f"dest_feasibility takes RF <= {DEST_MAX_RF}, "
+                             f"got {partition_replicas.shape[1]}")
 
 
-def dest_feasibility(cand_r, dest_ids, dest_ok, replica_broker,
-                     replica_partition, partition_replicas):
-    """K11 launch, plane entry: bool[C, K] structural feasibility of
-    moving cand_r[c] to dest_ids[k] (partition_replicas may be None: no
-    sibling test)."""
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _stride(t) -> int:
+    return 0 if t is None else t.stride(0)
+
+
+def dest_pref(cand_r, dest_ids, dest_ok, replica_broker, replica_partition,
+              partition_replicas, cand_has, w_c, dest_headroom, accept,
+              dest_pref_b):
+    """K11 launch, preference entry: f32[C, K], dest_pref_b[d] where
+    cand_has[c], the structural terms, w_c[c] <= dest_headroom[d] and
+    accept[c, k] hold, else NEG (analyzer/kernels.py dest_pref_plain).
+    cand_r and dest_ids int32 or int64; partition_replicas may be None (no
+    sibling test); cand_has, w_c (with dest_headroom) and accept may be
+    None; accept is a bool plane that broadcasts to [C, K], read through
+    its strides, and the float vectors are read with theirs."""
     lib = build()
     nc, nk = cand_r.shape[0], dest_ids.shape[0]
-    _check(cand_r, "cand_r", torch.int32, (nc,))
-    _check(dest_ids, "dest_ids", torch.int32, (nk,))
-    _check(dest_ok, "dest_ok", torch.bool, (dest_ok.shape[0],))
+    for name, t, n in (("cand_r", cand_r, nc), ("dest_ids", dest_ids, nk)):
+        if t.dtype not in (torch.int32, torch.int64):
+            raise TypeError(f"{name} must be int32 or int64, got {t.dtype}")
+        _check(t, name, t.dtype, (n,))
+    num_b = dest_ok.shape[0]
+    _check(dest_ok, "dest_ok", torch.bool, (num_b,))
     _check_ids(replica_broker, replica_partition, partition_replicas)
     rf = 0 if partition_replicas is None else partition_replicas.shape[1]
-    out = torch.empty((nc, nk), dtype=torch.bool, device=cand_r.device)
-    err = lib.cc_dest_struct(
-        nc, nk, rf, cand_r.data_ptr(), dest_ids.data_ptr(),
+    _check_vector(dest_pref_b, "dest_pref", num_b)
+    if cand_has is not None:
+        _check(cand_has, "cand_has", torch.bool, (nc,))
+    if (w_c is None) != (dest_headroom is None):
+        raise ValueError("dest_pref takes w_c and dest_headroom together")
+    if w_c is not None:
+        _check_vector(w_c, "w_c", nc)
+        _check_vector(dest_headroom, "dest_headroom", num_b)
+    acc_c = acc_k = 0
+    if accept is not None:
+        if not accept.is_cuda or accept.dtype != torch.bool:
+            raise ValueError("accept must be a bool CUDA tensor")
+        accept = accept.expand(nc, nk)
+        acc_c, acc_k = accept.stride()
+    out = torch.empty((nc, nk), dtype=torch.float32, device=cand_r.device)
+    err = lib.cc_dest_pref(
+        nc, nk, rf, cand_r.data_ptr(), int(cand_r.dtype == torch.int64),
+        dest_ids.data_ptr(), int(dest_ids.dtype == torch.int64),
         dest_ok.data_ptr(), replica_broker.data_ptr(),
-        replica_partition.data_ptr(),
-        partition_replicas.data_ptr() if partition_replicas is not None
-        else None, out.data_ptr(), _stream())
+        replica_partition.data_ptr(), _ptr(partition_replicas),
+        _ptr(cand_has), _ptr(w_c), _stride(w_c), _ptr(dest_headroom),
+        _stride(dest_headroom), _ptr(accept), acc_c, acc_k,
+        dest_pref_b.data_ptr(), dest_pref_b.stride(0), out.data_ptr(),
+        _stream())
     LAUNCHES["dest_feasibility"] += 1
-    _raise_on(err, "dest_feasibility")
+    LAUNCHES["dest_pref"] += 1
+    _raise_on(err, "dest_pref")
     return out
 
 
-def dest_has(cand_r, w_c, top_b, top_h, replica_broker, replica_partition,
-             partition_replicas):
-    """K11 launch, guard entry: bool[C], does one of the top headroom
-    brokers that holds no replica of the candidate's partition have
-    headroom >= w_c?  cand_r None: every replica is a candidate."""
+def dest_has(cand_r, w_c, dest_ok, dest_headroom, replica_broker,
+             replica_partition, partition_replicas):
+    """K11 launch, guard entry: bool[C], does one of the top min(RF + 2,
+    B) eligible brokers by headroom (ties to the lower id), among those
+    that hold no replica of the candidate's partition, have headroom >=
+    w_c?  The launch selects the brokers itself.  cand_r (int32 or int64)
+    None: every replica is a candidate; w_c and dest_headroom any
+    stride."""
     lib = build()
     nc = w_c.shape[0]
-    nt = top_b.shape[0]
-    if not 0 < nt <= 32:
-        raise ValueError(f"dest_has takes 1 to 32 top brokers, got {nt}")
+    num_b = dest_ok.shape[0]
     if cand_r is not None:
-        _check(cand_r, "cand_r", torch.int32, (nc,))
-    _check(w_c, "w_c", torch.float32, (nc,))
-    _check(top_b, "top_b", torch.int32, (nt,))
-    _check(top_h, "top_h", torch.float32, (nt,))
+        if cand_r.dtype not in (torch.int32, torch.int64):
+            raise TypeError(f"cand_r must be int32 or int64, got "
+                            f"{cand_r.dtype}")
+        _check(cand_r, "cand_r", cand_r.dtype, (nc,))
+    _check_vector(w_c, "w_c", nc)
+    _check(dest_ok, "dest_ok", torch.bool, (num_b,))
+    _check_vector(dest_headroom, "dest_headroom", num_b)
     _check_ids(replica_broker, replica_partition, partition_replicas)
+    if num_b < 1:
+        raise ValueError("dest_has takes at least one broker")
     out = torch.empty(nc, dtype=torch.bool, device=w_c.device)
     err = lib.cc_dest_has(
-        nc, partition_replicas.shape[1], nt,
-        cand_r.data_ptr() if cand_r is not None else None, w_c.data_ptr(),
-        top_b.data_ptr(), top_h.data_ptr(), replica_broker.data_ptr(),
-        replica_partition.data_ptr(), partition_replicas.data_ptr(),
-        out.data_ptr(), _stream())
+        nc, partition_replicas.shape[1], num_b, _ptr(cand_r),
+        int(cand_r is not None and cand_r.dtype == torch.int64),
+        w_c.data_ptr(), w_c.stride(0), dest_ok.data_ptr(),
+        dest_headroom.data_ptr(), dest_headroom.stride(0),
+        replica_broker.data_ptr(), replica_partition.data_ptr(),
+        partition_replicas.data_ptr(), out.data_ptr(), _stream())
     LAUNCHES["dest_feasibility"] += 1
+    LAUNCHES["dest_has"] += 1
     _raise_on(err, "dest_has")
     return out
 

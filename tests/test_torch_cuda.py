@@ -10,8 +10,12 @@ K2 (`assign_pass`) on both commit modes with its fold and its amplitude,
 also at the forced-move round's 4,096 candidates, and whole
 `assign_destinations` calls against the CPU path, K8 (`rank_accept`) on
 both of its paths, without and with the pass commit, K9
-(`segment_argmax`), K10 (`swap_pair`) and K11 (`dest_feasibility`, both
-entries), the ordered sums K12
+(`segment_argmax`, its dense and keep entries, each call leaving its key
+scratch zero; its grid path under each fold, and no scratch growth
+inside a graph capture), K10 (`swap_pair`) and K11 (`dest_feasibility`:
+the preference plane on broadcast acceptance planes, with and without the
+sibling test, and the guard that selects its own top brokers), the
+ordered sums K12
 (`segment_sum`, also with `init`), K13 (`ordered_sum`) and K14
 (`cumsum_blocks`, the prefix gate `prefix_gate`, at 200 and 2,600
 brokers) bit for bit with signed zeros and dropped ids, the
@@ -614,25 +618,140 @@ def test_default_stack_solve_on_the_card_equals_the_cpu_path():
     assert out["cuda"].rounds_by_goal == out["cpu"].rounds_by_goal
 
 
-@pytest.mark.parametrize("n,s", [(2048, 200), (4096, 4096), (60_000, 800)])
-def test_segment_argmax_matches_plain(n, s):
-    """K9 with ties, -0.0 against +0.0, empty and all-invalid segments,
-    scores at or below NEG/2 and out-of-range ids."""
-    ck = _card()
-    rng = np.random.default_rng(n)
+def _argmax_case(n, s, seed):
+    """K9's inputs: quantized scores with -0.0, NEG and -inf, ids with
+    out-of-range values, an all-invalid segment (1)."""
+    rng = np.random.default_rng(seed)
     score = (np.round(rng.random(n) * 6.0) / 2.0 - 1.0).astype(np.float32)
     score[rng.random(n) < 0.1] = -0.0
     score[rng.random(n) < 0.05] = K.NEG
     score[:3] = [-np.inf, K.NEG / 2, K.NEG / 4]
     seg = rng.integers(-2, s // 2 + 2, n).astype(np.int32)
     valid = (rng.random(n) < 0.8) & (seg != 1)
-    cu = [torch.from_numpy(x).cuda() for x in (score, seg, valid)]
-    got = ck.segment_argmax(cu[0], cu[1], cu[2], s)
-    want = K.per_segment_argmax_plain(cu[0], cu[1], s, cu[2])
+    return [torch.from_numpy(x).cuda() for x in (score, seg, valid)]
+
+
+def _scratch_is_zero(ck):
+    torch.cuda.synchronize()
+    buf = ck.argmax_scratch(torch.cuda.current_device(),
+                            torch.cuda.current_stream().cuda_stream)
+    return not bool(torch.count_nonzero(buf))
+
+
+@pytest.mark.parametrize("ids", ["int32", "int64"])
+@pytest.mark.parametrize("n,s", [(2048, 200), (4096, 4096), (60_000, 800),
+                                 (600_000, 10_400), (2048, 20_000)])
+def test_segment_argmax_matches_plain(n, s, ids):
+    """K9's dense entry with ties, -0.0 against +0.0, empty and
+    all-invalid segments, scores at or below NEG/2 and out-of-range ids:
+    one block and the grid path (n > 4096 or S > 1024, the wrapper's
+    fold); the key scratch is zero after the call."""
+    ck = _card()
+    score, seg, valid = _argmax_case(n, s, n + s)
+    seg = seg.to(getattr(torch, ids))
+    got = ck.segment_argmax(score, seg, valid, s)
+    want = K.per_segment_argmax_plain(score, seg, s, valid)
     torch.cuda.synchronize()
     assert _same(got[0], want[0]) and _same(got[2], want[2])
     assert bool(torch.equal(got[1], want[1]))    # == : -0.0 equals +0.0
     assert bool(got[2].any()) and not bool(got[2].all())
+    assert _scratch_is_zero(ck)
+
+
+@pytest.mark.parametrize("n,s", [(2048, 200), (2048, 20_000),
+                                 (2048, 200_000), (128, 200),
+                                 (41_600, 2600), (600_000, 2600)])
+def test_segment_keep_matches_plain(n, s):
+    """K9's keep entry (resolve_dest_conflicts on the card) against
+    resolve_dest_conflicts_plain: one block with shared and with global
+    keys (20,000 and 200,000 segments), and the grid path; the key
+    scratch is zero after each call, and two calls in a row agree."""
+    ck = _card()
+    score, seg, valid = _argmax_case(n, s, n * 7 + s)
+    dest = torch.clamp(seg, 0, s - 1).long()
+    want = K.resolve_dest_conflicts_plain(dest, score, valid, s)
+    for _ in range(2):
+        got = ck.segment_keep(score, dest, valid, s)
+        torch.cuda.synchronize()
+        assert _same(got, want)
+        assert _scratch_is_zero(ck)
+    assert bool(got.any()) and not bool(got.all())
+    assert _same(K.resolve_dest_conflicts(dest, score, valid, s), want)
+
+
+@pytest.mark.parametrize("fold", [0, 0.25, 1, 4])
+@pytest.mark.parametrize("entry,n,s", [("dense", 60_000, 800),
+                                       ("dense", 600_000, 10_400),
+                                       ("keep", 41_600, 2600)])
+def test_segment_argmax_grid_folds_match_plain(entry, n, s, fold,
+                                               monkeypatch):
+    """K9's cooperative grid path under each fold: straight into the
+    global scratch (0) and into shared keys at shares of S/4, S and 4 S
+    elements a block (opt-in shared memory: 10,400 keys are 83 KB); the
+    key scratch is zero after each call."""
+    ck = _card()
+    monkeypatch.setattr(ck, "ARGMAX_SHARE_PER_KEY", fold)
+    monkeypatch.setattr(ck, "ARGMAX_SHARED_MIN_AVG", 0)
+    assert (ck.argmax_share(n, s) > 0) == (fold > 0)
+    score, seg, valid = _argmax_case(n, s, n + s + int(4 * fold))
+    if entry == "dense":
+        got = ck.segment_argmax(score, seg, valid, s)
+        want = K.per_segment_argmax_plain(score, seg, s, valid)
+        torch.cuda.synchronize()
+        assert _same(got[0], want[0]) and _same(got[2], want[2])
+        assert bool(torch.equal(got[1], want[1]))
+    else:
+        dest = torch.clamp(seg, 0, s - 1).long()
+        got = ck.segment_keep(score, dest, valid, s)
+        want = K.resolve_dest_conflicts_plain(dest, score, valid, s)
+        torch.cuda.synchronize()
+        assert _same(got, want)
+    assert _scratch_is_zero(ck)
+
+
+def test_segment_argmax_scratch_not_grown_in_capture():
+    """A CUDA graph capture that would need a larger key scratch raises
+    (the graph would keep a freed address); after one call of that width
+    on the stream, the capture records and its replays stay exact."""
+    ck = _card()
+    score, seg, valid = _argmax_case(60_000, 50_000, 5)
+    want = K.per_segment_argmax_plain(score, seg, 50_000, valid)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        graph = torch.cuda.CUDAGraph()
+        with pytest.raises(RuntimeError, match="before the capture"):
+            with torch.cuda.graph(graph, stream=side):
+                ck.segment_argmax(score, seg, valid, 50_000)
+        ck.segment_argmax(score, seg, valid, 50_000)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            got = ck.segment_argmax(score, seg, valid, 50_000)
+        for _ in range(2):
+            graph.replay()
+        torch.cuda.synchronize()
+        assert _same(got[0], want[0]) and _same(got[2], want[2])
+        assert _scratch_is_zero(ck)
+    torch.cuda.current_stream().wait_stream(side)
+
+
+def test_segment_argmax_scratch_per_stream():
+    """Two streams each get their own key scratch, zero after their
+    calls."""
+    ck = _card()
+    score, seg, valid = _argmax_case(60_000, 20_000, 3)
+    want = K.per_segment_argmax_plain(score, seg, 20_000, valid)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = ck.segment_argmax(score, seg, valid, 20_000)
+        assert _scratch_is_zero(ck)
+    torch.cuda.current_stream().wait_stream(side)
+    main = ck.segment_argmax(score, seg, valid, 20_000)
+    torch.cuda.synchronize()
+    for a in (got, main):
+        assert _same(a[0], want[0]) and _same(a[2], want[2])
+    assert _scratch_is_zero(ck)
 
 
 def _swap_pair_inputs(rng, h=128, nb=200):
@@ -680,41 +799,87 @@ def test_swap_pair_matches_plain(case):
     assert feasible == 0 if case == "refuse all" else feasible > 0
 
 
-@pytest.mark.parametrize("k", [256, 200])
-def test_dest_feasibility_matches_plain(k):
-    """K11's plane entry (a shortlist, every broker, no sibling test) and
-    its guard entry (candidates and every replica)."""
-    ck = _card()
+def _plane_inputs(k, c=2048, spec=SLICE):
     rng = np.random.default_rng(k)
-    state, _ = random_cluster(RandomClusterSpec(**SLICE), device="cuda")
+    state, _ = random_cluster(RandomClusterSpec(**spec), device="cuda")
     pr = torch.from_numpy(C.partition_replica_index(state)).cuda()
+    pr[::3, -1] = -1
     nb = state.num_brokers
-    cand = torch.from_numpy(rng.choice(state.num_replicas, 2048,
-                                       replace=False).astype(np.int32)).cuda()
+    cand = torch.from_numpy(rng.choice(state.num_replicas, c,
+                                       replace=False)).cuda()
     dest_ok = torch.from_numpy(rng.random(nb) < 0.8).cuda()
-    dest_ids = torch.from_numpy(rng.choice(nb, min(k, nb), replace=False)
-                                .astype(np.int32)).cuda()
-    for rows in (pr, None):
-        args = (cand, dest_ids, dest_ok, state.replica_broker,
-                state.replica_partition, rows)
-        got = ck.dest_feasibility(*args)
-        want = K.dest_struct_plain(*args)
+    dest_ids = torch.from_numpy(rng.choice(nb, min(k, nb),
+                                           replace=False)).cuda()
+    return rng, state, pr, cand, dest_ok, dest_ids
+
+
+@pytest.mark.parametrize("ids", ["int32", "int64"])
+@pytest.mark.parametrize("siblings", [True, False])
+@pytest.mark.parametrize("accept", ["[C, K]", "[C, 1]", "[1, K]", "0-d",
+                                    "none"])
+@pytest.mark.parametrize("k", [256, 200, 199])
+def test_dest_pref_matches_plain(k, accept, siblings, ids):
+    """K11's preference entry against dest_pref_plain on a shortlist, on
+    every broker and on an odd width (no vector path), candidate and
+    destination ids int32 and int64, with and without the sibling test,
+    with the fit test and the candidates' flags and without, on broadcast
+    acceptance planes (read through their strides) and strided float
+    vectors."""
+    ck = _card()
+    rng, state, pr, cand, dest_ok, dest_ids = _plane_inputs(k)
+    c, nb = cand.shape[0], state.num_brokers
+    pr = pr if siblings else None
+    cand, dest_ids = (x.to(getattr(torch, ids)) for x in (cand, dest_ids))
+    full = torch.from_numpy(rng.random((c, dest_ids.shape[0])) < 0.9).cuda()
+    acc = {"[C, K]": full, "[C, 1]": full[:, :1], "[1, K]": full[:1],
+           "0-d": torch.ones((), dtype=torch.bool, device="cuda"),
+           "none": None}[accept]
+    two = torch.from_numpy(np.round(rng.random((nb, 2)) * 16.0 - 8.0)
+                           .astype(np.float32)).cuda()
+    pref_b, room = two[:, 0], two[:, 1] * 40.0
+    w = state.replica_base_load[:, 3]
+    ch = torch.from_numpy(rng.random(c) < 0.9).cuda()
+    for kw in (dict(cand_has=ch, w_c=w[cand.long()], dest_headroom=room),
+               {}):
+        got = ck.dest_pref(cand, dest_ids, dest_ok, state.replica_broker,
+                           state.replica_partition, pr, kw.get("cand_has"),
+                           kw.get("w_c"), kw.get("dest_headroom"), acc,
+                           pref_b)
+        want = K.dest_pref_plain(state, cand, dest_ids, dest_ok, pref_b,
+                                 True if acc is None else acc, pr, **kw)
         torch.cuda.synchronize()
         assert _same(got, want)
+        assert bool((got > K.NEG / 2).any())
+
+
+@pytest.mark.parametrize("spec", ["slice", "2600"])
+def test_dest_has_matches_plain(spec):
+    """K11's guard entry, which selects its top brokers itself, against
+    dest_has_plain (top_headroom's stable sort): tied headrooms, -0.0,
+    +inf (the forced rounds' room), ineligible brokers, no eligible
+    broker at all, candidates as int32 and int64 and every replica."""
+    ck = _card()
+    sp = SLICE if spec == "slice" else dict(
+        SLICE, num_brokers=2600, num_partitions=20_000, num_racks=26)
+    rng, state, pr, cand, dest_ok, _ = _plane_inputs(7, spec=sp)
+    nb = state.num_brokers
     w = state.replica_base_load[:, 3].contiguous()
-    room = torch.from_numpy((rng.random(nb) * 300.0).astype(
-        np.float32)).cuda()
-    top_b, top_h = K.top_headroom(dest_ok, room, pr.shape[1])
-    top_b = top_b.to(torch.int32).contiguous()
-    for c in (cand, None):
-        w_c = w if c is None else w[c.long()].contiguous()
-        args = (c, w_c, top_b, top_h.contiguous(), state.replica_broker,
-                state.replica_partition, pr)
-        got = ck.dest_has(*args)
-        want = K.dest_has_plain(*args)
-        torch.cuda.synchronize()
-        assert _same(got, want)
-        assert bool(got.any()) and not bool(got.all())
+    rooms = {"ties": torch.from_numpy(np.round(rng.random(nb) * 6.0).astype(
+                 np.float32)).cuda() * float(torch.median(w)) / 3.0,
+             "inf": torch.full((nb,), float("inf"), device="cuda")}
+    rooms["ties"][:4] = -0.0
+    for label, room in rooms.items():
+        for ok in (torch.zeros_like(dest_ok), dest_ok):
+            for c in (cand, cand.to(torch.int32), None):
+                w_c = w if c is None else w[c.long()].contiguous()
+                args = (c, w_c, ok, room, state.replica_broker,
+                        state.replica_partition, pr)
+                got = ck.dest_has(*args)
+                want = K.dest_has_plain(*args)
+                torch.cuda.synchronize()
+                assert _same(got, want), (label, c is None)
+        # the last case: every replica against the eligible brokers
+        assert bool(got.any())
 
 
 @pytest.mark.parametrize("mode", ["demote", "kafka assigner", "intra broker"])

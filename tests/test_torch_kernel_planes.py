@@ -7,8 +7,16 @@ on the CPU.
 * K10, the swap round's pair plane: `swap_round` on quantized loads that
   plant tied improvements, with and without the lower / upper band, and
   with an acceptance plane that refuses everything.
+* K9's keep entry, `resolve_dest_conflicts_plain`, against the
+  reference's `resolve_dest_conflicts` with the same cases and with many
+  segments (the partition-keyed resolves).
 * K11 `_dest_feasibility` (with a destination shortlist and with every
-  broker), `cand_has_dest` and `feasible_dest_exists`.
+  broker), the preference plane (`assign_pref` through
+  `dest_pref_plain`) against the reference's `_dest_feasibility` plus
+  the fit test, the candidates' flags and the `where` of the move round,
+  with acceptance planes that broadcast ([C, K], [C, 1], [1, K], 0-d),
+  and `cand_has_dest` and `feasible_dest_exists` (their guard selects
+  the top brokers itself).
 
 Integers and booleans must match exactly, and `max` with `==` (so -0.0
 equals +0.0, as the reference's `>=` ties them).  No float tolerance is
@@ -85,6 +93,23 @@ def cluster():
     ps, _ = random_cluster(RandomClusterSpec(**SPEC), device="cpu")
     pr = C.partition_replica_index(ps)
     return js, ps, pr
+
+
+@pytest.mark.parametrize("case", ["ties", "signed zeros", "low scores",
+                                  "empty and invalid"])
+@pytest.mark.parametrize("n,s", [(300, 7), (300, 2000)])
+def test_resolve_dest_conflicts_plain_matches(case, n, s):
+    """K9's keep entry's plain version: at most one winner a destination
+    (ties to the lowest index, -0.0 tying +0.0, nothing kept at or below
+    NEG/2), with few and with many segments."""
+    score, seg, valid = _argmax_inputs(case, n, s, seed=3 * n + s)
+    want = JK.resolve_dest_conflicts(jnp.asarray(seg), jnp.asarray(score),
+                                     jnp.asarray(valid), s)
+    t = torch.from_numpy
+    got = K.resolve_dest_conflicts_plain(t(seg), t(score), t(valid), s)
+    _eq(want, got, case)
+    _eq(want, K.resolve_dest_conflicts(t(seg), t(score), t(valid), s), case)
+    assert not bool(got.all())
 
 
 def _swap_args(ps, case: str):
@@ -191,16 +216,68 @@ def test_dest_feasibility_matches(cluster, dests):
         assert got.any() and not got.all()
 
 
-@pytest.mark.parametrize("room", ["finite", "few eligible"])
+@pytest.mark.parametrize("fit", [True, False], ids=["fit", "no fit"])
+@pytest.mark.parametrize("accept", ["[C, K]", "[C, 1]", "[1, K]", "0-d"])
+def test_assign_pref_matches(cluster, accept, fit):
+    """The preference plane of an assignment (assign_pref, the plain
+    version of K11's preference entry on the CPU) against the reference's
+    move-round lines: `fits & cand_has & _dest_feasibility(...)`, then
+    `where(feasible, dest_pref[dest_ids], NEG)`; weights on the headroom
+    exactly, -0.0 and NEG preferences."""
+    js, ps, pr = cluster
+    rng = np.random.default_rng(6)
+    num_b, num_r = ps.num_brokers, ps.num_replicas
+    cand = rng.choice(num_r, 300, replace=False).astype(np.int64)
+    dest_ids = rng.choice(num_b, 9, replace=False).astype(np.int64)
+    dest_ok = rng.random(num_b) < 0.8
+    w_c = np.round(rng.random(300) * 4.0).astype(np.float32)
+    room = np.round(rng.random(num_b) * 4.0).astype(np.float32)
+    pref_b = (np.round(rng.random(num_b) * 8.0) - 4.0).astype(np.float32)
+    pref_b[:2] = [-0.0, NEG]
+    ch = rng.random(300) < 0.9
+
+    def acc(xp):
+        def fn(r, d):
+            return {"[C, K]": (r * 3 + d) % 7 != 0, "[C, 1]": r % 5 != 0,
+                    "[1, K]": d % 4 != 1,
+                    "0-d": xp.ones((), dtype=bool)}[accept]
+        return fn
+    feasible = JK._dest_feasibility(js, jnp.asarray(cand),
+                                    jnp.asarray(dest_ok), acc(jnp),
+                                    jnp.asarray(pr), jnp.asarray(dest_ids))
+    if fit:
+        fits = (jnp.asarray(w_c)[:, None]
+                <= jnp.asarray(room)[jnp.asarray(dest_ids)][None, :])
+        feasible = fits & jnp.asarray(ch)[:, None] & feasible
+    want = jnp.where(feasible, jnp.asarray(pref_b)[dest_ids][None, :],
+                     NEG)
+    t = torch.from_numpy
+    kw = dict(cand_has=t(ch), w_c=t(w_c), dest_headroom=t(room)) if fit \
+        else {}
+    got = K.assign_pref(ps, t(cand), t(dest_ids), t(dest_ok), t(pref_b),
+                        acc(torch), t(pr), **kw)
+    _eq(np.asarray(want).view(np.uint32), got.numpy().view(np.uint32),
+        accept)
+    assert (got.numpy() > NEG / 2).any() and (got.numpy() == NEG).any()
+
+
+@pytest.mark.parametrize("room", ["finite", "few eligible", "ties"])
 def test_cand_has_dest_and_feasible_dest_exists_match(cluster, room):
+    """The guard, whose plain version selects the top RF + 2 brokers
+    itself: ties among the headrooms (-0.0 against +0.0 too) go to the
+    lower broker id, as the reference's top_k orders them."""
     js, ps, pr = cluster
     rng = np.random.default_rng(5)
     num_b, num_r = ps.num_brokers, ps.num_replicas
     w = np.asarray(js.replica_base_load)[:, 3].astype(np.float32)
     # the best headroom near the median weight: many replicas fit nowhere
     headroom = (rng.random(num_b) * np.median(w)).astype(np.float32)
+    if room == "ties":
+        headroom = (np.round(rng.random(num_b) * 3.0) * np.median(w)
+                    / 3.0).astype(np.float32)
+        headroom[headroom == 0.0] = -0.0
     # fewer eligible brokers than RF + 2: -inf enters the top list
-    dest_ok = (rng.random(num_b) < 0.8 if room == "finite"
+    dest_ok = (rng.random(num_b) < 0.8 if room != "few eligible"
                else np.arange(num_b) < 3)
     cand = rng.choice(num_r, 500, replace=False).astype(np.int32)
     t = torch.from_numpy
