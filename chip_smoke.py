@@ -12,7 +12,12 @@ Phases:
   2. each kernel against its plain PyTorch version on the card at the
      slice's shapes and again at the 2,600-broker shapes of phase 4
      (integers and booleans exactly, floats bit for bit): K1 at k = 1, 4,
-     8, 16 and 64, K2 with caps, its fold of the pass before and pass 0's
+     8, 16 and 64 from a [B, S] plane and from per-replica scores read
+     through the table (pad slots, a strided score), on each of its paths
+     (the block and warp selects, the register path at k <= 8) and the
+     wrapper's choice, with any_eligible, ties, -0.0 beside +0.0, all-NEG
+     rows, k = S and rows too wide for the keys in registers, K2 with
+     caps, its fold of the pass before and pass 0's
      amplitude (also at the forced-move round's C = 4096 against K = 256
      and 2600), and through a chain of eight multi-commit passes (K2, then
      K8 with the commit) at the slice's and the 2,600-broker shortlist,
@@ -20,8 +25,10 @@ Phases:
      2,048 moves with the broker table (at 2,600
      brokers also on 10,400) and on 4,096 table-less (self-healing's
      commits), in place into a copy of the cache, its in-kernel arrival
-     ranks against arrival_rank, K4 in both commit modes for passes 0 and 3
-     (and at C = R, the full-plane width, at 2,600 brokers), K5 on a
+     ranks against arrival_rank, K4 in both commit modes pass by pass from
+     0 (its plane, zeroed state and amplitude) to 3 (each folding the pass
+     before; rows with every option closed, tied and NEG options) at C =
+     2048 on 200 and 2,600 brokers and at C = R = 600,000, K5 on a
      4,096-transfer table-less batch and on a phase-a batch of 16 B
      transfers with the table, undonated and donated, K6 on a
      4,096-partition window with and without the improvement gate and
@@ -73,9 +80,11 @@ Phases:
      kernel on that order, the ordered scatters), and its one-block time
      split
      by the sort and the commit; with --parent (a checkout of the parent
-     tree), K9's and K11's entries also beside the parent's chain at the
+     tree), K1's and K4's entries also beside the parent's chain at the
      same shapes: its kernel launches with the torch ops its callers ran
-     around them (the yardstick of the redesign);
+     around them (the table source's _table_rows; K4's options, plane,
+     amplitude, folds and weight gather) -- the yardstick of the
+     redesign;
   3. the slice geometry (200 brokers / 20K partitions / rf 3, 8 racks, 10
      topics, skew 0.2, default options): the disk + network-inbound solve
      of the first slice (seed 4); config 2 whole — Disk, NwIn, NwOut and
@@ -116,7 +125,10 @@ Phases:
      K8), and inside resolve_dest_conflicts, cand_has_dest and
      feasible_dest_exists (none: each call is one K9 or K11 launch) and
      assign_pref (one K11 preference-plane launch a call beside the
-     acceptance stack's ops);
+     acceptance stack's ops), and inside leadership_round's follower
+     assignments those between an assignment's first K4 and its last K8
+     or K9 (none: a pass is K4 then K8, or K4 then K9 twice); each timed
+     solve's K1 launches by source and k and K4 launches by commit mode;
   4. scale, 2,600 brokers / 200K partitions / 26 racks / 100 topics: the
      whole default stack (bench.py's "north" preset), the four-goal solve,
      config 5 (52 broken logdirs), the six hard goals with brokers 0,
@@ -160,7 +172,7 @@ REPLACES = {
     "row_topk": "cruise_control_tpu/analyzer/kernels.py:91",
     "assign_pass": "cruise_control_tpu/analyzer/kernels.py:788",
     "commit_moves": "cruise_control_tpu/analyzer/context.py:642",
-    "leader_assign_pass": "cruise_control_tpu/analyzer/kernels.py:959",
+    "leader_assign_pass": "cruise_control_tpu/analyzer/kernels.py:924",
     "commit_leadership": "cruise_control_tpu/analyzer/context.py:732",
     "sweep_pick": "cruise_control_tpu/analyzer/leadership.py:238",
     "forced_select": "cruise_control_tpu/analyzer/kernels.py:1235",
@@ -389,53 +401,165 @@ def max_abs_err(pairs) -> float:
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def check_row_topk(b: int, s: int, seed: int) -> dict:
-    """K1 at B x S for k in {1, 4, 8} (the block path) and {16, 64} (the
-    warp path of the leadership round and its deep pick); the record of
-    k = 4 (the goals' move rounds), with the k = 16 and 64 times beside
-    it."""
+def _row_topk_inputs(b: int, s: int, g):
+    """K1's inputs on the card: a [B, S] plane of quantised scores (many
+    ties), a third NEG, a -0.0 beside a +0.0 in every row, a row of NEG, a
+    row of pure ties, a row with fewer eligible slots than 64; a table of
+    replica ids with pad slots (id R), per-replica scores read at a stride
+    (a column of an [R, 4] plane) and valid flags."""
     import torch
-    from cruise_control_tpu_torch import cuda_kernels
     from cruise_control_tpu_torch.analyzer import kernels as K
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    # quantized scores plant many ties; a third of the slots ineligible
     sc = torch.round(torch.rand((b, s), generator=g, device="cuda") * 50.0)
     sc = torch.where(torch.rand((b, s), generator=g, device="cuda") < 0.33,
                      torch.full((), K.NEG, device="cuda"), sc)
+    sc[:, 2] = -0.0
+    sc[:, 9] = 0.0
     sc[0] = K.NEG                       # a row with nothing eligible
     sc[1, :] = 7.0                      # a row of pure ties
-    table = torch.randperm(b * s, generator=g, device="cuda").to(
-        torch.int32).reshape(b, s)
-    errs, times = [], {}
-    for k in (1, 4, 8, 16, 64):
-        got = cuda_kernels.row_topk(sc, table, k)
-        want = K.row_topk_plain(sc, table, k)
-        torch.cuda.synchronize()
-        for x, y, what in zip(got, want, ("cand", "has", "top", "slot")):
-            if not equal_exact(x, y):
-                raise AssertionError(f"row_topk B={b} S={s} k={k}: {what} "
-                                     "differs from the plain version")
-        errs.append(max_abs_err([(got[2], want[2])]))
-        times[k] = (graph_time_ms(lambda: cuda_kernels.row_topk(sc, table, k)),
-                    graph_time_ms(lambda: K.row_topk_plain(sc, table, k)),
-                    graph_time_ms(lambda: torch.topk(sc, k, dim=1)))
-        call = cuda_time_ms(lambda: cuda_kernels.row_topk(sc, table, k))
-        log(f"  row_topk B={b} S={s} k={k}: exact match; device time per "
-            f"call: kernel {times[k][0]:.4f} ms, plain {times[k][1]:.4f} ms, "
-            f"torch.topk {times[k][2]:.4f} ms; one wrapper call with its "
-            f"host overhead {call:.4f} ms")
+    sc[3, 40:] = K.NEG                  # fewer eligible slots than 64
+    num_r = b * s - s // 4 * b // 8
+    ids = torch.full((b * s,), num_r, dtype=torch.int32, device="cuda")
+    ids[torch.randperm(b * s, generator=g, device="cuda")[:num_r]] = \
+        torch.arange(num_r, dtype=torch.int32, device="cuda")
+    table = ids.reshape(b, s)
+    load = torch.round(torch.rand((num_r, 4), generator=g, device="cuda")
+                       * 40.0)
+    load[::7, 1] = -0.0
+    valid = torch.rand(num_r, generator=g, device="cuda") < 0.6
+    return sc, table, load[:, 1], valid
+
+
+def _row_topk_check(got, want, what: str) -> None:
+    import torch
+    for x, y, name in zip(got, want, ("cand", "has", "top", "slot",
+                                      "any_eligible")):
+        if not (x.dtype == y.dtype and torch.equal(x, y)
+                and (name != "top" or torch.equal(x.view(torch.int32),
+                                                  y.view(torch.int32)))):
+            raise AssertionError(f"{what}: {name} differs from the plain "
+                                 "version")
+
+
+#: K1's paths (cuda_kernels.ROW_TOPK_PATH): the select with a block a
+#: row, the register path (k <= 8) and the select with a warp a row
+ROW_TOPK_PATHS = {0: "block select", 1: "register", 2: "warp select"}
+
+
+@contextlib.contextmanager
+def row_topk_path(path):
+    """K1 forced onto `path` (None: the wrapper's choice)."""
+    from cruise_control_tpu_torch import cuda_kernels as ck
+    saved = ck.ROW_TOPK_PATH
+    ck.ROW_TOPK_PATH = path
+    try:
+        yield
+    finally:
+        ck.ROW_TOPK_PATH = saved
+
+
+def _parent_ms(pk, chain):
+    """The parent's chain's device time per call, None without a checkout."""
+    return None if pk is None else graph_time_ms(chain)
+
+
+def _ms(t) -> str:
+    return "not measured (no --parent checkout)" if t is None else \
+        f"{t:.4f} ms"
+
+
+def check_row_topk(b: int, s: int, seed: int, pk=None) -> dict:
+    """K1 at B x S for k in {1, 4, 8, 16, 64}, the plane and the table
+    source, on each path (the block and warp selects, the register path
+    at k <= 8) and on the wrapper's choice, each exact against its plain
+    version (cand, has, top bit for bit, slot, any_eligible); then k = S
+    = 64 on a narrow table.  Device times of each path, of the plain
+    versions, of torch.topk on the plane and of the parent's K1 (`pk`): on
+    the plane, and for the table source its _table_rows (a where, a cat, a
+    gather) plus its K1.  {"plane k=..." / "table k=...": the record of
+    the wrapper's path}."""
+    import torch
+    from cruise_control_tpu_torch import cuda_kernels as ck
+    from cruise_control_tpu_torch.analyzer import kernels as K
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    sc, table, score, valid = _row_topk_inputs(b, s, g)
     out = {}
-    for k in (4, 16, 64):
-        # the scores once, then per output its table gather, id, flag,
-        # score and slot
-        t_b, by = bound(b * s * 4 + b * k * (4 + 4 + 1 + 4 + 4), b * s * k)
-        out[k] = dict(max_abs_err=max(errs), ms=times[k][0],
-                      plain_ms=times[k][1], bound_ms=t_b, bound_by=by,
-                      library_ms=times[k][2], shape=f"B={b} S={s} k={k}")
-        log(f"  row_topk B={b} S={s} k={k}: bound {t_b:.5f} ms ({by})")
-    rec = dict(out[4])
-    rec["deep"] = {k: out[k] for k in (16, 64)}
-    return rec
+    for k in (1, 4, 8, 16, 64):
+        for source in ("plane", "table"):
+            if source == "plane":
+                def launch(k=k):
+                    return ck.row_topk(sc, table, k)
+
+                def plain(k=k):
+                    return K.row_topk_plain(sc, table, k)
+
+                def parent(k=k):
+                    return pk.row_topk(sc, table, k)
+                lib_ms = graph_time_ms(lambda: torch.topk(sc, k, dim=1))
+                # the row once; per output the table id, id, flag, score and
+                # slot; the row flag
+                nbytes = b * s * 4 + b * k * (4 + 4 + 1 + 4 + 4) + b
+            else:
+                def launch(k=k):
+                    return ck.table_topk(table, score, valid, k)
+
+                def plain(k=k):
+                    return K.table_topk_plain(table, score, valid, k)
+
+                def parent(k=k):
+                    return pk.row_topk(K._table_rows(table, score, valid),
+                                       table, k)
+                lib_ms = None
+                # the ids and, per real id, its score and flag; outputs
+                n_ids = int((table < score.shape[0]).sum())
+                nbytes = b * s * 4 + n_ids * 5 + b * k * 17 + b
+            want = plain()
+            times = {}
+            for path in [p for p in ROW_TOPK_PATHS if p != 1 or k <= 8] + [
+                    None]:
+                with row_topk_path(path):
+                    got = launch()
+                    torch.cuda.synchronize()
+                    _row_topk_check(got, want, f"row_topk {source} B={b} "
+                                    f"S={s} k={k} path {path}")
+                    times[path] = graph_time_ms(launch)
+            t_plain = graph_time_ms(plain)
+            t_parent = _parent_ms(pk, parent)
+            t_b, by = bound(nbytes, b * s)
+            chosen = ck._row_topk_path(b, k)
+            log(f"  row_topk {source} B={b} S={s} k={k}: exact match on "
+                f"every path; device time per call: "
+                + ", ".join(f"{ROW_TOPK_PATHS[p]} {times[p]:.4f} ms"
+                            for p in ROW_TOPK_PATHS if p in times)
+                + f" (the wrapper's: {ROW_TOPK_PATHS[chosen]}), the "
+                f"parent's {'K1' if source == 'plane' else '_table_rows + K1'}"
+                f" {_ms(t_parent)}, plain {t_plain:.4f} ms, torch.topk "
+                f"{_ms(lib_ms) if lib_ms is not None else 'none'}; bound "
+                f"{t_b:.5f} ms ({nbytes} bytes)")
+            out[f"{source} k={k}"] = dict(
+                max_abs_err=0.0, ms=times[None], path=ROW_TOPK_PATHS[chosen],
+                paths_ms={ROW_TOPK_PATHS[p]: times[p] for p in ROW_TOPK_PATHS
+                          if p in times},
+                parent_ms=t_parent, plain_ms=t_plain, bound_ms=t_b,
+                bound_by=by, library_ms=lib_ms,
+                shape=f"{source} B={b} S={s} k={k}")
+    # k = S, the whole row in order; rows too wide for the keys in
+    # registers (the selects' shared-memory keys)
+    for rows, width in ((b, 64), (40, 3000)):
+        sc_n, table_n, score_n, valid_n = _row_topk_inputs(rows, width, g)
+        for path in ROW_TOPK_PATHS:
+            kk = 8 if path == 1 else 64
+            with row_topk_path(path):
+                _row_topk_check(ck.row_topk(sc_n, table_n, kk),
+                                K.row_topk_plain(sc_n, table_n, kk),
+                                f"row_topk plane B={rows} S={width} k={kk}")
+                _row_topk_check(
+                    ck.table_topk(table_n, score_n, valid_n, kk),
+                    K.table_topk_plain(table_n, score_n, valid_n, kk),
+                    f"row_topk table B={rows} S={width} k={kk}")
+    log(f"  row_topk B={b} S=64 and B=40 S=3000 at k = 64 (= S on the "
+        f"narrow rows; 8 on the register path), both sources, every path: "
+        f"exact match")
+    return out
 
 
 def _assign_pass_inputs(c: int, kk: int, num_b: int, g) -> dict:
@@ -846,65 +970,220 @@ def check_forced_select(spec: dict, seed: int) -> dict:
     return rec
 
 
-def check_leader_assign(c: int, num_b: int, seed: int) -> dict:
-    """K4 at C rows of RF = 3 options in both commit modes, passes 0 and
-    3; the record of the multi-commit pass 3 (the goals' mode)."""
+def _leader_inputs(c: int, num_b: int, num_r: int, g, multi: bool):
+    """K4's pass-0 inputs on the card (analyzer/kernels.py leader_tail):
+    candidate rows (int64, as the compaction gives them), sibling rows (the
+    row itself among them, a tenth -1), an acceptance plane, per-replica
+    brokers, offline flags and bonuses, per-broker flags, headrooms and
+    preferences (planted ties, a NEG broker), three weight rows
+    (multi-commit); rows 0-3 with every option closed (no candidate, no
+    acceptance, NEG brokers only, no headroom)."""
+    import types
     import torch
-    from cruise_control_tpu_torch import cuda_kernels
+    from cruise_control_tpu_torch.analyzer import kernels as K
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g, device="cuda")
+
+    def ints(hi, shape, dtype=torch.int32):
+        return torch.randint(0, hi, shape, generator=g, device="cuda",
+                             dtype=dtype)
+    rf = 3
+    rows = ints(num_r, (c,), torch.int64)
+    sib = ints(num_r, (c, rf))
+    sib[:, 0] = rows.to(torch.int32)
+    sib = torch.where(rand(c, rf) < 0.1, -1, sib)
+    rb = ints(num_b, (num_r,))
+    pref = -torch.round(rand(num_b) * 8.0)
+    pref[3] = K.NEG
+    pref[5] = pref[6]
+    accept = rand(c, rf) < 0.85
+    cand_has = rand(c) < 0.9
+    cand_has[0] = False
+    accept[1] = False
+    sib[2] = torch.where(rb[sib[2].clamp_min(0).long()] == 3, sib[2], -1)
+    bonus = torch.round(rand(num_r) * 4.0)
+    bonus[rows[3]] = 1e9
+    state = types.SimpleNamespace(replica_broker=rb,
+                                  replica_offline=rand(num_r) < 0.05)
+    x = dict(state=state, rows=rows, sib=sib, accept=accept,
+             cand_has=cand_has, leader_ok=rand(num_b) < 0.9, bonus_w=bonus,
+             dest_headroom=rand(num_b) * 5.0, dest_pref=pref,
+             t_ws=rand(3, num_r) if multi else None)
+    return x
+
+
+def _leader_tail(x: dict):
+    from cruise_control_tpu_torch.analyzer import kernels as K
+    return K.leader_tail(x["state"], x["rows"], x["sib"], x["accept"],
+                         x["cand_has"], x["leader_ok"], x["bonus_w"],
+                         x["dest_headroom"], x["dest_pref"], x["t_ws"])
+
+
+def parent_leader_pass(pk, x: dict, multi: bool, k: int, prev=None):
+    """The parent tree's leadership pass on the card, with the torch ops
+    its run_tail ran around its K4: for pass 0 the options, the preference
+    plane, the sources, gains, casts, zeroed state and assign_amp; for a
+    later pass the fold of the pass before (`prev`: keep, db, dr, the
+    state) -- the dest_replica and assigned folds and, single-commit, the
+    two counter sums; then its K4 and, multi-commit, the weight gather
+    t_ws[:, dr]."""
+    import torch
+    from cruise_control_tpu_torch import ops
+    from cruise_control_tpu_torch.analyzer import kernels as K
+    dev = x["rows"].device
+    num_b = x["leader_ok"].shape[0]
+    if k == 0:
+        rows, sib = x["rows"], x["sib"]
+        rb = x["state"].replica_broker.long()
+        sib_safe = torch.clamp_min(sib, 0).long()
+        ok = (sib >= 0) & (sib != rows[:, None])
+        sib_b = rb[sib_safe]
+        ok &= x["leader_ok"][sib_b] & ~x["state"].replica_offline[sib_safe]
+        bonus = x["bonus_w"][rows]
+        ok &= bonus[:, None] <= x["dest_headroom"][sib_b]
+        ok &= x["accept"]
+        ok &= x["cand_has"][:, None]
+        pref = torch.where(ok, x["dest_pref"][sib_b],
+                           torch.full((), K.NEG, device=dev))
+        c = rows.shape[0]
+        st = dict(pref=pref, src=rb[rows].to(torch.int32),
+                  sib_b=sib_b.to(torch.int32).contiguous(),
+                  sib_r=sib_safe.to(torch.int32).contiguous(),
+                  taken=torch.zeros(num_b, dtype=torch.int32, device=dev),
+                  dep=torch.zeros(num_b, dtype=torch.int32, device=dev),
+                  assigned=torch.zeros(c, dtype=torch.bool, device=dev),
+                  dest=torch.zeros(c, dtype=torch.int32, device=dev),
+                  gain=bonus, amp=K.assign_amp(pref))
+    else:
+        keep, db, dr, st = prev
+        st = dict(st)
+        st["dest"] = torch.where(keep, dr, st["dest"])
+        st["assigned"] = st["assigned"] | keep
+        if not multi:
+            kept_d = torch.where(keep, db, torch.full_like(db, num_b))
+            kept_s = torch.where(keep, st["src"],
+                                 torch.full_like(st["src"], num_b))
+            st["taken"] = st["taken"] + ops.segment_sum(
+                torch.ones_like(kept_d), kept_d, num_b)
+            st["dep"] = st["dep"] + ops.segment_sum(
+                torch.ones_like(kept_s), kept_s, num_b)
+    _, db, dr, has = pk.leader_assign_pass(
+        st["pref"], st["sib_b"], st["sib_r"], st["src"], st["taken"],
+        st["dep"], st["assigned"], x["cand_has"], k, st["amp"], multi)
+    d_w = x["t_ws"][:, dr.long()] if multi else None
+    return db, dr, has, d_w, st
+
+
+def leader_pass_bytes(t, k: int, multi: bool, keep) -> int:
+    """The bytes one K4 pass must move.  Pass 0: the rows, sibling rows,
+    acceptance plane and flags, per row its broker and bonus, per option
+    its broker, flags, headroom and preference; the three option planes,
+    the sources, gains, zeroed state and picks out.  Pass k: the keep
+    flags and each kept row's fold, the preferences, option brokers and
+    their counters, the winner's replica, the flags and the picks; with
+    K8's weights (read and written) in multi-commit mode."""
+    c, rf = t.sib.shape
+    num_b = t.taken_cnt.shape[0]
+    n_t = 0 if t.t_ws is None or not multi else t.t_ws.shape[0]
+    if k == 0:
+        n = (c * (t.rows.element_size() + 5 * rf + 1 + 8 + 14 * rf
+                  + 12 * rf + 8 + 5 + 9) + 8 * num_b)
+    else:
+        kept = int(keep.sum())
+        n = (c + kept * (4 + 5 + (4 + 8 if not multi else 0))
+             + c * (8 * rf + 4 * rf + 4 + 1 + 9 + 1)
+             + (0 if multi else 8 * c))
+    return n + 8 * n_t * c
+
+
+def check_leader_assign(c: int, num_b: int, num_r: int, seed: int,
+                        pk=None) -> dict:
+    """K4 at C rows of RF = 3 options over num_r replicas, both commit
+    modes: passes 0 (the plane, the sources, gains, zeroed state and the
+    amplitude bit for bit) to 3, each folding the pass before (a random
+    third of the rows with an option kept), every output and buffer exact
+    against leader_assign_pass_plain; passes 0 and 3 timed beside the
+    parent's chain (`pk`: its K4 with the torch ops its run_tail ran
+    around it).  {"multi" / "single": {"pass 0" / "pass 3": record}}."""
+    import torch
+    from cruise_control_tpu_torch import cuda_kernels as ck
     from cruise_control_tpu_torch.analyzer import kernels as K
     g = torch.Generator(device="cuda").manual_seed(seed)
-    rf = 3
-
-    def ints(hi, shape):
-        return torch.randint(0, hi, shape, generator=g, device="cuda",
-                             dtype=torch.int32)
-
-    pref = -torch.rand((c, rf), generator=g, device="cuda")
-    pref = torch.where(torch.rand((c, rf), generator=g, device="cuda") < 0.3,
-                       torch.full((), K.NEG, device="cuda"), pref)
-    pref[:, 2] = pref[:, 0]                 # planted ties between options
-    sib_b, sib_r, src = ints(num_b, (c, rf)), ints(10 ** 6, (c, rf)), ints(
-        num_b, (c,))
-    assigned = torch.rand(c, generator=g, device="cuda") < 0.2
-    cand_has = torch.rand(c, generator=g, device="cuda") < 0.9
-    dep = ints(2, (num_b,))
-    finite = pref > K.NEG / 2
-    inf = torch.full((), float("inf"), device="cuda")
-    amp = 0.35 * (torch.max(torch.where(finite, pref, -inf))
-                  - torch.min(torch.where(finite, pref, inf))) + 1e-6
-    rec = None
-    for multi in (False, True):
-        # multi: some destinations at the arrival ceiling
-        taken = ints(3, (num_b,)) * (K.MAX_ARRIVALS_PER_ROUND // 2
-                                     if multi else 1)
-        args = (pref, sib_b, sib_r, src, taken, dep, assigned, cand_has)
-        for k in (0, 3):
-            got = cuda_kernels.leader_assign_pass(*args, k, amp, multi)
-            want = K.leader_assign_pass_plain(*args, k, amp, multi)
+    out = {}
+    for multi in (True, False):
+        mode = "multi" if multi else "single"
+        x = _leader_inputs(c, num_b, num_r, g, multi)
+        tk, tp = _leader_tail(x), _leader_tail(x)
+        keep = db = dr = None
+        prev = None
+        rec = out[mode] = {}
+        for k in range(4):
+            args = (keep, db, dr)
+            got = ck.leader_assign_pass(tk, k, multi, *args)
+            want = K.leader_assign_pass_plain(tp, k, multi, *args)
             torch.cuda.synchronize()
-            for x, y, what in zip(got, want, ("slot", "broker", "replica",
-                                              "has")):
-                if not equal_exact(x, y):
-                    raise AssertionError(
-                        f"leader_assign_pass C={c} multi={multi} pass {k}: "
-                        f"{what} differs from the plain version")
-            t = (graph_time_ms(lambda: cuda_kernels.leader_assign_pass(
-                     *args, k, amp, multi)),
-                 graph_time_ms(lambda: K.leader_assign_pass_plain(
-                     *args, k, amp, multi)))
-            log(f"  leader_assign_pass C={c} B={num_b} multi={multi} pass "
-                f"{k}: exact match; device time per call: kernel "
-                f"{t[0]:.4f} ms, plain {t[1]:.4f} ms")
-            if multi and k == 3:
-                rec = t
-    # preferences and option brokers once, the winning replica, the source
-    # broker, the two counter planes and the row masks; four outputs
-    nbytes = c * rf * 8 + c * 4 + c * 4 + num_b * 8 + c * 2 + c * 13
-    t_b, by = bound(nbytes, c * rf * 4)
-    log(f"  leader_assign_pass C={c}: bound {t_b:.5f} ms ({nbytes} bytes)")
-    return dict(max_abs_err=0.0, ms=rec[0], plain_ms=rec[1], bound_ms=t_b,
-                bound_by=by, library_ms=None,
-                shape=f"C={c} RF={rf} multi pass 3")
+            for a, b, what in zip(got, want, ("db", "dr", "has")):
+                if not equal_exact(a, b):
+                    raise AssertionError(f"leader_assign_pass C={c} "
+                                         f"B={num_b} {mode} pass {k}: {what} "
+                                         "differs from the plain version")
+            for f in ("pref", "sib_broker", "sib_replica", "src", "gain",
+                      "amp", "taken_cnt", "dep_cnt", "assigned",
+                      "dest_replica", "d_w"):
+                a, b = getattr(tk, f), getattr(tp, f)
+                if a is not None and not (a.dtype == b.dtype
+                                          and torch.equal(a, b)
+                                          and (not a.is_floating_point()
+                                               or torch.equal(
+                                                   a.view(torch.int32),
+                                                   b.view(torch.int32)))):
+                    raise AssertionError(f"leader_assign_pass C={c} "
+                                         f"B={num_b} {mode} pass {k}: {f} "
+                                         "differs from the plain version")
+            if k == 0 and bool(want[2][:4].any()):
+                raise AssertionError("leader_assign_pass: a row with every "
+                                     "option closed has an option")
+            if k in (0, 3):
+                launch_args = (tk, k, multi) + args
+                ms = graph_time_ms(lambda: ck.leader_assign_pass(
+                    *launch_args))
+                t_plain = graph_time_ms(lambda: K.leader_assign_pass_plain(
+                    tp, k, multi, *args))
+                t_parent = None
+                if pk is not None:
+                    p_prev = prev
+                    t_parent = graph_time_ms(lambda: parent_leader_pass(
+                        pk, x, multi, k, p_prev))
+                nbytes = leader_pass_bytes(tk, k, multi, keep)
+                t_b, by = bound(nbytes, c * 3 * 4)
+                log(f"  leader_assign_pass C={c} B={num_b} {mode} pass {k}: "
+                    f"exact match ({int(want[2].sum())} rows with an "
+                    f"option{', amp ' + repr(float(tk.amp)) if k == 0 else ''}"
+                    f"); device time per call: kernel {ms:.4f} ms (1 "
+                    f"launch), the parent's chain {_ms(t_parent)}, plain "
+                    f"{t_plain:.4f} ms; bound {t_b:.6f} ms ({nbytes} bytes)")
+                rec[f"pass {k}"] = dict(
+                    max_abs_err=0.0, ms=ms, parent_ms=t_parent,
+                    plain_ms=t_plain, bound_ms=t_b, bound_by=by,
+                    library_ms=None,
+                    shape=f"C={c} B={num_b} RF=3 {mode} pass {k}")
+            if pk is not None:
+                pdb, pdr, _, _, pst = parent_leader_pass(pk, x, multi, k,
+                                                         prev)
+            db, dr = want[0], want[1]
+            keep = want[2] & (torch.rand(c, generator=g, device="cuda")
+                              < 0.3)
+            if multi:
+                # K8's commit between passes: destinations filling up to
+                # the arrival ceiling and past it
+                bump = torch.randint(0, 40, (num_b,), generator=g,
+                                     device="cuda", dtype=torch.int32)
+                tk.taken_cnt += bump
+                tp.taken_cnt += bump
+            if pk is not None:
+                prev = (keep, pdb, pdr, pst)
+    return out
 
 
 def _leadership_batch(state, n: int, g, valid_share: float):
@@ -1449,32 +1728,6 @@ def scratch_is_zero() -> bool:
     return not bool(torch.count_nonzero(buf))
 
 
-def _yardstick(pk, chain) -> str:
-    """The parent's chain's device time per call, or why there is none."""
-    if pk is None:
-        return "parent chain: not measured (no --parent checkout)"
-    return f"parent chain {graph_time_ms(chain):.4f} ms"
-
-
-def parent_argmax(pk, score, seg, valid, s):
-    """The parent tree's per_segment_argmax on the card: its dispatch's
-    int32 copy of the ids and its K9 (a memset, the fold, the decode)."""
-    import torch
-    return pk.segment_argmax(score.contiguous(),
-                             seg.to(torch.int32).contiguous(),
-                             valid.contiguous(), s)
-
-
-def parent_resolve(pk, dest, gain, valid, s):
-    """The parent tree's resolve_dest_conflicts on the card: the torch ops
-    around its dense K9 launch."""
-    import torch
-    seg = torch.where(valid, dest.long(), torch.zeros_like(dest).long())
-    arg, _, _ = parent_argmax(pk, gain, seg, valid, s)
-    idx = torch.arange(dest.shape[0], dtype=torch.int64, device=dest.device)
-    return valid & (arg.long()[seg] == idx)
-
-
 #: K9's grid-path folds phase 2 times at each grid shape: straight into
 #: the global scratch, and into shared keys at shares of 1/4 to 2 S
 ARGMAX_FOLDS = (("global", 0), ("shared S/4", 0.25), ("shared S/2", 0.5),
@@ -1513,7 +1766,7 @@ def _fold_times(launch, check, entry: str, n: int, s: int) -> dict:
     return out
 
 
-def check_segment_argmax(seed: int, pk=None) -> dict:
+def check_segment_argmax(seed: int) -> dict:
     """K9's dense entry against per_segment_argmax_plain on the card,
     exactly (max with ==, so -0.0 equals +0.0), at the conflict-resolution
     widths (n = 2048 and 4096 into 200 and 4096 segments; one block), at
@@ -1521,8 +1774,7 @@ def check_segment_argmax(seed: int, pk=None) -> dict:
     candidate pick at 200 and 2,600 brokers x 4 logdirs; the grid path,
     each fold of ARGMAX_FOLDS timed), and at n = 2048 into 20,000 (the
     grid path's global keys) with int64 ids; the key scratch zero after
-    every call.  Timed beside the parent's chain (`pk`).  {shape:
-    times}."""
+    every call.  {shape: times}."""
     import torch
     from cruise_control_tpu_torch import cuda_kernels
     from cruise_control_tpu_torch.analyzer import kernels as K
@@ -1557,8 +1809,6 @@ def check_segment_argmax(seed: int, pk=None) -> dict:
                  score, seg, valid, s)),
              graph_time_ms(lambda: K.per_segment_argmax_plain(
                  score, seg, s, valid)))
-        yard = _yardstick(pk, lambda: parent_argmax(pk, score, seg, valid,
-                                                    s))
         if not scratch_is_zero():
             raise AssertionError("segment_argmax: the key scratch is not "
                                  "zero after the timed replays")
@@ -1568,7 +1818,7 @@ def check_segment_argmax(seed: int, pk=None) -> dict:
         t_b, _ = bound(nbytes, n)
         log(f"  segment_argmax n={n} S={s} ({str(ids)[6:]} ids): exact match "
             f"({n_has} segments with a winner), scratch zero; device time "
-            f"per call: kernel {t[0]:.4f} ms, {yard}, plain {t[1]:.4f} ms; "
+            f"per call: kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms; "
             f"bound {t_b:.6f} ms ({nbytes} bytes); library call: none")
         cases[f"n={n} S={s}"] = case = dict(ms=t[0], plain_ms=t[1],
                                             bound_ms=t_b)
@@ -1579,7 +1829,7 @@ def check_segment_argmax(seed: int, pk=None) -> dict:
     return cases
 
 
-def check_segment_keep(seed: int, pk=None) -> dict:
+def check_segment_keep(seed: int) -> dict:
     """K9's keep entry (resolve_dest_conflicts on the card) against
     resolve_dest_conflicts_plain, exactly: n = 2048 candidates into 200
     brokers and into 20,000 and 200,000 partitions (the partition-keyed
@@ -1588,8 +1838,7 @@ def check_segment_keep(seed: int, pk=None) -> dict:
     round's width) and 41,600 into 2,600 (a
     full-width fallback; the grid path, each fold of ARGMAX_FOLDS timed),
     with ties, -0.0, NEG scores and invalid rows; the key scratch zero
-    after every call.  Timed beside the parent's chain (`pk`): its torch
-    ops around the dense K9.  The record of n = 2048 into 20,000 (the
+    after every call.  The record of n = 2048 into 20,000 (the
     slice's partition-keyed resolves), every shape under "cases"."""
     import torch
     from cruise_control_tpu_torch import cuda_kernels
@@ -1617,14 +1866,12 @@ def check_segment_keep(seed: int, pk=None) -> dict:
                  score, dest, valid, s)),
              graph_time_ms(lambda: K.resolve_dest_conflicts_plain(
                  dest, score, valid, s)))
-        yard = _yardstick(pk, lambda: parent_resolve(pk, dest, score, valid,
-                                                     s))
         # each element's score, int64 id and flag in, its keep flag out
         nbytes = n * (4 + 8 + 1 + 1)
         t_b, by = bound(nbytes, n)
         log(f"  segment_keep n={n} S={s}: exact match ({int(got.sum())} "
             f"kept), scratch zero; device time per call: kernel "
-            f"{t[0]:.4f} ms, {yard}, plain {t[1]:.4f} ms; bound "
+            f"{t[0]:.4f} ms, plain {t[1]:.4f} ms; bound "
             f"{t_b:.6f} ms ({nbytes} bytes); library call: none")
         cases[f"n={n} S={s}"] = case = dict(
             max_abs_err=0.0, ms=t[0], plain_ms=t[1], bound_ms=t_b,
@@ -1709,39 +1956,7 @@ def check_swap_pair(spec: dict, seed: int) -> dict:
     return rec
 
 
-def parent_pref(pk, state, cand, dest_ids, dest_ok, dest_pref, accept, pr,
-                ch, w_c, room):
-    """The parent tree's preference plane of move_round's assign_with on
-    the card: the fits gather and compare, its K11 plane launch (after
-    its dispatch's int32 copies), the ANDs, the gather and the where (the
-    acceptance plane given)."""
-    import torch
-    from cruise_control_tpu_torch.analyzer import kernels as K
-    fits = w_c[:, None] <= room[dest_ids][None, :]
-    struct = pk.dest_feasibility(
-        cand.to(torch.int32).contiguous(),
-        dest_ids.to(torch.int32).contiguous(), dest_ok.contiguous(),
-        state.replica_broker, state.replica_partition, pr)
-    feasible = fits & ch[:, None] & (struct & accept)
-    return torch.where(feasible, dest_pref[dest_ids][None, :],
-                       torch.full((), K.NEG, device=w_c.device))
-
-
-def parent_guard(pk, state, cand, w_c, dest_ok, room, pr):
-    """The parent tree's cand_has_dest / feasible_dest_exists on the card:
-    top_headroom's stable sort and where, then its K11 guard launch (after
-    its dispatch's copies)."""
-    import torch
-    from cruise_control_tpu_torch.analyzer import kernels as K
-    top_b, top_h = K.top_headroom(dest_ok, room, pr.shape[1])
-    return pk.dest_has(
-        None if cand is None else cand.to(torch.int32).contiguous(),
-        w_c.contiguous(), top_b.to(torch.int32).contiguous(),
-        top_h.contiguous(), state.replica_broker, state.replica_partition,
-        pr)
-
-
-def check_dest_feasibility(spec: dict, widths, seed: int, pk=None) -> dict:
+def check_dest_feasibility(spec: dict, widths, seed: int) -> dict:
     """K11 against its plain versions on the card, exactly.  For each (C,
     K) in `widths` (a shortlist of K brokers, or every broker): the
     preference entry (dest_pref) against dest_pref_plain with candidate
@@ -1751,9 +1966,7 @@ def check_dest_feasibility(spec: dict, widths, seed: int, pk=None) -> dict:
     flags and without, on an acceptance plane [C, K], [C, 1], [1, K] or
     0-d (broadcast, never materialised).  The guard entry (which selects
     its top brokers itself) against dest_has_plain on C candidates and on
-    every replica, with tied headrooms, -0.0 and ineligible brokers.  Each
-    timed beside the parent's chain (`pk`): its plane launch with the
-    torch ops the callers ran around it; top_headroom and its guard.  The
+    every replica, with tied headrooms, -0.0 and ineligible brokers.  The
     record of the first preference plane, the other widths under "pref"
     and the guard under "guard"."""
     import torch
@@ -1818,9 +2031,6 @@ def check_dest_feasibility(spec: dict, widths, seed: int, pk=None) -> dict:
              graph_time_ms(lambda: K.dest_pref_plain(
                  state, cand, dest_ids, dest_ok, dest_pref_b, full, pr, ch,
                  w_c, room)))
-        yard = _yardstick(pk, lambda: parent_pref(
-            pk, state, cand, dest_ids, dest_ok, dest_pref_b, full, pr, ch,
-            w_c, room))
         # the f32 plane out and the acceptance plane in; per candidate its
         # id, broker, partition, RF sibling ids and brokers, flag and
         # weight; per destination its id, flag, headroom and preference
@@ -1830,7 +2040,7 @@ def check_dest_feasibility(spec: dict, widths, seed: int, pk=None) -> dict:
         log(f"  dest_pref C={c} K={k}: exact match (int64 and int32 ids; "
             f"with and without the sibling test; accept [C, K], [C, 1], "
             f"[1, K], 0-d; with and without the fit test); device time per "
-            f"call: kernel {t[0]:.4f} ms, {yard}, plain {t[1]:.4f} ms; "
+            f"call: kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms; "
             f"bound {t_b:.6f} ms ({by}); library call: none")
         case = dict(max_abs_err=0.0, ms=t[0], plain_ms=t[1], bound_ms=t_b,
                     bound_by=by, library_ms=None, shape=f"pref C={c} K={k}")
@@ -1855,15 +2065,13 @@ def check_dest_feasibility(spec: dict, widths, seed: int, pk=None) -> dict:
             raise AssertionError(f"dest_feasibility guard C={n}: uniform")
         t = (graph_time_ms(lambda: cuda_kernels.dest_has(*args)),
              graph_time_ms(lambda: K.dest_has_plain(*args)))
-        yard = _yardstick(pk, lambda: parent_guard(pk, state, cand, w_c,
-                                                   dest_ok, room, pr))
         nt = min(rf + 2, nb)
         nbytes = n * (8 + 4 + 4 + 8 * rf + 1) + nb * 5
         t_b, _ = bound(nbytes, n * rf * nt)
         log(f"  dest_feasibility guard C={n} (top {nt} of {nb} brokers "
             f"selected in the launch): exact match ({int(got.sum())} with a "
             f"destination; also with no eligible broker); device time per "
-            f"call: kernel {t[0]:.4f} ms, {yard}, plain {t[1]:.4f} ms; "
+            f"call: kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms; "
             f"bound {t_b:.6f} ms")
         rec.setdefault("guard", {})[n] = dict(ms=t[0], plain_ms=t[1],
                                               bound_ms=t_b)
@@ -2443,6 +2651,81 @@ def assign_torch_ops(fn_solve):
         return fn_solve(), counts
 
 
+def leadership_torch_ops(fn_solve):
+    """(fn_solve(), counts): leadership_round's follower assignments (each
+    from its leader_tail to the next or to the round's end) -- their
+    number, the K4 launches and the K8 and K9 launches inside them, the
+    torch ops between an assignment's first K4 and its last K8 or K9 (the
+    pass loop, which should launch K4, K8 and K9 alone) and after it up to
+    the next assignment or the round's end (the final fold and the round's
+    own ops), and the torch ops inside leadership_round in all."""
+    from cruise_control_tpu_torch import cuda_kernels
+    from cruise_control_tpu_torch.analyzer import kernels as K
+    counts = {"assignments": 0, "K4 launches": 0, "K8 launches": 0,
+              "K9 launches": 0, "torch ops in leadership_round": 0,
+              "torch ops in the passes": 0,
+              "torch ops after the last pass": 0}
+    st = {"on": False, "pending": 0, "depth": 0}
+
+    def on_op(name):
+        counts["torch ops in leadership_round"] += 1
+        st["pending"] += st["on"]
+
+    def close():
+        if st["on"]:
+            counts["torch ops after the last pass"] += st["pending"]
+        st.update(on=False, pending=0)
+
+    def round_(fn, name):
+        def run(*a, **kw):
+            st["depth"] += 1
+            try:
+                with torch_op_counter(on_op):
+                    return fn(*a, **kw)
+            finally:
+                close()
+                st["depth"] -= 1
+        return run
+
+    def tail(fn, name):
+        def run(*a, **kw):
+            close()
+            counts["assignments"] += 1
+            return fn(*a, **kw)
+        return run
+
+    def launch(key):
+        def wrap(fn, name):
+            def run(*a, **kw):
+                if st["depth"]:
+                    if key == "K4 launches" and not st["on"]:
+                        st.update(on=True, pending=0)
+                    if st["on"]:
+                        counts[key] += 1
+                        counts["torch ops in the passes"] += st["pending"]
+                        st["pending"] = 0
+                return fn(*a, **kw)
+            return run
+        return wrap
+    with _wrapped([(K, "leadership_round")], round_), \
+            _wrapped([(K, "leader_tail")], tail), \
+            _wrapped([(cuda_kernels, "leader_assign_pass")],
+                     launch("K4 launches")), \
+            _wrapped([(cuda_kernels, "rank_accept")], launch("K8 launches")), \
+            _wrapped([(cuda_kernels, "segment_keep")],
+                     launch("K9 launches")):
+        return fn_solve(), counts
+
+
+def check_leadership_counts(counts: dict) -> None:
+    """Raise unless the leadership passes ran: K4 launches, and each
+    assignment's first K4 through its last K8 / K9 with no torch op
+    between."""
+    if not counts["K4 launches"] or counts["torch ops in the passes"]:
+        raise AssertionError(f"the leadership passes are not K4 with K8 or "
+                             f"K9 alone: {counts}")
+
+
 #: the functions around K9's and K11's launches whose torch ops phase 3
 #: counts
 K9_K11_CALLERS = ("resolve_dest_conflicts", "cand_has_dest",
@@ -2721,14 +3004,17 @@ def pass_region_counts(solve: dict) -> dict:
         warnings.showwarning = on_warning
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            (_, k9_k11), torch_ops = assign_torch_ops(
-                lambda: k9_k11_counts(lambda: _solve(solve, "cuda")))
+            ((_, k9_k11), lead), torch_ops = assign_torch_ops(
+                lambda: leadership_torch_ops(
+                    lambda: k9_k11_counts(lambda: _solve(solve, "cuda"))))
         finally:
             torch.cuda.set_sync_debug_mode("default")
     counts["torch ops in assign_destinations"] = torch_ops
     counts["K9 and K11 callers"] = k9_k11
+    counts["leadership assignments"] = lead
     log(f"    calls inside and outside the multi-commit passes: {counts}")
     check_k9_k11_counts(k9_k11)
+    check_leadership_counts(lead)
     if torch_ops["torch ops in multi-commit passes"]:
         raise AssertionError(f"the multi-commit passes launch torch ops "
                              f"between K2 and K8: {torch_ops}")
@@ -2846,6 +3132,7 @@ def _timed_path(solve: dict, kernels, label: str, warm: bool = True):
         (state, topo, result, secs), sweeps = _sweep_rounds(
             lambda: _solve(solve, "cuda"))
     launches = dict(cuda_kernels.LAUNCHES)
+    launches["splits"] = dict(sorted(cuda_kernels.LAUNCH_SPLITS.items()))
     four = solve["goals"] == FOUR_GOALS
     _report(f"{label} on the card", result, secs, sweeps if four else None)
     log(f"    garbage collector in the timed solve: {len(gc_passes)} passes, "
@@ -2855,6 +3142,8 @@ def _timed_path(solve: dict, kernels, label: str, warm: bool = True):
     log(f"    kernel launches in the timed solve {launches}")
     log(f"    K2 launches {launches['assign_pass']}; K14 launches (prefix "
         f"gates) {launches['cumsum_blocks']}")
+    log(f"    K1 launches by source and k, K4 launches by commit mode and "
+        f"pass: {launches['splits']}")
     for name in kernels:
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched by the "
@@ -3056,7 +3345,8 @@ def profile_slice(solve: dict, device: str = "cuda",
     # device time to them (restored afterwards)
     targets = [(ops, "segment_sum"), (ops, "scatter_add_seq"),
                (ops, "sum_f32"),
-               (K, "row_topk"), (K, "assign_pass"), (K, "prefix_gate"),
+               (K, "row_topk"), (K, "table_topk"), (K, "assign_pass"),
+               (K, "prefix_gate"),
                (K, "rank_accept"),
                (K, "rank_accept_commit"),
                (K, "resolve_dest_conflicts"), (K, "assign_destinations"),
@@ -3155,6 +3445,43 @@ def run_scale(results: dict) -> None:
     run_modes(results, north=True)
 
 
+def _most_launched(splits: dict, prefix: str, measured) -> str:
+    """The measured entry of a kernel the default stack launched most,
+    from its launch splits ("row_topk table k=1" -> "table k=1")."""
+    best = max(((n, key[len(prefix):]) for key, n in (splits or {}).items()
+                if key.startswith(prefix) and key[len(prefix):] in measured),
+               default=None)
+    return None if best is None else best[1]
+
+
+def pick_records(results: dict) -> None:
+    """K1's and K4's kernel-line records: the entry (source and k; commit
+    mode) that the default-stack slice launched most, at the slice's
+    shapes, with the slice's launches; every case kept beside them."""
+    splits = (results.get("_launches_stack") or {}).get("splits") or {}
+    cases = results.get("row_topk") or {}
+    measured = {k: v for k, v in cases.items() if k.startswith(("plane",
+                                                                 "table"))}
+    if measured:
+        key = _most_launched(splits, "row_topk ", measured) or "plane k=4"
+        results["_row_topk_cases"] = measured
+        results["row_topk"] = dict(measured[key],
+                                   launches=cases.get("launches"))
+        log(f"[5] row_topk: the record of the most launched entry, {key}")
+    modes = results.get("leader_assign_pass") or {}
+    if "multi" in modes:
+        counts = {m: sum(n for key, n in splits.items()
+                         if key.startswith(f"leader_assign_pass {m}"))
+                  for m in ("multi", "single")}
+        mode = max(counts, key=lambda m: (counts[m], m == "multi"))
+        results["_leader_assign_cases"] = {m: modes[m] for m in
+                                           ("multi", "single")}
+        results["leader_assign_pass"] = dict(modes[mode]["pass 3"],
+                                             launches=modes.get("launches"))
+        log(f"[5] leader_assign_pass: the record of {mode}-commit pass 3 "
+            f"(the default stack's launches by mode {counts})")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="1,2,3,4")
@@ -3162,7 +3489,7 @@ def main(argv=None) -> int:
                     help="also profile one slice solve (torch.profiler)")
     ap.add_argument("--parent", default=None,
                     help="a checkout of the parent tree: phase 2 times its "
-                         "K9 and K11 chains as yardsticks")
+                         "K1 and K4 chains as yardsticks")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",") if p}
 
@@ -3206,7 +3533,7 @@ def main(argv=None) -> int:
         pk = parent_kernels(args.parent)
         log("[2] kernels against their plain versions on the card, at the "
             "slice's shapes")
-        results["row_topk"] = check_row_topk(200, 1152, seed=11)
+        results["row_topk"] = check_row_topk(200, 1152, seed=11, pk=pk)
         results["assign_pass"] = check_assign_pass(2048, (256, 200), seed=12)
         log("[2] K2 through a chain of multi-commit passes (K2, K8 with the "
             "commit), each pass against its plain version")
@@ -3215,8 +3542,8 @@ def main(argv=None) -> int:
         results["commit_moves"] = check_commit_moves(
             SLICE_SPEC, seed=13, shapes=((2048, 64, True),
                                          (4096, 64, False)))
-        results["leader_assign_pass"] = check_leader_assign(2048, 200,
-                                                            seed=14)
+        results["leader_assign_pass"] = check_leader_assign(
+            2048, 200, 60_000, seed=14, pk=pk)
         results["commit_leadership"] = check_commit_leadership(SLICE_SPEC,
                                                                seed=15)
         results["sweep_pick"] = check_sweep_pick(SLICE_SPEC, seed=16)
@@ -3226,19 +3553,19 @@ def main(argv=None) -> int:
             dict(SLICE_SPEC, num_brokers=24, num_partitions=1000), seed=40)
         results["rank_accept"] = check_rank_accept(seed=30)
         results["_rank_accept_breakdown"] = rank_accept_breakdown(seed=36)
-        results["_segment_argmax_dense"] = check_segment_argmax(seed=31,
-                                                                pk=pk)
-        results["segment_argmax"] = check_segment_keep(seed=37, pk=pk)
+        results["_segment_argmax_dense"] = check_segment_argmax(seed=31)
+        results["segment_argmax"] = check_segment_keep(seed=37)
         results["swap_pair"] = check_swap_pair(SLICE_SPEC, seed=32)
         results["dest_feasibility"] = check_dest_feasibility(
-            SLICE_SPEC, ((2048, 200), (2048, 131)), seed=33, pk=pk)
+            SLICE_SPEC, ((2048, 200), (2048, 131)), seed=33)
         log("[2] K2 at the forced-move round's C = 4096, against the "
             "shortlist (K = 256) and every broker (K = 2600)")
         results["_assign_pass_4096"] = check_assign_pass(4096, (256, 2600),
                                                          seed=19)
         log("[2] the same at the 2,600-broker shapes of phase 4 (K2 at the "
             "escalated width K = B, K4 also at C = R)")
-        check_row_topk(2600, 1024, seed=21)
+        results["_row_topk_north"] = check_row_topk(2600, 1024, seed=21,
+                                                    pk=pk)
         check_assign_pass(2048, (2600,), seed=22)
         results["_assign_chain_north"] = check_assign_chain(2048, 256, 2600,
                                                             seed=29)
@@ -3246,8 +3573,10 @@ def main(argv=None) -> int:
             NORTH_SPEC, seed=23, shapes=((2048, 64, True),
                                          (10_400, 2600, True),
                                          (4096, 64, False)))
-        check_leader_assign(2048, 2600, seed=24)
-        check_leader_assign(600_000, 2600, seed=25)
+        results["_leader_assign_north"] = check_leader_assign(
+            2048, 2600, 600_000, seed=24, pk=pk)
+        results["_leader_assign_full"] = check_leader_assign(
+            600_000, 2600, 600_000, seed=25, pk=pk)
         results["_commit_leadership_north"] = check_commit_leadership(
             NORTH_SPEC, seed=26)
         check_sweep_pick(NORTH_SPEC, seed=27)
@@ -3255,7 +3584,7 @@ def main(argv=None) -> int:
                                                               seed=28)
         results["_swap_pair_north"] = check_swap_pair(NORTH_SPEC, seed=34)
         results["_dest_feasibility_north"] = check_dest_feasibility(
-            NORTH_SPEC, ((2048, 256), (4096, 2600)), seed=35, pk=pk)
+            NORTH_SPEC, ((2048, 256), (4096, 2600)), seed=35)
         log("[2] the ordered sums K12-K14, at the slice's and the "
             "2,600-broker shapes and their edge cases")
         results["segment_sum"] = check_segment_sum(seed=41)
@@ -3316,6 +3645,7 @@ def main(argv=None) -> int:
         if not r.get("launches") and ka.get(k):
             r["launches"] = ka[k]
             log(f"[5] {k}: launches of the kafka-assigner slice solve")
+    pick_records(results)
     kernels = []
     for k in SOURCES:
         r = results.get(k, {})
@@ -3349,7 +3679,16 @@ def main(argv=None) -> int:
         "stack_slice_k8_turns_s": results.get("_k8_turns"),
         "sums_turns_s": results.get("_sums_turns"),
         "card_cpu_identical": results.get("_identical"),
-        "row_topk_deep": results.get("row_topk", {}).get("deep")}))
+        "row_topk_cases": results.get("_row_topk_cases"),
+        "row_topk_north": results.get("_row_topk_north"),
+        "leader_assign_pass_cases": results.get("_leader_assign_cases"),
+        "leader_assign_north": results.get("_leader_assign_north"),
+        "leader_assign_full_plane": results.get("_leader_assign_full"),
+        "leadership_pass_counts": (results.get("_pass_counts") or {}).get(
+            "leadership assignments"),
+        "launch_splits": {k: (results.get(f"_launches_{k}") or {}).get(
+            "splits") for k in ("four", "stack", "add", "hard",
+                                "kafka_assigner", "north_stack")}}))
     log("[5] " + json.dumps({
         "forced_select_north": results.get("_forced_select_north"),
         "forced_select_k_equals_r": results.get("_forced_select_small"),

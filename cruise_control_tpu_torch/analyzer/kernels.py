@@ -7,10 +7,14 @@ passes and commits the non-conflicting batch.  The round's hot
 functions are hand-written CUDA kernels on the card:
 
 * K1 `row_topk` (csrc/row_topk.cu) behind `rows_pick_topk` /
-  `rows_pick_best`;
+  `rows_pick_best` and, reading per-replica scores through the broker
+  table (`table_topk`), `table_pick_topk` / `table_pick_best`;
 * K2 `assign_pass` (csrc/assign_pass.cu), one pass of
   `assign_destinations` with its open mask, broker ids, the fold of the
   pass before it and, in pass 0, the jitter amplitude;
+* K4 `leader_assign_pass` (csrc/leader_assign.cu), one pass of
+  `leadership_round`'s follower assignment with its option plane and
+  amplitude (pass 0) and the fold of the pass before it;
 * K7 `forced_select` (csrc/forced_select.cu), the candidate selection of
   a table-less `forced_move_round`;
 * K8 `rank_accept` (csrc/rank_accept.cu), the multi-commit acceptance of
@@ -28,7 +32,8 @@ functions are hand-written CUDA kernels on the card:
 * K14 `cumsum_blocks` (csrc/cumsum_blocks.cu), the source-side prefix
   gate of the move, leadership and pre-balance rounds (`prefix_gate`).
 
-Their plain versions (`row_topk_plain`, `assign_pass_plain`,
+Their plain versions (`row_topk_plain`, `table_topk_plain`,
+`assign_pass_plain`, `leader_assign_pass_plain`,
 `forced_select_plain`, `rank_accept_plain`, `rank_accept_commit_plain`,
 `per_segment_argmax_plain`, `resolve_dest_conflicts_plain`,
 `swap_pair_plain`, `dest_struct_plain`, `dest_pref_plain`,
@@ -38,6 +43,7 @@ tensor (one sync each).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -108,7 +114,7 @@ def _has_table(cache) -> bool:
     return cache is not None and cache.broker_table.shape[1] > 0
 
 
-def _table_rows(cache, score: torch.Tensor,
+def _table_rows(table: torch.Tensor, score: torch.Tensor,
                 valid: torch.Tensor) -> torch.Tensor:
     """[B, S] per-slot scores gathered from per-replica arrays (pad slots
     gather an appended NEG sentinel)."""
@@ -116,7 +122,7 @@ def _table_rows(cache, score: torch.Tensor,
                            torch.full((), NEG, device=score.device))
     combined_p = torch.cat([combined,
                             torch.full((1,), NEG, device=score.device)])
-    return combined_p[cache.broker_table.long()]
+    return combined_p[table.long()]
 
 
 # ---------------------------------------------------------------------------
@@ -125,30 +131,50 @@ def _table_rows(cache, score: torch.Tensor,
 
 def row_topk_plain(sc_rows: torch.Tensor, table: torch.Tensor, k: int):
     """Plain version of K1: per-row top-k of a NEG-masked [B, S] plane,
-    score descending then slot ascending (jax.lax.top_k's tie rule).
+    score descending (XLA's total order: -0.0 below +0.0) then slot
+    ascending, as jax.lax.top_k orders them.
     Returns (cand i32[B*k] replica id or -1, has bool[B*k], top f32[B, k],
-    slot i32[B, k])."""
-    top, slots = ops.topk_stable(sc_rows, k)
+    slot i32[B, k], any bool[B]: the row holds a score > NEG / 2)."""
+    top, slots = ops.topk_total(sc_rows, k)
     cand = torch.gather(table, 1, slots)
     has = top > NEG / 2
     cand = torch.where(has, cand, torch.full_like(cand, -1))
     return (cand.reshape(-1).to(torch.int32), has.reshape(-1), top,
-            slots.to(torch.int32))
+            slots.to(torch.int32), torch.any(sc_rows > NEG / 2, 1))
 
 
 def row_topk(sc_rows: torch.Tensor, table: torch.Tensor, k: int):
-    """K1 dispatch: the plain version on the CPU, csrc/row_topk.cu on the
-    card (k <= 8 and 8 < k <= 64 are two code paths there)."""
+    """K1 dispatch: the plain version on the CPU, one launch of
+    csrc/row_topk.cu on the card."""
     if not sc_rows.is_cuda:
         return row_topk_plain(sc_rows, table, k)
     from cruise_control_tpu_torch import cuda_kernels
     return cuda_kernels.row_topk(sc_rows, table, k)
 
 
+def table_topk_plain(table: torch.Tensor, score: torch.Tensor,
+                     valid: torch.Tensor, k: int):
+    """Plain version of K1's table source: `row_topk_plain` of the [B, S]
+    plane valid[id] ? score[id] : NEG over the table's ids (the pad id R
+    NEG)."""
+    return row_topk_plain(_table_rows(table, score, valid), table, k)
+
+
+def table_topk(table: torch.Tensor, score: torch.Tensor, valid: torch.Tensor,
+               k: int):
+    """K1 dispatch, table source: the plain version on the CPU, one launch
+    of csrc/row_topk.cu on the card that reads the per-replica `score` and
+    `valid` through the table (no [B, S] plane)."""
+    if not table.is_cuda:
+        return table_topk_plain(table, score, valid, k)
+    from cruise_control_tpu_torch import cuda_kernels
+    return cuda_kernels.table_topk(table, score, valid.contiguous(), k)
+
+
 def rows_pick_best(cache, sc_rows: torch.Tensor):
     """Per-broker argmax over a [B, S] score plane (NEG = ineligible):
     (cand i32[B] replica id or -1, has bool[B])."""
-    cand, has, _, _ = row_topk(sc_rows, cache.broker_table, 1)
+    cand, has = row_topk(sc_rows, cache.broker_table, 1)[:2]
     return cand, has
 
 
@@ -160,16 +186,18 @@ def rows_pick_topk(cache, sc_rows: torch.Tensor, k: int):
 
 
 def table_pick_best(cache, score: torch.Tensor, valid: torch.Tensor):
-    """Per-broker argmax over the table from per-replica score/valid."""
-    return rows_pick_best(cache, _table_rows(cache, score, valid))
+    """Per-broker argmax over the table from per-replica score/valid (one
+    K1 launch on the card)."""
+    cand, has = table_topk(cache.broker_table, score, valid, 1)[:2]
+    return cand, has
 
 
 def table_pick_topk(cache, score: torch.Tensor, valid: torch.Tensor,
                     k: int):
     """Per-broker top-k over the table from per-replica score/valid,
     flattened to a candidate list: (cand i32[B*k], has bool[B*k])."""
-    cand, has, _ = rows_pick_topk(cache, _table_rows(cache, score, valid),
-                                  k)
+    k = min(k, max(cache.broker_table.shape[1], 1))
+    cand, has = table_topk(cache.broker_table, score, valid, k)[:2]
     return cand, has
 
 
@@ -574,7 +602,8 @@ def move_round(state: ClusterState, w, src_ok, src_excess, movable, dest_ok,
 
     if sc_rows is not None and _has_table(cache) and forced is None:
         kk = min(per_src_k, max(cache.broker_table.shape[1], 1))
-        cand_r, cand_struct, _ = rows_pick_topk(cache, sc_rows, kk)
+        cand_r, cand_struct, _, _, struct_any = row_topk(
+            sc_rows, cache.broker_table, kk)
         cand_r_safe = torch.clamp_min(cand_r, 0).long()
         cand_w = w[cand_r_safe]
         hd = cand_has_dest(state, cand_r_safe, cand_w, dest_ok,
@@ -586,8 +615,8 @@ def move_round(state: ClusterState, w, src_ok, src_excess, movable, dest_ok,
             cand_has = prefix_gate(cand_has, cand_w, src_excess, cand_r,
                                    (src_terms or ()) if multi else (), kk)
 
-        # starvation escalation, thin-progress form
-        struct_any = torch.any(sc_rows > NEG / 2, 1)
+        # starvation escalation, thin-progress form (struct_any: K1's rows
+        # holding an eligible slot)
         got = torch.any(cand_has.reshape(num_b, kk), 1)
         thin = torch.sum(got) * 8 < torch.sum(struct_any)
         if bool(torch.any(struct_any & ~got) & thin):
@@ -1218,55 +1247,145 @@ def commit_swaps_cached(state: ClusterState, cache, out_r, in_r, cold,
 # K4: one follower-assignment pass of the leadership search
 # ---------------------------------------------------------------------------
 
-def leader_assign_pass_plain(pref, sib_broker, sib_replica, src_broker,
-                             taken_cnt, dep_cnt, assigned, cand_has,
-                             k: int, amp, multi: bool):
-    """Plain version of K4: one pass of leadership_round's follower
-    assignment.  Per candidate leader row c, the first-max follower slot
-    of the (jittered for k > 0: fma(amp, jitter, pref), one rounding)
-    preference over the open options —
-    multi-commit: the option's broker has taken fewer than
-    MAX_ARRIVALS_PER_ROUND arrivals; single-commit: the option's broker
-    took none and the row's source broker handed off none — masked for
-    assigned rows.  Returns (slot i32[C], dest broker i32[C], promoted
-    replica i32[C], has bool[C])."""
-    c, rf = pref.shape
-    dev = pref.device
-    neg = torch.full((), NEG, dtype=pref.dtype, device=dev)
+@dataclasses.dataclass
+class LeaderTail:
+    """The buffers of one follower assignment (leadership_round's
+    run_tail), shared by its K4 passes.  Pass 0 reads the candidate rows,
+    their sibling rows (-1 for none) and the prior goals' acceptance plane
+    (bool, broadcasting to [C, RF]) and writes the option planes, the rows'
+    source brokers and gains and the jitter amplitude; it zeroes the
+    counters, `assigned` and `dest_replica`, which later passes update in
+    place, and (multi-commit) every pass writes K8's weights `d_w`
+    (t_ws[:, promoted replica])."""
+    rows: torch.Tensor            # int32 / int64 [C] candidate leaders
+    sib: torch.Tensor             # int32 [C, RF]
+    accept: torch.Tensor          # bool, broadcasts to [C, RF]
+    cand_has: torch.Tensor        # bool [C]
+    replica_broker: torch.Tensor  # int32 [R]
+    replica_offline: torch.Tensor  # bool [R]
+    leader_ok: torch.Tensor       # bool [B]
+    bonus_w: torch.Tensor         # f32 [R]
+    dest_headroom: torch.Tensor   # f32 [B]
+    dest_pref: torch.Tensor       # f32 [B]
+    pref: torch.Tensor            # f32 [C, RF]
+    sib_broker: torch.Tensor      # int32 [C, RF]
+    sib_replica: torch.Tensor     # int32 [C, RF]
+    src: torch.Tensor             # int32 [C]
+    gain: torch.Tensor            # f32 [C]
+    amp: torch.Tensor             # f32 0-d
+    taken_cnt: torch.Tensor       # int32 [B]
+    dep_cnt: torch.Tensor         # int32 [B]
+    assigned: torch.Tensor        # bool [C]
+    dest_replica: torch.Tensor    # int32 [C]
+    t_ws: Optional[torch.Tensor] = None   # f32 [T, R] (multi-commit)
+    d_w: Optional[torch.Tensor] = None    # f32 [T, C] (multi-commit)
+
+
+def leader_tail(state: ClusterState, rows, sib, accept, cand_has, leader_ok,
+                bonus_w, dest_headroom, dest_pref,
+                t_ws=None) -> LeaderTail:
+    """A LeaderTail over the candidate rows, its planes and state
+    allocated (uninitialised: K4's pass 0 writes them)."""
+    c, rf = sib.shape
+    num_b = leader_ok.shape[0]
+    dev = sib.device
+
+    def new(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device=dev)
+    i32, f32 = torch.int32, torch.float32
+    return LeaderTail(
+        rows=rows, sib=sib, accept=accept, cand_has=cand_has,
+        replica_broker=state.replica_broker,
+        replica_offline=state.replica_offline, leader_ok=leader_ok,
+        bonus_w=bonus_w, dest_headroom=dest_headroom, dest_pref=dest_pref,
+        pref=new((c, rf), f32), sib_broker=new((c, rf), i32),
+        sib_replica=new((c, rf), i32), src=new(c, i32), gain=new(c, f32),
+        amp=new((), f32), taken_cnt=new(num_b, i32), dep_cnt=new(num_b, i32),
+        assigned=new(c, torch.bool), dest_replica=new(c, i32), t_ws=t_ws,
+        d_w=None if t_ws is None else new((t_ws.shape[0], c), f32))
+
+
+def leader_assign_pass_plain(t: LeaderTail, k: int, multi: bool, keep=None,
+                             prev_db=None, prev_dr=None):
+    """Plain version of K4: pass k of leadership_round's follower
+    assignment over the buffers `t`.
+    Pass 0 first builds the plane: per candidate row c (replica rows[c])
+    and option j (sibling replica s = sib[c, j], broker b of max(s, 0)),
+    pref[c, j] = dest_pref[b] where cand_has[c], s >= 0, s != rows[c],
+    leader_ok[b], the sibling is online, bonus_w[rows[c]] <=
+    dest_headroom[b] and accept[c, j] hold, else NEG; the option brokers
+    and replicas, src = the rows' brokers, gain = bonus_w[rows], the
+    amplitude (assign_amp) and zero counters, `assigned` and
+    `dest_replica`.  Pass k > 0 first folds pass k - 1 (`keep`, its
+    brokers `prev_db` and promoted replicas `prev_dr`) into dest_replica
+    and assigned and, single-commit, into taken_cnt and dep_cnt (one
+    arrival a kept destination, one departure a kept source).  Then the
+    first-max option of the (jittered for k > 0: fma(amp, jitter, pref),
+    one rounding) preference over the open options -- multi-commit: the
+    option's broker has taken fewer than MAX_ARRIVALS_PER_ROUND arrivals;
+    single-commit: it took none and the row's source handed off none --
+    masked for assigned rows; multi-commit, d_w = t_ws[:, promoted].
+    Returns (dest broker i32[C], promoted replica i32[C], has bool[C])."""
+    c, rf = t.sib.shape
+    num_b = t.taken_cnt.shape[0]
+    dev = t.sib.device
+    neg = torch.full((), NEG, dtype=torch.float32, device=dev)
     if k == 0:
-        pass_pref = pref
+        rows = t.rows.long()
+        rb = t.replica_broker.long()
+        sib_safe = torch.clamp_min(t.sib, 0).long()
+        sib_b = rb[sib_safe]
+        bonus = t.bonus_w[rows]
+        ok = (t.sib >= 0) & (t.sib != rows[:, None])
+        ok &= t.leader_ok[sib_b] & ~t.replica_offline[sib_safe]
+        ok &= bonus[:, None] <= t.dest_headroom[sib_b]
+        ok &= t.accept & t.cand_has[:, None]
+        t.pref.copy_(torch.where(ok, t.dest_pref[sib_b], neg))
+        t.sib_broker.copy_(sib_b)
+        t.sib_replica.copy_(sib_safe)
+        t.src.copy_(rb[rows])
+        t.gain.copy_(bonus)
+        t.amp.copy_(assign_amp(t.pref))
+        for x in (t.taken_cnt, t.dep_cnt, t.assigned, t.dest_replica):
+            x.zero_()
+        pass_pref = t.pref
     else:
+        t.dest_replica.copy_(torch.where(keep, prev_dr, t.dest_replica))
+        t.assigned |= keep
+        if not multi:
+            ones = torch.ones_like(prev_db)
+            t.taken_cnt += ops.segment_sum(
+                ones, torch.where(keep, prev_db, num_b), num_b)
+            t.dep_cnt += ops.segment_sum(
+                ones, torch.where(keep, t.src, num_b), num_b)
         jit = _pairwise_jitter(c, rf, salt=k, device=dev)
-        pass_pref = torch.where(pref > NEG / 2, ops.fma_f32(amp, jit, pref),
-                                neg)
-    taken_b = taken_cnt[sib_broker.long()]
+        pass_pref = torch.where(t.pref > NEG / 2,
+                                ops.fma_f32(t.amp, jit, t.pref), neg)
+    taken_b = t.taken_cnt[t.sib_broker.long()]
     if multi:
         open_pref = torch.where(taken_b < MAX_ARRIVALS_PER_ROUND, pass_pref,
                                 neg)
     else:
-        closed = (taken_b > 0) | (dep_cnt[src_broker.long()] > 0)[:, None]
+        closed = (taken_b > 0) | (t.dep_cnt[t.src.long()] > 0)[:, None]
         open_pref = torch.where(closed, neg, pass_pref)
-    open_pref = torch.where(assigned[:, None], neg, open_pref)
+    open_pref = torch.where(t.assigned[:, None], neg, open_pref)
     mx, slot = torch.max(open_pref, 1)
-    db = torch.gather(sib_broker, 1, slot[:, None])[:, 0]
-    dr = torch.gather(sib_replica, 1, slot[:, None])[:, 0]
-    return (slot.to(torch.int32), db.to(torch.int32), dr.to(torch.int32),
-            cand_has & (mx > NEG / 2))
+    db = torch.gather(t.sib_broker, 1, slot[:, None])[:, 0]
+    dr = torch.gather(t.sib_replica, 1, slot[:, None])[:, 0]
+    if multi:
+        t.d_w.copy_(t.t_ws[:, dr.long()])
+    return db, dr, t.cand_has & (mx > NEG / 2)
 
 
-def leader_assign_pass(pref, sib_broker, sib_replica, src_broker, taken_cnt,
-                       dep_cnt, assigned, cand_has, k: int, amp,
-                       multi: bool):
-    """K4 dispatch: the plain version on the CPU, csrc/leader_assign.cu on
-    the card."""
-    if not pref.is_cuda:
-        return leader_assign_pass_plain(pref, sib_broker, sib_replica,
-                                        src_broker, taken_cnt, dep_cnt,
-                                        assigned, cand_has, k, amp, multi)
+def leader_assign_pass(t: LeaderTail, k: int, multi: bool, keep=None,
+                       prev_db=None, prev_dr=None):
+    """K4 dispatch: the plain version on the CPU, one launch of
+    csrc/leader_assign.cu on the card."""
+    if not t.sib.is_cuda:
+        return leader_assign_pass_plain(t, k, multi, keep, prev_db, prev_dr)
     from cruise_control_tpu_torch import cuda_kernels
-    return cuda_kernels.leader_assign_pass(pref, sib_broker, sib_replica,
-                                           src_broker, taken_cnt, dep_cnt,
-                                           assigned, cand_has, k, amp, multi)
+    return cuda_kernels.leader_assign_pass(t, k, multi, keep, prev_db,
+                                           prev_dr)
 
 
 # ---------------------------------------------------------------------------
@@ -1313,55 +1432,33 @@ def leadership_round(state: ClusterState, bonus_w, src_excess, movable,
 
     def run_tail(cand_r_safe, cand_has):
         """Follower assignment for one candidate set: (dest_replica
-        i32[n], assigned bool[n])."""
-        cand_bonus = bonus_w[cand_r_safe]
-        sib_c, sib_broker_c, acc_c = options_feasible(cand_r_safe,
-                                                      cand_bonus)
-        acc_c &= cand_has[:, None]
-        neg = torch.full((), NEG, device=dev)
-        pref_c = torch.where(acc_c, dest_pref[sib_broker_c], neg)
-        gain = cand_bonus
-        c = cand_r_safe.shape[0]
-        src_of_cand = rb[cand_r_safe]
-        taken_cnt = torch.zeros(num_b, dtype=torch.int32, device=dev)
-        dep_cnt = torch.zeros(num_b, dtype=torch.int32, device=dev)
-        assigned = torch.zeros(c, dtype=torch.bool, device=dev)
-        dest_replica = torch.zeros(c, dtype=torch.int32, device=dev)
-        amp = assign_amp(pref_c)
-        sib_b32 = sib_broker_c.to(torch.int32).contiguous()
-        sib_r32 = sib_c.to(torch.int32).contiguous()
-        src32 = src_of_cand.to(torch.int32)
+        i32[n], assigned bool[n]).  The sibling rows and the prior goals'
+        acceptance plane, then a pass is one K4 launch (which builds the
+        plane and the amplitude in pass 0 and folds the pass before it
+        after) and K8 (multi-commit) or K9 twice (single-commit)."""
+        sib = partition_replicas[part[cand_r_safe]]
+        acc = accept_fn(cand_r_safe[:, None], torch.clamp_min(sib, 0).long())
+        t_ws = (_stack_rows([t_w for t_w, _ in dest_terms],
+                            bonus_w.shape[0], dev) if multi else None)
+        t = leader_tail(state, cand_r_safe, sib, acc, cand_has, leader_ok,
+                        bonus_w, dest_headroom, dest_pref, t_ws)
         if multi:
+            # K8 commits into taken_cnt and cum in place
             cap = torch.full((num_b,), MAX_ARRIVALS_PER_ROUND,
                              dtype=torch.int32, device=dev)
-            # stacked once; K8 commits into taken_cnt and cum in place
-            t_ws = _stack_rows([t_w for t_w, _ in dest_terms],
-                               bonus_w.shape[0], dev)
             hrs = _stack_rows([hr for _, hr in dest_terms], num_b, dev)
             cum = torch.zeros((len(dest_terms), num_b), device=dev)
+        keep = db = dr = None
         for k in range(MULTI_ASSIGN_PASSES if multi else ASSIGN_PASSES):
-            _, db, dr, has = leader_assign_pass(
-                pref_c, sib_b32, sib_r32, src32, taken_cnt, dep_cnt,
-                assigned, cand_has, k, amp, multi)
+            db, dr, has = leader_assign_pass(t, k, multi, keep, db, dr)
             if multi:
-                # dest weights index the promoted replica of this pass;
-                # dep_cnt gates single-commit passes only
-                keep = rank_accept_commit(db, gain, has, num_b, taken_cnt,
-                                          cap, cum, t_ws[:, dr.long()],
-                                          hrs)
+                keep = rank_accept_commit(db, t.gain, has, num_b,
+                                          t.taken_cnt, cap, cum, t.d_w, hrs)
             else:
-                keep = resolve_dest_conflicts(db, gain, has, num_b)
-                keep = resolve_dest_conflicts(src32, gain, keep, num_b)
-                kept_d = torch.where(keep, db, torch.full_like(db, num_b))
-                kept_s = torch.where(keep, src32,
-                                     torch.full_like(src32, num_b))
-                taken_cnt = taken_cnt + ops.segment_sum(
-                    torch.ones_like(kept_d), kept_d, num_b)
-                dep_cnt = dep_cnt + ops.segment_sum(
-                    torch.ones_like(kept_s), kept_s, num_b)
-            dest_replica = torch.where(keep, dr, dest_replica)
-            assigned = assigned | keep
-        return dest_replica, assigned
+                keep = resolve_dest_conflicts(db, t.gain, has, num_b)
+                keep = resolve_dest_conflicts(t.src, t.gain, keep, num_b)
+        # the last pass's fold
+        return torch.where(keep, dr, t.dest_replica), t.assigned | keep
 
     def lead_eligible():
         return (movable & state.replica_is_leader & is_src[rb]
@@ -1371,7 +1468,7 @@ def leadership_round(state: ClusterState, bonus_w, src_excess, movable,
             _has_table(cache):
         s_w = cache.broker_table.shape[1]
         k0 = min(16, max(s_w, 1))
-        cand_r, cand_has, _, _ = row_topk(bonus_rows, cache.broker_table, k0)
+        cand_r, cand_has = row_topk(bonus_rows, cache.broker_table, k0)[:2]
         cand_r_safe = torch.clamp_min(cand_r, 0).long()
         cand_bonus_b = bonus_w[cand_r_safe]
         if multi and k0 > 1:
@@ -1421,7 +1518,8 @@ def leadership_round(state: ClusterState, bonus_w, src_excess, movable,
             """Per-broker first ACCEPTED candidate among each row's top-k
             structural candidates."""
             k = min(k, max(s_w, 1))
-            ck, hs, _, t_slots = row_topk(bonus_rows, cache.broker_table, k)
+            ck, hs, _, t_slots, _ = row_topk(bonus_rows, cache.broker_table,
+                                             k)
             flat = torch.clamp_min(ck, 0).long()
             fb = torch.gather(value_rows, 1, t_slots.long()).reshape(-1)
             _, _, ok = options_feasible(flat, fb)

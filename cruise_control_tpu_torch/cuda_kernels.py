@@ -50,6 +50,31 @@ LAUNCHES = {"row_topk": 0, "assign_pass": 0, "commit_moves": 0,
             # K9's keep entry and K11's preference plane and guard, each
             # also counted under its kernel
             "segment_keep": 0, "dest_pref": 0, "dest_has": 0}
+#: launches split finer: K1's by source (a [B, S] plane, or per-replica
+#: scores read through the table) and k ("row_topk table k=1"), K4's by
+#: commit mode and pass ("leader_assign_pass multi pass 0"); cleared with
+#: LAUNCHES
+LAUNCH_SPLITS: dict = {}
+#: K1's widest k and row (csrc/row_topk.cu: the row's keys in shared memory)
+ROW_TOPK_MAX_K = 64
+ROW_TOPK_MAX_S = 16384
+#: K1's paths (csrc/row_topk.cu): the select with a block of 256 a row
+#: (0), the register path for k <= 8 (1), the select with a warp a row
+#: (2).  Below ROW_TOPK_WARP_MIN_B rows the register path takes k up to
+#: ROW_TOPK_REGISTER_MAX_K and the block select the rest; from there the
+#: register path takes k up to ROW_TOPK_WIDE_REGISTER_MAX_K and the warp
+#: select the rest.  chip_smoke.py phase 2 times every path at 200 x 1,152
+#: and 2,600 x 1,024 (on an H100: the register path ahead at k <= 8 and
+#: k <= 4, the block select at k = 16 and 64 on 200 rows, the warp select
+#: from k = 8 on 2,600).  ROW_TOPK_PATH, when set, forces a path.
+ROW_TOPK_REGISTER_MAX_K = 8
+ROW_TOPK_WIDE_REGISTER_MAX_K = 4
+ROW_TOPK_WARP_MIN_B = 1024
+ROW_TOPK_PATH = None
+#: K4's widest replication factor and most blocks (pass 0's amplitude
+#: partials: two floats a block)
+LEADER_MAX_RF = 16
+LEADER_MAX_BLOCKS = 2048
 #: K8's one-block path takes up to this many candidates
 RANK_ONE_BLOCK_MAX = 4096
 #: K12's most segments (a tile's running counts live in shared memory)
@@ -106,6 +131,7 @@ _I = ctypes.c_int
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    LAUNCH_SPLITS.clear()
 
 
 def _nvcc() -> str:
@@ -164,15 +190,20 @@ def build() -> ctypes.CDLL:
                 raise RuntimeError("nvcc link failed\n" + "\n".join(log))
             os.replace(tmp, so)
         lib = ctypes.CDLL(str(so))
-        lib.cc_row_topk.argtypes = [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P]
+        lib.cc_row_topk.argtypes = [_P, _P, _I, _I, _I] + [_P] * 5 + [
+            _I, _P]
+        lib.cc_table_topk.argtypes = [_P, ctypes.c_longlong, _P, _I, _P, _I,
+                                      _I, _I] + [_P] * 5 + [_I, _P]
         lib.cc_assign_pass.argtypes = [_P, _I, _I] + [_P] * 4 + [
             _I] + [_P] * 7 + [_I, _P]
         lib.cc_commit_moves.argtypes = [_I] * 7 + [_P] * 29 + [
             ctypes.c_longlong, _P]
         lib.cc_commit_moves_scratch.argtypes = [_I, _I]
         lib.cc_commit_moves_scratch.restype = ctypes.c_longlong
-        lib.cc_leader_assign_pass.argtypes = [_P] * 8 + [_I] * 3 + [
-            _P, _I, _I] + [_P] * 5
+        _LL = ctypes.c_longlong
+        lib.cc_leader_assign_pass.argtypes = (
+            [_I] * 8 + [_P, _I, _P, _P, _LL, _LL] + [_P] * 4
+            + [_P, _LL, _P, _LL, _P, _LL] + [_P] * 19 + [_I, _P])
         lib.cc_commit_leadership.argtypes = [_I] * 4 + [_P] * 18 + [
             ctypes.c_longlong, _P]
         lib.cc_commit_leadership_scratch.argtypes = [_I, _I]
@@ -202,7 +233,7 @@ def build() -> ctypes.CDLL:
                                        _I, _I, _P, _P]
         lib.cc_prefix_gate.argtypes = [_P, _P, _P, ctypes.c_longlong, _P,
                                        _I, _I, _I, _P, _P, _P]
-        for fn in (lib.cc_row_topk, lib.cc_assign_pass, lib.cc_commit_moves,
+        for fn in (lib.cc_row_topk, lib.cc_table_topk, lib.cc_assign_pass, lib.cc_commit_moves,
                    lib.cc_leader_assign_pass, lib.cc_commit_leadership,
                    lib.cc_sweep_pick, lib.cc_forced_select,
                    lib.cc_rank_accept,
@@ -246,25 +277,75 @@ def _raise_on(err: int, name: str) -> None:
                            f"({torch.cuda.get_device_name()})")
 
 
-def row_topk(sc_rows: torch.Tensor, table: torch.Tensor, k: int):
-    """K1 launch: (cand i32[B*k], has bool[B*k], top f32[B, k], slot
-    i32[B, k])."""
-    lib = build()
-    b, s = sc_rows.shape
-    if not 1 <= k <= min(64, s):
-        raise ValueError(f"row_topk takes 1 <= k <= min(64, S), got k={k}")
-    _check(sc_rows, "sc_rows", torch.float32)
+def _row_topk_outputs(b: int, k: int, dev) -> list:
+    """K1's outputs: cand i32[B*k], has bool[B*k], top f32[B, k], slot
+    i32[B, k], any bool[B]."""
+    return [torch.empty(b * k, dtype=torch.int32, device=dev),
+            torch.empty(b * k, dtype=torch.bool, device=dev),
+            torch.empty((b, k), dtype=torch.float32, device=dev),
+            torch.empty((b, k), dtype=torch.int32, device=dev),
+            torch.empty(b, dtype=torch.bool, device=dev)]
+
+
+def _row_topk_shape(table: torch.Tensor, k: int) -> tuple:
+    b, s = table.shape
+    if not (1 <= k <= min(ROW_TOPK_MAX_K, s) and s <= ROW_TOPK_MAX_S):
+        raise ValueError(f"row_topk takes 1 <= k <= min({ROW_TOPK_MAX_K}, "
+                         f"S) and S <= {ROW_TOPK_MAX_S}, got k={k}, S={s}")
     _check(table, "table", torch.int32, (b, s))
-    cand = torch.empty(b * k, dtype=torch.int32, device=sc_rows.device)
-    has = torch.empty(b * k, dtype=torch.bool, device=sc_rows.device)
-    top = torch.empty((b, k), dtype=torch.float32, device=sc_rows.device)
-    slot = torch.empty((b, k), dtype=torch.int32, device=sc_rows.device)
-    err = lib.cc_row_topk(sc_rows.data_ptr(), table.data_ptr(), b, s, k,
-                          cand.data_ptr(), has.data_ptr(), top.data_ptr(),
-                          slot.data_ptr(), _stream())
+    return b, s
+
+
+def _row_topk_path(b: int, k: int) -> int:
+    """K1's path for B rows and k (see ROW_TOPK_REGISTER_MAX_K)."""
+    if ROW_TOPK_PATH is not None:
+        return ROW_TOPK_PATH
+    wide = b >= ROW_TOPK_WARP_MIN_B
+    if k <= (ROW_TOPK_WIDE_REGISTER_MAX_K if wide
+             else ROW_TOPK_REGISTER_MAX_K):
+        return 1
+    return 2 if wide else 0
+
+
+def _row_topk_launched(source: str, k: int, err: int) -> None:
     LAUNCHES["row_topk"] += 1
+    key = f"row_topk {source} k={k}"
+    LAUNCH_SPLITS[key] = LAUNCH_SPLITS.get(key, 0) + 1
     _raise_on(err, "row_topk")
-    return cand, has, top, slot
+
+
+def row_topk(sc_rows: torch.Tensor, table: torch.Tensor, k: int):
+    """K1 launch, plane source: (cand i32[B*k], has bool[B*k], top f32[B,
+    k], slot i32[B, k], any bool[B])."""
+    lib = build()
+    b, s = _row_topk_shape(table, k)
+    _check(sc_rows, "sc_rows", torch.float32, (b, s))
+    out = _row_topk_outputs(b, k, sc_rows.device)
+    err = lib.cc_row_topk(sc_rows.data_ptr(), table.data_ptr(), b, s, k,
+                          *(t.data_ptr() for t in out), _row_topk_path(b, k),
+                          _stream())
+    _row_topk_launched("plane", k, err)
+    return tuple(out)
+
+
+def table_topk(table: torch.Tensor, score: torch.Tensor, valid: torch.Tensor,
+               k: int):
+    """K1 launch, table source: the top k of each row of valid[id] ?
+    score[id] : NEG over the table's replica ids (a pad id R is NEG),
+    read through the table; the outputs of `row_topk`.  `score` is read
+    with its stride."""
+    lib = build()
+    b, s = _row_topk_shape(table, k)
+    num_r = score.shape[0]
+    _check_vector(score, "score", num_r)
+    _check(valid, "valid", torch.bool, (num_r,))
+    out = _row_topk_outputs(b, k, table.device)
+    err = lib.cc_table_topk(score.data_ptr(), score.stride(0),
+                            valid.data_ptr(), num_r, table.data_ptr(), b, s,
+                            k, *(t.data_ptr() for t in out),
+                            _row_topk_path(b, k), _stream())
+    _row_topk_launched("table", k, err)
+    return tuple(out)
 
 
 def assign_pass(pref: torch.Tensor, dest_ids: torch.Tensor,
@@ -445,39 +526,89 @@ def commit_moves(state_before, cache, r: torch.Tensor, dst: torch.Tensor,
     return out
 
 
-def leader_assign_pass(pref: torch.Tensor, sib_broker: torch.Tensor,
-                       sib_replica: torch.Tensor, src_broker: torch.Tensor,
-                       taken_cnt: torch.Tensor, dep_cnt: torch.Tensor,
-                       assigned: torch.Tensor, cand_has: torch.Tensor,
-                       k: int, amp: torch.Tensor, multi: bool):
-    """K4 launch: (slot i32[C], dest broker i32[C], promoted replica
-    i32[C], has bool[C])."""
+def leader_assign_pass(t, k: int, multi: bool, keep=None, prev_db=None,
+                       prev_dr=None):
+    """K4 launch: pass k of a follower assignment over the buffers `t`
+    (analyzer/kernels.py LeaderTail), in place; pass k > 0 folds `keep`,
+    `prev_db` and `prev_dr` (the pass before).  (db i32[C], dr i32[C], has
+    bool[C])."""
     from cruise_control_tpu_torch.analyzer.kernels import \
         MAX_ARRIVALS_PER_ROUND
     lib = build()
-    c, rf = pref.shape
-    _check(pref, "pref", torch.float32)
-    _check(sib_broker, "sib_broker", torch.int32, (c, rf))
-    _check(sib_replica, "sib_replica", torch.int32, (c, rf))
-    _check(src_broker, "src_broker", torch.int32, (c,))
-    _check(taken_cnt, "taken_cnt", torch.int32)
-    _check(dep_cnt, "dep_cnt", torch.int32, taken_cnt.shape)
-    _check(assigned, "assigned", torch.bool, (c,))
-    _check(cand_has, "cand_has", torch.bool, (c,))
-    _check(amp, "amp", torch.float32, ())
-    outs = [torch.empty(c, dtype=torch.int32, device=pref.device)
-            for _ in range(3)]
-    has = torch.empty(c, dtype=torch.bool, device=pref.device)
+    c, rf = t.sib.shape
+    num_r = t.replica_broker.shape[0]
+    num_b = t.leader_ok.shape[0]
+    if not 1 <= rf <= LEADER_MAX_RF:
+        raise ValueError(f"leader_assign_pass takes 1 <= RF <= "
+                         f"{LEADER_MAX_RF}, got {rf}")
+    if t.rows.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"rows must be int32 or int64, got {t.rows.dtype}")
+    for name, x, dt, shape in (
+            ("rows", t.rows, t.rows.dtype, (c,)),
+            ("sib", t.sib, torch.int32, (c, rf)),
+            ("cand_has", t.cand_has, torch.bool, (c,)),
+            ("replica_broker", t.replica_broker, torch.int32, (num_r,)),
+            ("replica_offline", t.replica_offline, torch.bool, (num_r,)),
+            ("leader_ok", t.leader_ok, torch.bool, (num_b,)),
+            ("pref", t.pref, torch.float32, (c, rf)),
+            ("sib_broker", t.sib_broker, torch.int32, (c, rf)),
+            ("sib_replica", t.sib_replica, torch.int32, (c, rf)),
+            ("src", t.src, torch.int32, (c,)),
+            ("gain", t.gain, torch.float32, (c,)),
+            ("amp", t.amp, torch.float32, ()),
+            ("taken_cnt", t.taken_cnt, torch.int32, (num_b,)),
+            ("dep_cnt", t.dep_cnt, torch.int32, (num_b,)),
+            ("assigned", t.assigned, torch.bool, (c,)),
+            ("dest_replica", t.dest_replica, torch.int32, (c,))):
+        _check(x, name, dt, shape)
+    _check_vector(t.bonus_w, "bonus_w", num_r)
+    _check_vector(t.dest_headroom, "dest_headroom", num_b)
+    _check_vector(t.dest_pref, "dest_pref", num_b)
+    if not t.accept.is_cuda or t.accept.dtype != torch.bool:
+        raise ValueError("accept must be a bool CUDA tensor")
+    accept = t.accept.expand(c, rf)
+    n_terms = 0
+    if multi:
+        n_terms = t.t_ws.shape[0]
+        _check(t.t_ws, "t_ws", torch.float32, (n_terms, num_r))
+        _check(t.d_w, "d_w", torch.float32, (n_terms, c))
+    if k:
+        for name, x, dt in (("keep", keep, torch.bool),
+                            ("prev_db", prev_db, torch.int32),
+                            ("prev_dr", prev_dr, torch.int32)):
+            if x is None:
+                raise ValueError(f"leader_assign_pass pass {k} folds {name}")
+            _check(x, name, dt, (c,))
+    dev = t.sib.device
+    db = torch.empty(c, dtype=torch.int32, device=dev)
+    dr = torch.empty(c, dtype=torch.int32, device=dev)
+    has = torch.empty(c, dtype=torch.bool, device=dev)
+    partials = (torch.empty(2 * LEADER_MAX_BLOCKS, dtype=torch.float32,
+                            device=dev) if k == 0 else None)
     err = lib.cc_leader_assign_pass(
-        pref.data_ptr(), sib_broker.data_ptr(), sib_replica.data_ptr(),
-        src_broker.data_ptr(), taken_cnt.data_ptr(), dep_cnt.data_ptr(),
-        assigned.data_ptr(), cand_has.data_ptr(), c, rf, int(k),
-        amp.data_ptr(), int(bool(multi)), MAX_ARRIVALS_PER_ROUND,
-        outs[0].data_ptr(), outs[1].data_ptr(), outs[2].data_ptr(),
-        has.data_ptr(), _stream())
+        c, rf, num_r, num_b, n_terms, int(k), int(bool(multi)),
+        MAX_ARRIVALS_PER_ROUND, t.rows.data_ptr(),
+        int(t.rows.dtype == torch.int64), t.sib.data_ptr(),
+        accept.data_ptr(), accept.stride(0), accept.stride(1),
+        t.cand_has.data_ptr(), t.replica_broker.data_ptr(),
+        t.leader_ok.data_ptr(), t.replica_offline.data_ptr(),
+        t.bonus_w.data_ptr(), t.bonus_w.stride(0),
+        t.dest_headroom.data_ptr(), t.dest_headroom.stride(0),
+        t.dest_pref.data_ptr(), t.dest_pref.stride(0), t.pref.data_ptr(),
+        t.sib_broker.data_ptr(), t.sib_replica.data_ptr(), t.src.data_ptr(),
+        t.gain.data_ptr(), t.amp.data_ptr(), t.taken_cnt.data_ptr(),
+        t.dep_cnt.data_ptr(), t.assigned.data_ptr(),
+        t.dest_replica.data_ptr(), _ptr(keep), _ptr(prev_db),
+        _ptr(prev_dr), _ptr(t.t_ws) if multi else None,
+        _ptr(t.d_w) if multi else None, db.data_ptr(), dr.data_ptr(),
+        has.data_ptr(), _ptr(partials),
+        0 if partials is None else partials.numel(), _stream())
     LAUNCHES["leader_assign_pass"] += 1
+    key = (f"leader_assign_pass {'multi' if multi else 'single'} "
+           f"pass {'0' if k == 0 else '1+'}")
+    LAUNCH_SPLITS[key] = LAUNCH_SPLITS.get(key, 0) + 1
     _raise_on(err, "leader_assign_pass")
-    return outs[0], outs[1], outs[2], has
+    return db, dr, has
 
 
 def commit_leadership(state_before, cache, sr: torch.Tensor,

@@ -194,6 +194,17 @@ def topk_stable(x: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+def topk_total(x: torch.Tensor, k: int):
+    """`jax.lax.top_k` of float32 values along the last axis, in XLA's
+    float total order (-0.0 below +0.0; `topk_stable` ties them): (values,
+    indices int64), ties in index order."""
+    bits = x.contiguous().view(torch.int32)
+    key = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+    idx = torch.sort(key, dim=-1, descending=True, stable=True).indices
+    idx = idx[..., :k]
+    return torch.gather(x, -1, idx), idx
+
+
 def remainder_f(x: torch.Tensor, y: float) -> torch.Tensor:
     """`jnp.remainder` for floats: the truncated remainder shifted into
     the divisor's sign (exact; torch.remainder rounds differently)."""

@@ -62,21 +62,95 @@ def _same(a, b):
     return a.dtype == b.dtype and bool(torch.equal(a, b))
 
 
-@pytest.mark.parametrize("k", [1, 4, 8])
-def test_row_topk_matches_plain(k):
-    ck = _card()
-    rng = np.random.default_rng(k)
-    sc = np.round(rng.random((200, 1152)) * 40).astype(np.float32)
+def _row_inputs(rng, b, s):
+    """A [B, S] plane of quantised scores (ties), a third NEG, with a -0.0
+    beside +0.0 in every row, a row of NEG, a row of pure ties, a row with
+    fewer eligible slots than 64, and a permutation table."""
+    sc = np.round(rng.random((b, s)) * 40).astype(np.float32)
     sc[rng.random(sc.shape) < 0.3] = K.NEG
+    sc[:, 1] = -0.0
+    sc[:, 6] = 0.0
     sc[3] = K.NEG
     sc[4] = 1.0
-    sc_t = torch.from_numpy(sc).cuda()
-    table = torch.from_numpy(rng.permutation(200 * 1152).astype(
-        np.int32).reshape(200, 1152)).cuda()
-    got = ck.row_topk(sc_t, table, k)
-    want = K.row_topk_plain(sc_t, table, k)
-    torch.cuda.synchronize()
-    assert all(_same(a, b) for a, b in zip(got, want))
+    sc[5, 40:] = K.NEG
+    table = rng.permutation(b * s).astype(np.int32).reshape(b, s)
+    return torch.from_numpy(sc).cuda(), torch.from_numpy(table).cuda()
+
+
+def _check_row_topk(ck, launch, plain, k):
+    """Every K1 path (the block and warp selects, the register path at k
+    <= 8) and the wrapper's choice against the plain version."""
+    for path in [0, 2] + ([1] if k <= 8 else []) + [None]:
+        saved = ck.ROW_TOPK_PATH
+        ck.ROW_TOPK_PATH = path
+        try:
+            got = launch()
+        finally:
+            ck.ROW_TOPK_PATH = saved
+        want = plain()
+        torch.cuda.synchronize()
+        assert len(got) == len(want) == 5
+        for a, b, what in zip(got, want, ("cand", "has", "top", "slot",
+                                          "any")):
+            assert _same(a, b), (what, k, path)
+            if what == "top":
+                assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("k", [1, 4, 8])
+def test_row_topk_matches_plain(k):
+    """K1's plane source on both of its paths, and the table source."""
+    ck = _card()
+    rng = np.random.default_rng(k)
+    sc, table = _row_inputs(rng, 200, 1152)
+    _check_row_topk(ck, lambda: ck.row_topk(sc, table, k),
+                    lambda: K.row_topk_plain(sc, table, k), k)
+
+
+@pytest.mark.parametrize("k", [16, 64])
+def test_row_topk_deep_matches_plain(k):
+    """K1 at the leadership round's k = 16 and the deep pick's 64, at 200
+    and 2,600 brokers, and on rows too wide for the keys in registers."""
+    ck = _card()
+    rng = np.random.default_rng(k)
+    for b, s in ((200, 1152), (2600, 1024), (40, 3000)):
+        sc, table = _row_inputs(rng, b, s)
+        _check_row_topk(ck, lambda: ck.row_topk(sc, table, k),
+                        lambda: K.row_topk_plain(sc, table, k), k)
+
+
+@pytest.mark.parametrize("k", [1, 4, 16, 64])
+def test_table_topk_matches_plain(k):
+    """K1's table source: per-replica scores read at a stride through the
+    table (pad ids R, invalid replicas, ties and -0.0) against
+    table_topk_plain (_table_rows, then the plain top-k)."""
+    ck = _card()
+    rng = np.random.default_rng(100 + k)
+    b, s = 200, 1152
+    num_r = b * s - 5000
+    load = np.round(rng.random((num_r, 4)) * 30).astype(np.float32)
+    load[rng.random(num_r) < 0.05, 1] = -0.0
+    ids = np.full(b * s, num_r, np.int32)
+    ids[rng.permutation(b * s)[:num_r]] = np.arange(num_r, dtype=np.int32)
+    table = torch.from_numpy(ids.reshape(b, s)).cuda()
+    table[7] = num_r                     # a row of pads
+    score = torch.from_numpy(load).cuda()[:, 1]   # stride 4
+    valid = torch.from_numpy(rng.random(num_r) < 0.7).cuda()
+    _check_row_topk(ck, lambda: ck.table_topk(table, score, valid, k),
+                    lambda: K.table_topk_plain(table, score, valid, k), k)
+
+
+def test_row_topk_takes_every_slot():
+    """k = S: the whole row in order, both sources."""
+    ck = _card()
+    rng = np.random.default_rng(7)
+    sc, table = _row_inputs(rng, 50, 64)
+    _check_row_topk(ck, lambda: ck.row_topk(sc, table, 64),
+                    lambda: K.row_topk_plain(sc, table, 64), 64)
+    score = torch.round(torch.rand(50 * 64, device="cuda") * 3)
+    valid = torch.rand(50 * 64, device="cuda") < 0.5
+    _check_row_topk(ck, lambda: ck.table_topk(table, score, valid, 64),
+                    lambda: K.table_topk_plain(table, score, valid, 64), 64)
 
 
 def _assign_inputs(rng, c, kk, num_b, multi, fold):
@@ -244,46 +318,71 @@ def test_reference_stays_on_the_cpu():
     assert jax.default_backend() == "cpu"
 
 
-@pytest.mark.parametrize("k", [16, 64])
-def test_row_topk_deep_matches_plain(k):
-    """The warp path of K1 (8 < k <= 64) with its slot output."""
-    ck = _card()
-    rng = np.random.default_rng(k)
-    sc = np.round(rng.random((200, 1152)) * 40).astype(np.float32)
-    sc[rng.random(sc.shape) < 0.3] = K.NEG
-    sc[3] = K.NEG
-    sc[4] = 1.0
-    sc[5, 70:] = K.NEG                  # fewer eligible slots than k
-    sc_t = torch.from_numpy(sc).cuda()
-    table = torch.from_numpy(rng.permutation(200 * 1152).astype(
-        np.int32).reshape(200, 1152)).cuda()
-    got = ck.row_topk(sc_t, table, k)
-    want = K.row_topk_plain(sc_t, table, k)
-    torch.cuda.synchronize()
-    assert all(_same(a, b) for a, b in zip(got, want))
+def _leader_tail(x: dict, dev):
+    """A LeaderTail on `dev` over the option inputs `x` (numpy)."""
+    import types
+    t = {n: None if v is None else torch.from_numpy(np.array(v)).to(dev)
+         for n, v in x.items()}
+    state = types.SimpleNamespace(replica_broker=t["replica_broker"],
+                                  replica_offline=t["replica_offline"])
+    return K.leader_tail(state, t["rows"], t["sib"], t["accept"],
+                         t["cand_has"], t["leader_ok"], t["bonus_w"],
+                         t["dest_headroom"], t["dest_pref"], t["t_ws"])
+
+
+def _leader_inputs(rng, c, nb, num_r, multi, rf=3):
+    """K4's pass-0 inputs: candidate rows, sibling rows (-1 pads, the row
+    itself among them), an acceptance plane, per-replica brokers, offline
+    flags and bonuses, per-broker flags, headrooms and preferences (two
+    brokers tied, one NEG), and (multi-commit) three weight rows."""
+    rows = rng.integers(0, num_r, c).astype(np.int64)
+    sib = rng.integers(0, num_r, (c, rf)).astype(np.int32)
+    sib[:, 0] = rows
+    sib[rng.random((c, rf)) < 0.1] = -1
+    pref = -np.round(rng.random(nb) * 8).astype(np.float32)
+    pref[3] = K.NEG
+    return dict(
+        rows=rows, sib=sib, accept=rng.random((c, rf)) < 0.85,
+        cand_has=rng.random(c) < 0.9,
+        replica_broker=rng.integers(0, nb, num_r).astype(np.int32),
+        replica_offline=rng.random(num_r) < 0.05,
+        leader_ok=rng.random(nb) < 0.9,
+        bonus_w=np.round(rng.random(num_r) * 4).astype(np.float32),
+        dest_headroom=(rng.random(nb) * 5).astype(np.float32),
+        dest_pref=pref,
+        t_ws=rng.random((3, num_r)).astype(np.float32) if multi else None)
+
+
+def _tail_fields(t):
+    return {f: getattr(t, f) for f in (
+        "pref", "sib_broker", "sib_replica", "src", "gain", "amp",
+        "taken_cnt", "dep_cnt", "assigned", "dest_replica", "d_w")
+            if getattr(t, f) is not None}
 
 
 @pytest.mark.parametrize("multi", [False, True])
 @pytest.mark.parametrize("k", [0, 3])
 def test_leader_assign_pass_matches_plain(multi, k):
+    """K4 against its plain version pass by pass up to pass k: pass 0's
+    plane, amplitude and zeroed state, then each later pass with the fold
+    of a keep mask (a random third of the rows with an option), its
+    counts and K8's weights, every output and buffer exactly."""
     ck = _card()
     rng = np.random.default_rng(10 * k + multi)
-    c, rf, nb = 2048, 3, 200
-    pref = -rng.random((c, rf)).astype(np.float32)
-    pref[rng.random(pref.shape) < 0.3] = K.NEG
-    pref[:, 2] = pref[:, 0]
-    args = [torch.from_numpy(x).cuda() for x in (
-        pref, rng.integers(0, nb, (c, rf)).astype(np.int32),
-        rng.integers(0, 10 ** 6, (c, rf)).astype(np.int32),
-        rng.integers(0, nb, c).astype(np.int32),
-        (rng.integers(0, 3, nb) * (32 if multi else 1)).astype(np.int32),
-        rng.integers(0, 2, nb).astype(np.int32),
-        rng.random(c) < 0.2, rng.random(c) < 0.9)]
-    amp = torch.tensor(0.35 + 1e-6, dtype=torch.float32).cuda()
-    got = ck.leader_assign_pass(*args, k, amp, multi)
-    want = K.leader_assign_pass_plain(*args, k, amp, multi)
-    torch.cuda.synchronize()
-    assert all(_same(a, b) for a, b in zip(got, want))
+    for c, nb, num_r in ((2048, 200, 60_000), (2048, 2600, 600_000)):
+        x = _leader_inputs(rng, c, nb, num_r, multi)
+        tk, tp = _leader_tail(x, "cuda"), _leader_tail(x, "cuda")
+        keep = db = dr = None
+        for p in range(k + 1):
+            got = ck.leader_assign_pass(tk, p, multi, keep, db, dr)
+            want = K.leader_assign_pass_plain(tp, p, multi, keep, db, dr)
+            torch.cuda.synchronize()
+            for a, b, what in zip(got, want, ("db", "dr", "has")):
+                assert _same(a, b), (what, p, c, nb)
+            for f, a in _tail_fields(tk).items():
+                assert _same(a, getattr(tp, f)), (f, p, c, nb)
+            db, dr = want[0], want[1]
+            keep = want[2] & (torch.rand(c, device="cuda") < 0.3)
 
 
 LEADERSHIP_CASES = ["random", "empty", "all invalid", "one destination",

@@ -11,6 +11,8 @@ regression guard, and the plain versions of K4 and K6 against the
 reference expressions they replace.  Integers and booleans must be
 equal, and so must every float (both sides add in the same order).
 """
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -487,22 +489,44 @@ def test_sweep_mean_mode_with_gate_tiebreak_and_guard(setup):
 @pytest.mark.parametrize("multi", [False, True])
 @pytest.mark.parametrize("k", [0, 3])
 def test_leader_assign_pass_plain_matches(multi, k):
-    """K4's plain version against leadership_round's pass body."""
+    """K4's plain version against leadership_round's pass body: pass 0 on
+    the preference plane it builds, pass 3 on that plane with arrival
+    counts, departures, assigned rows and an amplitude as a chain leaves
+    them (folding an empty keep)."""
     rng = np.random.default_rng(10 * k + multi)
-    c, rf, nb = 64, 3, 12
-    pref = -rng.random((c, rf)).astype(np.float32)
-    pref[rng.random((c, rf)) < 0.3] = JK.NEG
-    pref[:, 2] = np.where(rng.random(c) < 0.2, pref[:, 0], pref[:, 2])
-    sib_b = rng.integers(0, nb, (c, rf)).astype(np.int32)
-    sib_r = rng.integers(0, 500, (c, rf)).astype(np.int32)
-    src = rng.integers(0, nb, c).astype(np.int32)
-    taken = (rng.integers(0, 3, nb) * (40 if multi else 1)).astype(np.int32)
-    dep = rng.integers(0, 2, nb).astype(np.int32)
-    assigned = rng.random(c) < 0.2
+    c, rf, nb, num_r = 64, 3, 12, 500
+    rows = rng.integers(0, num_r, c)
+    sib = rng.integers(0, num_r, (c, rf)).astype(np.int32)
+    sib[:, 0] = rows
+    sib[rng.random((c, rf)) < 0.1] = -1
+    rb = rng.integers(0, nb, num_r).astype(np.int32)
+    dest_pref = -rng.random(nb).astype(np.float32)
+    dest_pref[rng.random(nb) < 0.2] = JK.NEG
+    dest_pref[1] = dest_pref[2]              # planted ties between options
     has_in = rng.random(c) < 0.9
-    finite = pref > JK.NEG / 2
-    amp = np.float32(0.35) * (pref[finite].max() - pref[finite].min()) \
-        + np.float32(1e-6)
+    state = types.SimpleNamespace(replica_broker=_t(rb),
+                                  replica_offline=_t(rng.random(num_r)
+                                                     < 0.05))
+    t = K.leader_tail(state, _t(rows), _t(sib), _t(rng.random((c, rf)) < 0.9),
+                      _t(has_in), _t(rng.random(nb) < 0.9),
+                      _t(np.round(rng.random(num_r) * 3).astype(np.float32)),
+                      _t((rng.random(nb) * 4).astype(np.float32)),
+                      _t(dest_pref), _t(rng.random((2, num_r)).astype(
+                          np.float32)) if multi else None)
+    got = K.leader_assign_pass_plain(t, 0, multi)
+    if k:
+        t.taken_cnt.copy_(_t((rng.integers(0, 3, nb)
+                              * (40 if multi else 1)).astype(np.int32)))
+        t.dep_cnt.copy_(_t(rng.integers(0, 2, nb).astype(np.int32)))
+        t.assigned.copy_(_t(rng.random(c) < 0.2))
+        none = torch.zeros(c, dtype=torch.int32)
+        got = K.leader_assign_pass_plain(t, k, multi,
+                                         torch.zeros(c, dtype=torch.bool),
+                                         none, none)
+    pref, amp = t.pref.numpy(), t.amp.numpy()
+    sib_b, sib_r = t.sib_broker.numpy(), t.sib_replica.numpy()
+    taken, dep = t.taken_cnt.numpy(), t.dep_cnt.numpy()
+    src, assigned = t.src.numpy(), t.assigned.numpy()
     jp = jnp.asarray(pref)
     # compiled, as the reference's goal programs are: XLA:CPU contracts
     # the jittered preference into one FMA
@@ -517,15 +541,11 @@ def test_leader_assign_pass_plain_matches(multi, k):
                               | (jnp.asarray(dep)[src] > 0)[:, None],
                               JK.NEG, pass_pref)
     open_pref = jnp.where(jnp.asarray(assigned)[:, None], JK.NEG, open_pref)
-    slot = jnp.argmax(open_pref, axis=1)
+    slot = np.asarray(jnp.argmax(open_pref, axis=1))
     has = jnp.asarray(has_in) & (jnp.max(open_pref, axis=1) > JK.NEG / 2)
-    got = K.leader_assign_pass_plain(
-        _t(pref), _t(sib_b), _t(sib_r), _t(src), _t(taken), _t(dep),
-        _t(assigned), _t(has_in), k, torch.tensor(amp), multi)
-    _eq(slot.astype(jnp.int32), got[0], "slot")
-    _eq(sib_b[np.arange(c), np.asarray(slot)], got[1], "broker")
-    _eq(sib_r[np.arange(c), np.asarray(slot)], got[2], "replica")
-    _eq(has, got[3], "has")
+    _eq(sib_b[np.arange(c), slot], got[0], "broker")
+    _eq(sib_r[np.arange(c), slot], got[1], "replica")
+    _eq(has, got[2], "has")
     assert bool(np.asarray(has).any()) and not bool(np.asarray(has).all())
 
 
