@@ -30,9 +30,12 @@ Phases:
      before; rows with every option closed, tied and NEG options) at C =
      2048 on 200 and 2,600 brokers and at C = R = 600,000, K5 on a
      4,096-transfer table-less batch and on a phase-a batch of 16 B
-     transfers with the table, undonated and donated, K6 on a
-     4,096-partition window with and without the improvement gate and
-     tiebreak, K7 at R = 60,000 and 600,000, k =
+     transfers with the table, undonated and donated, K6 (a sweep
+     round's window: source terms, window score and top-4096, sibling
+     pick, the fold of the round before) at P = 20,000, 200,000 and 3,000
+     in both modes, with and without the tiebreak, first round and fold,
+     with tied values and signed zeros, few and no live partitions and
+     every partition failed, K7 at R = 60,000 and 600,000, k =
      4096, and at k = R on a 24-broker cluster, with 0.5 % forced, equal
      weights, fewer forced than k and every replica forced (and its
      guard-only launch), K8 at C = 1 to 4097 (B = 200 and 2600, T = 0 to
@@ -45,9 +48,12 @@ Phases:
      (resolve_dest_conflicts) at n = 2048 into 200, 20,000 and 200,000,
      128 into 200, 4096 into 20,000 and 41,600 into 2,600 (ties, -0.0
      against +0.0, empty and all-invalid segments, NEG and -inf scores,
-     out-of-range ids; the key scratch zero after every call), K10 at H =
-     C = 128 with tied improvements, with and without the band and with
-     an all-False acceptance plane, K11's preference plane at C = 2048 x
+     out-of-range ids; the key scratch zero after every call), K10 (a
+     swap round's shortlists, then its pair plane with the three conflict
+     resolutions and the scatter) at B = 200, 2,600 and 100 with tied
+     improvements, signed-zero ranks (given and as util - target),
+     conflicts on a cold broker and a partition, with no band, each band
+     and an all-False acceptance plane, K11's preference plane at C = 2048 x
      K = 200, 131 and 256 and C = 4096 x K = 2600 (int64 and int32 ids;
      with and without the sibling test, on sibling rows with -1;
      acceptance planes [C, K], [C, 1], [1, K] and 0-d; with and without
@@ -80,11 +86,15 @@ Phases:
      kernel on that order, the ordered scatters), and its one-block time
      split
      by the sort and the commit; with --parent (a checkout of the parent
-     tree), K1's and K4's entries also beside the parent's chain at the
+     tree), K6's and K10's entries also beside the parent's chain at the
      same shapes: its kernel launches with the torch ops its callers ran
-     around them (the table source's _table_rows; K4's options, plane,
-     amplitude, folds and weight gather) -- the yardstick of the
-     redesign;
+     around them (the sweep window's source terms, score, stable top-k,
+     casts and fold; the swap round's shortlists, casts, K9 resolutions
+     and scatters) -- the yardstick of the redesign; K7 beside the
+     parent's K7 on the same inputs, equal bit for bit, timed in turns
+     with it; K6 and K10 also
+     beside torch.topk (the compaction's and the shortlist's library
+     yardstick);
   3. the slice geometry (200 brokers / 20K partitions / rf 3, 8 racks, 10
      topics, skew 0.2, default options): the disk + network-inbound solve
      of the first slice (seed 4); config 2 whole — Disk, NwIn, NwOut and
@@ -127,8 +137,13 @@ Phases:
      assign_pref (one K11 preference-plane launch a call beside the
      acceptance stack's ops), and inside leadership_round's follower
      assignments those between an assignment's first K4 and its last K8
-     or K9 (none: a pass is K4 then K8, or K4 then K9 twice); each timed
-     solve's K1 launches by source and k and K4 launches by commit mode;
+     or K9 (none: a pass is K4 then K8, or K4 then K9 twice); each
+     path's warm-up solve with the torch ops of every sweep round between
+     its bounds() and its acceptance callback (none: the window is one K6
+     launch) and of every swap round after its picks outside its
+     acceptance callback (none: K10's two launches) counted; each timed
+     solve's K1 launches by source and k, K4 launches by commit mode, K6
+     launches by window and fold and K10 launches by entry;
   4. scale, 2,600 brokers / 200K partitions / 26 racks / 100 topics: the
      whole default stack (bench.py's "north" preset), the four-goal solve,
      config 5 (52 broken logdirs), the six hard goals with brokers 0,
@@ -174,11 +189,11 @@ REPLACES = {
     "commit_moves": "cruise_control_tpu/analyzer/context.py:642",
     "leader_assign_pass": "cruise_control_tpu/analyzer/kernels.py:924",
     "commit_leadership": "cruise_control_tpu/analyzer/context.py:732",
-    "sweep_pick": "cruise_control_tpu/analyzer/leadership.py:238",
+    "sweep_pick": "cruise_control_tpu/analyzer/leadership.py:178",
     "forced_select": "cruise_control_tpu/analyzer/kernels.py:1235",
     "rank_accept": "cruise_control_tpu/analyzer/kernels.py:145",
     "segment_argmax": "cruise_control_tpu/analyzer/kernels.py:31",
-    "swap_pair": "cruise_control_tpu/analyzer/kernels.py:1376",
+    "swap_pair": "cruise_control_tpu/analyzer/kernels.py:1367",
     "dest_feasibility": "cruise_control_tpu/analyzer/kernels.py:208",
     "segment_sum": "cruise_control_tpu/model/state.py:140",
     "ordered_sum": "cruise_control_tpu/model/stats.py:67",
@@ -467,16 +482,14 @@ def _ms(t) -> str:
         f"{t:.4f} ms"
 
 
-def check_row_topk(b: int, s: int, seed: int, pk=None) -> dict:
+def check_row_topk(b: int, s: int, seed: int) -> dict:
     """K1 at B x S for k in {1, 4, 8, 16, 64}, the plane and the table
     source, on each path (the block and warp selects, the register path
     at k <= 8) and on the wrapper's choice, each exact against its plain
     version (cand, has, top bit for bit, slot, any_eligible); then k = S
     = 64 on a narrow table.  Device times of each path, of the plain
-    versions, of torch.topk on the plane and of the parent's K1 (`pk`): on
-    the plane, and for the table source its _table_rows (a where, a cat, a
-    gather) plus its K1.  {"plane k=..." / "table k=...": the record of
-    the wrapper's path}."""
+    versions and of torch.topk on the plane.  {"plane k=..." / "table
+    k=...": the record of the wrapper's path}."""
     import torch
     from cruise_control_tpu_torch import cuda_kernels as ck
     from cruise_control_tpu_torch.analyzer import kernels as K
@@ -491,9 +504,6 @@ def check_row_topk(b: int, s: int, seed: int, pk=None) -> dict:
 
                 def plain(k=k):
                     return K.row_topk_plain(sc, table, k)
-
-                def parent(k=k):
-                    return pk.row_topk(sc, table, k)
                 lib_ms = graph_time_ms(lambda: torch.topk(sc, k, dim=1))
                 # the row once; per output the table id, id, flag, score and
                 # slot; the row flag
@@ -504,10 +514,6 @@ def check_row_topk(b: int, s: int, seed: int, pk=None) -> dict:
 
                 def plain(k=k):
                     return K.table_topk_plain(table, score, valid, k)
-
-                def parent(k=k):
-                    return pk.row_topk(K._table_rows(table, score, valid),
-                                       table, k)
                 lib_ms = None
                 # the ids and, per real id, its score and flag; outputs
                 n_ids = int((table < score.shape[0]).sum())
@@ -523,23 +529,21 @@ def check_row_topk(b: int, s: int, seed: int, pk=None) -> dict:
                                     f"S={s} k={k} path {path}")
                     times[path] = graph_time_ms(launch)
             t_plain = graph_time_ms(plain)
-            t_parent = _parent_ms(pk, parent)
             t_b, by = bound(nbytes, b * s)
             chosen = ck._row_topk_path(b, k)
             log(f"  row_topk {source} B={b} S={s} k={k}: exact match on "
                 f"every path; device time per call: "
                 + ", ".join(f"{ROW_TOPK_PATHS[p]} {times[p]:.4f} ms"
                             for p in ROW_TOPK_PATHS if p in times)
-                + f" (the wrapper's: {ROW_TOPK_PATHS[chosen]}), the "
-                f"parent's {'K1' if source == 'plane' else '_table_rows + K1'}"
-                f" {_ms(t_parent)}, plain {t_plain:.4f} ms, torch.topk "
+                + f" (the wrapper's: {ROW_TOPK_PATHS[chosen]}), plain "
+                f"{t_plain:.4f} ms, torch.topk "
                 f"{_ms(lib_ms) if lib_ms is not None else 'none'}; bound "
                 f"{t_b:.5f} ms ({nbytes} bytes)")
             out[f"{source} k={k}"] = dict(
                 max_abs_err=0.0, ms=times[None], path=ROW_TOPK_PATHS[chosen],
                 paths_ms={ROW_TOPK_PATHS[p]: times[p] for p in ROW_TOPK_PATHS
                           if p in times},
-                parent_ms=t_parent, plain_ms=t_plain, bound_ms=t_b,
+                plain_ms=t_plain, bound_ms=t_b,
                 bound_by=by, library_ms=lib_ms,
                 shape=f"{source} B={b} S={s} k={k}")
     # k = S, the whole row in order; rows too wide for the keys in
@@ -893,13 +897,15 @@ def check_commit_moves(spec: dict, seed: int, shapes) -> dict:
 FORCED_SELECT_LAUNCHES = {"select": 1, "guard": 1}
 
 
-def check_forced_select(spec: dict, seed: int) -> dict:
+def check_forced_select(spec: dict, seed: int, pk=None) -> dict:
     """K7 at R = the cluster `spec`'s replicas, k = min(4096, R), in four
     cases: about 0.5 % forced (config 5's broken logdirs), many equal
     weights, fewer forced than k (the -inf tail in play), every replica
     forced; each bit for bit against its plain version, and the guard-only
     launch (k = 0).  Times of the kernel, the plain version and torch.topk
-    on the same scores.  The record of the 0.5 % case."""
+    on the same scores; with --parent, the parent's K7 on the same inputs,
+    bit for bit against this tree's, timed in turns with it (this tree,
+    the parent, this tree, the parent).  The record of the 0.5 % case."""
     import torch
     from cruise_control_tpu_torch import cuda_kernels
     from cruise_control_tpu_torch.analyzer import context as C
@@ -962,11 +968,27 @@ def check_forced_select(spec: dict, seed: int) -> dict:
             f"cooperative launch; guard only {t[3]:.4f} ms), plain "
             f"{t[1]:.4f} ms, torch.topk {t[2]:.4f} ms; bound {t_b:.5f} ms "
             f"({nbytes} bytes)")
+        turns = None
+        if pk is not None:
+            mine = cuda_kernels.forced_select(*args, k)
+            theirs = pk.forced_select(*args, k)
+            torch.cuda.synchronize()
+            if not all(equal_exact(x, y) for x, y in zip(mine, theirs)):
+                raise AssertionError(f"forced_select R={num_r} k={k} "
+                                     f"{label}: differs from the parent's")
+            turns = [graph_time_ms(lambda: kc.forced_select(*args, k))
+                     for kc in (cuda_kernels, pk, cuda_kernels, pk)]
+            log(f"  forced_select R={num_r} k={k} {label}: equal to the "
+                "parent's bit for bit; in turns this tree / the parent / "
+                "this tree / the parent " + " / ".join(
+                    f"{x:.4f}" for x in turns) + " ms")
+        case = dict(ms=t[0], parent_ms=turns, path=path)
         if rec is None:
             rec = dict(max_abs_err=0.0, ms=t[0], plain_ms=t[1], bound_ms=t_b,
                        bound_by=by, library_ms=t[2], guard_ms=t[3],
                        launches_per_call=FORCED_SELECT_LAUNCHES,
-                       shape=f"R={num_r} k={k} {label}")
+                       shape=f"R={num_r} k={k} {label}", cases={})
+        rec["cases"][label] = case
     return rec
 
 
@@ -1020,61 +1042,6 @@ def _leader_tail(x: dict):
                          x["dest_headroom"], x["dest_pref"], x["t_ws"])
 
 
-def parent_leader_pass(pk, x: dict, multi: bool, k: int, prev=None):
-    """The parent tree's leadership pass on the card, with the torch ops
-    its run_tail ran around its K4: for pass 0 the options, the preference
-    plane, the sources, gains, casts, zeroed state and assign_amp; for a
-    later pass the fold of the pass before (`prev`: keep, db, dr, the
-    state) -- the dest_replica and assigned folds and, single-commit, the
-    two counter sums; then its K4 and, multi-commit, the weight gather
-    t_ws[:, dr]."""
-    import torch
-    from cruise_control_tpu_torch import ops
-    from cruise_control_tpu_torch.analyzer import kernels as K
-    dev = x["rows"].device
-    num_b = x["leader_ok"].shape[0]
-    if k == 0:
-        rows, sib = x["rows"], x["sib"]
-        rb = x["state"].replica_broker.long()
-        sib_safe = torch.clamp_min(sib, 0).long()
-        ok = (sib >= 0) & (sib != rows[:, None])
-        sib_b = rb[sib_safe]
-        ok &= x["leader_ok"][sib_b] & ~x["state"].replica_offline[sib_safe]
-        bonus = x["bonus_w"][rows]
-        ok &= bonus[:, None] <= x["dest_headroom"][sib_b]
-        ok &= x["accept"]
-        ok &= x["cand_has"][:, None]
-        pref = torch.where(ok, x["dest_pref"][sib_b],
-                           torch.full((), K.NEG, device=dev))
-        c = rows.shape[0]
-        st = dict(pref=pref, src=rb[rows].to(torch.int32),
-                  sib_b=sib_b.to(torch.int32).contiguous(),
-                  sib_r=sib_safe.to(torch.int32).contiguous(),
-                  taken=torch.zeros(num_b, dtype=torch.int32, device=dev),
-                  dep=torch.zeros(num_b, dtype=torch.int32, device=dev),
-                  assigned=torch.zeros(c, dtype=torch.bool, device=dev),
-                  dest=torch.zeros(c, dtype=torch.int32, device=dev),
-                  gain=bonus, amp=K.assign_amp(pref))
-    else:
-        keep, db, dr, st = prev
-        st = dict(st)
-        st["dest"] = torch.where(keep, dr, st["dest"])
-        st["assigned"] = st["assigned"] | keep
-        if not multi:
-            kept_d = torch.where(keep, db, torch.full_like(db, num_b))
-            kept_s = torch.where(keep, st["src"],
-                                 torch.full_like(st["src"], num_b))
-            st["taken"] = st["taken"] + ops.segment_sum(
-                torch.ones_like(kept_d), kept_d, num_b)
-            st["dep"] = st["dep"] + ops.segment_sum(
-                torch.ones_like(kept_s), kept_s, num_b)
-    _, db, dr, has = pk.leader_assign_pass(
-        st["pref"], st["sib_b"], st["sib_r"], st["src"], st["taken"],
-        st["dep"], st["assigned"], x["cand_has"], k, st["amp"], multi)
-    d_w = x["t_ws"][:, dr.long()] if multi else None
-    return db, dr, has, d_w, st
-
-
 def leader_pass_bytes(t, k: int, multi: bool, keep) -> int:
     """The bytes one K4 pass must move.  Pass 0: the rows, sibling rows,
     acceptance plane and flags, per row its broker and bonus, per option
@@ -1097,15 +1064,15 @@ def leader_pass_bytes(t, k: int, multi: bool, keep) -> int:
     return n + 8 * n_t * c
 
 
-def check_leader_assign(c: int, num_b: int, num_r: int, seed: int,
-                        pk=None) -> dict:
+def check_leader_assign(c: int, num_b: int, num_r: int,
+                        seed: int) -> dict:
     """K4 at C rows of RF = 3 options over num_r replicas, both commit
     modes: passes 0 (the plane, the sources, gains, zeroed state and the
     amplitude bit for bit) to 3, each folding the pass before (a random
     third of the rows with an option kept), every output and buffer exact
     against leader_assign_pass_plain; passes 0 and 3 timed beside the
-    parent's chain (`pk`: its K4 with the torch ops its run_tail ran
-    around it).  {"multi" / "single": {"pass 0" / "pass 3": record}}."""
+    plain version.  {"multi" / "single": {"pass 0" / "pass 3":
+    record}}."""
     import torch
     from cruise_control_tpu_torch import cuda_kernels as ck
     from cruise_control_tpu_torch.analyzer import kernels as K
@@ -1116,7 +1083,6 @@ def check_leader_assign(c: int, num_b: int, num_r: int, seed: int,
         x = _leader_inputs(c, num_b, num_r, g, multi)
         tk, tp = _leader_tail(x), _leader_tail(x)
         keep = db = dr = None
-        prev = None
         rec = out[mode] = {}
         for k in range(4):
             args = (keep, db, dr)
@@ -1150,27 +1116,18 @@ def check_leader_assign(c: int, num_b: int, num_r: int, seed: int,
                     *launch_args))
                 t_plain = graph_time_ms(lambda: K.leader_assign_pass_plain(
                     tp, k, multi, *args))
-                t_parent = None
-                if pk is not None:
-                    p_prev = prev
-                    t_parent = graph_time_ms(lambda: parent_leader_pass(
-                        pk, x, multi, k, p_prev))
                 nbytes = leader_pass_bytes(tk, k, multi, keep)
                 t_b, by = bound(nbytes, c * 3 * 4)
                 log(f"  leader_assign_pass C={c} B={num_b} {mode} pass {k}: "
                     f"exact match ({int(want[2].sum())} rows with an "
                     f"option{', amp ' + repr(float(tk.amp)) if k == 0 else ''}"
                     f"); device time per call: kernel {ms:.4f} ms (1 "
-                    f"launch), the parent's chain {_ms(t_parent)}, plain "
-                    f"{t_plain:.4f} ms; bound {t_b:.6f} ms ({nbytes} bytes)")
+                    f"launch), plain {t_plain:.4f} ms; bound {t_b:.6f} ms "
+                    f"({nbytes} bytes)")
                 rec[f"pass {k}"] = dict(
-                    max_abs_err=0.0, ms=ms, parent_ms=t_parent,
-                    plain_ms=t_plain, bound_ms=t_b, bound_by=by,
-                    library_ms=None,
+                    max_abs_err=0.0, ms=ms, plain_ms=t_plain, bound_ms=t_b,
+                    bound_by=by, library_ms=None,
                     shape=f"C={c} B={num_b} RF=3 {mode} pass {k}")
-            if pk is not None:
-                pdb, pdr, _, _, pst = parent_leader_pass(pk, x, multi, k,
-                                                         prev)
             db, dr = want[0], want[1]
             keep = want[2] & (torch.rand(c, generator=g, device="cuda")
                               < 0.3)
@@ -1181,8 +1138,6 @@ def check_leader_assign(c: int, num_b: int, num_r: int, seed: int,
                                      device="cuda", dtype=torch.int32)
                 tk.taken_cnt += bump
                 tp.taken_cnt += bump
-            if pk is not None:
-                prev = (keep, pdb, pdr, pst)
     return out
 
 
@@ -1308,17 +1263,178 @@ def check_commit_leadership(spec: dict, seed: int) -> dict:
     return rec
 
 
-def check_sweep_pick(spec: dict, seed: int) -> dict:
-    """K6 on a window of min(4096, P) partitions of the cluster `spec`, in
-    limit mode and in mean mode with a tiebreak; the record of limit mode
-    (the goals')."""
+#: K6's input cases (see _sweep_case)
+SWEEP_CASES = ("random", "ties and signed zeros", "few live partitions",
+               "no live partition", "all failed")
+
+
+def _sweep_case(state, ctx, cache, g, improve: bool, tiebreak: bool,
+                case: str) -> dict:
+    """K6's inputs on the card from the cluster `state`: the goals' value
+    (a resource's leader bonus), their bounds (limit mode: the balance
+    upper limit, the band's middle; mean mode: the alive-broker average
+    read through stride 0), a column of the cache's broker loads (a
+    strided vector), the carried leader index and failure marks, and
+    `case`: quantized values with -0.0 and +0.0 among them (tied gains),
+    no live partition (every source bound +inf), or every partition
+    marked failed, or few live partitions (the brokers above the 97th
+    percentile shed: fewer than the window)."""
     import numpy as np
+    import torch
+    from cruise_control_tpu_torch import ops
+    from cruise_control_tpu_torch.analyzer import context as C
+    from cruise_control_tpu_torch.analyzer import kernels as K
+    from cruise_control_tpu_torch.model import state as S
+    res = 2
+    rows = ctx.partition_replicas
+    num_p, rf = rows.shape
+    num_b = state.num_brokers
+    value = (state.partition_leader_bonus[state.replica_partition.long(),
+                                          res] * state.replica_valid)
+    if case == "ties and signed zeros":
+        value = torch.round(value * 4.0) / 4.0
+        r = torch.rand(value.shape[0], generator=g, device="cuda")
+        value = torch.where(r < 0.05, torch.full_like(value, -0.0), value)
+        value = torch.where((r >= 0.05) & (r < 0.1),
+                            torch.zeros_like(value), value)
+    cap = state.broker_capacity[:, res]
+    W = cache.broker_load[:, res]
+    if improve:
+        alive = state.broker_alive
+        avg = ops.sum_f32(W * alive) / torch.clamp_min(torch.sum(alive), 1)
+        up = (ctx.balance_upper_pct[res] * cap).contiguous()
+        shed_to = avg.reshape(1).expand(num_b)
+        fill_to = torch.minimum(shed_to, up)
+        hard_cap = up
+    else:
+        shed_to = hard_cap = (ctx.balance_upper_pct[res] * cap).contiguous()
+        fill_to = ((hard_cap + ctx.balance_lower_pct[res] * cap) / 2.0
+                   ).contiguous()
+        # sheds from the upper third of the brokers
+        shed_to = torch.minimum(shed_to, torch.quantile(W, 0.6).expand(
+            num_b)).contiguous()
+    if case == "few live partitions":
+        shed_to = torch.quantile(W, 0.97).expand(num_b)
+    if case == "no live partition":
+        shed_to = torch.full((num_b,), float("inf"), device="cuda")
+    failed = (torch.ones(num_p, device="cuda") if case == "all failed"
+              else (torch.rand(num_p, generator=g, device="cuda")
+                    < 0.1).float())
+    tb = None
+    if tiebreak:
+        tb = -cache.leader_bytes_in.clone()
+        tb[::9] = 0.0
+    return dict(
+        cur=S.partition_leader_replica(state), failed=failed, rows=rows,
+        jit_plane=K._pairwise_jitter(num_p, rf, salt=0, device="cuda"),
+        replica_broker=state.replica_broker,
+        replica_partition=state.replica_partition, value_r=value.contiguous(),
+        static_ok=C.replica_static_ok(state, ctx), alive=state.broker_alive,
+        leader_ok=ctx.broker_leader_ok, W=W, shed_to=shed_to,
+        fill_to=fill_to, hard_cap=hard_cap, tb=tb,
+        salt=float(np.float32(3) * np.float32(0.37)), improve_gate=improve,
+        select_jitter=1.0 if improve else 0.35)
+
+
+def _sweep_args(x: dict, cur, failed, prev) -> tuple:
+    return (cur, failed, prev, x["rows"], x["jit_plane"],
+            x["replica_broker"], x["replica_partition"], x["value_r"],
+            x["static_ok"], x["alive"], x["leader_ok"], x["W"],
+            x["shed_to"], x["fill_to"], x["hard_cap"], x["tb"], x["salt"],
+            x["improve_gate"], x["select_jitter"])
+
+
+def _sweep_equal(got, want, what: str) -> None:
+    from cruise_control_tpu_torch.analyzer import leadership as L
+    for x, y, name in zip(got, want, L.SweepWindow._fields):
+        if not (x.dtype == y.dtype and equal_exact(x, y)):
+            raise AssertionError(f"sweep_pick {what}: {name} differs from "
+                                 "the plain version")
+
+
+def parent_sweep_chain(pk, x: dict, prev, valid):
+    """The parent's sweep window at these inputs: its torch ops from
+    cur_safe0 to dst_b around its K6 launch (the old cuda_kernels
+    sweep_pick), then its fold of `valid` into copies of cur and
+    failed."""
+    import torch
+    from cruise_control_tpu_torch import ops
+    from cruise_control_tpu_torch.analyzer import leadership as L
+    cur, failed = x["cur"], x["failed"]
+    rb, value, W = x["replica_broker"], x["value_r"], x["W"]
+    shed_to = x["shed_to"]
+    num_p = cur.shape[0]
+    cur_safe0 = torch.clamp_min(cur, 0).long()
+    src_b0 = rb[cur_safe0]
+    sb = src_b0.long()
+    value_leave0 = value[cur_safe0]
+    live = ((cur >= 0) & x["static_ok"][cur_safe0] & (W[sb] > shed_to[sb])
+            & (value_leave0 > 0.0))
+    if x["improve_gate"]:
+        live &= value_leave0 < 2.0 * (W[sb] - shed_to[sb])
+    gain_sel = L.sweep_window_gain(value_leave0, live, failed, x["salt"],
+                                   x["select_jitter"])
+    if num_p > L.SWEEP_COMPACT:
+        inf = torch.full((), float("inf"), device="cuda")
+        _, sel = ops.topk_stable(torch.where(live, gain_sel, -inf),
+                                 L.SWEEP_COMPACT)
+        has, cur_safe, src_b = live[sel], cur_safe0[sel], src_b0[sel]
+        _, _ = value_leave0[sel], value_leave0[sel]
+    else:
+        sel = torch.arange(num_p, dtype=torch.int64, device="cuda")
+        has, cur_safe, src_b = live, cur_safe0, src_b0
+    tb_norm = None
+    if x["tb"] is not None:
+        tb = x["tb"]
+        tb_lo = torch.min(tb)
+        tb_norm = (tb - tb_lo) / torch.clamp_min(torch.max(tb) - tb_lo, 1e-9)
+    dst_r, has = pk.sweep_pick(
+        sel.to(torch.int32).contiguous(), has.contiguous(),
+        cur_safe.to(torch.int32).contiguous(), x["rows"], x["jit_plane"], rb,
+        value, x["static_ok"], x["alive"], x["leader_ok"], W.contiguous(),
+        x["fill_to"].contiguous(), x["hard_cap"].contiguous(), tb_norm,
+        x["salt"], x["improve_gate"])
+    dst_b = rb[dst_r.long()]
+    p_w = x["replica_partition"][cur_safe].long()
+    ops.scatter_set(cur, torch.where(valid, p_w, torch.full_like(p_w, num_p)),
+                    dst_r)
+    failed = failed.clone()
+    failed[sel] = torch.where(
+        valid, torch.zeros((), device="cuda"),
+        torch.where(has & ~valid, torch.ones((), device="cuda"),
+                    failed[sel]))
+    return dst_b
+
+
+def sweep_bytes(x: dict, wn: int) -> int:
+    """The bytes a sweep round's window with the fold must move: per
+    partition its leader id and failure mark and the leader's value,
+    broker and static flag; per window option its replica id, jitter,
+    value, broker and static flag; each [B] vector once; per window row
+    the outputs, the fold's reads of the round before and its writes of
+    cur and failed.  The kernel's own scratch (the compaction's gains,
+    flags and keys) is not the function's and is not counted."""
+    num_p, rf = x["rows"].shape
+    num_b = x["alive"].shape[0]
+    per_p = 4 + 4 + 4 + 4 + 1
+    per_opt = 4 + 4 + 4 + 4 + 1
+    per_b = 4 * 4 + 1 + 1 + (4 if x["tb"] is not None else 0)
+    per_row = (8 + 1 + 1 + 8 + 4 + 4 + 8 + 4) + (8 + 8 + 8 + 1 + 1) + 8
+    return num_p * per_p + wn * rf * per_opt + num_b * per_b + wn * per_row
+
+
+def check_sweep_window(spec: dict, seed: int, pk=None) -> dict:
+    """K6 against sweep_window_plain on the cluster `spec`, exactly (every
+    output and the folded cur and failed): both modes, with and without
+    the tiebreak, first round and fold, in each of SWEEP_CASES; then
+    device times of the first round and of a fold in limit mode (the
+    goals'), beside the plain version, the bound, torch.topk of the
+    window's [P] score (the compaction's library yardstick) and, with
+    --parent, the parent's chain."""
     import torch
     from cruise_control_tpu_torch import cuda_kernels
     from cruise_control_tpu_torch.analyzer import context as C
-    from cruise_control_tpu_torch.analyzer import kernels as K
     from cruise_control_tpu_torch.analyzer import leadership as L
-    from cruise_control_tpu_torch.model import state as S
     from cruise_control_tpu_torch.testing.random_cluster import (
         RandomClusterSpec, random_cluster)
     state, _ = random_cluster(RandomClusterSpec(**spec))
@@ -1326,55 +1442,69 @@ def check_sweep_pick(spec: dict, seed: int) -> dict:
                          C.OptimizationOptions())
     cache = C.make_round_cache(state, 0, ctx)
     g = torch.Generator(device="cuda").manual_seed(seed)
-    res = 2
-    rows = ctx.partition_replicas
-    num_p, rf = rows.shape
+    num_p = ctx.partition_replicas.shape[0]
     wn = min(L.SWEEP_COMPACT, num_p)
-    sel = torch.randperm(num_p, generator=g, device="cuda")[:wn].to(
-        torch.int32)
-    cur = torch.clamp_min(S.partition_leader_replica(state)[sel.long()],
-                          0).to(torch.int32)
-    has_in = torch.rand(wn, generator=g, device="cuda") < 0.9
-    jit_plane = K._pairwise_jitter(num_p, rf, salt=0, device="cuda")
-    value = (state.partition_leader_bonus[state.replica_partition.long(),
-                                          res] * state.replica_valid)
-    static_ok = C.replica_static_ok(state, ctx)
-    cap = state.broker_capacity[:, res]
-    upper = (ctx.balance_upper_pct[res] * cap).contiguous()
-    fill_to = ((upper + ctx.balance_lower_pct[res] * cap) / 2.0).contiguous()
-    W = cache.broker_load[:, res].contiguous()
-    tb = torch.rand(state.num_brokers, generator=g, device="cuda")
-    salt = float(np.float32(3) * np.float32(0.37))
-    rec = None
-    for improve, tb_norm in ((False, None), (True, tb)):
-        args = (sel, has_in, cur, rows, jit_plane, state.replica_broker,
-                value, static_ok, state.broker_alive, ctx.broker_leader_ok,
-                W, fill_to, upper, tb_norm, salt, improve)
-        got = cuda_kernels.sweep_pick(*args)
-        want = L.sweep_pick_plain(*args)
-        torch.cuda.synchronize()
-        for x, y, what in zip(got, want, ("dst_r", "has")):
-            if not equal_exact(x, y):
-                raise AssertionError(
-                    f"sweep_pick W={wn} improve_gate={improve}: {what} "
-                    "differs from the plain version")
-        t = (graph_time_ms(lambda: cuda_kernels.sweep_pick(*args)),
-             graph_time_ms(lambda: L.sweep_pick_plain(*args)))
-        log(f"  sweep_pick P={num_p} W={wn} improve_gate={improve} "
-            f"tiebreak={tb_norm is not None}: exact match "
-            f"({int(got[1].sum())} with a pick); device time per call: "
-            f"kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms")
-        if rec is None:
-            rec = t
-    # the window's ids, flags and current leaders, its option rows and
-    # jitter, per option the broker id, value and eligibility, five
-    # broker planes, two outputs
-    nb = state.num_brokers
-    nbytes = wn * 9 + wn * rf * (4 + 4 + 4 + 4 + 1) + nb * 14 + wn * 5
-    t_b, by = bound(nbytes, wn * rf * 8)
-    log(f"  sweep_pick W={wn}: bound {t_b:.5f} ms ({nbytes} bytes)")
-    return dict(max_abs_err=0.0, ms=rec[0], plain_ms=rec[1], bound_ms=t_b,
-                bound_by=by, library_ms=None, shape=f"W={wn} RF={rf}")
+    n_cases = 0
+    for improve in (False, True):
+        for tiebreak in (False, True):
+            for case in SWEEP_CASES:
+                x = _sweep_case(state, ctx, cache, g, improve, tiebreak,
+                                case)
+                what = (f"P={num_p} improve_gate={improve} "
+                        f"tiebreak={tiebreak} {case}")
+                kc, kf = x["cur"].clone(), x["failed"].clone()
+                pc, pf = x["cur"].clone(), x["failed"].clone()
+                got = L.SweepWindow(*cuda_kernels.sweep_window(
+                    *_sweep_args(x, kc, kf, None)))
+                want = L.sweep_window_plain(*_sweep_args(x, pc, pf, None))
+                _sweep_equal(got, want, f"{what}, first round")
+                live = int(want.live_w.sum())
+                if (live == 0) != (case == "no live partition"):
+                    raise AssertionError(f"sweep_pick {what}: {live} live")
+                valid = want.has & (torch.rand(wn, generator=g,
+                                               device="cuda") < 0.6)
+                got2 = L.SweepWindow(*cuda_kernels.sweep_window(
+                    *_sweep_args(x, kc, kf, (got, valid))))
+                want2 = L.sweep_window_plain(*_sweep_args(
+                    x, pc, pf, (want, valid)))
+                _sweep_equal(got2, want2, f"{what}, fold")
+                if not (equal_exact(kc, pc) and equal_exact(kf, pf)):
+                    raise AssertionError(f"sweep_pick {what}: the folded "
+                                         "cur or failed differs")
+                n_cases += 1
+    log(f"  sweep_pick P={num_p} W={wn}: exact match in {n_cases} cases x "
+        "(first round, fold)")
+    x = _sweep_case(state, ctx, cache, g, False, False, "random")
+    kc, kf = x["cur"].clone(), x["failed"].clone()
+    first = L.SweepWindow(*cuda_kernels.sweep_window(
+        *_sweep_args(x, kc, kf, None)))
+    valid = first.has & (torch.rand(wn, generator=g, device="cuda") < 0.6)
+    prev = (first, valid)
+    t_first = graph_time_ms(lambda: cuda_kernels.sweep_window(
+        *_sweep_args(x, kc, kf, None)))
+    t_fold = graph_time_ms(lambda: cuda_kernels.sweep_window(
+        *_sweep_args(x, kc, kf, prev)))
+    pc, pf = x["cur"].clone(), x["failed"].clone()
+    t_plain = graph_time_ms(lambda: L.sweep_window_plain(
+        *_sweep_args(x, pc, pf, prev)))
+    lib = None
+    if num_p > wn:
+        gain = torch.rand(num_p, generator=g, device="cuda")
+        lib = graph_time_ms(lambda: torch.topk(gain, wn))
+    t_parent = _parent_ms(pk, lambda: parent_sweep_chain(pk, x, prev,
+                                                         valid))
+    nbytes = sweep_bytes(x, wn)
+    t_b, by = bound(nbytes, num_p * 12 + wn * x["rows"].shape[1] * 8)
+    log(f"  sweep_pick P={num_p} W={wn} (limit mode): device time per "
+        f"call: kernel first round {t_first:.4f} ms, with the fold "
+        f"{t_fold:.4f} ms, plain {t_plain:.4f} ms, the parent's chain "
+        f"{_ms(t_parent)}; bound {t_b:.5f} ms ({by}, {nbytes} bytes); "
+        "library yardstick of the compaction alone: torch.topk of the "
+        "[P] score " + (f"{lib:.4f} ms" if lib is not None
+                        else "none (no compaction)"))
+    return dict(max_abs_err=0.0, ms=t_fold, plain_ms=t_plain, bound_ms=t_b,
+                bound_by=by, library_ms=lib, first_ms=t_first,
+                parent_ms=t_parent, shape=f"P={num_p} W={wn} RF=3 fold")
 
 
 #: K8's cases (see _rank_inputs for what each plants)
@@ -1883,11 +2013,127 @@ def check_segment_keep(seed: int) -> dict:
     return dict(cases["n=2048 S=20000"], cases=cases)
 
 
-def check_swap_pair(spec: dict, seed: int) -> dict:
-    """K10 against swap_pair_plain on the card at H = C = min(128, B) of
-    the cluster `spec`, exactly, with quantized loads and deviations (tied
-    improvements): no band, the lower / upper band, and an acceptance
-    plane that refuses everything.  The record of the no-band case."""
+#: K10's pair cases
+SWAP_CASES = ("no band", "band", "lower band", "upper band", "refuse all")
+
+
+def _swap_case(state, pr, g, case: str, from_util: bool) -> dict:
+    """K10's inputs on the card: picks on every broker (some missing), a
+    quarter of the in-picks pairwise replicas of one partition and a few
+    out-picks replicas of the in-picks' partitions (conflicts on a
+    partition), quantized weights and deviations (tied improvements,
+    conflicts on a cold broker) with -0.0 and +0.0 among the deviations,
+    given or as util - target with util -0.0 or +0.0 against a target of
+    0; the band or the acceptance plane of `case` (refuse all: all
+    False)."""
+    import torch
+    nb, num_r = state.num_brokers, state.num_replicas
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g, device="cuda")
+    out_r = torch.randint(0, num_r, (nb,), generator=g, device="cuda",
+                          dtype=torch.int32)
+    in_r = torch.randint(0, num_r, (nb,), generator=g, device="cuda",
+                         dtype=torch.int32)
+    sib = pr[torch.randint(0, pr.shape[0], (nb // 8 + 1,), generator=g,
+                           device="cuda")]
+    for j in range(nb // 8):
+        in_r[8 * j] = sib[j, 0]
+        in_r[8 * j + 4] = sib[j, 1]
+        out_r[8 * j + 2] = sib[j, 2]
+    out_r[rand(nb) < 0.05] = -1
+    in_r[rand(nb) < 0.05] = -1
+    w = torch.round(rand(num_r) * 8.0)
+    dev = torch.round(rand(nb) * 16.0) - 8.0
+    zero = dev == 0
+    dev = torch.where(zero & (rand(nb) < 0.5), torch.full_like(dev, -0.0),
+                      dev)
+    util = rand(nb) * 50.0
+    target = None
+    if from_util:
+        util = torch.where(zero, dev, util)
+        target = torch.where(zero, torch.zeros_like(util), util - dev)
+    out_has, in_has = out_r >= 0, in_r >= 0
+    hot, cold = rand(nb) < 0.6, rand(nb) < 0.6
+    band = case in ("band", "lower band", "upper band")
+    return dict(hot=hot, cold=cold, out_r=out_r, in_r=in_r,
+                out_has=out_has, in_has=in_has,
+                dev_u=None if from_util else dev, util=util, target=target,
+                w=w, lower=(util - 20.0) if case in ("band", "lower band")
+                else None,
+                upper=(util + 20.0) if case in ("band", "upper band")
+                else None, refuse=case == "refuse all", band=band)
+
+
+def _shortlist_args(x: dict, h: int) -> tuple:
+    return (x["hot"], x["cold"], x["out_r"], x["in_r"], x["out_has"],
+            x["in_has"], x["dev_u"], x["util"], x["target"], h)
+
+
+def _pair_args(x: dict, state, pr, lists, accept) -> tuple:
+    h_ids, c_ids, _, _, dev = lists
+    return (h_ids, c_ids, x["out_r"], x["in_r"], x["out_has"], x["in_has"],
+            x["hot"], x["cold"], x["w"], dev, x["util"], x["lower"],
+            x["upper"], accept, state.replica_partition, pr,
+            state.replica_broker)
+
+
+def parent_swap_chain(pk, x: dict, state, pr, accept, h: int):
+    """The parent's swap round after its picks at these inputs: the
+    deviations, the two stable top-k shortlists and their gathers and
+    casts, its K10 launch (the old pair plane), the three K9 keep
+    launches with their gathers and the two [B] scatters (the acceptance
+    plane given, as the acceptance ops are outside both)."""
+    import torch
+    from cruise_control_tpu_torch import ops
+    from cruise_control_tpu_torch.analyzer import kernels as K
+    nb = state.num_brokers
+    inf = torch.full((), float("inf"), device="cuda")
+    out_r, in_r = x["out_r"], x["in_r"]
+    dev_u = x["dev_u"] if x["dev_u"] is not None else x["util"] - x["target"]
+    out_safe = torch.clamp_min(out_r, 0).long()
+    in_safe = torch.clamp_min(in_r, 0).long()
+    hot_rank = torch.where(x["hot"] & x["out_has"], dev_u, -inf)
+    cold_rank = torch.where(x["cold"] & x["in_has"], -dev_u, -inf)
+    _, h_ids = ops.topk_stable(hot_rank, h)
+    _, c_ids = ops.topk_stable(cold_rank, h)
+    out_h = out_safe[h_ids]
+    _ = in_safe[c_ids]
+
+    def f32(t):
+        return None if t is None else t.to(torch.float32).contiguous()
+    sel_h, cold_slot = pk.swap_pair(
+        h_ids.to(torch.int32).contiguous(), c_ids.to(torch.int32).contiguous(),
+        out_r.contiguous(), in_r.contiguous(), x["out_has"], x["in_has"],
+        x["hot"], x["cold"], f32(x["w"]), f32(dev_u), f32(x["util"]),
+        f32(x["lower"]), f32(x["upper"]), accept.contiguous(),
+        state.replica_partition, pr, state.replica_broker)
+    valid_h = sel_h > K.NEG / 2
+    cold_h = c_ids[cold_slot.long()]
+
+    def keep(dest, valid, n):
+        return pk.segment_keep(sel_h.contiguous(), K._int_ids(dest),
+                               valid.contiguous(), n)
+    valid_h = keep(cold_h, valid_h, nb)
+    p_out = state.replica_partition[out_h]
+    p_in = state.replica_partition[torch.clamp_min(in_r[cold_h], 0).long()]
+    valid_h = keep(p_out, valid_h, state.num_partitions)
+    valid_h = keep(p_in, valid_h, state.num_partitions)
+    cold = torch.zeros((nb,), dtype=torch.int32, device="cuda")
+    cold[h_ids] = cold_h.to(torch.int32)
+    valid = torch.zeros((nb,), dtype=torch.bool, device="cuda")
+    valid[h_ids] = valid_h
+    return cold, valid
+
+
+def check_swap(spec: dict, seed: int, pk=None) -> dict:
+    """K10's two entries against their plain versions on the cluster
+    `spec`, exactly: the shortlists with the deviations given and as util
+    - target (signed zeros in both), the pair entry in each of SWAP_CASES
+    (tied improvements, conflicts on a cold broker and on a partition);
+    then device times of a round's two launches beside the plain
+    versions, the bound, torch.topk of the hot ranks (the shortlist's
+    library yardstick) and, with --parent, the parent's chain."""
     import torch
     from cruise_control_tpu_torch import cuda_kernels
     from cruise_control_tpu_torch.analyzer import context as C
@@ -1898,62 +2144,75 @@ def check_swap_pair(spec: dict, seed: int) -> dict:
     ctx = C.make_context(state, C.BalancingConstraint(),
                          C.OptimizationOptions())
     g = torch.Generator(device="cuda").manual_seed(seed)
-    nb, num_r = state.num_brokers, state.num_replicas
+    nb = state.num_brokers
     pr = ctx.partition_replicas
     h = min(K.SWAP_SHORTLIST, nb)
-
-    def rand(*shape):
-        return torch.rand(shape, generator=g, device="cuda")
-    # two shortlists over the same brokers, overlapping as the swap
-    # round's two top-k lists may
-    h_ids, c_ids = (torch.randperm(nb, generator=g, device="cuda")[:h].to(
-        torch.int32) for _ in range(2))
-    out_r = torch.randint(-1, num_r, (nb,), generator=g, device="cuda",
-                          dtype=torch.int32)
-    in_r = torch.randint(-1, num_r, (nb,), generator=g, device="cuda",
-                         dtype=torch.int32)
-    w = torch.round(rand(num_r) * 8.0)
-    dev_u = torch.round(rand(nb) * 16.0) - 8.0
-    util = rand(nb) * 50.0
-    out_has, in_has, hot, cold = (rand(nb) < p for p in (0.9, 0.9, 0.7, 0.7))
-    rec = None
-    for case in ("no band", "band", "refuse all"):
-        accept = rand(h, h) < (0.0 if case == "refuse all" else 0.8)
-        band = case == "band"
-        args = (h_ids, c_ids, out_r, in_r, out_has, in_has, hot, cold, w,
-                dev_u, util, util - 20.0 if band else None,
-                util + 20.0 if band else None, accept,
-                state.replica_partition, pr, state.replica_broker)
-        got = cuda_kernels.swap_pair(*args)
-        want = K.swap_pair_plain(*args)
-        torch.cuda.synchronize()
-        if not (equal_exact(got[0], want[0])
-                and equal_exact(got[1].long(), want[1])):
-            raise AssertionError(f"swap_pair H={h} {case}: differs from the "
-                                 "plain version")
-        n_sel = int((got[0] > K.NEG / 2).sum())
-        if (n_sel == 0) != (case == "refuse all"):
-            raise AssertionError(f"swap_pair {case}: {n_sel} rows with a "
-                                 "feasible pair")
-        t = (graph_time_ms(lambda: cuda_kernels.swap_pair(*args)),
-             graph_time_ms(lambda: K.swap_pair_plain(*args)))
-        rf = pr.shape[1]
-        # the acceptance plane; per row and column a broker id, a replica
-        # id, four flags, weight, deviation, utilization and band, the
-        # replica's partition and its RF sibling ids and brokers; two
-        # outputs per row
-        nbytes = h * h + 2 * h * (4 + 4 + 4 + 4 + 4 + 4 + 4 + 4 + 8 * rf) \
-            + h * 8
-        t_b, by = bound(nbytes, h * h * 16)
-        log(f"  swap_pair H=C={h} (B={nb}) {case}: exact match ({n_sel} rows "
-            f"with a pair); device time per call: kernel {t[0]:.4f} ms, "
-            f"plain {t[1]:.4f} ms; bound {t_b:.6f} ms ({by}); library "
-            "call: none")
-        if rec is None:
-            rec = dict(max_abs_err=0.0, ms=t[0], plain_ms=t[1], bound_ms=t_b,
-                       bound_by=by, library_ms=None,
-                       shape=f"H=C={h} {case}")
-    return rec
+    n_valid = {}
+    for from_util in (False, True):
+        for case in SWAP_CASES:
+            x = _swap_case(state, pr, g, case, from_util)
+            what = (f"B={nb} H={h} {case} "
+                    f"{'util - target' if from_util else 'dev_u given'}")
+            got = cuda_kernels.swap_shortlist(*_shortlist_args(x, h))
+            want = K.swap_shortlist_plain(*_shortlist_args(x, h))
+            for a, b, name in zip(got, want, ("h_ids", "c_ids", "out_h",
+                                             "in_c", "dev")):
+                if not (a.dtype == b.dtype and equal_exact(a, b)):
+                    raise AssertionError(f"swap_pair shortlist {what}: "
+                                         f"{name} differs")
+            accept = torch.rand((h, h), generator=g, device="cuda") < (
+                0.0 if x["refuse"] else 0.8)
+            got2 = cuda_kernels.swap_pair(*_pair_args(x, state, pr, want,
+                                                      accept))
+            want2 = K.swap_pair_plain(*_pair_args(x, state, pr, want,
+                                                  accept))
+            for a, b, name in zip(got2, want2, ("cold", "valid")):
+                if not (a.dtype == b.dtype and equal_exact(a, b)):
+                    raise AssertionError(f"swap_pair {what}: {name} "
+                                         "differs")
+            nv = int(want2[1].sum())
+            if (nv == 0) != x["refuse"]:
+                raise AssertionError(f"swap_pair {what}: {nv} swaps")
+            n_valid[what] = nv
+    log(f"  swap_pair B={nb} H={h}: exact match, both entries; swaps kept "
+        f"{n_valid}")
+    x = _swap_case(state, pr, g, "no band", False)
+    lists = cuda_kernels.swap_shortlist(*_shortlist_args(x, h))
+    accept = torch.rand((h, h), generator=g, device="cuda") < 0.8
+    pargs = _pair_args(x, state, pr, lists, accept)
+    t_a = graph_time_ms(lambda: cuda_kernels.swap_shortlist(
+        *_shortlist_args(x, h)))
+    t_b = graph_time_ms(lambda: cuda_kernels.swap_pair(*pargs))
+    p_a = graph_time_ms(lambda: K.swap_shortlist_plain(
+        *_shortlist_args(x, h)))
+    p_b = graph_time_ms(lambda: K.swap_pair_plain(*pargs))
+    inf = torch.full((), float("inf"), device="cuda")
+    hot_rank = torch.where(x["hot"] & x["out_has"], x["dev_u"], -inf)
+    lib = graph_time_ms(lambda: torch.topk(hot_rank, h))
+    t_parent = _parent_ms(pk, lambda: parent_swap_chain(pk, x, state, pr,
+                                                        accept, h))
+    rf = pr.shape[1]
+    # K10a: per broker its four flags and its deviation, the two picks at
+    # the shortlisted brokers, four [H] outputs; K10b (no band): the
+    # acceptance plane, per row and column a broker id, its pick, two
+    # flags, the pick's weight, the deviation and utilization, the
+    # replica's partition and its RF sibling ids and brokers, and the two
+    # [B] outputs (the resolutions' scratch is the kernel's own)
+    bytes_a = nb * (4 + 4) + 2 * h * 4 + 4 * h * 8
+    bytes_b = (h * h + 2 * h * (8 + 4 + 2 + 4 + 4 + 4 + 4 + 8 * rf)
+               + nb * 5)
+    tb_a, _ = bound(bytes_a, 0)
+    tb_b, by = bound(bytes_b, h * h * 16)
+    log(f"  swap_pair B={nb} H={h} (no band): device time per call: "
+        f"shortlist {t_a:.4f} ms (plain {p_a:.4f}), pair {t_b:.4f} ms "
+        f"(plain {p_b:.4f}), a round's two {t_a + t_b:.4f} ms; the "
+        f"parent's chain {_ms(t_parent)}; bound {tb_a:.6f} + {tb_b:.6f} ms "
+        f"(bytes); library yardstick of the shortlist alone: torch.topk of "
+        f"the hot ranks {lib:.4f} ms")
+    return dict(max_abs_err=0.0, ms=t_a + t_b, plain_ms=p_a + p_b,
+                bound_ms=tb_a + tb_b, bound_by=by, library_ms=lib,
+                shortlist_ms=t_a, pair_ms=t_b, parent_ms=t_parent,
+                shape=f"B={nb} H=C={h}, a round's two launches")
 
 
 def check_dest_feasibility(spec: dict, widths, seed: int) -> dict:
@@ -2766,6 +3025,140 @@ def k9_k11_counts(fn_solve):
         return fn_solve(), counts
 
 
+def sweep_swap_torch_ops(fn_solve):
+    """(fn_solve(), counts): each sweep round from the return of its
+    bounds() to the call of its acceptance callback, and each swap round
+    from its last pick (a K1 or K9 launch) to its return outside its
+    acceptance callback: the rounds, the torch ops there, and the K6 and
+    K10 launches there."""
+    from cruise_control_tpu_torch import cuda_kernels
+    from cruise_control_tpu_torch.analyzer import kernels as K
+    from cruise_control_tpu_torch.analyzer import leadership as L
+    from cruise_control_tpu_torch.analyzer.goals import base as GB
+    counts = {"sweep rounds": 0, "K6 launches": 0,
+              "torch ops between bounds and the acceptance": 0,
+              "swap rounds": 0, "K10 shortlist launches": 0,
+              "K10 pair launches": 0, "torch ops after the picks": 0,
+              "acceptance ops": 0}
+    st = {"armed": False, "pending": 0, "k6": 0, "swap": 0,
+          "accepting": False}
+
+    def on_op(name):
+        if st["armed"]:
+            st["pending"] += 1
+        if st["swap"]:
+            if st["accepting"]:
+                counts["acceptance ops"] += 1
+            else:
+                st["pending"] += 1
+
+    def sweep(fn, name):
+        def call(*a, **kw):
+            bounds = kw["bounds"]
+
+            def wrapped_bounds(*ba, **bkw):
+                st["armed"] = False
+                out = bounds(*ba, **bkw)
+                st.update(armed=True, pending=0,
+                          k6=cuda_kernels.LAUNCHES["sweep_pick"])
+                return out
+            kw["bounds"] = wrapped_bounds
+            try:
+                with torch_op_counter(on_op):
+                    return fn(*a, **kw)
+            finally:
+                st["armed"] = False
+        return call
+
+    def compose(fn, name):
+        def call(*a, **kw):
+            accept = fn(*a, **kw)
+
+            def wrapped(*aa, **akw):
+                if st["armed"]:
+                    counts["sweep rounds"] += 1
+                    counts["torch ops between bounds and the acceptance"] += \
+                        st["pending"]
+                    counts["K6 launches"] += (
+                        cuda_kernels.LAUNCHES["sweep_pick"] - st["k6"])
+                    st["armed"] = False
+                return accept(*aa, **akw)
+            return wrapped
+        return call
+
+    def swap(fn, name):
+        def call(*a, **kw):
+            a = list(a)
+            accept = a[7] if len(a) > 7 else kw["accept_pair_fn"]
+
+            def wrapped(*aa, **akw):
+                st["accepting"] = True
+                try:
+                    return accept(*aa, **akw)
+                finally:
+                    st["accepting"] = False
+            if len(a) > 7:
+                a[7] = wrapped
+            else:
+                kw["accept_pair_fn"] = wrapped
+            counts["swap rounds"] += 1
+            st.update(swap=1, pending=0)
+            try:
+                with torch_op_counter(on_op):
+                    return fn(*a, **kw)
+            finally:
+                counts["torch ops after the picks"] += st["pending"]
+                st.update(swap=0, pending=0)
+        return call
+
+    def pick(fn, name):
+        def call(*a, **kw):
+            try:
+                return fn(*a, **kw)
+            finally:
+                if st["swap"]:
+                    st["pending"] = 0
+        return call
+
+    def k10(key):
+        def wrap(fn, name):
+            def call(*a, **kw):
+                if st["swap"]:
+                    counts[key] += 1
+                return fn(*a, **kw)
+            return call
+        return wrap
+    with _wrapped([(L, "global_leadership_sweep")], sweep), \
+            _wrapped([(GB, "compose_leadership_acceptance")], compose), \
+            _wrapped([(K, "swap_round")], swap), \
+            _wrapped([(cuda_kernels, "row_topk"),
+                      (cuda_kernels, "table_topk"),
+                      (cuda_kernels, "segment_argmax")], pick), \
+            _wrapped([(cuda_kernels, "swap_shortlist")],
+                     k10("K10 shortlist launches")), \
+            _wrapped([(cuda_kernels, "swap_pair")],
+                     k10("K10 pair launches")):
+        return fn_solve(), counts
+
+
+def check_sweep_swap_counts(counts: dict, label: str) -> None:
+    """Raise unless every sweep round's window was one K6 launch with no
+    torch op between bounds() and the acceptance callback, and every swap
+    round after its picks launched K10's two entries and no torch op
+    outside its acceptance callback."""
+    bad = (counts["torch ops between bounds and the acceptance"]
+           or counts["K6 launches"] != counts["sweep rounds"]
+           or counts["torch ops after the picks"]
+           or counts["K10 shortlist launches"] != counts["swap rounds"]
+           or counts["K10 pair launches"] != counts["swap rounds"])
+    log(f"    sweep and swap rounds ({label}, the warm-up solve): {counts}")
+    if bad:
+        raise AssertionError(f"{label}: a sweep round's window is not one "
+                             f"K6 launch, or a swap round after its picks "
+                             f"not K10's two launches and its acceptance "
+                             f"ops: {counts}")
+
+
 def check_k9_k11_counts(counts: dict) -> None:
     """Raise unless every resolve_dest_conflicts call was one K9 launch
     and every cand_has_dest / feasible_dest_exists call one K11 launch,
@@ -3125,8 +3518,11 @@ def _timed_path(solve: dict, kernels, label: str, warm: bool = True):
     it."""
     from cruise_control_tpu_torch import cuda_kernels
     if warm:
-        _, _, _, warm_s = _solve(solve, "cuda")
-        log(f"  {label}: warm-up solve {warm_s:.3f} s")
+        (_, _, _, warm_s), counts = sweep_swap_torch_ops(
+            lambda: _solve(solve, "cuda"))
+        log(f"  {label}: warm-up solve {warm_s:.3f} s (its sweep and swap "
+            "rounds' torch ops counted)")
+        check_sweep_swap_counts(counts, label)
     cuda_kernels.reset_launches()
     with collector_passes() as gc_passes:
         (state, topo, result, secs), sweeps = _sweep_rounds(
@@ -3358,11 +3754,12 @@ def profile_slice(solve: dict, device: str = "cuda",
                (K, "leadership_round"), (K, "leader_assign_pass"),
                (K, "commit_leadership_cached"), (K, "rotation_salt"),
                (C, "commit_leadership"), (L, "run_sweep_threaded"),
-               (L, "sweep_pick"), (L, "update_cache_for_leadership"),
+               (L, "sweep_window"), (L, "update_cache_for_leadership"),
                (O, "refresh_float_aggregates"), (O, "make_round_cache"),
                (O, "compute_stats"), (O, "compute_stats_fresh_loads"),
                (K, "forced_move_round"), (K, "forced_select"),
-               (K, "per_segment_argmax"), (K, "swap_pair"),
+               (K, "per_segment_argmax"), (K, "swap_shortlist"),
+               (K, "swap_pair"),
                (K, "assign_pref"), (K, "dest_has"),
                (O, "heal_offline_replicas"), (O, "diff_proposals_host"),
                (KA.KafkaAssignerEvenRackAwareGoal, "optimize_cached"),
@@ -3489,7 +3886,8 @@ def main(argv=None) -> int:
                     help="also profile one slice solve (torch.profiler)")
     ap.add_argument("--parent", default=None,
                     help="a checkout of the parent tree: phase 2 times its "
-                         "K1 and K4 chains as yardsticks")
+                         "K6 and K10 chains as yardsticks and its K7 beside "
+                         "this tree's")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",") if p}
 
@@ -3533,7 +3931,7 @@ def main(argv=None) -> int:
         pk = parent_kernels(args.parent)
         log("[2] kernels against their plain versions on the card, at the "
             "slice's shapes")
-        results["row_topk"] = check_row_topk(200, 1152, seed=11, pk=pk)
+        results["row_topk"] = check_row_topk(200, 1152, seed=11)
         results["assign_pass"] = check_assign_pass(2048, (256, 200), seed=12)
         log("[2] K2 through a chain of multi-commit passes (K2, K8 with the "
             "commit), each pass against its plain version")
@@ -3543,19 +3941,31 @@ def main(argv=None) -> int:
             SLICE_SPEC, seed=13, shapes=((2048, 64, True),
                                          (4096, 64, False)))
         results["leader_assign_pass"] = check_leader_assign(
-            2048, 200, 60_000, seed=14, pk=pk)
+            2048, 200, 60_000, seed=14)
         results["commit_leadership"] = check_commit_leadership(SLICE_SPEC,
                                                                seed=15)
-        results["sweep_pick"] = check_sweep_pick(SLICE_SPEC, seed=16)
-        results["forced_select"] = check_forced_select(SLICE_SPEC, seed=17)
+        log("[2] K6, one sweep round's window, at the slice's P = 20,000 "
+            "and at P = 3,000 (no compaction)")
+        results["sweep_pick"] = check_sweep_window(SLICE_SPEC, seed=16,
+                                                   pk=pk)
+        results["_sweep_pick_whole"] = check_sweep_window(
+            dict(SLICE_SPEC, num_partitions=3000), seed=38, pk=pk)
+        results["forced_select"] = check_forced_select(SLICE_SPEC, seed=17,
+                                                       pk=pk)
         log("[2] K7 with k = R on a small cluster (24 brokers)")
         results["_forced_select_small"] = check_forced_select(
-            dict(SLICE_SPEC, num_brokers=24, num_partitions=1000), seed=40)
+            dict(SLICE_SPEC, num_brokers=24, num_partitions=1000), seed=40,
+            pk=pk)
         results["rank_accept"] = check_rank_accept(seed=30)
         results["_rank_accept_breakdown"] = rank_accept_breakdown(seed=36)
         results["_segment_argmax_dense"] = check_segment_argmax(seed=31)
         results["segment_argmax"] = check_segment_keep(seed=37)
-        results["swap_pair"] = check_swap_pair(SLICE_SPEC, seed=32)
+        log("[2] K10, a swap round's shortlists and pair plane, at 200 "
+            "brokers and at 100 (a shortlist of every broker)")
+        results["swap_pair"] = check_swap(SLICE_SPEC, seed=32, pk=pk)
+        results["_swap_pair_small"] = check_swap(
+            dict(SLICE_SPEC, num_brokers=100, num_partitions=10_000),
+            seed=39, pk=pk)
         results["dest_feasibility"] = check_dest_feasibility(
             SLICE_SPEC, ((2048, 200), (2048, 131)), seed=33)
         log("[2] K2 at the forced-move round's C = 4096, against the "
@@ -3564,8 +3974,7 @@ def main(argv=None) -> int:
                                                          seed=19)
         log("[2] the same at the 2,600-broker shapes of phase 4 (K2 at the "
             "escalated width K = B, K4 also at C = R)")
-        results["_row_topk_north"] = check_row_topk(2600, 1024, seed=21,
-                                                    pk=pk)
+        results["_row_topk_north"] = check_row_topk(2600, 1024, seed=21)
         check_assign_pass(2048, (2600,), seed=22)
         results["_assign_chain_north"] = check_assign_chain(2048, 256, 2600,
                                                             seed=29)
@@ -3574,15 +3983,17 @@ def main(argv=None) -> int:
                                          (10_400, 2600, True),
                                          (4096, 64, False)))
         results["_leader_assign_north"] = check_leader_assign(
-            2048, 2600, 600_000, seed=24, pk=pk)
+            2048, 2600, 600_000, seed=24)
         results["_leader_assign_full"] = check_leader_assign(
-            600_000, 2600, 600_000, seed=25, pk=pk)
+            600_000, 2600, 600_000, seed=25)
         results["_commit_leadership_north"] = check_commit_leadership(
             NORTH_SPEC, seed=26)
-        check_sweep_pick(NORTH_SPEC, seed=27)
+        results["_sweep_pick_north"] = check_sweep_window(NORTH_SPEC,
+                                                          seed=27, pk=pk)
         results["_forced_select_north"] = check_forced_select(NORTH_SPEC,
-                                                              seed=28)
-        results["_swap_pair_north"] = check_swap_pair(NORTH_SPEC, seed=34)
+                                                              seed=28, pk=pk)
+        results["_swap_pair_north"] = check_swap(NORTH_SPEC, seed=34,
+                                                 pk=pk)
         results["_dest_feasibility_north"] = check_dest_feasibility(
             NORTH_SPEC, ((2048, 256), (4096, 2600)), seed=35)
         log("[2] the ordered sums K12-K14, at the slice's and the "
@@ -3697,6 +4108,11 @@ def main(argv=None) -> int:
         "assign_pass_chain": results.get("_assign_chain"),
         "assign_pass_chain_north": results.get("_assign_chain_north"),
         "swap_pair_north": results.get("_swap_pair_north"),
+        "swap_pair_small": results.get("_swap_pair_small"),
+        "sweep_pick": results.get("sweep_pick"),
+        "sweep_pick_north": results.get("_sweep_pick_north"),
+        "sweep_pick_whole": results.get("_sweep_pick_whole"),
+        "swap_pair": results.get("swap_pair"),
         "dest_feasibility_north": results.get("_dest_feasibility_north"),
         "dest_feasibility_guard": results.get("dest_feasibility", {}).get(
             "guard"),

@@ -24,7 +24,9 @@ functions are hand-written CUDA kernels on the card:
 * K9 `segment_argmax` (csrc/segment_argmax.cu) behind
   `per_segment_argmax`, and its keep entry behind
   `resolve_dest_conflicts`;
-* K10 `swap_pair` (csrc/swap_pair.cu), the swap round's pair plane;
+* K10 `swap_pair` (csrc/swap_pair.cu), the swap round after its picks:
+  the shortlists (`swap_shortlist`), then after the acceptance plane the
+  pair plane, its conflict resolutions and the scatter (`swap_pair`);
 * K11 `dest_feasibility` (csrc/dest_feasibility.cu), an assignment's
   whole preference plane (`assign_pref`: `_dest_feasibility`'s terms
   with the fit test and the preferences) and the guard of `cand_has_dest`
@@ -36,10 +38,10 @@ Their plain versions (`row_topk_plain`, `table_topk_plain`,
 `assign_pass_plain`, `leader_assign_pass_plain`,
 `forced_select_plain`, `rank_accept_plain`, `rank_accept_commit_plain`,
 `per_segment_argmax_plain`, `resolve_dest_conflicts_plain`,
-`swap_pair_plain`, `dest_struct_plain`, `dest_pref_plain`,
-`dest_has_plain`, `prefix_gate_plain`) live here; a CPU tensor runs
-them.  The reference's `lax.cond` branches are host `if`s on a 0-d
-tensor (one sync each).
+`swap_shortlist_plain`, `swap_pair_plain`, `dest_struct_plain`,
+`dest_pref_plain`, `dest_has_plain`, `prefix_gate_plain`) live here; a
+CPU tensor runs them.  The reference's `lax.cond` branches are host
+`if`s on a 0-d tensor (one sync each).
 """
 from __future__ import annotations
 
@@ -468,8 +470,8 @@ def top_headroom(dest_ok, dest_headroom, rf: int):
     too few brokers are eligible."""
     k = min(rf + 2, dest_ok.shape[0])
     inf = torch.full((), float("inf"), device=dest_headroom.device)
-    top_h, top_b = ops.topk_stable(torch.where(dest_ok, dest_headroom, -inf),
-                                   k)
+    top_h, top_b = ops.topk_total(torch.where(dest_ok, dest_headroom, -inf),
+                                  k)
     return top_b, top_h
 
 
@@ -709,7 +711,7 @@ def compact_candidates(width: int, gain, cand_has, *arrays):
     if c <= width:
         return (None, gain, cand_has) + tuple(arrays)
     inf = torch.full((), float("inf"), device=gain.device)
-    _, sel = ops.topk_stable(torch.where(cand_has, gain, -inf), width)
+    _, sel = ops.topk_total(torch.where(cand_has, gain, -inf), width)
     return ((sel, gain[sel], cand_has[sel])
             + tuple(a[sel] for a in arrays))
 
@@ -718,7 +720,7 @@ def _dest_shortlist(dest_ok, dest_pref) -> torch.Tensor:
     """int64[K] — the top-K eligible destinations by preference."""
     k = min(DEST_SHORTLIST, dest_ok.shape[0])
     inf = torch.full((), float("inf"), device=dest_pref.device)
-    _, idx = ops.topk_stable(torch.where(dest_ok, dest_pref, -inf), k)
+    _, idx = ops.topk_total(torch.where(dest_ok, dest_pref, -inf), k)
     return idx
 
 
@@ -772,12 +774,12 @@ def salted_jitter(n: int, salt, device=None) -> torch.Tensor:
     if isinstance(salt, torch.Tensor):
         device = salt.device if device is None else device
         salt_u = salt.to(device=device, dtype=torch.int64) & _U32
+        mix = _mul_u32((salt_u + 1) & _U32, 97919)
     else:
-        salt_u = torch.tensor(int(salt) & _U32, dtype=torch.int64,
-                              device=device)
+        # a host salt mixes on the host: no host-to-device copy
+        mix = ((((int(salt) & _U32) + 1) & _U32) * 97919) & _U32
     i = torch.arange(n, dtype=torch.int64, device=device)
-    x = (_mul_u32(i, 2654435761)
-         + _mul_u32((salt_u + 1) & _U32, 97919)) & _U32
+    x = (_mul_u32(i, 2654435761) + mix) & _U32
     x = x ^ (x >> 16)
     x = _mul_u32(x, 2246822519)
     x = x ^ (x >> 13)
@@ -950,7 +952,9 @@ def forced_select_plain(forced, w, replica_partition, replica_broker,
     forced-move round.  forced_ok = forced & feasible_dest_exists (the
     guard against the top headroom brokers `top_b` / `top_h`), then
     jax.lax.top_k of `forced_ok ? w + 1 : -inf` over all R replicas
-    (score descending, ties and the -inf tail in index order).  Returns
+    (score descending, ties and the -inf tail in index order; the
+    tie-blind sort is that order here: w + 1.0 is never -0.0, so no two
+    scores are zeros of both signs).  Returns
     (cand_r i32[k], cand_has bool[k], forced_ok bool[R]); k == 0 computes
     only the guard (the first two are None)."""
     inf = torch.full((), float("inf"), device=w.device)
@@ -1070,17 +1074,52 @@ def forced_move_round(state: ClusterState, forced, w, dest_ok,
 # Swap round
 # ---------------------------------------------------------------------------
 
-def swap_pair_plain(h_ids, c_ids, out_r, in_r, out_has, in_has, hot_b,
-                    cold_b, w, dev_u, util, lower, upper, accept,
-                    replica_partition, partition_replicas, replica_broker):
-    """Plain version of K10: the swap round's [H, C] pair plane.  Hot row
-    h sheds broker h_ids[h]'s replica, cold column c takes broker
-    c_ids[c]'s; a pair is feasible when both picks exist, the exchange
-    moves load hot -> cold and lowers the squared deviation, neither
-    replica meets a sibling, the acceptance plane allows it and it stays
-    inside the band (`lower` / `upper`, when given).  Returns (sel
-    f32[H], the best improvement or NEG; slot int64[H], its first cold
-    column)."""
+def swap_shortlist_plain(hot_b, cold_b, out_r, in_r, out_has, in_has, dev_u,
+                         util, target_util, shortlist: int):
+    """Plain version of K10's shortlist entry: each side's worst
+    `shortlist` brokers, ranked by dev = dev_u (or util - target_util
+    when None): hot ranks dev, cold ranks -dev, brokers off a side (or
+    without a pick) at -inf, in jax.lax.top_k's order (-0.0 below +0.0,
+    ties to the lower broker id).  Returns (h_ids i64[H], c_ids i64[H],
+    out_h i64[H] = max(out_r, 0)[h_ids], in_c i64[H] = max(in_r,
+    0)[c_ids], dev f32[B])."""
+    if dev_u is None:
+        dev_u = util - target_util
+    inf = torch.full((), float("inf"), device=dev_u.device)
+    hot_rank = torch.where(hot_b & out_has, dev_u, -inf)
+    cold_rank = torch.where(cold_b & in_has, -dev_u, -inf)
+    _, h_ids = ops.topk_total(hot_rank, shortlist)
+    _, c_ids = ops.topk_total(cold_rank, shortlist)
+    out_h = torch.clamp_min(out_r, 0).long()[h_ids]
+    in_c = torch.clamp_min(in_r, 0).long()[c_ids]
+    return h_ids, c_ids, out_h, in_c, dev_u
+
+
+def swap_shortlist(hot_b, cold_b, out_r, in_r, out_has, in_has, dev_u, util,
+                   target_util, shortlist: int):
+    """K10 dispatch, shortlist entry: the plain version on the CPU, one
+    launch of csrc/swap_pair.cu cc_swap_shortlist on the card."""
+    if not hot_b.is_cuda:
+        return swap_shortlist_plain(hot_b, cold_b, out_r, in_r, out_has,
+                                    in_has, dev_u, util, target_util,
+                                    shortlist)
+    from cruise_control_tpu_torch import cuda_kernels
+    return cuda_kernels.swap_shortlist(
+        hot_b.contiguous(), cold_b.contiguous(), out_r.contiguous(),
+        in_r.contiguous(), out_has.contiguous(), in_has.contiguous(), dev_u,
+        util, target_util, shortlist)
+
+
+def swap_plane_plain(h_ids, c_ids, out_r, in_r, out_has, in_has, hot_b,
+                     cold_b, w, dev_u, util, lower, upper, accept,
+                     replica_partition, partition_replicas, replica_broker):
+    """The swap round's [H, C] pair plane.  Hot row h sheds broker
+    h_ids[h]'s replica, cold column c takes broker c_ids[c]'s; a pair is
+    feasible when both picks exist, the exchange moves load hot -> cold
+    and lowers the squared deviation, neither replica meets a sibling, the
+    acceptance plane allows it and it stays inside the band (`lower` /
+    `upper`, when given).  Returns (sel f32[H], the best improvement or
+    NEG; slot int64[H], its first cold column)."""
     neg = torch.full((), NEG, device=w.device)
     h_ids = h_ids.long()
     c_ids = c_ids.long()
@@ -1118,43 +1157,72 @@ def swap_pair_plain(h_ids, c_ids, out_r, in_r, out_has, in_has, hot_b,
     return torch.max(score, 1)
 
 
+def swap_pair_plain(h_ids, c_ids, out_r, in_r, out_has, in_has, hot_b,
+                    cold_b, w, dev_u, util, lower, upper, accept,
+                    replica_partition, partition_replicas, replica_broker):
+    """Plain version of K10's pair entry: the pair plane
+    (swap_plane_plain), each hot row's best cold column, then at most one
+    swap per cold broker, per outgoing replica's partition and per
+    incoming replica's partition (resolve_dest_conflicts_plain in that
+    order: the best improvement, ties to the lowest row), scattered onto
+    the broker axis.  Returns (cold i32[B], valid bool[B]), zeros off the
+    shortlist."""
+    num_b = hot_b.shape[0]
+    sel_h, cold_slot = swap_plane_plain(
+        h_ids, c_ids, out_r, in_r, out_has, in_has, hot_b, cold_b, w, dev_u,
+        util, lower, upper, accept, replica_partition, partition_replicas,
+        replica_broker)
+    h_ids = h_ids.long()
+    valid_h = sel_h > NEG / 2
+    cold_h = c_ids.long()[cold_slot.long()]
+    valid_h = resolve_dest_conflicts_plain(cold_h, sel_h, valid_h, num_b)
+    num_p = partition_replicas.shape[0]
+    p_out = replica_partition[torch.clamp_min(out_r, 0).long()[h_ids]]
+    p_in = replica_partition[torch.clamp_min(in_r[cold_h], 0).long()]
+    valid_h = resolve_dest_conflicts_plain(p_out, sel_h, valid_h, num_p)
+    valid_h = resolve_dest_conflicts_plain(p_in, sel_h, valid_h, num_p)
+    cold = torch.zeros((num_b,), dtype=torch.int32, device=w.device)
+    cold[h_ids] = cold_h.to(torch.int32)
+    valid = torch.zeros((num_b,), dtype=torch.bool, device=w.device)
+    valid[h_ids] = valid_h
+    return cold, valid
+
+
 def swap_pair(h_ids, c_ids, out_r, in_r, out_has, in_has, hot_b, cold_b, w,
               dev_u, util, lower, upper, accept, replica_partition,
               partition_replicas, replica_broker):
-    """K10 dispatch: the plain version on the CPU, csrc/swap_pair.cu on
-    the card.  (sel f32[H], slot [H])."""
+    """K10 dispatch, pair entry: the plain version on the CPU, one launch
+    of csrc/swap_pair.cu cc_swap_pair on the card (vectors and the
+    acceptance plane read through their strides).  (cold i32[B], valid
+    bool[B])."""
     if not w.is_cuda:
         return swap_pair_plain(h_ids, c_ids, out_r, in_r, out_has, in_has,
                                hot_b, cold_b, w, dev_u, util, lower, upper,
                                accept, replica_partition, partition_replicas,
                                replica_broker)
     from cruise_control_tpu_torch import cuda_kernels
-
-    def f32(x):
-        return None if x is None else x.to(torch.float32).contiguous()
     return cuda_kernels.swap_pair(
-        h_ids.to(torch.int32).contiguous(), c_ids.to(torch.int32).contiguous(),
-        out_r.to(torch.int32).contiguous(), in_r.to(torch.int32).contiguous(),
+        h_ids, c_ids, out_r.contiguous(), in_r.contiguous(),
         out_has.contiguous(), in_has.contiguous(), hot_b.contiguous(),
-        cold_b.contiguous(), f32(w), f32(dev_u), f32(util), f32(lower),
-        f32(upper), accept.contiguous(), replica_partition,
-        partition_replicas, replica_broker)
+        cold_b.contiguous(), w, dev_u, util, lower, upper, accept,
+        replica_partition, partition_replicas, replica_broker)
 
 
 def swap_round(state: ClusterState, w, movable, hot_b, cold_b, util,
                target_util, accept_pair_fn, partition_replicas, cache=None,
                w_rows=None, lower=None, upper=None, dev_u=None):
     """One round of batched replica-swap search: each hot broker
-    nominates its largest movable replica, each cold broker its smallest;
-    the worst SWAP_SHORTLIST brokers per side are paired on an [H, C]
-    plane (K10) scored by squared-deviation improvement.  `dev_u`, when
-    given, is the caller's own `util - target_util`.  Returns (out_r
-    i32[B], in_r i32[B], cold i32[B], valid bool[B])."""
+    nominates its largest movable replica, each cold broker its smallest
+    (K1 or K9); the worst SWAP_SHORTLIST brokers per side (K10's
+    shortlist entry) are paired on an [H, C] plane scored by
+    squared-deviation improvement under the acceptance stack, and the
+    best pairs that share no broker or partition are kept (K10's pair
+    entry).  `dev_u`, when given, is the caller's own `util -
+    target_util`.  Returns (out_r i32[B], in_r i32[B], cold i32[B], valid
+    bool[B])."""
     num_b = state.num_brokers
     rb = state.replica_broker.long()
-    dev = w.device
-    neg = torch.full((), NEG, device=dev)
-    inf = torch.full((), float("inf"), device=dev)
+    neg = torch.full((), NEG, device=w.device)
     shortlist = min(SWAP_SHORTLIST, num_b)
     if _has_table(cache) and w_rows is not None:
         room = cache.table_fill < cache.broker_table.shape[1]
@@ -1176,35 +1244,14 @@ def swap_round(state: ClusterState, w, movable, hot_b, cold_b, util,
                                                movable & hot_b[rb])
         in_r, _, in_has = per_segment_argmax(-w, rb, num_b,
                                              movable & cold_b[rb])
-    out_safe = torch.clamp_min(out_r, 0).long()
-    in_safe = torch.clamp_min(in_r, 0).long()
-
-    if dev_u is None:
-        dev_u = util - target_util
-    hot_rank = torch.where(hot_b & out_has, dev_u, -inf)
-    cold_rank = torch.where(cold_b & in_has, -dev_u, -inf)
-    _, h_ids = ops.topk_stable(hot_rank, shortlist)
-    _, c_ids = ops.topk_stable(cold_rank, shortlist)
-    out_h = out_safe[h_ids]
-    in_c = in_safe[c_ids]
+    h_ids, c_ids, out_h, in_c, dev_u = swap_shortlist(
+        hot_b, cold_b, out_r, in_r, out_has, in_has, dev_u, util,
+        target_util, shortlist)
     accept = accept_pair_fn(out_h[:, None], in_c[None, :])
-    sel_h, cold_slot = swap_pair(
+    cold, valid = swap_pair(
         h_ids, c_ids, out_r, in_r, out_has, in_has, hot_b, cold_b, w, dev_u,
         util, lower, upper, accept, state.replica_partition,
         partition_replicas, state.replica_broker)
-    valid_h = sel_h > NEG / 2
-    cold_h = c_ids[cold_slot.long()]
-    valid_h = resolve_dest_conflicts(cold_h, sel_h, valid_h, num_b)
-    p_out = state.replica_partition[out_h]
-    p_in = state.replica_partition[torch.clamp_min(in_r[cold_h], 0).long()]
-    valid_h = resolve_dest_conflicts(p_out, sel_h, valid_h,
-                                     state.num_partitions)
-    valid_h = resolve_dest_conflicts(p_in, sel_h, valid_h,
-                                     state.num_partitions)
-    cold = torch.zeros((num_b,), dtype=torch.int32, device=dev)
-    cold[h_ids] = cold_h.to(torch.int32)
-    valid = torch.zeros((num_b,), dtype=torch.bool, device=dev)
-    valid[h_ids] = valid_h
     return out_r, in_r, cold, valid
 
 

@@ -5,12 +5,15 @@ A partition's leadership can only move between its own replicas, so the
 whole cluster's transfer candidates form a [P, RF] plane.  Every round,
 each partition whose leader sits on a broker above `shed_to` proposes its
 best sibling broker; a window of SWEEP_COMPACT proposals (salted rotation
-across rounds) is scored on its [W, RF] sibling plane — kernel K6
-`sweep_pick` (csrc/sweep_pick.cu) on the card, `sweep_pick_plain` on the
-CPU — then gain-ranked per source and per destination broker and
-accepted as prefixes under cumulative headrooms (kernels.rank_accept),
-and committed in one batch (kernel K5 through
-context.update_cache_for_leadership).
+across rounds) is scored on its [W, RF] sibling plane, then gain-ranked
+per source and per destination broker and accepted as prefixes under
+cumulative headrooms (kernels.rank_accept), and committed in one batch
+(kernel K5 through context.update_cache_for_leadership).  A round's
+window -- the source terms, the window's selection score and top-k, the
+sibling plane and its pick, with the fold of the round before it into
+the carried leader index and failure marks -- is one launch of kernel K6
+`sweep_pick` (csrc/sweep_pick.cu) on the card and `sweep_window_plain`
+on the CPU.
 
 Mean mode (`improve_gate=True`) pulls both ends toward the cluster
 average with a strict-improvement gate; limit mode sheds sources to the
@@ -21,7 +24,7 @@ same condition.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence
+from typing import Callable, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -45,7 +48,7 @@ VALUE_WEIGHTED_SELECT_JITTER = 0.35
 def sweep_pick_plain(sel, has_in, cur_safe, rows, jit_plane, replica_broker,
                      value_r, static_ok, alive, leader_ok, W, fill_to,
                      hard_cap, tb_norm, salt, improve_gate: bool):
-    """Plain version of K6: the sweep's window sibling plane.  For window
+    """The pick of K6's plain version: the window's sibling plane.  For window
     member w (partition sel[w], current leader cur_safe[w]) and each
     sibling option j: feasibility (a live sibling on an alive,
     leader-eligible broker whose load plus the arriving value stays
@@ -81,21 +84,20 @@ def sweep_pick_plain(sel, has_in, cur_safe, rows, jit_plane, replica_broker,
     return dst_r.to(torch.int32), has_in & torch.any(ok, 1)
 
 
-def sweep_pick(sel, has_in, cur_safe, rows, jit_plane, replica_broker,
-               value_r, static_ok, alive, leader_ok, W, fill_to, hard_cap,
-               tb_norm, salt, improve_gate: bool):
-    """K6 dispatch: the plain version on the CPU, csrc/sweep_pick.cu on
-    the card.  `salt` is a float32 value (a float the host holds)."""
-    if not rows.is_cuda:
-        return sweep_pick_plain(sel, has_in, cur_safe, rows, jit_plane,
-                                replica_broker, value_r, static_ok, alive,
-                                leader_ok, W, fill_to, hard_cap, tb_norm,
-                                salt, improve_gate)
-    from cruise_control_tpu_torch import cuda_kernels
-    return cuda_kernels.sweep_pick(sel, has_in, cur_safe, rows, jit_plane,
-                                   replica_broker, value_r, static_ok, alive,
-                                   leader_ok, W, fill_to, hard_cap, tb_norm,
-                                   salt, improve_gate)
+class SweepWindow(NamedTuple):
+    """One sweep round's window: sel i64[Wn] (its partitions), has bool
+    (a feasible sibling was picked), live_w bool (has before the pick),
+    cur_safe i64 (the current leader replica), src_b i32 (its broker),
+    value_leave f32 (the leader's value, also the commit ranking's gain),
+    dst_r i64 (the promoted replica), dst_b i32 (its broker)."""
+    sel: torch.Tensor
+    has: torch.Tensor
+    live_w: torch.Tensor
+    cur_safe: torch.Tensor
+    src_b: torch.Tensor
+    value_leave: torch.Tensor
+    dst_r: torch.Tensor
+    dst_b: torch.Tensor
 
 
 def sweep_window_gain(gain0, live, failed, salt, select_jitter: float):
@@ -115,6 +117,83 @@ def sweep_window_gain(gain0, live, failed, salt, select_jitter: float):
     salt_i = int(np.float32(salt) * np.float32(100.0))
     jitter = kernels.salted_jitter(gain0.shape[0], salt_i, device=dev)
     return ops.fma_f32(amp, jitter, gain0) - failed * (spread0 + amp)
+
+
+def fold_window(cur, failed, replica_partition, prev) -> None:
+    """The fold of a kept round into the carried leader index and the
+    window-failure marks, in place: committed partitions point at the
+    promoted replica; window members clear their mark where they
+    committed and set it where they were live but did not."""
+    win, valid = prev
+    num_p = cur.shape[0]
+    p_w = replica_partition[win.cur_safe].long()
+    cur.copy_(ops.scatter_set(cur, torch.where(
+        valid, p_w, torch.full_like(p_w, num_p)), win.dst_r.to(cur.dtype)))
+    one = torch.ones((), device=failed.device)
+    failed[win.sel] = torch.where(
+        valid, torch.zeros((), device=failed.device),
+        torch.where(win.live_w & ~valid, one, failed[win.sel]))
+
+
+def sweep_window_plain(cur, failed, prev, rows, jit_plane, replica_broker,
+                       replica_partition, value_r, static_ok, alive,
+                       leader_ok, W, shed_to, fill_to, hard_cap, tb, salt,
+                       improve_gate: bool,
+                       select_jitter: float) -> SweepWindow:
+    """Plain version of K6: one sweep round's window.  Folds `prev` (the
+    previous round's SweepWindow and its acceptance `valid`, or None)
+    into `cur` and `failed` in place (fold_window); then the source terms
+    of every partition (its leader, broker, value and liveness), the
+    window's selection score (sweep_window_gain), its top SWEEP_COMPACT
+    partitions (kernels.compact_candidates: every partition when P is not
+    larger), the tiebreak's normalisation and the window's sibling pick
+    (sweep_pick_plain)."""
+    if prev is not None:
+        fold_window(cur, failed, replica_partition, prev)
+    num_p = rows.shape[0]
+    cur_safe0 = torch.clamp_min(cur, 0).long()
+    src_b0 = replica_broker[cur_safe0]
+    sb = src_b0.long()
+    value_leave0 = value_r[cur_safe0]
+    live = ((cur >= 0) & static_ok[cur_safe0] & (W[sb] > shed_to[sb])
+            & (value_leave0 > 0.0))
+    if improve_gate:
+        live &= value_leave0 < 2.0 * (W[sb] - shed_to[sb])
+    gain_sel = sweep_window_gain(value_leave0, live, failed, salt,
+                                 select_jitter)
+    (sel, _, has, cur_safe, src_b,
+     value_leave) = kernels.compact_candidates(
+        SWEEP_COMPACT, gain_sel, live, cur_safe0, src_b0, value_leave0)
+    if sel is None:
+        sel = torch.arange(num_p, dtype=torch.int64, device=cur.device)
+    tb_norm = None
+    if tb is not None:
+        tb_lo = torch.min(tb)
+        tb_norm = (tb - tb_lo) / torch.clamp_min(torch.max(tb) - tb_lo, 1e-9)
+    dst_r, has_pick = sweep_pick_plain(
+        sel, has, cur_safe, rows, jit_plane, replica_broker, value_r,
+        static_ok, alive, leader_ok, W, fill_to, hard_cap, tb_norm, salt,
+        improve_gate)
+    dst_r = dst_r.long()
+    return SweepWindow(sel, has_pick, has, cur_safe, src_b, value_leave,
+                       dst_r, replica_broker[dst_r])
+
+
+def sweep_window(cur, failed, prev, rows, jit_plane, replica_broker,
+                 replica_partition, value_r, static_ok, alive, leader_ok, W,
+                 shed_to, fill_to, hard_cap, tb, salt, improve_gate: bool,
+                 select_jitter: float) -> SweepWindow:
+    """K6 dispatch: the plain version on the CPU, one launch of
+    csrc/sweep_pick.cu on the card.  `salt` is a float32 value (a float
+    the host holds)."""
+    args = (cur, failed, prev, rows, jit_plane, replica_broker,
+            replica_partition, value_r, static_ok, alive, leader_ok, W,
+            shed_to, fill_to, hard_cap, tb, salt, improve_gate,
+            select_jitter)
+    if not rows.is_cuda:
+        return sweep_window_plain(*args)
+    from cruise_control_tpu_torch import cuda_kernels
+    return SweepWindow(*cuda_kernels.sweep_window(*args))
 
 
 def global_leadership_sweep(
@@ -146,91 +225,59 @@ def global_leadership_sweep(
     # a commit may update the cache in place unless a rejected round must
     # be reverted
     donate = regress_guard is None
+    value_r = value_r.contiguous()
+    # the carried leader index and window-failure marks, folded in place
+    # by each round's window
+    cur = S.partition_leader_replica(state)
+    failed = torch.zeros((num_p,), device=dev)
 
-    def round_body(st, cache, cur, failed, salt):
+    def round_body(st, cache, prev, salt):
         W = measure(cache)
-        shed_to, fill_to, hard_cap = bounds(st, W)
-        cur_safe0 = torch.clamp_min(cur, 0).long()
-        src_b0 = st.replica_broker[cur_safe0]
-        sb = src_b0.long()
-        value_leave0 = value_r[cur_safe0]
-        live = ((cur >= 0) & static_ok[cur_safe0] & (W[sb] > shed_to[sb])
-                & (value_leave0 > 0.0))
-        if improve_gate:
-            live &= value_leave0 < 2.0 * (W[sb] - shed_to[sb])
-        gain0 = value_leave0
-
-        gain_sel = sweep_window_gain(gain0, live, failed, salt,
-                                     select_jitter)
-        (sel, _, has, cur_safe, src_b, value_leave,
-         gain) = kernels.compact_candidates(
-            SWEEP_COMPACT, gain_sel, live, cur_safe0, src_b0, value_leave0,
-            gain0)
-        if sel is None:
-            sel = torch.arange(num_p, dtype=torch.int64, device=dev)
-        live_w = has
-
-        tb_norm = None
-        if dest_tiebreak is not None:
-            tb = dest_tiebreak(cache)
-            tb_lo = torch.min(tb)
-            tb_norm = (tb - tb_lo) / torch.clamp_min(torch.max(tb) - tb_lo,
-                                                     1e-9)
-        dst_r, has = sweep_pick(
-            sel.to(torch.int32).contiguous(), has.contiguous(),
-            cur_safe.to(torch.int32).contiguous(), rows, jit_plane,
-            st.replica_broker, value_r, static_ok, st.broker_alive,
-            ctx.broker_leader_ok, W.contiguous(), fill_to.contiguous(),
-            hard_cap.contiguous(), tb_norm, salt, improve_gate)
-        dst_rl = dst_r.long()
-        dst_b = st.replica_broker[dst_rl]
-
+        tb = dest_tiebreak(cache) if dest_tiebreak is not None else None
         # prior goals' boolean acceptance of the chosen transfer
         accept = compose_leadership_acceptance(prev_goals, st, ctx, cache)
-        has = has & accept(cur_safe, dst_rl)
+        shed_to, fill_to, hard_cap = bounds(st, W)
+        win = sweep_window(cur, failed, prev, rows, jit_plane,
+                           st.replica_broker, st.replica_partition, value_r,
+                           static_ok, st.broker_alive, ctx.broker_leader_ok,
+                           W, shed_to, fill_to, hard_cap, tb, salt,
+                           improve_gate, select_jitter)
+        cur_safe, dst_r = win.cur_safe, win.dst_r
+        has = win.has & accept(cur_safe, dst_r)
         lt_d, lt_s = leadership_commit_terms(prev_goals, st, ctx, cache)
         one_cap = torch.ones((num_b,), dtype=torch.int32, device=dev)
         src_cap = big_cap if lt_s is not None else one_cap
         dst_cap = big_cap if lt_d is not None else one_cap
 
         # source side: shed down to shed_to, prefix-gated
-        src_w = [value_leave] + [t_w[cur_safe] for t_w, _ in (lt_s or ())]
+        src_w = ([win.value_leave]
+                 + [t_w[cur_safe] for t_w, _ in (lt_s or ())])
         src_hr = [W - shed_to] + [hr for _, hr in (lt_s or ())]
         has = kernels.rank_accept(
-            torch.where(has, src_b, torch.full_like(src_b, num_b)), gain,
-            has, num_b, no_taken, src_cap, [zero_b] * len(src_w), src_w,
-            src_hr)
+            torch.where(has, win.src_b, torch.full_like(win.src_b, num_b)),
+            win.value_leave, has, num_b, no_taken, src_cap,
+            [zero_b] * len(src_w), src_w, src_hr)
         # destination side: fill toward fill_to (weights of the promoted
         # replica)
-        dst_w = ([value_r[dst_rl]]
-                 + [t_w[dst_rl] for t_w, _ in (lt_d or ())])
+        dst_w = ([value_r[dst_r]]
+                 + [t_w[dst_r] for t_w, _ in (lt_d or ())])
         dst_hr = [fill_to - W] + [hr for _, hr in (lt_d or ())]
         valid = kernels.rank_accept(
-            torch.where(has, dst_b, torch.full_like(dst_b, num_b)), gain,
-            has, num_b, no_taken, dst_cap, [zero_b] * len(dst_w), dst_w,
-            dst_hr)
+            torch.where(has, win.dst_b, torch.full_like(win.dst_b, num_b)),
+            win.value_leave, has, num_b, no_taken, dst_cap,
+            [zero_b] * len(dst_w), dst_w, dst_hr)
 
         new_st = S.apply_leadership_transfers(st, cur_safe, dst_r, valid)
         cache = update_cache_for_leadership(st, cache, cur_safe, dst_r,
                                             valid, donate=donate)
-        # carried leader index: committed partitions point at the promoted
-        # replica
-        p_w = st.replica_partition[cur_safe].long()
-        cur = ops.scatter_set(cur, torch.where(valid, p_w,
-                                               torch.full_like(p_w, num_p)),
-                              dst_r)
-        # window-failure marks: committed members clear, failed ones set
-        failed = failed.clone()
-        failed[sel] = torch.where(
-            valid, torch.zeros((), device=dev),
-            torch.where(live_w & ~valid, torch.ones((), device=dev),
-                        failed[sel]))
-        return new_st, cache, cur, failed, bool(torch.any(valid))
+        # the carried leader index and window-failure marks take this
+        # round in the next round's window (a rejected round ends the
+        # sweep, and the last round's fold is never read)
+        return new_st, cache, (win, valid), bool(torch.any(valid))
 
     cache = cache0 if cache0 is not None else make_round_cache(state, 0, ctx)
     st = state
-    cur = S.partition_leader_replica(state)
-    failed = torch.zeros((num_p,), device=dev)
+    prev = None
     vprev = int(regress_guard(state, cache)) if regress_guard else 0
     rounds = dry = last_commit = 0
     while dry < 3 and rounds < max_rounds:
@@ -239,19 +286,18 @@ def global_leadership_sweep(
         if not bool(torch.any(st.broker_alive & (W > shed_to))):
             break
         salt = np.float32(rounds) * np.float32(0.37)
-        st2, cache2, cur2, failed2, committed = round_body(
-            st, cache, cur, failed, salt)
+        st2, cache2, prev2, committed = round_body(st, cache, prev, salt)
         if regress_guard is not None:
             v_new = int(regress_guard(st2, cache2))
             ok = v_new <= vprev
             if ok:
-                st, cache, cur, failed = st2, cache2, cur2, failed2
+                st, cache, prev = st2, cache2, prev2
                 vprev = v_new
             committed = committed and ok
             # a rejected round forces the dry exit
             dry = 0 if committed else (dry + 1 if ok else 3)
         else:
-            st, cache, cur, failed = st2, cache2, cur2, failed2
+            st, cache, prev = st2, cache2, prev2
             dry = 0 if committed else dry + 1
         if committed:
             last_commit = rounds + 1

@@ -20,8 +20,8 @@
 //    so the plane is exact.
 //  * cand_has_dest's and feasible_dest_exists' guard (entry cc_dest_has),
 //    top_headroom included: the top nt = min(RF + 2, B) brokers by
-//    headroom (ineligible ones at -inf), ties to the lower broker id as
-//    the stable sort of ops.topk_stable orders them (-0.0 ties +0.0), then
+//    headroom (ineligible ones at -inf) in jax.lax.top_k's order: XLA's
+//    total order (-0.0 below +0.0), ties to the lower broker id, then
 //        best[c] = max over the top j of (top_b[j] is the broker of one of
 //                  r's partition's replicas ? -inf : top_h[j])
 //        out[c]  = best[c] >= w_c[c]
@@ -170,8 +170,8 @@ __global__ void __launch_bounds__(kThreads) dest_pref_kernel(RowArgs a) {
   }
 }
 
+// XLA's total order: -0.0 below +0.0
 __device__ __forceinline__ uint32_t order_key(float f) {
-  if (f == 0.f) f = 0.f;  // -0.0 ties +0.0
   const uint32_t u = __float_as_uint(f);
   return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }

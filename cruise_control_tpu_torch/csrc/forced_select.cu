@@ -19,35 +19,22 @@
 //
 // Design: one cooperative launch (cudaLaunchCooperativeKernel), two
 // blocks of 512 threads on each SM, its phases separated by grid-wide
-// barriers (cooperative_groups); no one-block stage.
+// barriers (cooperative_groups); no one-block stage.  The selection is
+// topk_select.cuh's (shared with K6):
 //   0. init: block 0 zeroes the histograms and counters.
 //   1. guard: a thread per replica computes forced_ok (the partition's
 //      sibling brokers as a bit mask over the <= 32 top brokers) and, for
-//      a guarded replica, a unique 64-bit key -- the score's
-//      order-preserving bits (w + 1 rounded on its own, __fadd_rn) in the
-//      high word, the complemented replica index in the low word, so keys
-//      descending are exactly top_k's order -- appended to a list
-//      (warp-aggregated atomics) and counted into the first digit's
-//      histogram (shared-memory counts folded into global ones).  Only
-//      guarded replicas enter the list: every other score is -inf.
-//   2-8. when more than k replicas are guarded, a radix select of the k-th
-//      largest key over the list, one 8-bit digit per phase: every block
-//      derives the previous digit from its global histogram by the same
-//      suffix scan in its own shared memory (so no block waits on
-//      another's choice), then counts the next digit of the keys that
-//      match the prefix.  It stops as soon as the keys matching the prefix
-//      are exactly the rank left: then every key >= the prefix is
-//      selected.  All blocks see the same counts, so they skip the same
-//      phases and barriers.
+//      a guarded replica, its key -- the score w + 1 (rounded on its own,
+//      __fadd_rn) over the replica index -- appended to the list and
+//      counted into the first digit's histogram.  Only guarded replicas
+//      enter the list: every other score is -inf.
+//   2-8. when more than k replicas are guarded, the radix select of the
+//      k-th largest key, one 8-bit digit per phase.
 //   9. compaction of the k selected keys (only after a select).
-//  10. the order: each of a few blocks loads the <= 4096 selected keys
-//      into shared memory and writes each key at its rank, the count of
-//      larger keys (exact: the keys are unique), eight threads to a key.
-//      When k or fewer replicas are guarded (the usual heal round: R =
-//      60,000 at 0.5 % forced guards about 300), the list is the selection
-//      and the tail is the k - n lowest-index unguarded replicas, all
-//      inside [0, k): the last block finds them by one block-wide prefix
-//      count.
+//  10. the order: each selected key written at its rank; when k or fewer
+//      replicas are guarded (the usual heal round: R = 60,000 at 0.5 %
+//      forced guards about 300), the list is the selection and the tail
+//      is the k - n lowest-index unguarded replicas.
 // Integer atomics only: the result is independent of thread order.
 //
 // Bound: bytes.  Per replica the flags, weight, partition id, the sibling
@@ -60,21 +47,21 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "topk_select.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
 
+using tks::u64;
+
 constexpr int kThreads = 512;
-constexpr int kMaxK = 4096;
-constexpr int kPasses = 8;
-constexpr int kGroup = 8;          // threads per key in the order phase
+constexpr int kMaxK = tks::kMaxK;
 constexpr int kPhaseInit = 0;
 constexpr int kPhaseGuard = 1;
 constexpr int kPhaseCompact = 9;
 constexpr int kPhaseOrder = 10;
 constexpr int kPhases = 11;
-
-typedef unsigned long long u64;
 
 struct Args {
   int R, RF, nb_top, k;
@@ -87,48 +74,11 @@ struct Args {
   const float* top_h;
   uint8_t* forced_ok;
   u64* list;        // guarded keys, R slots
-  int* hist;        // kPasses * 256 digit counts, then the counters
+  int* hist;        // tks::kHistWords: digit counts, then the counters
   u64* sel_keys;    // the k selected keys (after a select)
   int* cand_r;
   uint8_t* cand_has;
 };
-
-// counters after the histograms: the list's length, the compaction cursor
-__device__ __forceinline__ int* counters(const Args& a) {
-  return a.hist + kPasses * 256;
-}
-
-struct Select {
-  u64 prefix;   // digits chosen so far
-  u64 mask;     // the bits they cover
-  int k_rem;    // rank of the k-th key among the keys matching prefix
-  int derived;  // digits derived
-  int done;     // the keys >= prefix are exactly the k largest
-};
-
-__device__ __forceinline__ uint32_t order_bits(float f) {
-  const uint32_t u = __float_as_uint(f);
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
-__device__ __forceinline__ int list_len(const Args& a) {
-  return __ldcg(counters(a));
-}
-
-// the shared-memory digit counts of this block into the global ones
-__device__ __forceinline__ void flush_hist(int* sh, int* global) {
-  __syncthreads();
-  for (int t = threadIdx.x; t < 256; t += blockDim.x) {
-    if (sh[t] != 0) atomicAdd(&global[t], sh[t]);
-  }
-}
-
-__device__ void phase_init(const Args& a) {
-  if (blockIdx.x != 0) return;
-  for (int t = threadIdx.x; t < kPasses * 256 + 2; t += blockDim.x) {
-    a.hist[t] = 0;
-  }
-}
 
 __device__ void phase_guard(const Args& a, int* sh) {
   const bool keys = a.k > 0;
@@ -136,7 +86,6 @@ __device__ void phase_guard(const Args& a, int* sh) {
     for (int t = threadIdx.x; t < 256; t += blockDim.x) sh[t] = 0;
     __syncthreads();
   }
-  const int lane = threadIdx.x & 31;
   for (int i0 = blockIdx.x * blockDim.x; i0 < a.R;
        i0 += gridDim.x * blockDim.x) {
     const int i = i0 + threadIdx.x;
@@ -163,178 +112,60 @@ __device__ void phase_guard(const Args& a, int* sh) {
     }
     if (i < a.R) a.forced_ok[i] = ok ? 1 : 0;
     if (!keys) continue;
-    // warp-aggregated append of the guarded keys
-    const unsigned ballot = __ballot_sync(0xffffffffu, ok);
-    if (ballot == 0) continue;
-    int base = 0;
-    if (lane == 0) base = atomicAdd(counters(a), __popc(ballot));
-    base = __shfl_sync(0xffffffffu, base, 0);
-    if (ok) {
-      const u64 key = ((u64)order_bits(__fadd_rn(wi, 1.0f)) << 32) |
-                      (u64)(~(uint32_t)i);
-      a.list[base + __popc(ballot & ((1u << lane) - 1u))] = key;
-      atomicAdd(&sh[(int)(key >> 56)], 1);
-    }
+    tks::select_append(ok, tks::select_key(__fadd_rn(wi, 1.0f), i), a.list,
+                       a.hist, sh);
   }
-  if (keys) flush_hist(sh, a.hist);
+  if (keys) tks::select_flush(sh, a.hist);
 }
 
-// Derive digit st.derived from its global histogram: every block runs the
-// same suffix scan, so every block makes the same choice.
-__device__ void derive_next(const Args& a, Select& st, int* suf) {
-  const int d = st.derived;
-  const int shift = 56 - 8 * d;
-  const int t = threadIdx.x;
-  if (t < 256) suf[t] = __ldcg(a.hist + d * 256 + t);
-  if (t == 0) suf[256] = 0;
-  __syncthreads();
-  // inclusive suffix sums: suf[t] = number of keys with digit >= t
-  for (int off = 1; off < 256; off <<= 1) {
-    const int v = (t < 256 && t + off < 256) ? suf[t + off] : 0;
-    __syncthreads();
-    if (t < 256) suf[t] += v;
-    __syncthreads();
+struct EmitCand {
+  const Args& a;
+  __device__ void operator()(int rank, u64 key) const {
+    a.cand_r[rank] = tks::select_index(key);
+    a.cand_has[rank] = 1;
   }
-  const int k_rem = st.k_rem;
-  __syncthreads();
-  if (t < 256) {
-    const int above = suf[t + 1];
-    if (suf[t] >= k_rem && above < k_rem) {
-      st.prefix |= (u64)t << shift;
-      st.mask |= (u64)0xFFu << shift;
-      st.k_rem = k_rem - above;
-      st.done = (suf[t] - above == k_rem - above) ? 1 : 0;
-      st.derived = d + 1;
-    }
-  }
-  __syncthreads();
-}
+};
 
-__device__ void derive_through(const Args& a, Select& st, int* suf,
-                               int digits) {
-  while (!st.done && st.derived < digits) derive_next(a, st, suf);
-}
+struct Guarded {
+  const Args& a;
+  __device__ bool operator()(int i) const {
+    return __ldcg(a.forced_ok + i) != 0;
+  }
+};
 
-// histogram pass q (1..7) over the listed keys that match the prefix;
-// false (uniformly) when no select is needed or it is done
-__device__ bool phase_pass(const Args& a, int q, Select& st, int* sh,
-                           int* suf) {
-  const int n = list_len(a);
-  if (n <= a.k) return false;
-  derive_through(a, st, suf, q);
-  if (st.done) return false;
-  for (int t = threadIdx.x; t < 256; t += blockDim.x) sh[t] = 0;
-  __syncthreads();
-  const int shift = 56 - 8 * q;
-  for (int j = blockIdx.x * blockDim.x + threadIdx.x; j < n;
-       j += gridDim.x * blockDim.x) {
-    const u64 key = __ldcg(a.list + j);
-    if ((key & st.mask) == st.prefix) {
-      atomicAdd(&sh[(int)((key >> shift) & 0xFFu)], 1);
-    }
+struct EmitTail {
+  const Args& a;
+  __device__ void operator()(int pos, int i) const {
+    a.cand_r[pos] = i;
+    a.cand_has[pos] = 0;
   }
-  flush_hist(sh, a.hist + q * 256);
-  return true;
-}
-
-__device__ bool phase_compact(const Args& a, Select& st, int* suf) {
-  const int n = list_len(a);
-  if (n <= a.k) return false;
-  derive_through(a, st, suf, kPasses);
-  for (int j = blockIdx.x * blockDim.x + threadIdx.x; j < n;
-       j += gridDim.x * blockDim.x) {
-    const u64 key = __ldcg(a.list + j);
-    if (key >= st.prefix) a.sel_keys[atomicAdd(counters(a) + 1, 1)] = key;
-  }
-  return true;
-}
-
-__device__ void phase_order(const Args& a, u64* keys, int* scan) {
-  const int n = list_len(a);
-  const bool selected = n > a.k;
-  const int s = selected ? a.k : n;
-  const u64* src = selected ? a.sel_keys : a.list;
-  // ranks: kGroup threads to a key, in the first blocks
-  const int per_block = kThreads / kGroup;
-  if (blockIdx.x * per_block < s) {
-    for (int j = threadIdx.x; j < s; j += blockDim.x) {
-      keys[j] = __ldcg(src + j);
-    }
-    __syncthreads();
-    const int sub = threadIdx.x % kGroup;
-    for (int g0 = blockIdx.x * per_block; g0 < s;
-         g0 += gridDim.x * per_block) {
-      const int g = g0 + threadIdx.x / kGroup;
-      // a group's kGroup lanes sit in one warp; every lane of the warp
-      // takes part in the shuffles
-      const u64 key = g < s ? keys[g] : 0ull;
-      int rank = 0;
-      if (g < s) {
-        for (int j = sub; j < s; j += kGroup) rank += keys[j] > key;
-      }
-      for (int off = kGroup / 2; off > 0; off >>= 1) {
-        rank += __shfl_xor_sync(0xffffffffu, rank, off, kGroup);
-      }
-      if (g < s && sub == 0) {
-        a.cand_r[rank] = (int)(~(uint32_t)(key & 0xFFFFFFFFull));
-        a.cand_has[rank] = 1;
-      }
-    }
-  }
-  if (selected || blockIdx.x != gridDim.x - 1) return;
-  // the tail: the k - n lowest-index unguarded replicas, all in [0, k)
-  __syncthreads();
-  const int m = a.k - n;
-  if (m == 0) return;
-  const int per = (a.k + blockDim.x - 1) / blockDim.x;
-  const int lo = threadIdx.x * per;
-  const int hi = min(lo + per, a.k);
-  int cnt = 0;
-  for (int i = lo; i < hi; ++i) cnt += __ldcg(a.forced_ok + i) == 0;
-  scan[threadIdx.x] = cnt;
-  __syncthreads();
-  for (int off = 1; off < (int)blockDim.x; off <<= 1) {
-    const int v = threadIdx.x >= off ? scan[threadIdx.x - off] : 0;
-    __syncthreads();
-    scan[threadIdx.x] += v;
-    __syncthreads();
-  }
-  int r = scan[threadIdx.x] - cnt;  // unguarded replicas before lo
-  for (int i = lo; i < hi && r < m; ++i) {
-    if (__ldcg(a.forced_ok + i) == 0) {
-      a.cand_r[n + r] = i;
-      a.cand_has[n + r] = 0;
-      ++r;
-    }
-  }
-}
+};
 
 __global__ void __launch_bounds__(kThreads)
 forced_select_kernel(Args a, int phase_lo, int phase_hi) {
   __shared__ u64 keys[kMaxK];
   __shared__ int sh[256];
-  __shared__ int suf[257 > kThreads ? 257 : kThreads];
-  __shared__ Select st;
-  if (threadIdx.x == 0) {
-    st.prefix = 0;
-    st.mask = 0;
-    st.k_rem = a.k;
-    st.derived = 0;
-    st.done = 0;
-  }
+  __shared__ int tmp[33];
+  __shared__ tks::Select st;
+  if (threadIdx.x == 0) tks::select_init(st, a.k);
   __syncthreads();
   for (int ph = phase_lo; ph < phase_hi; ++ph) {
     bool barrier = true;
     if (ph == kPhaseInit) {
-      phase_init(a);
+      tks::select_zero(a.hist);
     } else if (ph == kPhaseGuard) {
       phase_guard(a, sh);
     } else if (ph < kPhaseCompact) {
-      barrier = phase_pass(a, ph - 1, st, sh, suf);
+      barrier = tks::select_pass(a.list, a.hist, a.k, ph - 1, st, sh);
     } else if (ph == kPhaseCompact) {
-      barrier = phase_compact(a, st, suf);
+      barrier = tks::select_compact(a.list, a.hist, a.k, st, a.sel_keys);
     } else if (ph == kPhaseOrder) {
-      phase_order(a, keys, suf);
+      EmitCand emit{a};
+      if (!tks::select_order(a.list, a.hist, a.sel_keys, a.k, keys, emit)) {
+        Guarded listed{a};
+        EmitTail tail{a};
+        tks::select_tail(a.hist, a.k, tmp, listed, tail);
+      }
     }
     __syncthreads();
     if (barrier && ph + 1 < phase_hi) cg::this_grid().sync();
@@ -369,10 +200,14 @@ int coop_blocks(int* blocks) {
 
 }  // namespace
 
+// The widest k.
+extern "C" int cc_forced_select_max_k() { return kMaxK; }
+
 // forced u8[R], w f32[R], replica_partition / replica_broker i32[R],
 // partition_replicas i32[P, RF], top_b i32[nb_top], top_h f32[nb_top];
 // out forced_ok u8[R] and, for k > 0, cand_r i32[k], cand_has u8[k].
-// Scratch for k > 0: list u64[R], hist i32[8 * 256 + 2], sel_keys u64[k].
+// Scratch for k > 0: list u64[R], hist i32[tks::kHistWords], sel_keys
+// u64[k].
 // k > 0 is one cooperative launch.
 extern "C" int cc_forced_select(
     int R, int RF, int nb_top, int k, const uint8_t* forced,

@@ -24,6 +24,7 @@ import threading
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 _PKG = Path(__file__).resolve().parent
@@ -34,8 +35,9 @@ SOURCES = ("row_topk.cu", "assign_pass.cu", "commit_moves.cu",
            "forced_select.cu", "rank_accept.cu", "segment_argmax.cu",
            "swap_pair.cu", "dest_feasibility.cu", "segment_sum.cu",
            "ordered_sum.cu", "cumsum_blocks.cu")
-#: headers the sources include (K3 and K5 share their bucketing)
-HEADERS = ("commit_bucket.cuh",)
+#: headers the sources include (K3 and K5 share their bucketing, K6 and K7
+#: their top-k selection)
+HEADERS = ("commit_bucket.cuh", "topk_select.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -52,8 +54,9 @@ LAUNCHES = {"row_topk": 0, "assign_pass": 0, "commit_moves": 0,
             "segment_keep": 0, "dest_pref": 0, "dest_has": 0}
 #: launches split finer: K1's by source (a [B, S] plane, or per-replica
 #: scores read through the table) and k ("row_topk table k=1"), K4's by
-#: commit mode and pass ("leader_assign_pass multi pass 0"); cleared with
-#: LAUNCHES
+#: commit mode and pass ("leader_assign_pass multi pass 0"), K6's by
+#: window and fold ("sweep_pick compact fold"), K10's by entry
+#: ("swap_pair shortlist", "swap_pair plane"); cleared with LAUNCHES
 LAUNCH_SPLITS: dict = {}
 #: K1's widest k and row (csrc/row_topk.cu: the row's keys in shared memory)
 ROW_TOPK_MAX_K = 64
@@ -208,8 +211,12 @@ def build() -> ctypes.CDLL:
             ctypes.c_longlong, _P]
         lib.cc_commit_leadership_scratch.argtypes = [_I, _I]
         lib.cc_commit_leadership_scratch.restype = ctypes.c_longlong
-        lib.cc_sweep_pick.argtypes = [_I, _I] + [_P] * 14 + [
-            ctypes.c_float, _I] + [_P] * 4
+        lib.cc_sweep_window.argtypes = [_I] * 6 + [ctypes.c_float] * 2 + [
+            _P] * 15 + [_P, _LL] * 5 + [_P] * 15
+        for fn in (lib.cc_sweep_window_partials, lib.cc_sweep_window_width,
+                   lib.cc_select_hist_words, lib.cc_forced_select_max_k,
+                   lib.cc_swap_max_shortlist):
+            fn.argtypes = []
         lib.cc_forced_select.argtypes = [_I] * 4 + [_P] * 13 + [_P]
         lib.cc_rank_accept.argtypes = [_I] * 3 + [_P] * 9 + [_I] + [
             _P] * 6
@@ -219,7 +226,11 @@ def build() -> ctypes.CDLL:
                                           ] + [_P] * 4
         lib.cc_segment_keep.argtypes = [_P, _P, _I, _P, _I, _I, _P, _I, _P,
                                         _P]
-        lib.cc_swap_pair.argtypes = [_I] * 3 + [_P] * 19 + [_P]
+        lib.cc_swap_shortlist.argtypes = [_I, _I] + [_P] * 6 + [
+            _P, _LL] * 3 + [_P] * 6
+        lib.cc_swap_pair_reset.argtypes = [_P, _P]
+        lib.cc_swap_pair.argtypes = [_I] * 4 + [_P] * 8 + [
+            _P, _LL] * 5 + [_P, _LL, _LL] + [_P] * 9
         _L = ctypes.c_longlong
         lib.cc_dest_pref.argtypes = [_I] * 3 + [_P, _I, _P, _I] + [
             _P] * 6 + [_L, _P, _L, _P, _L, _L, _P, _L, _P, _P]
@@ -235,14 +246,23 @@ def build() -> ctypes.CDLL:
                                        _I, _I, _I, _P, _P, _P]
         for fn in (lib.cc_row_topk, lib.cc_table_topk, lib.cc_assign_pass, lib.cc_commit_moves,
                    lib.cc_leader_assign_pass, lib.cc_commit_leadership,
-                   lib.cc_sweep_pick, lib.cc_forced_select,
+                   lib.cc_sweep_window, lib.cc_sweep_window_partials,
+                   lib.cc_forced_select,
                    lib.cc_rank_accept,
                    lib.cc_segment_argmax, lib.cc_segment_keep,
-                   lib.cc_swap_pair, lib.cc_dest_pref,
+                   lib.cc_swap_shortlist, lib.cc_swap_pair,
+                   lib.cc_swap_pair_reset,
+                   lib.cc_dest_pref,
                    lib.cc_dest_has,
                    lib.cc_segment_sum, lib.cc_ordered_sum,
                    lib.cc_prefix_gate):
             fn.restype = ctypes.c_int
+        from cruise_control_tpu_torch.analyzer.leadership import (
+            SWEEP_COMPACT)
+        if lib.cc_sweep_window_width() != SWEEP_COMPACT:
+            raise RuntimeError(
+                f"csrc/sweep_pick.cu's window ({lib.cc_sweep_window_width()}"
+                f") is not SWEEP_COMPACT ({SWEEP_COMPACT})")
         BUILD_INFO.update(seconds=time.time() - t0, log="\n".join(log),
                           path=str(so))
         _LIB = lib
@@ -688,46 +708,101 @@ def commit_leadership_into(out: dict, state_before, cache, sr: torch.Tensor,
     _raise_on(err, "commit_leadership")
 
 
-def sweep_pick(sel, has_in, cur_safe, rows, jit_plane, replica_broker,
-               value_r, static_ok, alive, leader_ok, W, fill_to, hard_cap,
-               tb_norm, salt: float, improve_gate: bool):
-    """K6 launch: (dst_r i32[W], has bool[W])."""
+_SWEEP_SCRATCH: dict = {}
+
+
+def _sweep_scratch(num_p: int, wn: int, dev: torch.device) -> list:
+    """K6's scratch: per-block partials and, when the window of wn
+    compacts, the [P] gains, listed flags and keys, the digit counts and
+    the selected keys.  Reused on a stream (launches on one stream run in
+    order); a CUDA graph capture gets its own."""
+    key = (dev.index, _stream(), num_p)
+    bufs = _SWEEP_SCRATCH.get(key)
+    if bufs is not None:
+        return bufs
     lib = build()
-    wn = sel.shape[0]
+    bufs = [torch.empty(lib.cc_sweep_window_partials(), dtype=torch.float32,
+                        device=dev)]
+    if num_p > wn:
+        bufs += [torch.empty(num_p, dtype=torch.float32, device=dev),
+                 torch.empty(num_p, dtype=torch.uint8, device=dev),
+                 torch.empty(num_p, dtype=torch.int64, device=dev),
+                 torch.empty(lib.cc_select_hist_words(), dtype=torch.int32,
+                             device=dev),
+                 torch.empty(wn, dtype=torch.int64, device=dev)]
+    else:
+        bufs += [None] * 5
+    if not torch.cuda.is_current_stream_capturing():
+        _SWEEP_SCRATCH[key] = bufs
+    return bufs
+
+
+def sweep_window(cur, failed, prev, rows, jit_plane, replica_broker,
+                 replica_partition, value_r, static_ok, alive, leader_ok, W,
+                 shed_to, fill_to, hard_cap, tb, salt: float,
+                 improve_gate: bool, select_jitter: float):
+    """K6 launch: one sweep round's window, folding `prev` (the previous
+    round's window tuple and its acceptance, or None) into `cur` and
+    `failed` in place.  (sel i64[Wn], has bool, live_w bool, cur_safe i64,
+    src_b i32, value_leave f32, dst_r i64, dst_b i32), Wn = min(P,
+    SWEEP_COMPACT).  One cooperative launch."""
+    from cruise_control_tpu_torch.analyzer.leadership import SWEEP_COMPACT
+    lib = build()
     num_p, rf = rows.shape
     num_r = replica_broker.shape[0]
     num_b = alive.shape[0]
+    wn = min(num_p, SWEEP_COMPACT)
     for name, t, dt, shape in (
-            ("sel", sel, torch.int32, (wn,)),
-            ("has_in", has_in, torch.bool, (wn,)),
-            ("cur_safe", cur_safe, torch.int32, (wn,)),
+            ("cur", cur, torch.int32, (num_p,)),
+            ("failed", failed, torch.float32, (num_p,)),
             ("rows", rows, torch.int32, (num_p, rf)),
             ("jit_plane", jit_plane, torch.float32, (num_p, rf)),
             ("replica_broker", replica_broker, torch.int32, (num_r,)),
+            ("replica_partition", replica_partition, torch.int32, (num_r,)),
             ("value_r", value_r, torch.float32, (num_r,)),
             ("static_ok", static_ok, torch.bool, (num_r,)),
             ("alive", alive, torch.bool, (num_b,)),
-            ("leader_ok", leader_ok, torch.bool, (num_b,)),
-            ("W", W, torch.float32, (num_b,)),
-            ("fill_to", fill_to, torch.float32, (num_b,)),
-            ("hard_cap", hard_cap, torch.float32, (num_b,))):
+            ("leader_ok", leader_ok, torch.bool, (num_b,))):
         _check(t, name, dt, shape)
-    if tb_norm is not None:
-        _check(tb_norm, "tb_norm", torch.float32, (num_b,))
-    scratch = torch.empty(1, dtype=torch.int32, device=rows.device)
-    dst_r = torch.empty(wn, dtype=torch.int32, device=rows.device)
-    has = torch.empty(wn, dtype=torch.bool, device=rows.device)
-    err = lib.cc_sweep_pick(
-        wn, rf, sel.data_ptr(), has_in.data_ptr(), cur_safe.data_ptr(),
-        rows.data_ptr(), jit_plane.data_ptr(), replica_broker.data_ptr(),
-        value_r.data_ptr(), static_ok.data_ptr(), alive.data_ptr(),
-        leader_ok.data_ptr(), W.data_ptr(), fill_to.data_ptr(),
-        hard_cap.data_ptr(), tb_norm.data_ptr() if tb_norm is not None
-        else None, float(salt), int(bool(improve_gate)), scratch.data_ptr(),
-        dst_r.data_ptr(), has.data_ptr(), _stream())
+    vecs = (W, shed_to, fill_to, hard_cap, tb)
+    for name, t in zip(("W", "shed_to", "fill_to", "hard_cap", "tb"), vecs):
+        if t is not None:
+            _check_vector(t, name, num_b, broadcast=True)
+    if prev is None:
+        p_ptrs = [None] * 5
+    else:
+        win, valid = prev
+        for name, t, dt in (("prev sel", win[0], torch.int64),
+                            ("prev live_w", win[2], torch.bool),
+                            ("prev cur_safe", win[3], torch.int64),
+                            ("prev dst_r", win[6], torch.int64),
+                            ("prev valid", valid, torch.bool)):
+            _check(t, name, dt, (wn,))
+        p_ptrs = [win[0].data_ptr(), win[3].data_ptr(), win[6].data_ptr(),
+                  valid.data_ptr(), win[2].data_ptr()]
+    dev = rows.device
+    scratch = _sweep_scratch(num_p, wn, dev)
+    out = [torch.empty(wn, dtype=dt, device=dev) for dt in (
+        torch.int64, torch.bool, torch.bool, torch.int64, torch.int32,
+        torch.float32, torch.int64, torch.int32)]
+    salt32 = np.float32(salt)
+    salt_i = int(salt32 * np.float32(100.0))
+    err = lib.cc_sweep_window(
+        num_p, rf, num_b, int(prev is not None), int(bool(improve_gate)),
+        salt_i, float(salt32), float(np.float32(select_jitter)),
+        cur.data_ptr(), failed.data_ptr(), *p_ptrs, rows.data_ptr(),
+        jit_plane.data_ptr(), replica_broker.data_ptr(),
+        replica_partition.data_ptr(), value_r.data_ptr(),
+        static_ok.data_ptr(), alive.data_ptr(), leader_ok.data_ptr(),
+        *[x for t in vecs for x in (_ptr(t), _stride(t))],
+        *[_ptr(t) for t in scratch], *[t.data_ptr() for t in out],
+        _stream())
     LAUNCHES["sweep_pick"] += 1
+    key = (f"sweep_pick {'compact' if num_p > wn else 'whole'} "
+           f"{'fold' if prev is not None else 'first'}")
+    LAUNCH_SPLITS[key] = LAUNCH_SPLITS.get(key, 0) + 1
     _raise_on(err, "sweep_pick")
-    return dst_r, has
+    return tuple(out)
 
 
 def forced_select(forced: torch.Tensor, w: torch.Tensor,
@@ -742,8 +817,9 @@ def forced_select(forced: torch.Tensor, w: torch.Tensor,
     num_r = forced.shape[0]
     num_p, rf = partition_replicas.shape
     nb = top_b.shape[0]
-    if not 0 <= k <= min(4096, num_r):
-        raise ValueError(f"forced_select takes 0 <= k <= min(4096, R), "
+    max_k = lib.cc_forced_select_max_k()
+    if not 0 <= k <= min(max_k, num_r):
+        raise ValueError(f"forced_select takes 0 <= k <= min({max_k}, R), "
                          f"got k={k}")
     if nb > 32:
         raise ValueError(f"forced_select takes at most 32 top brokers, "
@@ -764,7 +840,8 @@ def forced_select(forced: torch.Tensor, w: torch.Tensor,
         # the guarded keys, the digit counts with two counters (zeroed by
         # the kernel), the selected keys
         listed = torch.empty(num_r, dtype=torch.int64, device=dev)
-        hist = torch.empty(8 * 256 + 2, dtype=torch.int32, device=dev)
+        hist = torch.empty(lib.cc_select_hist_words(), dtype=torch.int32,
+                           device=dev)
         sel_keys = torch.empty(k, dtype=torch.int64, device=dev)
         cand_r = torch.empty(k, dtype=torch.int32, device=dev)
         cand_has = torch.empty(k, dtype=torch.bool, device=dev)
@@ -966,53 +1043,130 @@ def segment_keep(score: torch.Tensor, segment: torch.Tensor,
     return keep
 
 
+def _swap_launched(entry: str, err: int) -> None:
+    LAUNCHES["swap_pair"] += 1
+    key = f"swap_pair {entry}"
+    LAUNCH_SPLITS[key] = LAUNCH_SPLITS.get(key, 0) + 1
+    _raise_on(err, f"swap_pair ({entry})")
+
+
+def swap_shortlist(hot, cold, out_r, in_r, out_has, in_has, dev_u, util,
+                   target, h: int):
+    """K10a launch: (h_ids i64[H], c_ids i64[H], out_h i64[H], in_c
+    i64[H], dev_u f32[B]): each side's top H brokers by its rank, the
+    picks at them, and the deviations (the given dev_u, or util - target
+    computed by the kernel)."""
+    lib = build()
+    num_b = hot.shape[0]
+    max_h = lib.cc_swap_max_shortlist()
+    if not 1 <= h <= min(num_b, max_h):
+        raise ValueError(f"swap_shortlist takes 1 <= H <= min(B, {max_h}), "
+                         f"got {h}")
+    for name, t, dt in (("hot", hot, torch.bool), ("cold", cold, torch.bool),
+                        ("out_r", out_r, torch.int32),
+                        ("in_r", in_r, torch.int32),
+                        ("out_has", out_has, torch.bool),
+                        ("in_has", in_has, torch.bool)):
+        _check(t, name, dt, (num_b,))
+    dev = hot.device
+    if dev_u is not None:
+        _check_vector(dev_u, "dev_u", num_b, broadcast=True)
+        util = target = dev_out = None
+        dev_res = dev_u
+    else:
+        _check_vector(util, "util", num_b, broadcast=True)
+        _check_vector(target, "target", num_b, broadcast=True)
+        dev_out = dev_res = torch.empty(num_b, dtype=torch.float32,
+                                        device=dev)
+    out = [torch.empty(h, dtype=torch.int64, device=dev) for _ in range(4)]
+    err = lib.cc_swap_shortlist(
+        num_b, h, hot.data_ptr(), cold.data_ptr(), out_has.data_ptr(),
+        in_has.data_ptr(), out_r.data_ptr(), in_r.data_ptr(), _ptr(dev_u),
+        _stride(dev_u), _ptr(util), _stride(util), _ptr(target),
+        _stride(target), _ptr(dev_out), *[t.data_ptr() for t in out],
+        _stream())
+    _swap_launched("shortlist", err)
+    return (*out, dev_res)
+
+
+_SWAP_DONE: dict = {}
+
+
+def _swap_done(dev: torch.device) -> torch.Tensor:
+    """K10b's last-block counter of a stream of a device, zero between
+    launches (the last block resets it; zeroed once by a memset, not a
+    torch op).  It is never allocated while the stream captures a CUDA
+    graph: run one call on the stream first."""
+    key = (dev.index, _stream())
+    buf = _SWAP_DONE.get(key)
+    if buf is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("swap_pair's counter is allocated on a "
+                               "stream that captures a CUDA graph: call it "
+                               "once on this stream before the capture")
+        buf = torch.empty(1, dtype=torch.int32, device=dev)
+        _raise_on(build().cc_swap_pair_reset(buf.data_ptr(), _stream()),
+                  "swap_pair (its counter's reset)")
+        _SWAP_DONE[key] = buf
+    return buf
+
+
 def swap_pair(h_ids, c_ids, out_r, in_r, out_has, in_has, hot, cold, w,
               dev_u, util, lower, upper, accept, replica_partition,
               partition_replicas, replica_broker):
-    """K10 launch: (sel f32[H], slot i32[H]), each hot row's best
-    feasible improvement (NEG if none) and its first cold slot."""
+    """K10b launch: (cold i32[B], valid bool[B]): each shortlisted hot
+    broker's cold partner and whether the swap survives the three
+    conflict resolutions, zeros off the shortlist."""
     lib = build()
     nh, nc = h_ids.shape[0], c_ids.shape[0]
     num_b = hot.shape[0]
     num_r = replica_broker.shape[0]
     num_p, rf = partition_replicas.shape
     for name, t, dt, shape in (
-            ("h_ids", h_ids, torch.int32, (nh,)),
-            ("c_ids", c_ids, torch.int32, (nc,)),
+            ("h_ids", h_ids, torch.int64, (nh,)),
+            ("c_ids", c_ids, torch.int64, (nc,)),
             ("out_r", out_r, torch.int32, (num_b,)),
             ("in_r", in_r, torch.int32, (num_b,)),
             ("out_has", out_has, torch.bool, (num_b,)),
             ("in_has", in_has, torch.bool, (num_b,)),
             ("hot", hot, torch.bool, (num_b,)),
             ("cold", cold, torch.bool, (num_b,)),
-            ("w", w, torch.float32, (num_r,)),
-            ("dev_u", dev_u, torch.float32, (num_b,)),
-            ("util", util, torch.float32, (num_b,)),
-            ("accept", accept, torch.bool, (nh, nc)),
             ("replica_partition", replica_partition, torch.int32, (num_r,)),
             ("partition_replicas", partition_replicas, torch.int32,
              (num_p, rf)),
             ("replica_broker", replica_broker, torch.int32, (num_r,))):
         _check(t, name, dt, shape)
+    _check_vector(w, "w", num_r)
+    max_h = lib.cc_swap_max_shortlist()
+    if nc < 1 or nh > max_h:
+        raise ValueError(f"swap_pair takes at least one cold column and at "
+                         f"most {max_h} hot rows")
+    _check_vector(dev_u, "dev_u", num_b, broadcast=True)
+    _check_vector(util, "util", num_b, broadcast=True)
     for name, t in (("lower", lower), ("upper", upper)):
         if t is not None:
-            _check(t, name, torch.float32, (num_b,))
-    if nc < 1:
-        raise ValueError("swap_pair takes at least one cold column")
-    sel = torch.empty(nh, dtype=torch.float32, device=w.device)
-    slot = torch.empty(nh, dtype=torch.int32, device=w.device)
+            _check_vector(t, name, num_b, broadcast=True)
+    vecs = (dev_u, util, lower, upper)
+    if not accept.is_cuda or accept.dtype != torch.bool:
+        raise ValueError("accept must be a bool CUDA tensor")
+    acc = accept.expand(nh, nc)
+    dev = w.device
+    sel = torch.empty(nh, dtype=torch.float32, device=dev)
+    segs = torch.empty(3 * nh, dtype=torch.int32, device=dev)
+    cold_out = torch.empty(num_b, dtype=torch.int32, device=dev)
+    valid_out = torch.empty(num_b, dtype=torch.bool, device=dev)
     err = lib.cc_swap_pair(
-        nh, nc, rf, h_ids.data_ptr(), c_ids.data_ptr(), out_r.data_ptr(),
-        in_r.data_ptr(), out_has.data_ptr(), in_has.data_ptr(),
-        hot.data_ptr(), cold.data_ptr(), w.data_ptr(), dev_u.data_ptr(),
-        util.data_ptr(), lower.data_ptr() if lower is not None else None,
-        upper.data_ptr() if upper is not None else None, accept.data_ptr(),
+        nh, nc, rf, num_b, h_ids.data_ptr(), c_ids.data_ptr(),
+        out_r.data_ptr(), in_r.data_ptr(), out_has.data_ptr(),
+        in_has.data_ptr(), hot.data_ptr(), cold.data_ptr(), w.data_ptr(),
+        w.stride(0), *[x for t in vecs for x in (_ptr(t), _stride(t))],
+        acc.data_ptr(), acc.stride(0), acc.stride(1),
         replica_partition.data_ptr(), partition_replicas.data_ptr(),
-        replica_broker.data_ptr(), sel.data_ptr(), slot.data_ptr(),
-        _stream())
-    LAUNCHES["swap_pair"] += 1
-    _raise_on(err, "swap_pair")
-    return sel, slot
+        replica_broker.data_ptr(), sel.data_ptr(), segs.data_ptr(),
+        _swap_done(dev).data_ptr(), cold_out.data_ptr(),
+        valid_out.data_ptr(), _stream())
+    _swap_launched("plane", err)
+    return cold_out, valid_out
 
 
 def _check_ids(replica_broker, replica_partition, partition_replicas):
@@ -1032,7 +1186,9 @@ def _ptr(t):
 
 
 def _stride(t) -> int:
-    return 0 if t is None else t.stride(0)
+    """A vector's stride; 0 for None and for a 0-d or one-entry value,
+    which the kernel then reads at every index."""
+    return 0 if t is None or t.numel() == 1 else t.stride(0)
 
 
 def dest_pref(cand_r, dest_ids, dest_ok, replica_broker, replica_partition,
@@ -1239,11 +1395,15 @@ class _GateTerms(ctypes.Structure):
                 ("hr_stride", ctypes.c_longlong * GATE_MAX_TERMS)]
 
 
-def _check_vector(t: torch.Tensor, name: str, n=None) -> None:
-    """A 1-d float32 card tensor of n entries, any stride."""
-    if not t.is_cuda or t.dtype != torch.float32 or t.dim() != 1:
+def _check_vector(t: torch.Tensor, name: str, n=None,
+                  broadcast: bool = False) -> None:
+    """A 1-d float32 card tensor of n entries, any stride; with
+    `broadcast` also a 0-d or one-entry value (read with _stride 0)."""
+    scalar = broadcast and t is not None and t.dim() <= 1 and t.numel() == 1
+    if (t is None or not t.is_cuda or t.dtype != torch.float32
+            or t.dim() != 1 and not scalar):
         raise ValueError(f"{name} must be a 1-d float32 CUDA tensor")
-    if n is not None and t.shape[0] != n:
+    if n is not None and not scalar and t.shape[0] != n:
         raise ValueError(f"{name} must have {n} entries, got {t.shape[0]}")
 
 

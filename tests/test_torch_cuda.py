@@ -5,14 +5,18 @@ K3 (`commit_moves`, with and without a table) and K5
 (`commit_leadership`) at their edges (no move, every move dropped, one
 bucket of the whole batch, a row pushed past its end, no-ops, 2,600
 brokers), K3 in place and K5 donated and not, and K3's in-kernel
-arrival ranks against `arrival_rank`; K7 (`forced_select`, also at k = R) is held here too,
+arrival ranks against `arrival_rank`; K6 (`sweep_window`, one sweep
+round's window, first round and fold, at P = 3,000, 20,000 and
+200,000); K7 (`forced_select`, on the top-k select it shares with K6,
+also at k = R) is held here too,
 K2 (`assign_pass`) on both commit modes with its fold and its amplitude,
 also at the forced-move round's 4,096 candidates, and whole
 `assign_destinations` calls against the CPU path, K8 (`rank_accept`) on
 both of its paths, without and with the pass commit, K9
 (`segment_argmax`, its dense and keep entries, each call leaving its key
 scratch zero; its grid path under each fold, and no scratch growth
-inside a graph capture), K10 (`swap_pair`) and K11 (`dest_feasibility`:
+inside a graph capture), K10 (`swap_shortlist` and `swap_pair` at 100,
+200 and 2,600 brokers) and K11 (`dest_feasibility`:
 the preference plane on broadcast acceptance planes, with and without the
 sibling test, and the guard that selects its own top brokers), the
 ordered sums K12
@@ -30,6 +34,8 @@ machine may lack; JAX, where present, stays on the CPU).  Integers
 and booleans must match exactly, and so must K3's float aggregates (the
 kernel adds in the plain version's order).
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -449,37 +455,104 @@ def test_commit_leadership_matches_plain_bit_for_bit(table, case):
         assert donated[f].data_ptr() == getattr(donor, f).data_ptr(), f
 
 
-@pytest.mark.parametrize("improve_gate", [False, True])
-def test_sweep_pick_matches_plain(improve_gate):
-    ck = _card()
-    from cruise_control_tpu_torch.analyzer import leadership as L
-    state, _ = random_cluster(RandomClusterSpec(**SLICE), device="cuda")
+@functools.lru_cache(maxsize=None)
+def _sweep_cluster(spec: str):
+    """The card cluster, context and round cache of a SWEEP_SPECS entry
+    (built once: the tests only read them)."""
+    state, _ = random_cluster(RandomClusterSpec(**SWEEP_SPECS[spec]),
+                              device="cuda")
     ctx = C.make_context(state, C.BalancingConstraint(),
                          C.OptimizationOptions())
-    cache = C.make_round_cache(state, 0, ctx)
-    rng = np.random.default_rng(int(improve_gate))
+    return state, ctx, C.make_round_cache(state, 0, ctx)
+
+
+def _sweep_inputs(spec, improve_gate, tiebreak, case, rng):
+    """K6's inputs: a resource's leader bonus as the value, the goals'
+    bounds (mean mode: the average read through stride 0), a strided
+    column of the broker loads; `case` plants quantized values with
+    signed zeros, few or no live partitions, or every partition failed."""
+    from cruise_control_tpu_torch.model import state as S
+    state, ctx, cache = _sweep_cluster(spec)
     rows = ctx.partition_replicas
     num_p, rf = rows.shape
-    sel = torch.from_numpy(rng.choice(num_p, 4096, replace=False).astype(
-        np.int32)).cuda()
-    cur = torch.clamp_min(rows[sel.long(), 0], 0).contiguous()
-    has_in = torch.from_numpy(rng.random(4096) < 0.9).cuda()
-    value = state.partition_leader_bonus[state.replica_partition.long(), 2]
+    nb = state.num_brokers
+    value = (state.partition_leader_bonus[state.replica_partition.long(), 2]
+             * state.replica_valid)
+    if case == "ties and signed zeros":
+        value = torch.round(value * 4.0) / 4.0
+        r = torch.from_numpy(rng.random(value.shape[0])).cuda()
+        value = torch.where(r < 0.05, torch.full_like(value, -0.0), value)
+        value = torch.where((r >= 0.05) & (r < 0.1),
+                            torch.zeros_like(value), value)
     cap = state.broker_capacity[:, 2]
-    upper = (ctx.balance_upper_pct[2] * cap).contiguous()
-    fill_to = ((upper + ctx.balance_lower_pct[2] * cap) / 2).contiguous()
-    tb = torch.rand(state.num_brokers, device="cuda") if improve_gate \
-        else None
-    args = (sel, has_in, cur, rows, K._pairwise_jitter(num_p, rf,
-                                                       device="cuda"),
-            state.replica_broker, value.contiguous(),
-            C.replica_static_ok(state, ctx), state.broker_alive,
-            ctx.broker_leader_ok, cache.broker_load[:, 2].contiguous(),
-            fill_to, upper, tb, 1.11, improve_gate)
-    got = ck.sweep_pick(*args)
-    want = L.sweep_pick_plain(*args)
+    W = cache.broker_load[:, 2]
+    up = (ctx.balance_upper_pct[2] * cap).contiguous()
+    if improve_gate:
+        avg = W.mean()
+        shed_to = avg.reshape(1).expand(nb)
+        fill_to = torch.minimum(shed_to, up)
+    else:
+        shed_to = torch.minimum(up, torch.quantile(W, 0.6)).contiguous()
+        fill_to = ((up + ctx.balance_lower_pct[2] * cap) / 2.0).contiguous()
+    if case == "few live partitions":
+        shed_to = torch.quantile(W, 0.97).expand(nb)
+    if case == "no live partition":
+        shed_to = torch.full((nb,), float("inf"), device="cuda")
+    failed = (torch.ones(num_p, device="cuda") if case == "all failed"
+              else torch.from_numpy((rng.random(num_p) < 0.1).astype(
+                  np.float32)).cuda())
+    tb = None
+    if tiebreak:
+        tb = -cache.leader_bytes_in.clone()
+        tb[::9] = 0.0
+    fixed = (rows, K._pairwise_jitter(num_p, rf, device="cuda"),
+             state.replica_broker, state.replica_partition,
+             value.contiguous(), C.replica_static_ok(state, ctx),
+             state.broker_alive, ctx.broker_leader_ok, W, shed_to, fill_to,
+             up, tb, float(np.float32(3) * np.float32(0.37)), improve_gate,
+             1.0 if improve_gate else 0.35)
+    return S.partition_leader_replica(state), failed, fixed
+
+
+SWEEP_SPECS = {"P=20000": SLICE,
+               "P=200000": dict(SLICE, num_brokers=2600,
+                                num_partitions=200_000, num_racks=26,
+                                num_topics=100),
+               "P=3000": dict(SLICE, num_partitions=3000)}
+
+
+@pytest.mark.parametrize("case", ["random", "ties and signed zeros",
+                                  "few live partitions", "no live partition",
+                                  "all failed"])
+@pytest.mark.parametrize("improve_gate,tiebreak",
+                         [(False, False), (False, True), (True, False),
+                          (True, True)])
+@pytest.mark.parametrize("spec", list(SWEEP_SPECS))
+def test_sweep_pick_matches_plain(spec, improve_gate, tiebreak, case):
+    """K6, one sweep round's window, against sweep_window_plain: the first
+    round, then a round folding a random acceptance of the first's picks
+    into the carried leader index and failure marks; every output and the
+    folded tensors exactly."""
+    ck = _card()
+    from cruise_control_tpu_torch.analyzer import leadership as L
+    rng = np.random.default_rng(len(case) + 2 * improve_gate + tiebreak)
+    cur, failed, fixed = _sweep_inputs(spec, improve_gate, tiebreak, case,
+                                       rng)
+    kc, kf, pc, pf = cur.clone(), failed.clone(), cur.clone(), failed.clone()
+    got = L.SweepWindow(*ck.sweep_window(kc, kf, None, *fixed))
+    want = L.sweep_window_plain(pc, pf, None, *fixed)
     torch.cuda.synchronize()
-    assert all(_same(a, b) for a, b in zip(got, want))
+    assert all(a.dtype == b.dtype and _same(a, b)
+               for a, b in zip(got, want))
+    assert (int(want.live_w.sum()) == 0) == (case == "no live partition")
+    valid = want.has & torch.from_numpy(
+        rng.random(want.has.shape[0]) < 0.6).cuda()
+    got2 = L.SweepWindow(*ck.sweep_window(kc, kf, (got, valid), *fixed))
+    want2 = L.sweep_window_plain(pc, pf, (want, valid), *fixed)
+    torch.cuda.synchronize()
+    assert all(a.dtype == b.dtype and _same(a, b)
+               for a, b in zip(got2, want2))
+    assert _same(kc, pc) and _same(kf, pf)
 
 
 @pytest.mark.parametrize("kk", [256, 2600])
@@ -853,49 +926,93 @@ def test_segment_argmax_scratch_per_stream():
     assert _scratch_is_zero(ck)
 
 
-def _swap_pair_inputs(rng, h=128, nb=200):
-    state, _ = random_cluster(RandomClusterSpec(**SLICE), device="cuda")
-    pr = torch.from_numpy(C.partition_replica_index(state)).cuda()
-    num_r = state.num_replicas
-    ids = torch.from_numpy(rng.permutation(nb)[:2 * h].astype(np.int32))
-    h_ids, c_ids = ids[:h].cuda(), ids[h:2 * h].cuda()
-    out_r = torch.from_numpy(rng.integers(-1, num_r, nb).astype(
-        np.int32)).cuda()
-    in_r = torch.from_numpy(rng.integers(-1, num_r, nb).astype(
-        np.int32)).cuda()
-    w = torch.from_numpy((np.round(rng.random(num_r) * 8.0)).astype(
-        np.float32)).cuda()
-    dev_u = torch.from_numpy((np.round(rng.random(nb) * 16.0) - 8.0).astype(
-        np.float32)).cuda()
-    util = torch.from_numpy((rng.random(nb) * 50.0).astype(np.float32)).cuda()
-    flags = [torch.from_numpy(rng.random(nb) < p).cuda()
-             for p in (0.9, 0.9, 0.6, 0.6)]
-    return state, pr, h_ids, c_ids, out_r, in_r, w, dev_u, util, flags
+@functools.lru_cache(maxsize=None)
+def _swap_cluster(spec: str):
+    """The card cluster and its sibling index of a SWAP_SPECS entry."""
+    state, _ = random_cluster(RandomClusterSpec(**SWAP_SPECS[spec]),
+                              device="cuda")
+    return state, torch.from_numpy(C.partition_replica_index(state)).cuda()
 
 
-@pytest.mark.parametrize("case", ["plain", "band", "refuse all"])
-def test_swap_pair_matches_plain(case):
-    """K10 at H = C = 100 (of 200 brokers) with tied improvements, with
-    and without the band, and with an all-False acceptance plane."""
+def _swap_inputs(rng, spec, case, from_util):
+    """K10's inputs: picks on every broker (some missing; in-picks pairwise
+    replicas of one partition and out-picks of their partitions for
+    partition conflicts), quantized weights and deviations (tied
+    improvements, cold-broker conflicts) with signed zeros, the
+    deviations given or as util - target."""
+    state, pr = _swap_cluster(spec)
+    nb, num_r = state.num_brokers, state.num_replicas
+    out_r = rng.integers(0, num_r, nb).astype(np.int32)
+    in_r = rng.integers(0, num_r, nb).astype(np.int32)
+    prn = pr.cpu().numpy()
+    sib = prn[rng.integers(0, prn.shape[0], nb // 8 + 1)]
+    for j in range(nb // 8):
+        in_r[8 * j], in_r[8 * j + 4] = sib[j, 0], sib[j, 1]
+        out_r[8 * j + 2] = sib[j, 2]
+    out_r[rng.random(nb) < 0.05] = -1
+    in_r[rng.random(nb) < 0.05] = -1
+    dev = (np.round(rng.random(nb) * 16.0) - 8.0).astype(np.float32)
+    zero = dev == 0
+    dev[zero & (rng.random(nb) < 0.5)] = -0.0
+    util = (rng.random(nb) * 50.0).astype(np.float32)
+    target = None
+    if from_util:
+        util = np.where(zero, dev, util).astype(np.float32)
+        target = np.where(zero, 0.0, util - dev).astype(np.float32)
+
+    def t(x):
+        return None if x is None else torch.from_numpy(x).cuda()
+    w = torch.from_numpy(np.round(rng.random(num_r) * 8.0).astype(
+        np.float32)).cuda()
+    hot, cold = (torch.from_numpy(rng.random(nb) < 0.6).cuda()
+                 for _ in range(2))
+    util_t = t(util)
+    lower = util_t - 20.0 if case in ("band", "lower band") else None
+    upper = util_t + 20.0 if case in ("band", "upper band") else None
+    picks = (t(out_r), t(in_r), t(out_r) >= 0, t(in_r) >= 0)
+    return state, pr, w, hot, cold, picks, (None if from_util else t(dev)), \
+        util_t, t(target), lower, upper
+
+
+SWAP_SPECS = {"B=200": SLICE,
+              "B=2600": dict(SLICE, num_brokers=2600, num_partitions=20_000,
+                             num_racks=26),
+              "B=100": dict(SLICE, num_brokers=100, num_partitions=10_000)}
+
+
+@pytest.mark.parametrize("from_util", [False, True])
+@pytest.mark.parametrize("case", ["no band", "band", "lower band",
+                                  "upper band", "refuse all"])
+@pytest.mark.parametrize("spec", list(SWAP_SPECS))
+def test_swap_pair_matches_plain(spec, case, from_util):
+    """K10's shortlist entry against swap_shortlist_plain (signed-zero
+    ranks, the deviations given and as util - target) and its pair entry
+    against swap_pair_plain (tied improvements, conflicts on a cold broker
+    and on a partition, with no band, each band and an all-False
+    acceptance plane), exactly; with fewer brokers than the shortlist
+    too."""
     ck = _card()
-    rng = np.random.default_rng(len(case))
-    (state, pr, h_ids, c_ids, out_r, in_r, w, dev_u, util,
-     (out_has, in_has, hot, cold)) = _swap_pair_inputs(rng, h=100)
-    accept = torch.from_numpy(rng.random((100, 100)) < (
-        0.0 if case == "refuse all" else 0.8)).cuda()
-    band = case == "band"
-    lower = (util - 20.0) if band else None
-    upper = (util + 20.0) if band else None
-    args = (h_ids, c_ids, out_r, in_r, out_has, in_has, hot, cold, w, dev_u,
-            util, lower, upper, accept, state.replica_partition, pr,
-            state.replica_broker)
-    got = ck.swap_pair(*args)
-    want = K.swap_pair_plain(*args)
+    rng = np.random.default_rng(len(case) + 10 * from_util)
+    (state, pr, w, hot, cold, (out_r, in_r, out_has, in_has), dev_u, util,
+     target, lower, upper) = _swap_inputs(rng, spec, case, from_util)
+    h = min(K.SWAP_SHORTLIST, state.num_brokers)
+    sargs = (hot, cold, out_r, in_r, out_has, in_has, dev_u, util, target, h)
+    got = ck.swap_shortlist(*sargs)
+    want = K.swap_shortlist_plain(*sargs)
     torch.cuda.synchronize()
-    assert bool(torch.equal(got[0], want[0]))
-    assert bool(torch.equal(got[1].long(), want[1]))
-    feasible = int((want[0] > K.NEG / 2).sum())
-    assert feasible == 0 if case == "refuse all" else feasible > 0
+    assert all(a.dtype == b.dtype and _same(a, b) for a, b in zip(got, want))
+    accept = torch.from_numpy(rng.random((h, h)) < (
+        0.0 if case == "refuse all" else 0.8)).cuda()
+    pargs = (want[0], want[1], out_r, in_r, out_has, in_has, hot, cold, w,
+             want[4], util, lower, upper, accept, state.replica_partition,
+             pr, state.replica_broker)
+    got2 = ck.swap_pair(*pargs)
+    want2 = K.swap_pair_plain(*pargs)
+    torch.cuda.synchronize()
+    assert all(a.dtype == b.dtype and _same(a, b)
+               for a, b in zip(got2, want2))
+    n_valid = int(want2[1].sum())
+    assert n_valid == 0 if case == "refuse all" else n_valid > 0
 
 
 def _plane_inputs(k, c=2048, spec=SLICE):
@@ -954,9 +1071,10 @@ def test_dest_pref_matches_plain(k, accept, siblings, ids):
 @pytest.mark.parametrize("spec", ["slice", "2600"])
 def test_dest_has_matches_plain(spec):
     """K11's guard entry, which selects its top brokers itself, against
-    dest_has_plain (top_headroom's stable sort): tied headrooms, -0.0,
-    +inf (the forced rounds' room), ineligible brokers, no eligible
-    broker at all, candidates as int32 and int64 and every replica."""
+    dest_has_plain (top_headroom in lax.top_k's order): tied headrooms,
+    -0.0, headrooms of +0.0 and -0.0 at the top brokers' cut, +inf (the
+    forced rounds' room), ineligible brokers, no eligible broker at all,
+    candidates as int32 and int64 and every replica."""
     ck = _card()
     sp = SLICE if spec == "slice" else dict(
         SLICE, num_brokers=2600, num_partitions=20_000, num_racks=26)
@@ -967,6 +1085,10 @@ def test_dest_has_matches_plain(spec):
                  np.float32)).cuda() * float(torch.median(w)) / 3.0,
              "inf": torch.full((nb,), float("inf"), device="cuda")}
     rooms["ties"][:4] = -0.0
+    zeros = torch.zeros(nb, device="cuda")
+    zeros[: nb // 2] = -0.0
+    zeros[nb - 2:] = 1.0
+    rooms["signed zeros"] = zeros
     for label, room in rooms.items():
         for ok in (torch.zeros_like(dest_ok), dest_ok):
             for c in (cand, cand.to(torch.int32), None):
@@ -977,8 +1099,9 @@ def test_dest_has_matches_plain(spec):
                 want = K.dest_has_plain(*args)
                 torch.cuda.synchronize()
                 assert _same(got, want), (label, c is None)
-        # the last case: every replica against the eligible brokers
-        assert bool(got.any())
+        # the last case: every replica against the eligible brokers (the
+        # signed zeros' room may fit none of them)
+        assert label == "signed zeros" or bool(got.any())
 
 
 @pytest.mark.parametrize("mode", ["demote", "kafka assigner", "intra broker"])

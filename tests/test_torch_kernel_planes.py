@@ -166,8 +166,9 @@ def test_swap_round_pair_plane_matches(cluster, case):
 
 
 def test_swap_pair_plain_ties_take_the_first_column():
-    """Every pair of a row ties: the first cold column wins, and a row
-    with nothing feasible returns NEG at slot 0."""
+    """Every pair of a row ties: the first cold column wins (and takes the
+    cold broker from the rows after it), and a row with nothing feasible
+    returns column 0, not valid."""
     num_b = 6
     h_ids = torch.tensor([0, 1])
     c_ids = torch.tensor([2, 3, 4, 5])
@@ -181,11 +182,15 @@ def test_swap_pair_plain_ties_take_the_first_column():
     rp = torch.arange(num_b, dtype=torch.int32)
     pr = torch.full((num_b, 3), -1, dtype=torch.int32)
     pr[:, 0] = torch.arange(num_b, dtype=torch.int32)
-    sel, slot = K.swap_pair(h_ids, c_ids, out_r, in_r, has, has, hot, ~hot,
-                            w, dev_u, dev_u, None, None, accept, rp, pr,
-                            torch.arange(num_b, dtype=torch.int32))
+    args = (h_ids, c_ids, out_r, in_r, has, has, hot, ~hot, w, dev_u, dev_u,
+            None, None, accept, rp, pr, torch.arange(num_b,
+                                                     dtype=torch.int32))
+    sel, slot = K.swap_plane_plain(*args)
     assert slot.tolist() == [0, 0]
     assert sel[0] == 32.0 and sel[1] == NEG
+    cold, valid = K.swap_pair(*args)
+    assert cold.tolist() == [2, 2, 0, 0, 0, 0]
+    assert valid.tolist() == [True, False, False, False, False, False]
 
 
 @pytest.mark.parametrize("dests", ["shortlist", "every broker"])
