@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with one CUDA card:
 
-    python3 chip_smoke.py [--phases 1,2,3,4] [--profile]
+    python3 chip_smoke.py [--phases 1,2,3,4] [--profile] [--requests-only]
 
 Phases:
   1. the card's name and power limit (nvidia-smi), then the build of the
@@ -72,7 +72,9 @@ Phases:
      the wrapper's choice, and K14, the prefix gate, at [200, k] and
      [2,600, k] for k = 4, 8, 16 and 0 to 3 terms and at k = 8 with 5
      (bounds hit exactly, a leading -0.0; K12 and K13 bit for bit: int32
-     views).  Device times
+     views); then the dirty-region functions, torch ops (apply_delta,
+     set_broker_capacities, restrict_context_to_dirty), against the CPU
+     byte for byte and timed, at 200 and 2,600 brokers.  Device times
      per call (20 calls captured in a CUDA graph, median of 5 replays timed with CUDA
      events; K3 in place and K5 alone and with `donate`, each on cache
      planes restored before each replay, and each with a copy of the
@@ -143,14 +145,34 @@ Phases:
      launch) and of every swap round after its picks outside its
      acceptance callback (none: K10's two launches) counted; each timed
      solve's K1 launches by source and k, K4 launches by commit mode, K6
-     launches by window and fold and K10 launches by entry;
+     launches by window and fold and K10 launches by entry; then the
+     requests as the facade sends them, each with the gates above, the
+     CPU comparison (placement, rounds, converged-at, per-goal counts
+     and the host-skipped goals too) and its own gate: the add-broker
+     request (10 new brokers the only destinations, from a rack-aware
+     placement; every new broker holds replicas, the swaps' reverse legs
+     onto old brokers counted), the self-healing request through the
+     options generator (two topics excluded by pattern, brokers 0 and
+     100 excluded from leadership, 50 and 150 from replica moves: no
+     excluded replica moves, no leadership transfer onto 0 or 100, no
+     more arrivals on 50 or 150 than departures), the incremental solve
+     (a cold solve, one delta applied on the card, the one phase 2
+     holds against the CPU, then the warm solve restricted to the dirty
+     brokers; no hard goal
+     left violated, and an all-dirty solve equal to the full one) and
+     fast mode under the fused solver (fusion-group segments, the
+     host-side skip, the eager abort);
   4. scale, 2,600 brokers / 200K partitions / 26 racks / 100 topics: the
      whole default stack (bench.py's "north" preset), the four-goal solve,
      config 5 (52 broken logdirs), the six hard goals with brokers 0,
      100, ..., 2500 killed, and the three modes (26 brokers demoted, the
      kafka-assigner order, the intra-broker goals on 4 logdirs per
-     broker), with the same gates (no CPU comparison); then the widest
-     rank_accept call of the run must be one phase 2 checked.
+     broker), the add-broker request (130 new brokers) and the
+     incremental solve (its cold and warm times), with the same gates
+     (no CPU comparison); then the widest rank_accept call of the run
+     must be one phase 2 checked.  --requests-only runs only the request
+     paths in phases 3 and 4, and --profile with it profiles them beside
+     their option-less twins.
 With --profile, default-stack solves in turns and two more profiled (with
 K8, then with K8's lexsort dispatch: the torch lexsort, the kernel on its
 order and the ordered scatters after each pass) and one more config-5,
@@ -250,6 +272,13 @@ DEMOTE_KERNELS = SUM_KERNELS
 INTRA_KERNELS = ("segment_argmax",) + SUM_KERNELS
 INTRA_BROKEN_KERNELS = ("segment_argmax", "forced_select", "commit_moves",
                         "dest_feasibility") + SUM_KERNELS
+#: the kernels each request path must launch in its timed solve (the
+#: incremental path's warm solve included)
+REQUEST_KERNELS = {"add_request": STACK_KERNELS + ("swap_pair",),
+                   "heal_request": STACK_KERNELS + ("swap_pair",),
+                   "incremental": STACK_KERNELS + ("swap_pair",),
+                   # fast mode runs no swap round
+                   "fast_fused": STACK_KERNELS}
 #: the plain versions of K12-K14, which a card solve must never call
 PLAIN_SUMS = ("segment_sum_plain", "scatter_add_seq_plain", "sum_f32_plain",
               "cumsum_f32_plain")
@@ -286,16 +315,22 @@ INTRA_GOALS = ["IntraBrokerDiskCapacityGoal",
 
 
 def path(spec: dict, goals, max_rounds=None, kill=(), demote=(),
-         broken=()) -> dict:
+         broken=(), **request) -> dict:
     """A solve: the random cluster `spec` with the brokers `kill` killed
     (set_broker_state(alive=False), the bench's remove-broker drain), the
     brokers `demote` demoted (set_broker_state(demoted=True), the
     demote-broker request) and the logdirs `broken` marked dead
     (mark_disk_dead), optimized by `goals` (registry names; None is the
-    whole default order) at `max_rounds`."""
+    whole default order) at `max_rounds`.  A request (see `_solve`) may
+    add `options` (OptimizationOptions arguments; "new" names the new
+    brokers), `pattern` (the options generator's excluded-topics
+    pattern), `prep` (the options of a RackAwareGoal-alone solve whose
+    final placement the request starts from), `optimizer` and `call`
+    (GoalOptimizer's and optimizations' arguments) and `incremental`
+    (a cold solve, one model delta, then the warm, dirty solve)."""
     return dict(spec=spec, goals=None if goals is None else list(goals),
                 max_rounds=max_rounds, kill=tuple(kill),
-                demote=tuple(demote), broken=tuple(broken))
+                demote=tuple(demote), broken=tuple(broken), **request)
 
 
 SLICE_TWO = path(SLICE_SPEC, TWO_GOALS)
@@ -335,10 +370,54 @@ NORTH_DEMOTE = path(NORTH_SPEC, DEMOTE_GOALS, demote=range(0, 2600, 100))
 NORTH_KAFKA_ASSIGNER = path(NORTH_SPEC, KAFKA_ASSIGNER_GOALS)
 NORTH_INTRA = path(dict(NORTH_SPEC, skew_fraction=0.0, jbod_disks=4),
                    INTRA_GOALS)
+#: the requests as the facade sends them, on the default stack at 192
+#: rounds.  Add-broker (facade.add_brokers): move destinations limited to
+#: the max(1, B / 20) appended brokers, from a rack-aware placement
+#: (RackAwareGoal alone first, the new brokers excluded from its moves so
+#: that they stay empty; on the random placement the request leaves rack
+#: violations it may not fix, and the solve aborts, in the reference too)
+ADD_PREP = dict(excluded_brokers_for_replica_move="new")
+ADD_OPTIONS = dict(requested_destination_broker_ids="new")
+SLICE_ADD_REQUEST = path(dict(SLICE_SPEC, new_brokers=10), None, 192,
+                         options=ADD_OPTIONS, prep=ADD_PREP)
+NORTH_ADD_REQUEST = path(dict(NORTH_SPEC, new_brokers=130), None, 192,
+                         options=ADD_OPTIONS, prep=ADD_PREP)
+#: self-healing for a goal violation (facade._self_healing_options) through
+#: the options generator with an excluded-topics pattern
+#: (topics.excluded.from.partition.movement) matching two of the ten
+#: topics, from a rack-aware placement
+HEAL_EXCLUDED_LEADERSHIP = (0, 100)
+HEAL_EXCLUDED_MOVES = (50, 150)
+SLICE_HEAL_REQUEST = path(
+    SLICE_SPEC, None, 192, prep={}, pattern="topic-[03]",
+    options=dict(
+        excluded_brokers_for_leadership=frozenset(HEAL_EXCLUDED_LEADERSHIP),
+        excluded_brokers_for_replica_move=frozenset(HEAL_EXCLUDED_MOVES),
+        is_triggered_by_goal_violation=True))
+#: the incremental path: a cold solve, one model delta (broker 2's
+#: capacity row raised by half and 64 partitions' loads by a quarter, as
+#: tests/test_incremental.py's dirty-region solve), applied on the device,
+#: then the warm solve seeded by the cold one's final placement and
+#: restricted to the delta's dirty brokers
+SLICE_INCREMENTAL = path(SLICE_SPEC, None, 192, incremental=True)
+NORTH_INCREMENTAL = path(NORTH_SPEC, None, 192, incremental=True)
+#: fast mode under the facade's fused solver: fusion-group segments, the
+#: host-side skip and the eager hard-goal abort
+SLICE_FAST_FUSED = path(SLICE_SPEC, None, 192,
+                        options=dict(fast_mode=True),
+                        optimizer=dict(fused_segments=True,
+                                       host_side_skip=True,
+                                       eager_hard_abort=True))
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+#: the run's start and the card's nvidia-smi name and power limit (main
+#: sets both), for the per-path lines
+T_RUN = [time.time()]
+CARD = ["not read"]
 
 
 def cuda_time_ms(fn, reps: int = 20) -> float:
@@ -2774,19 +2853,137 @@ def check_prefix_gate(seed: int) -> dict:
     return rec
 
 
+def check_dirty_ops(spec: dict) -> dict:
+    """The dirty-region functions, torch ops on the card (no hand
+    kernel): `apply_delta` (the incremental path's delta), then
+    `set_broker_capacities` (the delta's capacity row) and
+    `restrict_context_to_dirty` (its dirty mask), each against the same
+    call on the CPU (every output byte for byte) and timed on the card
+    (CUDA events around one call, median of 20)."""
+    import torch
+    from cruise_control_tpu_torch.analyzer import context as C
+    from cruise_control_tpu_torch.model import state as S
+    from cruise_control_tpu_torch.model import store as ST
+    from cruise_control_tpu_torch.testing.random_cluster import (
+        RandomClusterSpec, random_cluster)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        st, topo = random_cluster(RandomClusterSpec(**spec), device=dev)
+        plan = delta_plan(st, dev)
+        new, dirty = ST.apply_delta(st, plan)
+        capped = S.set_broker_capacities(st, plan.cap_rows, plan.cap_mask,
+                                         plan.cap_values)
+        ctx = C.make_context(new, C.BalancingConstraint(),
+                             C.OptimizationOptions(), topo)
+        rctx = C.restrict_context_to_dirty(new, ctx, dirty)
+        runs[dev] = dict(st=st, plan=plan, new=new, dirty=dirty,
+                         capped=capped, ctx=ctx, rctx=rctx)
+    card, cpu = runs["cuda"], runs["cpu"]
+    diff = [f for f in S.STATE_FIELDS
+            if not torch.equal(getattr(card["new"], f).cpu(),
+                               getattr(cpu["new"], f))]
+    diff += [] if torch.equal(card["dirty"].cpu(), cpu["dirty"]) else ["dirty"]
+    diff += [] if torch.equal(card["capped"].broker_capacity.cpu(),
+                              cpu["capped"].broker_capacity) else ["capacity"]
+    diff += [f for f in ("replica_movable", "broker_dest_ok")
+             if not torch.equal(getattr(card["rctx"], f).cpu(),
+                                getattr(cpu["rctx"], f))]
+    if diff:
+        raise AssertionError(f"dirty-region ops on the card differ from the "
+                             f"CPU: {diff}")
+    st, plan = card["st"], card["plan"]
+    out = {"brokers": st.num_brokers, "replicas": st.num_replicas,
+           "dirty brokers": int(cpu["dirty"].sum()),
+           "apply_delta ms": cuda_time_ms(lambda: ST.apply_delta(st, plan)),
+           "set_broker_capacities ms": cuda_time_ms(
+               lambda: S.set_broker_capacities(st, plan.cap_rows,
+                                               plan.cap_mask,
+                                               plan.cap_values)),
+           "restrict_context_to_dirty ms": cuda_time_ms(
+               lambda: C.restrict_context_to_dirty(card["new"], card["ctx"],
+                                                   card["dirty"]))}
+    log(f"    dirty-region ops, equal to the CPU's: {out}")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phases 3 and 4: the solve
 # ---------------------------------------------------------------------------
 
-def _solve(solve: dict, device: str):
+def _request_options(solve: dict, kw, state, topo):
+    """The OptimizationOptions of `kw` ("new" standing for the state's new
+    brokers), through the options generator when `solve` names a
+    pattern."""
+    from cruise_control_tpu_torch.analyzer.context import \
+        OptimizationOptions
+    from cruise_control_tpu_torch.analyzer.options_generator import \
+        DefaultOptimizationOptionsGenerator
+    kw = dict(kw or {})
+    new = frozenset(topo.broker_ids[i] for i in
+                    state.broker_new.nonzero().flatten().tolist())
+    kw = {k: (new if v == "new" else v) for k, v in kw.items()}
+    options = OptimizationOptions(**kw)
+    if solve.get("pattern"):
+        options = DefaultOptimizationOptionsGenerator(
+            solve["pattern"]).generate(options, topo)
+    return options
+
+
+def delta_plan(state, device: str):
+    """The incremental path's model delta as a DeltaPlan on `device`:
+    broker 2's capacity row raised by half, and 64 partitions (every
+    P / 64-th) with their leader's and followers' base loads and their
+    leadership bonus raised by a quarter.  Built on the host from the
+    state's numbers, so both devices get the same plan."""
+    import numpy as np
+    from cruise_control_tpu_torch.model import store as ST
+    cap = state.broker_capacity.cpu().numpy()
+    base = state.replica_base_load.cpu().numpy()
+    bonus = state.partition_leader_bonus.cpu().numpy()
+    part = state.replica_partition.cpu().numpy()
+    lead = state.replica_is_leader.cpu().numpy()
+    valid = state.replica_valid.cpu().numpy()
+    f = np.float32(1.25)
+    loads = {}
+    for p in range(0, state.num_partitions, state.num_partitions // 64)[:64]:
+        rows = np.nonzero((part == p) & valid)[0]
+        lrow = rows[lead[rows]][0] if lead[rows].any() else rows[0]
+        frow = next((r for r in rows if not lead[r]), lrow)
+        loads[p] = (base[lrow] * f, base[frow] * f, bonus[p] * f)
+    arrays = ST.plan_arrays(
+        state.num_brokers, state.num_partitions,
+        capacities={2: {r: cap[2, r] * np.float32(1.5)
+                        for r in range(cap.shape[1])}},
+        loads=loads)
+    return ST.plan_from_numpy(arrays, device)
+
+
+#: (device, what) -> a request's preparation, computed once a run: the
+#: rack-aware placement of a spec, and the cold default-stack result of a
+#: spec (the incremental path's seed; a plain default-stack solve of the
+#: same spec fills it, so the seed is the very solve the stack path ran)
+_PREPARED: dict = {}
+
+
+def _spec_key(solve: dict, *extra) -> tuple:
+    return (tuple(sorted(solve["spec"].items())), solve["max_rounds"]) + extra
+
+
+def _solve(solve: dict, device: str, before=None):
     """Build the cluster of `solve` (see `path`) on `device` and run its
     goals through GoalOptimizer.optimizations: (initial state, topology,
-    result, solve seconds)."""
+    result, solve seconds).  A request's preparation (the rack-aware
+    solve, or the incremental path's cold solve and delta) runs first and
+    is not timed; `before()` is called just before the timed solve.  The
+    result carries the request's options and dirty mask (for the
+    gates) and, on the incremental path, the cold solve's result, time
+    and the delta's dirty mask."""
     import torch
     from cruise_control_tpu_torch.analyzer.goals.registry import \
         default_goals
     from cruise_control_tpu_torch.analyzer.optimizer import GoalOptimizer
     from cruise_control_tpu_torch.model import state as S
+    from cruise_control_tpu_torch.model import store as ST
     from cruise_control_tpu_torch.testing.random_cluster import (
         RandomClusterSpec, random_cluster)
     state, topo = random_cluster(RandomClusterSpec(**solve["spec"]),
@@ -2798,13 +2995,53 @@ def _solve(solve: dict, device: str):
     for d in solve["broken"]:
         state = S.mark_disk_dead(state, d)
     goals = default_goals(solve["max_rounds"], solve["goals"])
+    call = dict(solve.get("call") or {})
+    cold = None
+    if solve.get("prep") is not None:
+        key = (device, "rack-aware") + _spec_key(
+            solve, tuple(sorted(solve["prep"].items())))
+        card = _PREPARED.get(("cuda",) + key[1:])
+        if key not in _PREPARED and card is not None:
+            # the CPU comparison solves the request from the card's
+            # rack-aware placement: the same input on both devices
+            _PREPARED[key] = card.to(device)
+        if key not in _PREPARED:
+            _PREPARED[key] = GoalOptimizer(default_goals(
+                solve["max_rounds"], ["RackAwareGoal"])).optimizations(
+                state, topo, _request_options({}, solve["prep"], state, topo),
+                device=device).final_state
+        state = _PREPARED[key]
+    cold_key = (device, "cold") + _spec_key(solve)
+    if solve.get("incremental"):
+        if cold_key not in _PREPARED:
+            t0 = time.time()
+            cold = GoalOptimizer(goals).optimizations(state, topo,
+                                                      device=device)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            _PREPARED[cold_key] = (cold, time.time() - t0)
+        cold, cold_s = _PREPARED[cold_key]
+        state, dirty = ST.apply_delta(state, delta_plan(state, device))
+        call.update(warm_start=cold.final_state, dirty_brokers=dirty)
+    options = _request_options(solve, solve.get("options"), state, topo)
+    opt = GoalOptimizer(goals, **(solve.get("optimizer") or {}))
+    if before is not None:
+        before()
     if device == "cuda":
         torch.cuda.synchronize()
     t0 = time.time()
-    result = GoalOptimizer(goals).optimizations(state, topo, device=device)
+    result = opt.optimizations(state, topo, options, device=device, **call)
     if device == "cuda":
         torch.cuda.synchronize()
-    return state, topo, result, time.time() - t0
+    secs = time.time() - t0
+    if (solve["goals"] is None and set(solve) == set(path({}, None))
+            and not (solve["kill"] or solve["demote"] or solve["broken"])):
+        # a plain default-stack solve: the incremental path's cold seed
+        _PREPARED.setdefault(cold_key, (result, secs))
+    result.request = dict(options=options, dirty=call.get("dirty_brokers"))
+    if cold is not None:
+        result.request.update(cold=cold, cold_s=cold_s)
+    return state, topo, result, secs
 
 
 @contextlib.contextmanager
@@ -3468,7 +3705,8 @@ def _report(label: str, result, seconds: float, sweeps=None) -> None:
 
 def _gates(state, topo, result) -> None:
     """Sanity, proposal replay (new leaders included), cache equals a
-    rebuild, no goal above its own entry violated count."""
+    rebuild (under the request's own context), no goal above its own
+    entry violated count."""
     from cruise_control_tpu_torch.analyzer import context as C
     from cruise_control_tpu_torch.model.sanity import sanity_check
     from cruise_control_tpu_torch.testing import checks
@@ -3476,8 +3714,12 @@ def _gates(state, topo, result) -> None:
     # includes: no replica on a dead broker or broken disk, no offline
     # replica left
     checks.verify_result(state, result, topo)
+    request = getattr(result, "request", {})
     ctx = C.make_context(state, C.BalancingConstraint(),
-                         C.OptimizationOptions(), topo)
+                         request.get("options") or C.OptimizationOptions(),
+                         topo)
+    if request.get("dirty") is not None:
+        ctx = C.restrict_context_to_dirty(state, ctx, request["dirty"])
     bad = checks.cache_mismatches(result.final_state, ctx,
                                   result.final_cache)
     if bad:
@@ -3517,6 +3759,7 @@ def _timed_path(solve: dict, kernels, label: str, warm: bool = True):
     after), each of `kernels` > 0, and the garbage-collector passes inside
     it."""
     from cruise_control_tpu_torch import cuda_kernels
+    log(f"[t] {label}: starts at {time.time() - T_RUN[0]:.1f} s")
     if warm:
         (_, _, _, warm_s), counts = sweep_swap_torch_ops(
             lambda: _solve(solve, "cuda"))
@@ -3525,8 +3768,12 @@ def _timed_path(solve: dict, kernels, label: str, warm: bool = True):
         check_sweep_swap_counts(counts, label)
     cuda_kernels.reset_launches()
     with collector_passes() as gc_passes:
+        def before():
+            # a request's untimed preparation ends here
+            cuda_kernels.reset_launches()
+            gc_passes.clear()
         (state, topo, result, secs), sweeps = _sweep_rounds(
-            lambda: _solve(solve, "cuda"))
+            lambda: _solve(solve, "cuda", before))
     launches = dict(cuda_kernels.LAUNCHES)
     launches["splits"] = dict(sorted(cuda_kernels.LAUNCH_SPLITS.items()))
     four = solve["goals"] == FOUR_GOALS
@@ -3602,6 +3849,7 @@ def _card_equals_cpu(solve: dict, result, label: str) -> None:
     if stats_diff:
         raise AssertionError(f"the card's {label} stats differ from the "
                              f"port's CPU path (card, CPU): {stats_diff[:8]}")
+    return cpu_result
 
 
 def _logdir_moves(result) -> set:
@@ -3683,6 +3931,7 @@ def run_slice(results: dict) -> None:
         "seed 4")
     _, _, result, secs, launches = _timed_path(
         SLICE_STACK, STACK_KERNELS, "default stack slice")
+    stack_result = result
     for name in STACK_KERNELS + ("swap_pair",):
         results.setdefault(name, {})["launches"] = launches[name]
     results["_launches_stack"] = launches
@@ -3714,7 +3963,176 @@ def run_slice(results: dict) -> None:
     results["_hard_s"] = secs
     _card_equals_cpu(SLICE_HARD, result, "six hard goals slice")
     run_modes(results, north=False)
+    run_requests(results, north=False, stack_result=stack_result)
     results["_identical"] = True
+
+
+def _moves(state, result):
+    """(moved bool[R], brokers before, brokers after) as numpy arrays."""
+    before = state.replica_broker.cpu().numpy()
+    after = result.final_state.replica_broker.cpu().numpy()
+    return ((before != after) & state.replica_valid.cpu().numpy(), before,
+            after)
+
+
+def add_request_gate(state, result) -> int:
+    """Every new broker holds replicas after the add-broker request;
+    returns (and prints) the replicas that end on an old broker other
+    than their own (a swap's reverse leg: a swap round holds only its
+    cold side to the requested destinations, in the reference too)."""
+    import numpy as np
+    moved, _, after = _moves(state, result)
+    new = state.broker_new.cpu().numpy()
+    held = np.bincount(after[state.replica_valid.cpu().numpy()],
+                       minlength=new.size)
+    if not (held[new] > 0).all():
+        raise AssertionError(f"new brokers left empty: "
+                             f"{np.nonzero(new & (held == 0))[0].tolist()}")
+    old_to_old = int((moved & ~new[after]).sum())
+    log(f"    add-broker request: {int(new.sum())} new brokers hold "
+        f"{int(held[new].sum())} replicas (fewest {int(held[new].min())}); "
+        f"{int(moved.sum())} replicas moved, {old_to_old} of them onto an "
+        "old broker (swap reverse legs): ok")
+    return old_to_old
+
+
+def heal_request_gate(state, topo, result) -> dict:
+    """The self-healing request's exclusions held: no replica of an
+    excluded topic moved, no leadership transfer onto a broker excluded
+    from leadership, and a broker excluded from replica moves took no
+    more replicas than it gave away (a swap's reverse leg is not held to
+    the destination mask, in the reference too)."""
+    import numpy as np
+    options = result.request["options"]
+    moved, before, after = _moves(state, result)
+    topic_of_r = (state.partition_topic.cpu().numpy()
+                  [state.replica_partition.cpu().numpy()])
+    excluded = np.isin(topic_of_r, [topo.topics.index(t)
+                                    for t in options.excluded_topics])
+    lead0 = state.replica_is_leader.cpu().numpy()
+    lead1 = result.final_state.replica_is_leader.cpu().numpy()
+    no_lead = list(HEAL_EXCLUDED_LEADERSHIP)
+    no_move = list(HEAL_EXCLUDED_MOVES)
+    transfers = lead1 & ~lead0 & ~moved & np.isin(after, no_lead)
+    arrivals = np.bincount(after[moved], minlength=state.num_brokers)
+    departures = np.bincount(before[moved], minlength=state.num_brokers)
+    counts = {
+        "excluded topics": sorted(options.excluded_topics),
+        "excluded replicas moved": int(moved[excluded].sum()),
+        "leadership transfers onto 0 / 100": int(transfers.sum()),
+        "leader replicas moved onto 0 / 100":
+            int((moved & lead1 & np.isin(after, no_lead)).sum()),
+        "arrivals on 50 / 150": arrivals[no_move].tolist(),
+        "departures from 50 / 150": departures[no_move].tolist()}
+    log(f"    self-healing request: {counts}")
+    if (counts["excluded replicas moved"] or transfers.any()
+            or (arrivals[no_move] > departures[no_move]).any()
+            or len(options.excluded_topics) != 2):
+        raise AssertionError(f"the self-healing request's exclusions did "
+                             f"not hold: {counts}")
+    return counts
+
+
+def _request_equals_cpu(solve: dict, result, label: str):
+    """`_card_equals_cpu`, then the rest of the result: placement (logdirs
+    included), rounds, converged-at rounds, per-goal counts and the
+    host-skipped goals must equal the CPU path's."""
+    import torch
+    cpu = _card_equals_cpu(solve, result, label)
+    same = {
+        "placement": all(torch.equal(getattr(result.final_state, f).cpu(),
+                                     getattr(cpu.final_state, f))
+                         for f in ("replica_broker", "replica_disk")),
+        "rounds": result.rounds_by_goal == cpu.rounds_by_goal,
+        "converged-at": (result.converged_at_by_goal
+                         == cpu.converged_at_by_goal),
+        "violated counts": (result.violated_broker_counts
+                            == cpu.violated_broker_counts),
+        "entry counts": result.entry_broker_counts == cpu.entry_broker_counts,
+        "skipped goals": result.skipped_goals == cpu.skipped_goals}
+    log(f"    card and CPU, the rest of the result identical: {same}")
+    if not all(same.values()):
+        raise AssertionError(f"the card's {label} result differs from the "
+                             f"port's CPU path: {same}")
+    return cpu
+
+
+def incremental_gate(result, label: str, secs: float) -> None:
+    """No hard goal left violated by the warm, dirty solve; its time
+    beside the cold solve's."""
+    hard = set(result.hard_goal_names) & set(result.violated_goals_after)
+    req = result.request
+    log(f"    {label}: cold solve {req['cold_s']:.3f} s "
+        f"({len(req['cold'].proposals)} proposals), warm dirty solve "
+        f"{secs:.3f} s ({len(result.proposals)} proposals, "
+        f"{int(req['dirty'].sum())} dirty brokers, rounds "
+        f"{sum(v for k, v in result.rounds_by_goal.items())} against "
+        f"{sum(v for k, v in req['cold'].rounds_by_goal.items())} cold)")
+    if hard:
+        raise AssertionError(f"{label}: hard goals left violated {hard}")
+
+
+def all_dirty_gate(stack_result) -> None:
+    """The reference's pin (tests/test_incremental.py): an all-dirty mask
+    solves exactly as the full solve, on the card."""
+    import torch
+    solve = dict(SLICE_STACK, call=dict(dirty_brokers=torch.ones(
+        SLICE_SPEC["num_brokers"], dtype=torch.bool, device="cuda")))
+    _, _, result, secs = _solve(solve, "cuda")
+    same = all(torch.equal(getattr(result.final_state, f),
+                           getattr(stack_result.final_state, f))
+               for f in ("replica_broker", "replica_is_leader",
+                         "replica_disk"))
+    log(f"    all-dirty default-stack solve {secs:.3f} s: placement and "
+        f"leaders equal the full solve's {same}")
+    if not same:
+        raise AssertionError("the all-dirty solve differs from the full "
+                             "solve")
+
+
+def run_requests(results: dict, north: bool, stack_result=None) -> None:
+    """The requests as the facade sends them: add-broker, self-healing
+    through the options generator, the incremental (warm, dirty) solve and
+    fast mode under the fused solver.  At 200 brokers a warm-up, a timed
+    solve, the CPU comparison and each request's gate; at 2,600 the
+    add-broker and incremental requests, one timed solve each, gates
+    only."""
+    tag = "north_" if north else ""
+    where = "2,600 brokers" if north else "slice"
+    cases = ((NORTH_ADD_REQUEST, "add_request",
+              "add-broker request (130 new brokers)"),
+             (NORTH_INCREMENTAL, "incremental",
+              "incremental (warm, dirty) solve")) if north else (
+        (SLICE_ADD_REQUEST, "add_request",
+         "add-broker request (10 new brokers)"),
+        (SLICE_HEAL_REQUEST, "heal_request",
+         "self-healing request (options generator)"),
+        (SLICE_INCREMENTAL, "incremental", "incremental (warm, dirty) solve"),
+        (SLICE_FAST_FUSED, "fast_fused", "fast mode, fused solver"))
+    for solve, key, label in cases:
+        log(f"  -- {label} ({where})")
+        state, topo, result, secs, launches = _timed_path(
+            solve, REQUEST_KERNELS[key], f"{label} {where}", warm=not north)
+        results[f"_{tag}{key}_s"] = secs
+        results[f"_{tag}{key}_proposals"] = len(result.proposals)
+        results[f"_launches_{tag}{key}"] = launches
+        log(f"    {label} {where}: solve {secs:.3f} s, "
+            f"{len(result.proposals)} proposals, skipped goals "
+            f"{result.skipped_goals}, data to move {result.data_to_move:.1f} "
+            f"({CARD[0]})")
+        if key == "add_request":
+            results[f"_{tag}add_old_to_old"] = add_request_gate(state, result)
+        elif key == "heal_request":
+            results["_heal_counts"] = heal_request_gate(state, topo, result)
+        elif key == "incremental":
+            incremental_gate(result, f"{label} {where}", secs)
+            results[f"_{tag}incremental_cold_s"] = result.request["cold_s"]
+        if not north:
+            _request_equals_cpu(solve, result, f"{label} {where}")
+    if not north:
+        if stack_result is None:
+            stack_result = _solve(SLICE_STACK, "cuda")[2]
+        all_dirty_gate(stack_result)
 
 
 def profile_slice(solve: dict, device: str = "cuda",
@@ -3771,13 +4189,19 @@ def profile_slice(solve: dict, device: str = "cuda",
                 return fn(*a, **kw)
         return labelled
 
+    # the profiler starts after a request's untimed preparation
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     with collector_passes() as gc_passes, \
             (lexsort_k8() if lexsort_dispatch
              else contextlib.nullcontext()), \
-            _wrapped(targets, wrap), profile(
-                activities=[ProfilerActivity.CPU,
-                            ProfilerActivity.CUDA]) as prof:
-        _, _, _, secs = _solve(solve, device)
+            _wrapped(targets, wrap):
+        def before():
+            gc_passes.clear()
+            prof.start()
+        try:
+            _, _, _, secs = _solve(solve, device, before)
+        finally:
+            prof.stop()
     kernels, labels = [], []
     for evt in prof.key_averages():
         if evt.key.startswith("port::") and evt.device_type == DeviceType.CUDA:
@@ -3840,6 +4264,7 @@ def run_scale(results: dict) -> None:
     results["_north_hard_s"] = secs
     results["_launches_north_hard"] = launches
     run_modes(results, north=True)
+    run_requests(results, north=True)
 
 
 def _most_launched(splits: dict, prefix: str, measured) -> str:
@@ -3884,6 +4309,10 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default="1,2,3,4")
     ap.add_argument("--profile", action="store_true",
                     help="also profile one slice solve (torch.profiler)")
+    ap.add_argument("--requests-only", action="store_true",
+                    help="phases 3 and 4 run only the request paths "
+                         "(add-broker, self-healing, incremental, fast "
+                         "mode under the fused solver)")
     ap.add_argument("--parent", default=None,
                     help="a checkout of the parent tree: phase 2 times its "
                          "K6 and K10 chains as yardsticks and its K7 beside "
@@ -3907,6 +4336,7 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     name = torch.cuda.get_device_name(0)
+    CARD[0] = smi
     log(smi)
     log(f"[1] card: {smi} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | {name}")
@@ -3918,7 +4348,7 @@ def main(argv=None) -> int:
                 or line.startswith("==")):
             log(f"    {line.strip()}")
 
-    t_run = time.time()
+    t_run = T_RUN[0] = time.time()
     results: dict = {}
     widest = [0]
     def widest_call(fn, name):
@@ -4001,6 +4431,11 @@ def main(argv=None) -> int:
         results["segment_sum"] = check_segment_sum(seed=41)
         results["ordered_sum"] = check_ordered_sum(seed=42)
         results["cumsum_blocks"] = check_prefix_gate(seed=44)
+        log("[2] the dirty-region functions (torch ops: apply_delta, "
+            "set_broker_capacities, restrict_context_to_dirty) at the "
+            "slice's and the 2,600-broker shapes")
+        results["_dirty_ops"] = {"slice": check_dirty_ops(SLICE_SPEC),
+                                 "north": check_dirty_ops(NORTH_SPEC)}
         log("[2] K12 and K13's device launches a call (torch.profiler), "
             "after every timing")
         take_launch_counts()
@@ -4011,19 +4446,34 @@ def main(argv=None) -> int:
                 "goals, the default stack and the add-broker solve, then "
                 "config 5 and the six hard goals (self-healing), then the "
                 "demote, kafka-assigner and intra-broker modes")
-            run_slice(results)
+            if args.requests_only:
+                run_requests(results, north=False)
+            else:
+                run_slice(results)
             log(f"[t] {time.time() - t_run:.1f} s")
         if 4 in phases:
             log("[4] scale: the default stack, the four-goal solve, config 5, "
                 "the six hard goals and the demote, kafka-assigner and "
                 "intra-broker modes at 2,600 brokers / 200K partitions")
-            run_scale(results)
+            if args.requests_only:
+                run_requests(results, north=True)
+            else:
+                run_scale(results)
             log(f"[t] {time.time() - t_run:.1f} s")
     log(f"[4] the widest rank_accept call of the run: C = {widest[0]}")
     if widest[0] > RANK_CHECKED_C:
         raise AssertionError(f"a path called rank_accept at C = {widest[0]}, "
                              f"wider than phase 2 checks ({RANK_CHECKED_C})")
-    if args.profile:
+    if args.profile and args.requests_only:
+        for solve, label in ((SLICE_ADD, "add-broker slice"),
+                             (SLICE_ADD_REQUEST, "add-broker request"),
+                             (SLICE_STACK, "default stack slice"),
+                             (SLICE_HEAL_REQUEST, "self-healing request"),
+                             (SLICE_INCREMENTAL, "incremental warm solve"),
+                             (SLICE_FAST_FUSED, "fast mode, fused solver")):
+            log(f"[3p] profile of one {label} solve on the card")
+            profile_slice(solve)
+    elif args.profile:
         log("[3p] default-stack slice solves in turns, K8's lexsort "
             "dispatch against the one-launch K8 (unprofiled)")
         results["_k8_turns"] = dispatch_turns(
@@ -4085,6 +4535,18 @@ def main(argv=None) -> int:
         "modes_solve_s": {k: results.get(f"_{k}_s") for k in (
             "demote", "kafka_assigner", "intra", "intra_broken",
             "north_demote", "north_kafka_assigner", "north_intra")},
+        "requests_solve_s": {k: results.get(f"_{k}_s") for k in (
+            "add_request", "heal_request", "incremental", "fast_fused",
+            "north_add_request", "north_incremental")},
+        "requests_proposals": {k: results.get(f"_{k}_proposals") for k in (
+            "add_request", "heal_request", "incremental", "fast_fused",
+            "north_add_request", "north_incremental")},
+        "incremental_cold_solve_s": {
+            k: results.get(f"_{k}incremental_cold_s") for k in ("", "north_")},
+        "add_request_old_to_old": {
+            k: results.get(f"_{k}add_old_to_old") for k in ("", "north_")},
+        "heal_request_counts": results.get("_heal_counts"),
+        "dirty_region_ops": results.get("_dirty_ops"),
         "rank_accept_widest_c": widest[0],
         "stack_slice_pass_counts": results.get("_pass_counts"),
         "stack_slice_k8_turns_s": results.get("_k8_turns"),
@@ -4124,7 +4586,9 @@ def main(argv=None) -> int:
             "four", "stack", "add", "config5", "hard", "demote",
             "kafka_assigner", "intra", "intra_broken", "north_stack",
             "north_config5", "north_hard", "north_demote",
-            "north_kafka_assigner", "north_intra")}))
+            "north_kafka_assigner", "north_intra", "add_request",
+            "heal_request", "incremental", "fast_fused",
+            "north_add_request", "north_incremental")}))
     log("[5] rank_accept: " + json.dumps(results.get("rank_accept")))
     for k in ("commit_moves", "_commit_moves_north", "commit_leadership",
               "_commit_leadership_north", "segment_sum", "ordered_sum",

@@ -214,6 +214,29 @@ def make_context(state: ClusterState,
     )
 
 
+def restrict_context_to_dirty(state: ClusterState,
+                              ctx: OptimizationContext,
+                              dirty_brokers) -> OptimizationContext:
+    """The dirty-region solve's context: candidate replica sources shrink
+    to the dirty brokers plus every broker above its upper balance
+    threshold on some resource, and move destinations to the dirty
+    brokers plus every alive broker at or under the upper threshold on
+    every resource.  Leadership eligibility is untouched.  An all-dirty
+    mask gives the unrestricted context value for value."""
+    dirty = torch.as_tensor(dirty_brokers, dtype=torch.bool,
+                            device=state.device)
+    util = S.broker_load(state) / torch.clamp_min(state.broker_capacity,
+                                                  1e-9)
+    upper = ctx.balance_upper_pct[None, :]
+    over = torch.any(util > upper, dim=1)
+    under = state.broker_alive & torch.all(util <= upper, dim=1)
+    src_ok = dirty | over
+    return dataclasses.replace(
+        ctx,
+        replica_movable=ctx.replica_movable & src_ok[state.replica_broker],
+        broker_dest_ok=ctx.broker_dest_ok & (dirty | under))
+
+
 CACHE_FIELDS = (
     "broker_load", "broker_util", "replica_load", "replica_count",
     "leader_count", "partition_rack_count", "broker_topic_count",

@@ -9,7 +9,10 @@ programs; here it is a host-driven sequence of the same steps: the
 pre-program (stats and violated counts before, input validity, joint
 pre-balance), goal segments (float refresh at segment entry, then per
 goal the entry count, the no-work skip, the search, the fresh stats, the
-own count and the regression flag) and the post sweep.
+own count and the regression flag) and the post sweep.  The segment plan
+(`pipeline_segment_size`, `fused_segments`, `eager_driver`) decides where
+the float refreshes fall, so it is part of the result, as in the
+reference.
 
 Self-healing runs first when the model carries offline replicas (dead
 brokers, broken logdirs): `heal_offline_replicas` moves every one of them
@@ -29,7 +32,8 @@ from cruise_control_tpu_torch.analyzer import kernels as K
 from cruise_control_tpu_torch.analyzer.context import (
     BalancingConstraint, OptimizationContext, OptimizationOptions,
     ensure_full_cache, make_context, make_round_cache,
-    refresh_float_aggregates, table_width)
+    refresh_float_aggregates, restrict_context_to_dirty, table_width)
+from cruise_control_tpu_torch.analyzer.fusion import plan_segments
 from cruise_control_tpu_torch.analyzer.goals import base as goals_base
 from cruise_control_tpu_torch.analyzer.goals.base import (Goal,
                                                           OptimizationFailure)
@@ -47,10 +51,6 @@ from cruise_control_tpu_torch.model.stats import (ClusterModelStats,
 
 
 LOG = logging.getLogger(__name__)
-
-#: goals per segment: the float aggregates are refreshed at each segment's
-#: entry, at the reference's default cadence (pipeline_segment_size=4)
-SEGMENT_SIZE = 4
 
 
 class InvalidModelInputError(ValueError):
@@ -100,6 +100,15 @@ class OptimizerResult:
     #: model carried no offline replica)
     heal_rounds: int = 0
     heal_moves: int = 0
+    #: devices the solve spanned (always 1: the port has no mesh yet)
+    mesh_devices: int = 1
+    #: goals whose segment the host-side skip elided (`host_side_skip`)
+    skipped_goals: List[str] = dataclasses.field(default_factory=list)
+    #: (priority, strictness) weights of `balancedness_score`
+    balancedness_weights: Tuple[float, float] = (1.1, 1.5)
+    #: which solver produced the result; None for the greedy solve (the
+    #: port has no portfolio search)
+    solver_provenance: Optional[dict] = None
 
     @property
     def num_replica_movements(self) -> int:
@@ -111,6 +120,11 @@ class OptimizerResult:
         return sum(1 for p in self.proposals
                    if p.has_leader_action and not p.has_replica_action)
 
+    @property
+    def data_to_move(self) -> float:
+        """Inter-broker data the proposals move."""
+        return sum(p.inter_broker_data_to_move for p in self.proposals)
+
     def balancedness_score(self) -> float:
         """[0, 100]: 100 minus the rank-weighted cost of the goals still
         violated after optimization."""
@@ -118,8 +132,9 @@ class OptimizerResult:
             set(self.violated_goals_before) | set(self.violated_goals_after))
         if not goal_names:
             return 100.0
-        costs = goals_base.balancedness_cost_by_goal(goal_names,
-                                                     self.hard_goal_names)
+        pw, sw = self.balancedness_weights
+        costs = goals_base.balancedness_cost_by_goal(
+            goal_names, self.hard_goal_names, pw, sw)
         violated = set(self.violated_goals_after)
         kept = sum(c for n, c in costs.items() if n not in violated)
         total = sum(costs.values())
@@ -169,19 +184,59 @@ def heal_offline_replicas(state: ClusterState, ctx: OptimizationContext,
 
 class GoalOptimizer:
     """Priority-ordered multi-goal optimization with acceptance
-    stacking."""
+    stacking.
+
+    `pipeline_segment_size` goals form a segment (the float aggregates of
+    the round cache are refreshed at each segment's entry);
+    `fused_segments` puts each run of adjacent goals of one fusion group
+    in one segment instead (analyzer/fusion.py).  `eager_hard_abort`
+    raises at the end of the first segment whose hard goal is still
+    violated after its own run, in place of the check after the last
+    goal.  `host_side_skip` skips a segment whose goals all report no
+    work on its input state (`OptimizerResult.skipped_goals`).
+    `balancedness_weights` are the (priority, strictness) weights of the
+    balancedness score.  `jit_goals` and `auto_warmup` shape the
+    reference's XLA programs and their compiles; the port compiles
+    nothing ahead of a solve, so both are accepted and have no effect."""
 
     def __init__(self, goals: Sequence[Goal],
-                 constraint: Optional[BalancingConstraint] = None):
+                 constraint: Optional[BalancingConstraint] = None,
+                 jit_goals: bool = True,
+                 pipeline_segment_size: int = 4,
+                 balancedness_weights: Tuple[float, float] = (1.1, 1.5),
+                 auto_warmup: bool = False,
+                 eager_hard_abort: bool = False,
+                 fused_segments: bool = False,
+                 host_side_skip: bool = False):
         self.goals = list(goals)
         self.constraint = constraint or BalancingConstraint()
+        self.balancedness_weights = balancedness_weights
+        self.pipeline_segment_size = pipeline_segment_size
+        self.fused_segments = fused_segments
+        self.eager_hard_abort = eager_hard_abort
+        self.host_side_skip = host_side_skip
 
-    def _plan_segments(self):
-        """Goal chunks of SEGMENT_SIZE; the cache's float aggregates are
-        refreshed at each chunk's entry, as in the reference."""
-        g = len(self.goals)
-        return [(s, min(s + SEGMENT_SIZE, g))
-                for s in range(0, g, SEGMENT_SIZE)]
+    def _plan_segments(self, eager_driver: bool = False):
+        """[(start, stop), ...]: one goal a segment under the eager
+        driver, else the fusion plan or fixed-width chunks."""
+        if eager_driver:
+            return [(i, i + 1) for i in range(len(self.goals))]
+        return plan_segments([g.name for g in self.goals],
+                             max(1, self.pipeline_segment_size),
+                             self.fused_segments)
+
+    def _segment_no_work(self, start: int, stop: int, state, ctx,
+                         cache) -> bool:
+        """Host-side skip verdict for goals[start:stop] on the segment's
+        input state and cache (before its float refresh): True iff every
+        goal of the segment defines a no-work predicate and all hold."""
+        verdict = None
+        for g in self.goals[start:stop]:
+            nw = g.no_work(state, ctx, cache)
+            if nw is None:
+                return False
+            verdict = nw if verdict is None else verdict & nw
+        return verdict is not None and bool(verdict)
 
     def _prebalance_dims(self):
         """(active resources, balance_counts, count_margin) derived from
@@ -197,21 +252,64 @@ class GoalOptimizer:
 
     def optimizations(self, state: ClusterState, topology,
                       options: Optional[OptimizationOptions] = None,
-                      device=None,
-                      _table_slots_override: Optional[int] = None
-                      ) -> OptimizerResult:
+                      check_sanity: bool = True,
+                      _table_slots_override: Optional[int] = None,
+                      warm_start: Optional[ClusterState] = None,
+                      eager_hard_abort: Optional[bool] = None,
+                      eager_driver: bool = False,
+                      mesh=None,
+                      dirty_brokers=None,
+                      device=None) -> OptimizerResult:
         """Run all goals in priority order and diff out proposals, on
         `device` (the card unless "cpu" is asked for).
+
+        `warm_start`, a previous solve's final state of the same shapes,
+        seeds the search: its placement (brokers, logdirs, leader flags)
+        replaces the state's before the pipeline, unless it repositions a
+        replica that this request's options freeze (then it is dropped,
+        with a log line).  Proposals diff against the given state.
+        `dirty_brokers` (bool[B]) restricts the search to the dirty
+        region (`restrict_context_to_dirty`, read on the given state).
+        `eager_hard_abort` (None: the constructor's value) and
+        `eager_driver` (one goal a segment, with no no-work skip) are the
+        reference's; `check_sanity=False` skips the final sanity check.
+        `mesh` must be None: the multi-device mesh is not ported.
         `_table_slots_override` sets the broker-table width (the re-run
-        after self-healing overfilled a row)."""
+        after self-healing overfilled a row).
+
+        The reference reads its invalid-input, table-overflow and
+        self-healing verdicts at the end of the solve; the port reads
+        them before the goals run, so with `eager_hard_abort` a model
+        that fails one of them raises that verdict here where the
+        reference may raise a goal's eager abort first."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "the port has no multi-device mesh (the reference's "
+                "parallel/mesh.py is not ported yet); pass mesh=None")
         t_start = time.time()
         dev = resolve_device(device)
+        eager = (self.eager_hard_abort if eager_hard_abort is None
+                 else eager_hard_abort)
         options = options or OptimizationOptions()
         state = state.to(dev)
         goals = self.goals
         ctx = make_context(state, self.constraint, options, topology,
                            table_slots=_table_slots_override)
         initial = state
+        if warm_start is not None:
+            warm_start = warm_start.to(dev)
+            if self._seed_frozen(state, warm_start, ctx):
+                LOG.info("warm-start seed ignored: it repositions replicas "
+                         "this request's options freeze (excluded "
+                         "topics/brokers)")
+                warm_start = None
+        if warm_start is not None:
+            state = state.replace(
+                replica_broker=warm_start.replica_broker,
+                replica_is_leader=warm_start.replica_is_leader,
+                replica_disk=warm_start.replica_disk)
+        if dirty_brokers is not None:
+            ctx = restrict_context_to_dirty(initial, ctx, dirty_brokers)
 
         # --- pre: stats and violation sweep before, validity, pre-balance
         if bool(inputs_invalid(initial)):
@@ -252,9 +350,11 @@ class GoalOptimizer:
             LOG.warning("post-heal per-broker replica count %d overflowed "
                         "the broker table width %d; re-running with width "
                         "%d", max_count, ctx.table_slots, new_slots)
-            return self.optimizations(initial, topology, options,
-                                      device=dev,
-                                      _table_slots_override=new_slots)
+            return self.optimizations(
+                initial, topology, options, check_sanity=check_sanity,
+                _table_slots_override=new_slots, warm_start=warm_start,
+                eager_hard_abort=eager, eager_driver=eager_driver,
+                mesh=mesh, dirty_brokers=dirty_brokers, device=dev)
         still_offline = _count(S.self_healing_eligible(state))
         if still_offline:
             raise OptimizationFailure(
@@ -267,12 +367,27 @@ class GoalOptimizer:
         stats_by_goal: Dict[str, ClusterModelStats] = {}
         own, entry, rounds_by_goal, conv_by_goal = [], [], {}, {}
         regressed: List[str] = []
-        for start, stop in self._plan_segments():
+        skipped: List[str] = []
+        for start, stop in self._plan_segments(eager_driver):
+            if (self.host_side_skip and not eager_driver
+                    and self._segment_no_work(start, stop, state, ctx,
+                                              cache)):
+                # every goal of the segment is an identity at no work:
+                # no refresh, unchanged stats, zero rounds and counts
+                for goal in goals[start:stop]:
+                    entry.append(0)
+                    own.append(0)
+                    rounds_by_goal[goal.name] = conv_by_goal[goal.name] = 0
+                    stats_by_goal[goal.name] = prev_stats.cpu()
+                    skipped.append(goal.name)
+                continue
             cache = refresh_float_aggregates(state, cache)
             for i in range(start, stop):
                 goal = goals[i]
                 entry.append(_count(goal.violated_brokers(state, ctx, cache)))
-                nw = goal.no_work(state, ctx, cache)
+                # the eager driver runs every goal (the reference's
+                # per-goal programs have no no-work branch)
+                nw = None if eager_driver else goal.no_work(state, ctx, cache)
                 if nw is not None and bool(nw):
                     g_rounds = g_conv = 0
                 else:
@@ -293,6 +408,12 @@ class GoalOptimizer:
                 if not bool(goal.stats_not_worse(prev_stats, goal_stats)):
                     regressed.append(goal.name)
                 prev_stats = goal_stats
+            if eager:
+                for i in range(start, stop):
+                    if goals[i].is_hard and own[i]:
+                        raise OptimizationFailure(
+                            f"hard goal {goals[i].name} still violated "
+                            f"after its own optimization (eager abort)")
 
         # --- post sweep
         cache1 = refresh_float_aggregates(state, cache)
@@ -311,7 +432,8 @@ class GoalOptimizer:
                 raise OptimizationFailure(
                     f"hard goal {goal.name} still violated after "
                     f"optimization")
-        sanity_check(state)
+        if check_sanity:
+            sanity_check(state)
 
         keys = ("replica_broker", "replica_is_leader", "replica_disk")
         init_h = {k: getattr(initial, k).cpu().numpy() for k in keys}
@@ -343,8 +465,32 @@ class GoalOptimizer:
             hard_goal_names=frozenset(g.name for g in goals if g.is_hard),
             heal_rounds=heal_rounds,
             heal_moves=heal_moves,
+            skipped_goals=skipped,
+            balancedness_weights=self.balancedness_weights,
         )
         return result
+
+    @staticmethod
+    def _seed_frozen(state: ClusterState, seed: ClusterState,
+                     ctx: OptimizationContext) -> bool:
+        """Does the warm-start `seed` reposition a replica that this
+        request freezes: an excluded or unmovable replica moved, moved to
+        another logdir or changed leadership, a replica moved to a broker
+        that may not receive it, or leadership given to a broker that may
+        not lead?"""
+        frozen = ~(ctx.replica_movable & ~ctx.replica_excluded)
+        valid = state.replica_valid
+        seed_moved = valid & (seed.replica_broker != state.replica_broker)
+        promoted = valid & seed.replica_is_leader & ~state.replica_is_leader
+        seed_b = torch.clamp_max(seed.replica_broker,
+                                 state.num_brokers - 1).long()
+        bad = ((frozen & valid
+                & ((seed.replica_broker != state.replica_broker)
+                   | (seed.replica_disk != state.replica_disk)
+                   | (seed.replica_is_leader != state.replica_is_leader)))
+               | (seed_moved & ~ctx.broker_dest_ok[seed_b])
+               | (promoted & ~ctx.broker_leader_ok[seed_b]))
+        return bool(torch.any(bad))
 
 
 def proposal_set(result: OptimizerResult) -> set:

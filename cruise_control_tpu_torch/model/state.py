@@ -299,6 +299,24 @@ def set_broker_state(state: ClusterState, broker: int, *,
     return state.replace(**updates)
 
 
+def set_broker_capacities(state: ClusterState, rows, mask,
+                          values) -> ClusterState:
+    """Batched capacity override: broker row `rows[i]` takes `values[i]`
+    where `mask[i]` names a resource and keeps its other resources.  Rows
+    must be unique; a row outside [0, B) (a delta plan's padding) is
+    dropped, as the reference's scatter drops it."""
+    dev = state.device
+    cap = state.broker_capacity
+    rows = torch.as_tensor(rows, device=dev).long()
+    mask = torch.as_tensor(mask, dtype=torch.bool, device=dev)
+    values = torch.as_tensor(values, dtype=cap.dtype, device=dev)
+    # the reference's gather clamps an out-of-range row; its scatter then
+    # drops it, so the clamped read never lands
+    cur = cap[rows.clamp(0, state.num_brokers - 1)]
+    return state.replace(broker_capacity=ops.scatter_set(
+        cap, rows, torch.where(mask, values, cur)))
+
+
 def mark_disk_dead(state: ClusterState, disk: int) -> ClusterState:
     """Mark one logdir broken: its replicas go offline while the broker
     stays alive with bad disks."""

@@ -116,11 +116,16 @@ def verify_result(initial, result, topology) -> None:
     final_leader[part[lead]] = broker[lead]
     first_leader = np.full(num_p, -1)
     first_leader[part[lead0]] = broker0[lead0]
+    # valid replica rows grouped by partition, once (not a scan of the
+    # replica axis per proposal)
+    rows_by_p = np.nonzero(valid)[0]
+    rows_by_p = rows_by_p[np.argsort(part[rows_by_p], kind="stable")]
+    bounds = np.searchsorted(part[rows_by_p], np.arange(num_p + 1))
     proposed = set()
     for proposal in result.proposals:
         p = p_index[proposal.partition]
         proposed.add(p)
-        rows = valid & (part == p)
+        rows = rows_by_p[bounds[p]:bounds[p + 1]]
         final_set = set(broker[rows].tolist())
         new_set = {b_index[pl.broker_id] for pl in proposal.new_replicas}
         if final_set != new_set:

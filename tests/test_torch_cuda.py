@@ -24,7 +24,11 @@ ordered sums K12
 (`cumsum_blocks`, the prefix gate `prefix_gate`, at 200 and 2,600
 brokers) bit for bit with signed zeros and dropped ids, the
 slice's stats, a short default-stack solve and the demote,
-kafka-assigner and intra-broker solves against the port's CPU path.
+kafka-assigner and intra-broker solves against the port's CPU path; and
+the dirty-region functions (`apply_delta` with padded id arrays,
+`set_broker_capacities`, `restrict_context_to_dirty`) and a 16-broker
+add-broker request solve (rack-aware first, then the default stack with
+the new brokers as the only destinations) against the CPU path.
 
 Each test decides inside itself whether a card is present and skips
 with a reason when none is; run them on a machine with the card with
@@ -1377,3 +1381,97 @@ def test_stats_on_the_card_equal_the_cpu_path():
     for f in dataclasses.fields(out["cpu"]):
         a, b = getattr(out["cuda"], f.name), getattr(out["cpu"], f.name)
         assert bool(torch.equal(a.view(torch.int32), b.view(torch.int32))), f
+
+
+#: 16 brokers with one dead (offline replicas already), as
+#: tests/test_torch_store.py
+STORE_SPEC = dict(num_brokers=16, num_partitions=400, replication_factor=3,
+                  num_racks=4, num_topics=8, seed=3, skew_fraction=0.3,
+                  dead_brokers=1)
+STORE_DELTAS = {
+    "capacity": dict(capacities={2: {3: 5e5, 0: 80.0}}),
+    "load": dict(loads={5: ([4.0, 90.0, 120.0, 3e4], [1.0, 90.0, 0.0, 3e4],
+                            [3.0, 0.0, 120.0, 0.0])}),
+    "demote, new and removed": dict(demoted=(1, 9), new=(3,),
+                                    removed=(12, 13, 14, 15, 0)),
+}
+
+
+@pytest.mark.parametrize("delta", list(STORE_DELTAS))
+def test_apply_delta_on_the_card_equals_the_cpu_path(delta):
+    """`apply_delta` (with padded id arrays) and `set_broker_capacities`
+    on the card give the CPU path's state and dirty mask, byte for
+    byte."""
+    _card()
+    from cruise_control_tpu_torch.model import state as S
+    from cruise_control_tpu_torch.model import store as ST
+    out = {}
+    for dev in ("cuda", "cpu"):
+        st, _ = random_cluster(RandomClusterSpec(**STORE_SPEC), device=dev)
+        arrays = ST.plan_arrays(st.num_brokers, st.num_partitions,
+                                **STORE_DELTAS[delta])
+        new, dirty = ST.apply_delta(st, ST.plan_from_numpy(arrays, dev))
+        new = S.set_broker_capacities(
+            new, np.asarray([15, 16, 7], np.int32),
+            np.asarray([[1, 0, 1, 0], [1, 1, 1, 1], [0, 0, 0, 1]], bool),
+            np.full((3, 4), 7.5, np.float32))
+        out[dev] = (new, dirty)
+    for f in S.STATE_FIELDS:
+        assert _same(getattr(out["cuda"][0], f).cpu(),
+                     getattr(out["cpu"][0], f)), f
+    assert _same(out["cuda"][1].cpu(), out["cpu"][1])
+    assert out["cpu"][1].any()
+
+
+@pytest.mark.parametrize("dirty", ["all", "one", "random"])
+def test_restrict_context_on_the_card_equals_the_cpu_path(dirty):
+    _card()
+    out = {}
+    mask = {"all": np.ones(16, bool), "one": np.arange(16) == 2,
+            "random": np.random.default_rng(9).random(16) < 0.3}[dirty]
+    for dev in ("cuda", "cpu"):
+        st, topo = random_cluster(RandomClusterSpec(**STORE_SPEC),
+                                  device=dev)
+        ctx = C.make_context(st, C.BalancingConstraint(),
+                             C.OptimizationOptions(), topo)
+        out[dev] = C.restrict_context_to_dirty(st, ctx,
+                                               torch.from_numpy(mask))
+    for f in ("replica_movable", "broker_dest_ok"):
+        assert _same(getattr(out["cuda"], f).cpu(), getattr(out["cpu"], f))
+
+
+def test_add_broker_request_on_the_card_equals_the_cpu_path():
+    """The add-broker request at 16 brokers (14 and 2 new): RackAwareGoal
+    alone with the new brokers excluded from its moves, then the default
+    stack with the new brokers as the only requested destinations; the
+    card's proposals, leader flags, rounds and counts equal the CPU
+    path's."""
+    _card()
+    from cruise_control_tpu_torch.analyzer.goals.registry import \
+        default_goals
+    from cruise_control_tpu_torch.analyzer.optimizer import (GoalOptimizer,
+                                                             proposal_set)
+    spec = dict(num_brokers=14, num_partitions=400, replication_factor=3,
+                num_racks=4, num_topics=8, seed=0, skew_fraction=0.3,
+                new_brokers=2)
+    new = frozenset({14, 15})
+    out = {}
+    for dev in ("cuda", "cpu"):
+        st, topo = random_cluster(RandomClusterSpec(**spec), device=dev)
+        st = GoalOptimizer(default_goals(32, ["RackAwareGoal"])
+                           ).optimizations(
+            st, topo, C.OptimizationOptions(
+                excluded_brokers_for_replica_move=new),
+            device=dev).final_state
+        out[dev] = GoalOptimizer(default_goals(32)).optimizations(
+            st, topo, C.OptimizationOptions(
+                requested_destination_broker_ids=new), device=dev)
+    assert proposal_set(out["cuda"]) == proposal_set(out["cpu"])
+    assert torch.equal(out["cuda"].final_state.replica_is_leader.cpu(),
+                       out["cpu"].final_state.replica_is_leader)
+    assert out["cuda"].rounds_by_goal == out["cpu"].rounds_by_goal
+    assert (out["cuda"].violated_broker_counts
+            == out["cpu"].violated_broker_counts)
+    held = torch.bincount(out["cpu"].final_state.replica_broker.long(),
+                          minlength=16)
+    assert (held[[14, 15]] > 0).all()

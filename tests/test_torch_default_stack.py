@@ -19,6 +19,17 @@ the reference reuses its compiled programs.  While new brokers exist the
 distribution goals move onto them only (`new_broker_dest_mask`); the
 solve must equal the reference's and fill the new brokers.
 
+The requests the facade sends run on the same programs: the add-broker
+request (`requested_destination_broker_ids` = the new brokers) and an
+excluded-topics request over the self-healing triple (brokers excluded
+from leadership and from replica moves, `is_triggered_by_goal_violation`)
+each start from a rack-aware placement (`RackAwareGoal` alone first; for
+the add-broker request with the new brokers excluded from its moves, so
+they stay empty).  On the random placement both requests leave a rack
+violation that their options forbid fixing: the reference's solve raises,
+and the port must raise the same `OptimizationFailure`.  The
+self-healing triple alone runs on the random placement.
+
 The joint pre-balance alone with its replica-count dimension on
 (`balance_counts=True`, which `ReplicaDistributionGoal` in a goal list
 turns on) is held against the reference's too, with the count band the
@@ -42,6 +53,9 @@ from cruise_control_tpu_torch.analyzer.optimizer import GoalOptimizer
 from cruise_control_tpu_torch.testing import checks
 from cruise_control_tpu_torch.testing.random_cluster import (
     RandomClusterSpec, random_cluster)
+from cruise_control_tpu.analyzer.goals.base import \
+    OptimizationFailure as JFailure
+from cruise_control_tpu_torch.analyzer.goals.base import OptimizationFailure
 from test_torch_hard_goals import _assert_same_solve, _eq
 
 SEEDS = [0, 2]
@@ -144,6 +158,114 @@ def test_add_broker_fills_the_new_brokers(solved_add):
 
 def test_add_broker_verifiers_and_cache(solved_add):
     test_default_stack_verifiers_and_cache(solved_add)
+
+
+#: the self-healing request's options (facade `_self_healing_options`)
+HEAL = dict(excluded_brokers_for_leadership=frozenset({0, 8}),
+            excluded_brokers_for_replica_move=frozenset({4, 12}),
+            is_triggered_by_goal_violation=True)
+EXCLUDED = dict(HEAL, excluded_topics=frozenset({"topic-0", "topic-3"}))
+NEW = frozenset(range(ADD["num_brokers"],
+                      ADD["num_brokers"] + ADD["new_brokers"]))
+#: name -> (spec, request options, options of the rack-aware first solve)
+REQUESTS = {
+    "add-broker": (ADD, dict(requested_destination_broker_ids=NEW),
+                   dict(excluded_brokers_for_replica_move=NEW)),
+    "excluded topics over the triple": (spec(0), EXCLUDED, {}),
+}
+
+
+@pytest.fixture(scope="module")
+def j_rack_optimizer():
+    return JOptimizer(JR.default_goals(MAX_ROUNDS, ["RackAwareGoal"]))
+
+
+def rack_aware_start(spec_: dict, first: dict, j_rack):
+    """(js, jt, ps, pt): `spec_`'s cluster after `RackAwareGoal` alone
+    under options `first`, in both packages (equal placements)."""
+    js, jt = j_random_cluster(JSpec(**spec_))
+    ps, pt = random_cluster(RandomClusterSpec(**spec_), device="cpu")
+    jres = j_rack.optimizations(js, jt, JC.OptimizationOptions(**first))
+    jres._topology = jt
+    pres = GoalOptimizer(R.default_goals(MAX_ROUNDS, ["RackAwareGoal"])
+                         ).optimizations(ps, pt, C.OptimizationOptions(
+                             **first), device="cpu")
+    _assert_same_solve(jres, pres)
+    assert pres.rounds_by_goal["RackAwareGoal"] > 0
+    return jres.final_state, jt, pres.final_state, pt
+
+
+@pytest.fixture(scope="module", params=list(REQUESTS))
+def solved_request(request, j_optimizer, j_rack_optimizer):
+    spec_, opts, first = REQUESTS[request.param]
+    js, jt, ps, pt = rack_aware_start(spec_, first, j_rack_optimizer)
+    jres = j_optimizer.optimizations(js, jt, JC.OptimizationOptions(**opts))
+    jres._topology = jt
+    pres = GoalOptimizer(R.default_goals(max_rounds=MAX_ROUNDS)
+                         ).optimizations(ps, pt, C.OptimizationOptions(
+                             **opts), device="cpu")
+    return request.param, js, jres, ps, pt, pres
+
+
+def test_request_from_rack_aware_placement_matches(solved_request):
+    name, js, jres, ps, pt, pres = solved_request
+    _assert_same_solve(jres, pres)
+    assert jres.violated_goals_before == pres.violated_goals_before
+    assert pres.num_replica_movements > 0
+    j_verify(js, jres)
+    checks.verify_result(ps, pres, pt)
+    before = ps.replica_broker.numpy()
+    after = pres.final_state.replica_broker.numpy()
+    moved = (before != after) & ps.replica_valid.numpy()
+    if name == "add-broker":
+        held = np.bincount(after, minlength=ps.num_brokers)
+        assert (held[sorted(NEW)] > 0).all()
+        # replicas that end on an old broker other than their own: the
+        # swaps' reverse legs (the cold side alone is held to the
+        # requested destinations), counted here and on the card
+        old_to_old = moved & ~np.isin(after, sorted(NEW))
+        assert old_to_old.sum() == (
+            (np.asarray(js.replica_broker)
+             != np.asarray(jres.final_state.replica_broker))
+            & ~np.isin(np.asarray(jres.final_state.replica_broker),
+                       sorted(NEW))).sum()
+    else:
+        topic_of_r = ps.partition_topic.numpy()[
+            ps.replica_partition.numpy()]
+        excluded = np.isin(topic_of_r, [pt.topics.index(t) for t in
+                                        EXCLUDED["excluded_topics"]])
+        assert not moved[excluded].any()
+
+
+@pytest.mark.parametrize("name", list(REQUESTS))
+def test_request_on_random_placement_raises_the_same(name, j_optimizer):
+    """On the random placement each request leaves a rack violation its
+    options forbid fixing: the same OptimizationFailure in both."""
+    spec_, opts, _ = REQUESTS[name]
+    js, jt = j_random_cluster(JSpec(**spec_))
+    ps, pt = random_cluster(RandomClusterSpec(**spec_), device="cpu")
+    with pytest.raises(JFailure) as want:
+        j_optimizer.optimizations(js, jt, JC.OptimizationOptions(**opts))
+    with pytest.raises(OptimizationFailure) as got:
+        GoalOptimizer(R.default_goals(max_rounds=MAX_ROUNDS)).optimizations(
+            ps, pt, C.OptimizationOptions(**opts), device="cpu")
+    assert str(got.value) == str(want.value)
+    assert "RackAwareGoal" in str(got.value)
+
+
+def test_self_healing_triple_matches(j_optimizer):
+    sp = spec(0)
+    js, jt = j_random_cluster(JSpec(**sp))
+    jres = j_optimizer.optimizations(js, jt, JC.OptimizationOptions(**HEAL))
+    jres._topology = jt
+    ps, pt = random_cluster(RandomClusterSpec(**sp), device="cpu")
+    pres = GoalOptimizer(R.default_goals(max_rounds=MAX_ROUNDS)
+                         ).optimizations(ps, pt, C.OptimizationOptions(
+                             **HEAL), device="cpu")
+    _assert_same_solve(jres, pres)
+    assert jres.violated_goals_before == pres.violated_goals_before
+    j_verify(js, jres)
+    checks.verify_result(ps, pres, pt)
 
 
 _j_prebalance = jax.jit(JP.prebalance,

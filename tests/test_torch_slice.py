@@ -282,6 +282,24 @@ def test_verify_result_checks_new_leaders():
         checks.verify_result(ps, dropped, pt)
 
 
+def test_verify_result_checks_replica_sets():
+    """The replay gate fails a proposal whose new replica set is not the
+    partition's final one, and passes the solve's own proposals."""
+    ps, pt = random_cluster(RandomClusterSpec(**_spec(0)), device="cpu")
+    pres = GoalOptimizer([DiskUsageDistributionGoal()]).optimizations(
+        ps, pt, device="cpu")
+    checks.verify_result(ps, pres, pt)
+    moved = [p for p in pres.proposals if p.has_replica_action]
+    assert len(moved) > 1
+    for victim in (moved[0], moved[-1]):
+        wrong = dataclasses.replace(victim,
+                                    new_replicas=victim.old_replicas)
+        bad = dataclasses.replace(pres, proposals=[
+            wrong if p is victim else p for p in pres.proposals])
+        with pytest.raises(AssertionError, match="inconsistent"):
+            checks.verify_result(ps, bad, pt)
+
+
 def test_offline_replicas_are_healed_like_the_reference(j_optimizer):
     """A dead broker's replicas are healed first (the port used to refuse
     them), then the two goals run: the same fixture in both packages
