@@ -162,6 +162,22 @@ Phases:
      left violated, and an all-dirty solve equal to the full one) and
      fast mode under the fused solver (fusion-group segments, the
      host-side skip, the eager abort);
+     Phase 3 ends with requests served through the port's facade
+     (`CruiseControl` over `LoadMonitor`, fed the description of a
+     generated cluster: `served_inputs`), each on the card and again in
+     a facade on the CPU, with the gates above, the store's counters
+     (never a quarantine), the resident model and warm seed unchanged by
+     every request, the resident model equal to a rebuild after each
+     fast-forward, and the times of each request (wall, the rebuild's
+     builder loop and move to the card, the fast-forward, the solve):
+     `optimizations` cold, its cache hit, a narrow delta (a restricted
+     warm solve over at most 25 dirty brokers), a wide delta (warm,
+     unrestricted, one counted fallback), `rebalance` with the
+     self-healing options and an excluded-topics pattern, the
+     kafka-assigner `rebalance`, `demote_brokers` and `remove_brokers`
+     of brokers 0 and 100, `add_brokers` of the 10 appended brokers from
+     the add-broker request's rack-aware placement, and
+     `fix_offline_replicas` on config 5's cluster;
   4. scale, 2,600 brokers / 200K partitions / 26 racks / 100 topics: the
      whole default stack (bench.py's "north" preset), the four-goal solve,
      config 5 (52 broken logdirs), the six hard goals with brokers 0,
@@ -169,10 +185,12 @@ Phases:
      kafka-assigner order, the intra-broker goals on 4 logdirs per
      broker), the add-broker request (130 new brokers) and the
      incremental solve (its cold and warm times), with the same gates
-     (no CPU comparison); then the widest rank_accept call of the run
+     (no CPU comparison), and the served requests `optimizations` cold,
+     a narrow delta and `remove_brokers` of 26 brokers (card only); then
+     the widest rank_accept call of the run
      must be one phase 2 checked.  --requests-only runs only the request
-     paths in phases 3 and 4, and --profile with it profiles them beside
-     their option-less twins.
+     paths and the served requests in phases 3 and 4, and --profile with
+     it profiles the request paths beside their option-less twins.
 With --profile, default-stack solves in turns and two more profiled (with
 K8, then with K8's lexsort dispatch: the torch lexsort, the kernel on its
 order and the ordered scatters after each pass) and one more config-5,
@@ -2892,8 +2910,34 @@ def check_dirty_ops(spec: dict) -> dict:
         raise AssertionError(f"dirty-region ops on the card differ from the "
                              f"CPU: {diff}")
     st, plan = card["st"], card["plan"]
+
+    def nbytes(obj, fields):
+        return sum(getattr(obj, f).numel() * getattr(obj, f).element_size()
+                   for f in fields)
+    # each function's inputs read once and outputs written once
+    delta_written = ("broker_new", "broker_demoted", "broker_alive",
+                     "replica_offline", "replica_original_offline",
+                     "partition_leader_bonus", "replica_base_load",
+                     "broker_capacity")
+    delta_bytes = (nbytes(st, delta_written + (
+        "replica_broker", "replica_valid", "replica_partition",
+        "replica_is_leader")) + nbytes(plan, ST.PLAN_FIELDS)
+        + nbytes(card["new"], delta_written) + st.num_brokers)
+    caps_bytes = (2 * nbytes(st, ("broker_capacity",)) + nbytes(
+        plan, ("cap_rows", "cap_mask", "cap_values")))
+    ctx_written = ("replica_movable", "broker_dest_ok")
+    restrict_bytes = (nbytes(card["new"], (
+        "replica_base_load", "replica_is_leader", "replica_partition",
+        "partition_leader_bonus", "replica_valid", "replica_broker",
+        "broker_capacity", "broker_alive")) + st.num_brokers
+        + nbytes(card["ctx"], ctx_written + ("balance_upper_pct",))
+        + nbytes(card["rctx"], ctx_written))
     out = {"brokers": st.num_brokers, "replicas": st.num_replicas,
            "dirty brokers": int(cpu["dirty"].sum()),
+           "bound ms (bytes)": {
+               "apply_delta": bound(delta_bytes, 0)[0],
+               "set_broker_capacities": bound(caps_bytes, 0)[0],
+               "restrict_context_to_dirty": bound(restrict_bytes, 0)[0]},
            "apply_delta ms": cuda_time_ms(lambda: ST.apply_delta(st, plan)),
            "set_broker_capacities ms": cuda_time_ms(
                lambda: S.set_broker_capacities(st, plan.cap_rows,
@@ -3964,6 +4008,7 @@ def run_slice(results: dict) -> None:
     _card_equals_cpu(SLICE_HARD, result, "six hard goals slice")
     run_modes(results, north=False)
     run_requests(results, north=False, stack_result=stack_result)
+    run_served(results, north=False)
     results["_identical"] = True
 
 
@@ -4135,6 +4180,424 @@ def run_requests(results: dict, north: bool, stack_result=None) -> None:
         all_dirty_gate(stack_result)
 
 
+# ---------------------------------------------------------------------------
+# served requests: the port's CruiseControl over its LoadMonitor
+# ---------------------------------------------------------------------------
+
+#: the kernels every move-solving default-stack request launches (the
+#: pre-balance and the move rounds); a heal adds K7
+SERVED_STACK_KERNELS = ("row_topk", "assign_pass", "commit_moves",
+                        "rank_accept", "cumsum_blocks") + MOVE_KERNELS
+SERVED_HEAL_KERNELS = SERVED_STACK_KERNELS + ("forced_select",)
+
+
+def served_sums(result) -> tuple:
+    """The kernels of a solve that may find little to do: the stats'
+    ordered sums, and K3 once it moves a replica."""
+    return SUM_KERNELS + (("commit_moves",) if result.num_replica_movements
+                          else ())
+#: partitions the narrow delta reloads (8 x rf 3 brokers plus broker 2:
+#: at most 25 dirty), and the wide one (PR 14's 64, about 124 of 200)
+SERVED_NARROW_PARTITIONS = 8
+SERVED_WIDE_PARTITIONS = 64
+SERVED_PATTERN = "topic-[03]"
+#: the store's counters after each request of the 200-broker sequence
+#: (hits, misses, fallbacks, delta applies): a cold miss, the cache (no
+#: consult), two fast-forwards (the second's dirty region too large: a
+#: fallback, counted as a miss), then a resident hit a request
+SERVED_STORE = {"cold": (0, 1, 0, 0), "cache hit": (0, 1, 0, 0),
+                "narrow delta": (1, 1, 0, 1), "wide delta": (2, 2, 1, 2),
+                "self-healing options": (3, 2, 1, 2),
+                "kafka assigner": (4, 2, 1, 2), "demote": (5, 2, 1, 2),
+                "remove": (6, 2, 1, 2)}
+
+
+@contextlib.contextmanager
+def served_meter():
+    """Per served request: each optimizer solve (its inputs, result and
+    seconds to a synchronized end), each store fast-forward and each
+    monitor rebuild (seconds, and the rebuild's split: the builder's
+    description loop, its arrays, the move to the device)."""
+    import torch
+    from cruise_control_tpu_torch.analyzer.optimizer import GoalOptimizer
+    from cruise_control_tpu_torch.model.store import DeviceModelStore
+    from cruise_control_tpu_torch.monitor.load_monitor import LoadMonitor
+    rec = {"solves": [], "advance_s": [], "builds": []}
+    real = (GoalOptimizer.optimizations, DeviceModelStore.advance,
+            LoadMonitor.cluster_model)
+
+    def sync(dev):
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def solve(self, state, topology, options=None, **kw):
+        t0 = time.perf_counter()
+        result = real[0](self, state, topology, options, **kw)
+        sync(result.final_state.device)
+        rec["solves"].append(dict(
+            state=state, topo=topology, options=options,
+            dirty=kw.get("dirty_brokers"),
+            warm=kw.get("warm_start") is not None, result=result,
+            seconds=time.perf_counter() - t0))
+        return result
+
+    def advance(self, records, to_generation):
+        t0 = time.perf_counter()
+        out = real[1](self, records, to_generation)
+        if self._state is not None:
+            sync(self._state.device)
+        rec["advance_s"].append(time.perf_counter() - t0)
+        return out
+
+    def build(self, *a, **kw):
+        t0 = time.perf_counter()
+        out = real[2](self, *a, **kw)
+        rec["builds"].append(dict(self.last_build_seconds,
+                                  total=time.perf_counter() - t0))
+        return out
+
+    GoalOptimizer.optimizations = solve
+    DeviceModelStore.advance = advance
+    LoadMonitor.cluster_model = build
+    try:
+        yield rec
+    finally:
+        (GoalOptimizer.optimizations, DeviceModelStore.advance,
+         LoadMonitor.cluster_model) = real
+
+
+def served_facade(inputs, device: str):
+    """(monitor, facade) on `device` over a cluster's description
+    (`served_inputs`: snapshot, leader loads, capacities): the default
+    stack at 192 rounds, every other setting the reference's default."""
+    from cruise_control_tpu_torch.facade import CruiseControl
+    from cruise_control_tpu_torch.monitor.load_monitor import LoadMonitor
+    monitor = LoadMonitor(*inputs, device=device)
+    return monitor, CruiseControl(monitor, device=device,
+                                  max_optimization_rounds=192)
+
+
+def served_delta(inputs, partitions: int, capacity: bool):
+    """A model delta on a cluster's description: every (P / n)-th
+    partition's leader load x 1.25 (n = `partitions`) and, with
+    `capacity`, broker 2's capacity row x 1.5."""
+    import numpy as np
+    from cruise_control_tpu_torch.monitor.deltas import (ModelDelta,
+                                                         PartitionLoadUpdate)
+    from cruise_control_tpu_torch.scenario.spec import RESOURCE_NAMES
+    snap, loads, capacities = inputs
+    parts = snap.partitions[::len(snap.partitions) // partitions][:partitions]
+    updates = tuple(PartitionLoadUpdate(
+        p.tp.topic, p.tp.partition,
+        tuple(float(x) for x in loads[(p.tp.topic, p.tp.partition)]
+              * np.float64(1.25))) for p in parts)
+    caps = {}
+    if capacity:
+        row = capacities[2].capacity
+        caps = {2: {n: float(row[i]) * 1.5
+                    for i, n in enumerate(RESOURCE_NAMES)}}
+    return ModelDelta(capacity_overrides=caps, load_updates=updates)
+
+
+def _frozen(state):
+    from cruise_control_tpu_torch.model.state import STATE_FIELDS
+    return None if state is None else {
+        f: getattr(state, f).clone() for f in STATE_FIELDS}
+
+
+def _kept(frozen, state) -> bool:
+    import torch
+    return frozen is None or all(torch.equal(t, getattr(state, f))
+                                 for f, t in frozen.items())
+
+
+def serve(label: str, call, cc, monitor, kernels=(), expect_store=None,
+          rebuild_check: bool = False, gates: bool = True) -> dict:
+    """One request through the facade: its wall time, the solve's inputs
+    and result, its launches (counts set to 0 just before, read just
+    after; each of `kernels`, or of `kernels(result)`, > 0), the store's
+    counters (against
+    `expect_store`: hits, misses, fallbacks, delta applies; never a
+    quarantine), the store's resident model and the warm seed unchanged
+    by the request, and with `rebuild_check` the resident model equal to
+    a rebuild of its generation, bit for bit; then, with `gates`, the
+    phase-3 gates on the solve."""
+    import torch
+    from cruise_control_tpu_torch import cuda_kernels
+    store = cc.model_store
+    old_state = store._state
+    old_seed = None if cc._warm_seed is None else cc._warm_seed[0]
+    frozen, frozen_seed = _frozen(old_state), _frozen(old_seed)
+    on_card = cc.device.type == "cuda"
+    cuda_kernels.reset_launches()
+    with served_meter() as rec:
+        t0 = time.perf_counter()
+        answer = call()
+        if on_card:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = dict(cuda_kernels.LAUNCHES)
+    result = getattr(answer, "optimizer_result", answer)
+    counts = store.to_json()
+    kept = _kept(frozen, old_state) and _kept(frozen_seed, old_seed)
+    solve = rec["solves"][-1] if rec["solves"] else None
+    dirty = (None if solve is None or solve["dirty"] is None
+             else int(solve["dirty"].sum()))
+    build = rec["builds"][0] if rec["builds"] else {}
+    out = dict(label=label, result=result, solve=solve, wall=wall,
+               launches=launches, store=counts, dirty=dirty,
+               build=build, advance_s=sum(rec["advance_s"]),
+               solve_s=sum(s["seconds"] for s in rec["solves"]),
+               solves=len(rec["solves"]))
+    where = "card" if on_card else "CPU"
+    log(f"    served {label} ({where}): wall {wall:.3f} s; rebuild "
+        + (f"{build['total']:.3f} s (builder loop {build['describe']:.3f}, "
+           f"arrays {build['arrays']:.3f}, to the device "
+           f"{build['to_device']:.4f}, capacity overlay "
+           f"{build['overlay']:.4f})" if build else "none")
+        + f"; fast-forward {out['advance_s']:.4f} s; solve "
+        f"{out['solve_s']:.3f} s ({out['solves']} solves); rounds "
+        f"{sum(result.rounds_by_goal.values())}; proposals "
+        f"{len(result.proposals)}; dirty brokers "
+        f"{'none (full sweep)' if dirty is None else dirty} of "
+        f"{result.final_state.num_brokers}; store {counts['hits']} hits, "
+        f"{counts['misses']} misses, {counts['fallbacks']} fallbacks, "
+        f"{counts['deltaApplies']} deltas applied, last dirty "
+        f"{counts['lastDirtyBrokers']}, last fallback "
+        f"{counts['lastFallbackReason']!r}")
+    if on_card:
+        log(f"      launches {launches}")
+    if counts["quarantines"]:
+        raise AssertionError(f"served {label}: the store quarantined "
+                             f"({counts['lastFallbackReason']})")
+    got = (counts["hits"], counts["misses"], counts["fallbacks"],
+           counts["deltaApplies"])
+    if expect_store is not None and got != tuple(expect_store):
+        raise AssertionError(f"served {label}: store counters (hits, "
+                             f"misses, fallbacks, delta applies) {got}, "
+                             f"expected {tuple(expect_store)}")
+    if not kept:
+        raise AssertionError(f"served {label}: the request changed the "
+                             "store's resident model or the warm seed")
+    if on_card:
+        if callable(kernels):
+            kernels = kernels(result)
+        missing = [k for k in kernels if launches[k] <= 0]
+        if missing:
+            raise AssertionError(f"served {label}: kernels {missing} were "
+                                 "not launched")
+    if rebuild_check:
+        t0 = time.perf_counter()
+        rebuilt, _ = monitor.cluster_model()
+        if not _kept(_frozen(rebuilt), store._state):
+            raise AssertionError(f"served {label}: the fast-forwarded "
+                                 "resident model differs from a rebuild")
+        log(f"      resident model equal to a rebuild bit for bit "
+            f"(rebuilt in {time.perf_counter() - t0:.3f} s): ok")
+    if gates and solve is not None:
+        result.request = dict(options=solve["options"], dirty=solve["dirty"])
+        _gates(solve["state"], solve["topo"], result)
+    return out
+
+
+def served_equal(card: dict, cpu: dict) -> None:
+    """The card's served request equals the CPU facade's: proposals
+    (logdirs included), placement, leader flags, rounds, the store's
+    counters and the stats (before, after and by goal) bit for bit."""
+    import torch
+    from cruise_control_tpu_torch.analyzer.optimizer import proposal_set
+    a, b = card["result"], cpu["result"]
+    same = {
+        "proposals": (proposal_set(a) == proposal_set(b)
+                      and _logdir_moves(a) == _logdir_moves(b)),
+        "placement and leaders": all(
+            torch.equal(getattr(a.final_state, f).cpu(),
+                        getattr(b.final_state, f).cpu())
+            for f in ("replica_broker", "replica_disk",
+                      "replica_is_leader")),
+        "rounds": a.rounds_by_goal == b.rounds_by_goal,
+        "store": card["store"] == cpu["store"],
+        "dirty brokers": card["dirty"] == cpu["dirty"],
+        "stats": not _stats_differences(a, b)}
+    log(f"    served {card['label']}: card and CPU identical {same}")
+    if not all(same.values()):
+        raise AssertionError(f"served {card['label']}: the card differs "
+                             f"from the CPU facade: {same}")
+
+
+def _served_sequence(device: str, inputs, north: bool, add_start=None,
+                     jbod=None) -> list:
+    """The requests of the served path on `device`, in order (see
+    `run_served`); `inputs` describe the cluster, `add_start` (the
+    description and the new broker ids) and `jbod` the add-broker and
+    config-5 clusters."""
+    from cruise_control_tpu_torch.analyzer.goals.registry import \
+        KAFKA_ASSIGNER_GOAL_ORDER
+    from cruise_control_tpu_torch.analyzer.options_generator import \
+        DefaultOptimizationOptionsGenerator
+    assert KAFKA_ASSIGNER_GOAL_ORDER == KAFKA_ASSIGNER_GOALS
+    monitor, cc = served_facade(inputs, device)
+    card = device == "cuda"
+    num_b = len(inputs[0].brokers)
+    removed = list(range(0, num_b, 100))
+    out = [serve("cold", cc.optimizations, cc, monitor,
+                 SERVED_STACK_KERNELS, SERVED_STORE["cold"])]
+    hit = serve("cache hit", cc.optimizations, cc, monitor, (),
+                SERVED_STORE["cache hit"], gates=False)
+    if hit["result"] is not out[0]["result"] or hit["solves"] \
+            or (card and any(hit["launches"].values())):
+        raise AssertionError("the cache hit solved, launched or answered "
+                             "another result")
+    out.append(hit)
+    monitor.apply_model_delta(served_delta(
+        inputs, SERVED_NARROW_PARTITIONS, capacity=True))
+    narrow = serve("narrow delta", cc.optimizations, cc, monitor,
+                   served_sums, SERVED_STORE["narrow delta"],
+                   rebuild_check=True)
+    if narrow["dirty"] is None or not 0 < narrow["dirty"] <= min(
+            25, num_b // 2) or not narrow["solve"]["warm"]:
+        raise AssertionError(f"the narrow delta's solve was not warm and "
+                             f"restricted to at most 25 brokers "
+                             f"(dirty {narrow['dirty']})")
+    out.append(narrow)
+    if north:
+        out.append(serve(f"remove brokers {removed[0]}, {removed[1]}, ..., "
+                         f"{removed[-1]}", lambda: cc.remove_brokers(removed),
+                         cc, monitor, SERVED_HEAL_KERNELS,
+                         (2, 1, 0, 1)))
+        return out
+    monitor.apply_model_delta(served_delta(
+        inputs, SERVED_WIDE_PARTITIONS, capacity=False))
+    wide = serve("wide delta", cc.optimizations, cc, monitor,
+                 SERVED_STACK_KERNELS, SERVED_STORE["wide delta"],
+                 rebuild_check=True)
+    if wide["dirty"] is not None or not wide["solve"]["warm"] or \
+            not wide["store"]["lastFallbackReason"].startswith(
+                "dirty region too large"):
+        raise AssertionError("the wide delta's solve was not warm, "
+                             "unrestricted and counted as a fallback")
+    out.append(wide)
+    healing = cc._self_healing_options(
+        recently_demoted=HEAL_EXCLUDED_LEADERSHIP,
+        recently_removed=HEAL_EXCLUDED_MOVES)
+    generator = cc._options_generator
+    # the deployment's excluded-topics pattern, for this request
+    cc._options_generator = DefaultOptimizationOptionsGenerator(
+        SERVED_PATTERN)
+    try:
+        heal = serve("self-healing options",
+                     lambda: cc.rebalance(options=healing), cc, monitor,
+                     SERVED_STACK_KERNELS,
+                     SERVED_STORE["self-healing options"])
+    finally:
+        cc._options_generator = generator
+    out.append(heal)
+    out.append(serve("kafka assigner",
+                     lambda: cc.rebalance(kafka_assigner=True), cc, monitor,
+                     served_sums,
+                     SERVED_STORE["kafka assigner"]))
+    out.append(serve("demote", lambda: cc.demote_brokers([0, 100]), cc,
+                     monitor, DEMOTE_KERNELS, SERVED_STORE["demote"]))
+    out.append(serve("remove", lambda: cc.remove_brokers([0, 100]), cc,
+                     monitor, SERVED_HEAL_KERNELS, SERVED_STORE["remove"]))
+    add_inputs, new_ids = add_start
+    monitor, cc = served_facade(add_inputs, device)
+    out.append(serve(f"add brokers {new_ids[0]}-{new_ids[-1]}",
+                     lambda: cc.add_brokers(new_ids), cc, monitor,
+                     SERVED_STACK_KERNELS + ("swap_pair",), (0, 1, 0, 0)))
+    monitor, cc = served_facade(jbod, device)
+    out.append(serve("fix offline replicas (config 5, 4 broken logdirs)",
+                     cc.fix_offline_replicas, cc, monitor,
+                     SERVED_HEAL_KERNELS, (0, 1, 0, 0)))
+    return out
+
+
+def rack_aware_start(solve: dict, device: str = "cuda"):
+    """(state, topology): the cluster of `solve` after its rack-aware
+    preparation (RackAwareGoal alone under `solve["prep"]`), the one
+    `_solve` computes for the request paths (shared through
+    `_PREPARED`)."""
+    from cruise_control_tpu_torch.analyzer.goals.registry import \
+        default_goals
+    from cruise_control_tpu_torch.analyzer.optimizer import GoalOptimizer
+    from cruise_control_tpu_torch.testing.random_cluster import (
+        RandomClusterSpec, random_cluster)
+    state, topo = random_cluster(RandomClusterSpec(**solve["spec"]),
+                                 device=device)
+    key = (device, "rack-aware") + _spec_key(
+        solve, tuple(sorted(solve["prep"].items())))
+    if key not in _PREPARED:
+        _PREPARED[key] = GoalOptimizer(default_goals(
+            solve["max_rounds"], ["RackAwareGoal"])).optimizations(
+            state, topo, _request_options({}, solve["prep"], state, topo),
+            device=device).final_state
+    return _PREPARED[key], topo
+
+
+def run_served(results: dict, north: bool) -> None:
+    """Requests served through the port's CruiseControl over its
+    LoadMonitor, fed the description (snapshot, leader loads, capacities)
+    of a generated cluster.  At 200 brokers, in one facade over the
+    self-healing request's rack-aware placement: `optimizations` cold (a
+    store miss, the rebuild, `install`), its cache hit (the same
+    result, no solve, no launch), a narrow delta (broker 2's capacity x
+    1.5 and 8 partitions' loads x 1.25: a fast-forward and the warm solve
+    restricted to at most 25 dirty brokers), a wide one (64 partitions:
+    a fast-forward, the warm solve unrestricted, one counted fallback),
+    `rebalance` with the self-healing options and the excluded-topics
+    pattern, `rebalance(kafka_assigner=True)`, `demote_brokers([0, 100])`
+    and `remove_brokers([0, 100])`; then `add_brokers` of the 10 appended
+    brokers on the add-broker request's rack-aware placement and
+    `fix_offline_replicas()` on config 5's JBOD cluster (4 broken
+    logdirs), each in a facade of its own.  Every request against the
+    same sequence on the CPU.  At 2,600 brokers: cold, a narrow delta and
+    `remove_brokers(0, 100, ..., 2500)`, the card only."""
+    import torch
+    from cruise_control_tpu_torch.testing.random_cluster import (
+        RandomClusterSpec, random_cluster, served_inputs)
+    spec = NORTH_SPEC if north else SLICE_SPEC
+    where = "2,600 brokers" if north else "slice"
+    log(f"  -- served requests ({where}): the port's CruiseControl over its "
+        "LoadMonitor")
+
+    def describe(cluster_spec):
+        t0 = time.perf_counter()
+        out = served_inputs(*random_cluster(RandomClusterSpec(
+            **cluster_spec), device="cuda"))
+        log(f"    described {len(out[0].brokers)} brokers, "
+            f"{len(out[0].partitions)} partitions in "
+            f"{time.perf_counter() - t0:.3f} s")
+        return out
+
+    add_start = jbod = None
+    if north:
+        inputs = describe(spec)
+    else:
+        # from a rack-aware placement, as the self-healing request path:
+        # on the random one an excluded topic's rack violations cannot
+        # be fixed and that request aborts, in the reference too
+        inputs = served_inputs(*rack_aware_start(SLICE_HEAL_REQUEST))
+        prep, topo = rack_aware_start(SLICE_ADD_REQUEST)
+        new_ids = [topo.broker_ids[i] for i in
+                   prep.broker_new.nonzero().flatten().tolist()]
+        add_start = (served_inputs(prep, topo), new_ids)
+        jbod = describe(SLICE_CONFIG5["spec"])
+    card = _served_sequence("cuda", inputs, north, add_start, jbod)
+    results[f"_served_{'north' if north else 'slice'}"] = [
+        {k: r[k] for k in ("label", "wall", "advance_s", "solve_s", "dirty")}
+        | {"rebuild_s": r["build"].get("total"),
+           "builder_loop_s": r["build"].get("describe"),
+           "to_device_s": r["build"].get("to_device"),
+           "rounds": sum(r["result"].rounds_by_goal.values()),
+           "proposals": len(r["result"].proposals)} for r in card]
+    if north:
+        return
+    torch.set_num_threads(min(8, os.cpu_count() or 1))
+    cpu = _served_sequence("cpu", inputs, north, add_start, jbod)
+    for a, b in zip(card, cpu):
+        served_equal(a, b)
+
+
 def profile_slice(solve: dict, device: str = "cuda",
                   lexsort_dispatch: bool = False) -> None:
     """torch.profiler over one solve on the card: wall time, the device's
@@ -4265,6 +4728,7 @@ def run_scale(results: dict) -> None:
     results["_launches_north_hard"] = launches
     run_modes(results, north=True)
     run_requests(results, north=True)
+    run_served(results, north=True)
 
 
 def _most_launched(splits: dict, prefix: str, measured) -> str:
@@ -4312,7 +4776,8 @@ def main(argv=None) -> int:
     ap.add_argument("--requests-only", action="store_true",
                     help="phases 3 and 4 run only the request paths "
                          "(add-broker, self-healing, incremental, fast "
-                         "mode under the fused solver)")
+                         "mode under the fused solver) and the requests "
+                         "served through the port's facade")
     ap.add_argument("--parent", default=None,
                     help="a checkout of the parent tree: phase 2 times its "
                          "K6 and K10 chains as yardsticks and its K7 beside "
@@ -4448,6 +4913,7 @@ def main(argv=None) -> int:
                 "demote, kafka-assigner and intra-broker modes")
             if args.requests_only:
                 run_requests(results, north=False)
+                run_served(results, north=False)
             else:
                 run_slice(results)
             log(f"[t] {time.time() - t_run:.1f} s")
@@ -4457,6 +4923,7 @@ def main(argv=None) -> int:
                 "intra-broker modes at 2,600 brokers / 200K partitions")
             if args.requests_only:
                 run_requests(results, north=True)
+                run_served(results, north=True)
             else:
                 run_scale(results)
             log(f"[t] {time.time() - t_run:.1f} s")
@@ -4589,6 +5056,8 @@ def main(argv=None) -> int:
             "north_kafka_assigner", "north_intra", "add_request",
             "heal_request", "incremental", "fast_fused",
             "north_add_request", "north_incremental")}))
+    log("[5] served requests: " + json.dumps({
+        k: results.get(f"_served_{k}") for k in ("slice", "north")}))
     log("[5] rank_accept: " + json.dumps(results.get("rank_accept")))
     for k in ("commit_moves", "_commit_moves_north", "commit_leadership",
               "_commit_leadership_north", "segment_sum", "ordered_sum",

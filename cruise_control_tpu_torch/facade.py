@@ -1,0 +1,500 @@
+"""The facade's solve side (port of the request methods, the proposal
+cache, the warm seed, the dirty region and the device model store
+consult of cruise_control_tpu/facade.py).
+
+`CruiseControl` serves the reference's proposal requests over a
+`LoadMonitor`: `optimizations`, `rebalance`, `add_brokers`,
+`remove_brokers`, `demote_brokers` and `fix_offline_replicas`.  The model
+of each request comes from the device model store (`_model_for_solve`):
+the resident model as it is, fast-forwarded by the monitor's logged
+deltas, or rebuilt from the monitor.  Default-stack requests with
+default options answer from the proposal cache while the model
+generation holds; otherwise they solve warm from the last such request's
+final placement, restricted to the brokers its deltas touched when those
+are few enough.
+
+Every solve runs inline on the facade's device (the card unless
+"cpu" is asked for); there is no scheduler, no executor and no
+degradation ladder, so a device failure raises.  The resident model and
+the warm seed are shared, so each solve gets its own copy of them.
+"""
+from __future__ import annotations
+
+import dataclasses
+import enum
+import logging
+import threading
+import time as _time
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from cruise_control_tpu_torch.analyzer.context import (BalancingConstraint,
+                                                       OptimizationOptions)
+from cruise_control_tpu_torch.analyzer.goals.base import OptimizationFailure
+from cruise_control_tpu_torch.analyzer.goals.registry import (
+    DEFAULT_GOAL_ORDER, KAFKA_ASSIGNER_GOAL_ORDER, default_goals, make_goal)
+from cruise_control_tpu_torch.analyzer.optimizer import (GoalOptimizer,
+                                                         OptimizerResult)
+from cruise_control_tpu_torch.analyzer.options_generator import \
+    DefaultOptimizationOptionsGenerator
+from cruise_control_tpu_torch.device import resolve_device
+from cruise_control_tpu_torch.model import state as S
+from cruise_control_tpu_torch.model.state import STATE_FIELDS, ClusterState
+from cruise_control_tpu_torch.model.store import DeviceModelStore
+from cruise_control_tpu_torch.scenario.spec import candidate_broker_sets
+from cruise_control_tpu_torch.sched.policy import SchedulerClass
+
+LOG = logging.getLogger(__name__)
+
+
+class SolverRung(enum.IntEnum):
+    """The solver rungs this facade serves (the reference's ladder
+    values): FUSED, the goal pipeline; EAGER, one goal a segment with the
+    eager hard-goal abort."""
+
+    FUSED = 0
+    EAGER = 1
+
+
+def _warm_start_compatible(seed: ClusterState, state: ClusterState) -> bool:
+    """True when `seed` (a previous solve's final state) can warm-start a
+    solve over `state`: the same replica, partition, broker and logdir
+    axes, an unbroken cluster (no dead broker or logdir, no offline
+    replica) and the same replica, topic, logdir and rack identities."""
+    if (seed.num_replicas != state.num_replicas
+            or seed.num_partitions != state.num_partitions
+            or seed.num_brokers != state.num_brokers
+            or seed.num_disks != state.num_disks):
+        return False
+    alive = bool(torch.all(state.broker_alive)
+                 and torch.all(state.disk_alive)
+                 and not torch.any(state.replica_offline))
+    return alive and all(
+        torch.equal(getattr(seed, f).to(state.device), getattr(state, f))
+        for f in ("replica_partition", "replica_valid", "partition_topic",
+                  "disk_broker", "broker_rack"))
+
+
+def _own_copy(state: ClusterState) -> ClusterState:
+    """A state whose tensors are its own: what a solve may consume."""
+    return state.replace(**{f: getattr(state, f).clone()
+                            for f in STATE_FIELDS})
+
+
+def _not_ported(what: str, module: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} needs the reference's {module}, which the port does not "
+        f"have yet")
+
+
+@dataclasses.dataclass
+class OperationResult:
+    """What a request returns: the optimizer result and its proposals;
+    `dryrun` is what the caller asked for (the port serves dry runs
+    only)."""
+
+    optimizer_result: Optional[OptimizerResult]
+    proposals: List = dataclasses.field(default_factory=list)
+    dryrun: bool = True
+
+    def __post_init__(self) -> None:
+        if self.optimizer_result is not None and not self.proposals:
+            self.proposals = list(self.optimizer_result.proposals)
+
+
+class CruiseControl:
+    """The solve side of the facade over `load_monitor` (any object with
+    `model_generation`, `cluster_model`, `deltas_between` and
+    `follower_cpu_estimator`).  The settings are the reference's, with
+    its defaults; `max_optimization_rounds` sets the default stack's
+    rounds (hard goals keep at least 1,024)."""
+
+    def __init__(self, load_monitor, *, device=None,
+                 goal_names: Optional[Sequence[str]] = None,
+                 max_optimization_rounds: Optional[int] = None,
+                 constraint: Optional[BalancingConstraint] = None,
+                 balancedness_weights: Tuple[float, float] = (1.1, 1.5),
+                 options_generator=None,
+                 proposal_expiration_s: float = 900.0,
+                 warm_start_proposals: bool = True,
+                 solver_fusion_enabled: bool = False,
+                 solver_host_skip_enabled: bool = False,
+                 solver_precision: str = "float32",
+                 incremental_enabled: bool = True,
+                 incremental_max_deltas: int = 64,
+                 incremental_max_dirty_ratio: float = 0.5,
+                 time_fn: Optional[Callable[[], float]] = None) -> None:
+        if solver_precision != "float32":
+            raise _not_ported(f"solver_precision={solver_precision!r}",
+                              "analyzer/precision.py")
+        self.device = resolve_device(device)
+        self.load_monitor = load_monitor
+        self._time = time_fn or _time.time
+        self._constraint = constraint or BalancingConstraint()
+        self._options_generator = (options_generator
+                                   or DefaultOptimizationOptionsGenerator())
+        self._incremental_enabled = incremental_enabled
+        self._incremental_max_deltas = max(0, incremental_max_deltas)
+        self._incremental_max_dirty_ratio = min(
+            1.0, max(0.0, incremental_max_dirty_ratio))
+        self.model_store = DeviceModelStore()
+        self.goal_optimizer = GoalOptimizer(
+            default_goals(names=list(goal_names or DEFAULT_GOAL_ORDER),
+                          max_rounds=max_optimization_rounds),
+            self._constraint, balancedness_weights=balancedness_weights,
+            fused_segments=solver_fusion_enabled,
+            host_side_skip=solver_host_skip_enabled)
+        self._ple_optimizer = GoalOptimizer(
+            [make_goal("PreferredLeaderElectionGoal")], self._constraint)
+        self._cache_lock = threading.Lock()
+        self._cached_result: Optional[OptimizerResult] = None
+        self._cached_generation = None
+        self._cached_at = 0.0
+        self._cache_epoch = 0
+        self._proposal_expiration_s = proposal_expiration_s
+        self._warm_start_enabled = warm_start_proposals
+        #: (final state, model generation it solved) of the last
+        #: default-stack request with default options
+        self._warm_seed: Optional[Tuple] = None
+        #: dirty-region solves that failed their verdict and were retried
+        #: as a full sweep
+        self.incremental_solve_fallbacks = 0
+
+    # ------------------------------------------------------------------
+    # options
+    # ------------------------------------------------------------------
+    def _self_healing_options(self, recently_demoted=(),
+                              recently_removed=()
+                              ) -> Optional[OptimizationOptions]:
+        """Exclusions for a self-healing fix: recently demoted brokers
+        take no leadership, recently removed brokers take no replicas
+        (the reference reads both lists from its executor)."""
+        excl_lead = frozenset(recently_demoted)
+        excl_move = frozenset(recently_removed)
+        if not excl_lead and not excl_move:
+            return None
+        return OptimizationOptions(
+            excluded_brokers_for_leadership=excl_lead,
+            excluded_brokers_for_replica_move=excl_move,
+            is_triggered_by_goal_violation=True)
+
+    def _optimizer_for(self, goals: Optional[Sequence[str]]
+                       ) -> GoalOptimizer:
+        if goals is None:
+            return self.goal_optimizer
+        return GoalOptimizer(default_goals(names=list(goals)),
+                             self._constraint)
+
+    @staticmethod
+    def _dry_run_only(dryrun: bool) -> None:
+        if not dryrun:
+            raise _not_ported("dryrun=False", "executor")
+
+    # ------------------------------------------------------------------
+    # proposals
+    # ------------------------------------------------------------------
+    def optimizations(self, goals: Optional[Sequence[str]] = None,
+                      options: Optional[OptimizationOptions] = None,
+                      ignore_proposal_cache: bool = False,
+                      portfolio_width: Optional[int] = None,
+                      _allow_capacity_estimation: Optional[bool] = None,
+                      _eager_hard_abort: Optional[bool] = None,
+                      _scheduler_class: Optional[SchedulerClass] = None
+                      ) -> OptimizerResult:
+        """Proposals for the current model.  The cache serves the default
+        goal list with default options while the model generation holds;
+        such a request otherwise solves warm from the last one's final
+        placement, and an interactive one only over the brokers the
+        deltas since touched when they are at most
+        `incremental_max_dirty_ratio` of the cluster.  A restricted solve
+        that fails its verdict is retried as a full sweep."""
+        if portfolio_width is not None and int(portfolio_width) > 1:
+            raise _not_ported("portfolio_width > 1", "portfolio search")
+        klass = (_scheduler_class if _scheduler_class is not None
+                 else SchedulerClass.USER_INTERACTIVE)
+        cacheable = goals is None and options is None
+        generation = self.load_monitor.model_generation()
+        if cacheable and not ignore_proposal_cache:
+            with self._cache_lock:
+                if self._cache_valid(generation):
+                    return self._cached_result
+        optimizer = self._optimizer_for(goals)
+        with self._cache_lock:
+            epoch = self._cache_epoch
+        allow_incremental = (self._incremental_enabled and cacheable
+                             and klass is SchedulerClass.USER_INTERACTIVE)
+        cell: Optional[Dict] = {} if allow_incremental else None
+        try:
+            result = self._solve(optimizer, cacheable, options,
+                                 _allow_capacity_estimation,
+                                 _eager_hard_abort, incremental=cell)
+        except OptimizationFailure:
+            if not (cell and cell.get("dirty")):
+                raise
+            # a restricted solve may fail a verdict that the full sweep
+            # can meet (a hard violation outside the dirty region)
+            self.incremental_solve_fallbacks += 1
+            self.model_store.record_fallback(
+                "dirty-region solve verdict; full sweep retry")
+            LOG.info("dirty-region solve failed its verdict; retrying as "
+                     "a full sweep")
+            result = self._solve(optimizer, cacheable, options,
+                                 _allow_capacity_estimation,
+                                 _eager_hard_abort)
+        if cacheable:
+            with self._cache_lock:
+                self._warm_seed = (result.final_state, generation)
+                if self._cache_epoch == epoch:
+                    self._cached_result = result
+                    self._cached_generation = generation
+                    self._cached_at = self._time()
+        return result
+
+    def _cache_valid(self, generation) -> bool:
+        """Caller holds _cache_lock."""
+        return (self._cached_result is not None
+                and self._cached_generation == generation
+                and (self._time() - self._cached_at
+                     < self._proposal_expiration_s))
+
+    def _invalidate_proposal_cache(self) -> None:
+        with self._cache_lock:
+            self._cached_result = None
+            self._cache_epoch += 1
+
+    def _model_for_solve(self, allow_capacity_estimation=None):
+        """(state, topology) resident in the device model store: the
+        store's model as it is, fast-forwarded through the monitor's
+        logged deltas, or rebuilt from the monitor and installed.  The
+        state is the store's own; a solve takes a copy."""
+        if allow_capacity_estimation is None:
+            allow_capacity_estimation = True
+        monitor = self.load_monitor
+        if not self._incremental_enabled:
+            return monitor.cluster_model(
+                allow_capacity_estimation=allow_capacity_estimation)
+        store = self.model_store
+        generation = monitor.model_generation()
+        hit = store.get(generation, allow_capacity_estimation)
+        if hit is not None:
+            return hit
+        store_gen = store.generation
+        if store_gen is None:
+            store.count_miss()
+        elif store.capacity_flag != bool(allow_capacity_estimation):
+            store.record_fallback("capacity-estimation-flag")
+        else:
+            chain = monitor.deltas_between(store_gen, generation)
+            if chain and len(chain) <= self._incremental_max_deltas:
+                adv = store.advance(chain, generation)
+                if adv is not None:
+                    return adv
+            elif chain:
+                store.record_fallback(
+                    f"delta-chain too long ({len(chain)} > "
+                    f"{self._incremental_max_deltas})")
+            else:
+                store.record_fallback("generation-gap")
+        state, topo = monitor.cluster_model(
+            allow_capacity_estimation=allow_capacity_estimation)
+        # install only when the generation did not move under the build
+        if monitor.model_generation() == generation:
+            store.install(generation, state, topo,
+                          allow_capacity_estimation,
+                          monitor.follower_cpu_estimator())
+        return state, topo
+
+    def _materialize_solve_inputs(self, cacheable: bool,
+                                  allow_capacity_estimation,
+                                  incremental=None):
+        """(state, topology, warm seed, dirty-broker mask) of one solve.
+        The seed counts only when the monitor can account for its
+        generation (unchanged, or reached by logged deltas); a move the
+        log does not cover drops it.  `incremental` (a dict, or None)
+        asks for the dirty mask and records that it engaged."""
+        generation = self.load_monitor.model_generation()
+        state, topo = self._model_for_solve(allow_capacity_estimation)
+        num_brokers = state.num_brokers
+        warm = None
+        dirty = None
+        if cacheable and self._warm_start_enabled:
+            with self._cache_lock:
+                seed = self._warm_seed
+            if seed is not None:
+                seed_state, seed_gen = seed
+                ok = True
+                if seed_gen != generation:
+                    chain = self.load_monitor.deltas_between(seed_gen,
+                                                             generation)
+                    if chain is None:
+                        with self._cache_lock:
+                            if self._warm_seed is seed:
+                                self._warm_seed = None
+                        ok = False
+                    elif incremental is not None:
+                        dirty = self._dirty_mask_for(seed_gen, num_brokers)
+                if ok and _warm_start_compatible(seed_state, state):
+                    warm = seed_state
+        if warm is None:
+            dirty = None
+        if dirty is not None:
+            incremental["dirty"] = True
+        return state, topo, warm, dirty
+
+    def _dirty_mask_for(self, seed_generation, num_brokers: int):
+        """The dirty-broker mask of every delta between the seed's
+        generation and the resident model, or None: no coverage, or more
+        than `incremental_max_dirty_ratio` of the brokers dirty (counted
+        as a store fallback)."""
+        if not self._incremental_enabled:
+            return None
+        dirty = self.model_store.dirty_since(seed_generation)
+        if dirty is None:
+            return None
+        count = int(torch.sum(dirty.to(torch.int32)))
+        if count > self._incremental_max_dirty_ratio * num_brokers:
+            self.model_store.record_fallback(
+                f"dirty region too large ({count}/{num_brokers} "
+                f"brokers)")
+            return None
+        return dirty
+
+    def _solve_on_rung(self, rung: SolverRung, optimizer: GoalOptimizer,
+                       cacheable: bool, options, allow_capacity_estimation,
+                       eager_hard_abort,
+                       incremental=None) -> OptimizerResult:
+        """One solve on `rung`: FUSED with the warm seed and the dirty
+        region, EAGER with the seed but no dirty region."""
+        incr = incremental if rung is SolverRung.FUSED else None
+        state, topo, warm, dirty = self._materialize_solve_inputs(
+            cacheable, allow_capacity_estimation, incremental=incr)
+        gen_options = self._options_generator.generate(
+            options or OptimizationOptions(), topo)
+        state = _own_copy(state)
+        warm = None if warm is None else _own_copy(warm)
+        if rung is SolverRung.FUSED:
+            return optimizer.optimizations(
+                state, topo, gen_options, warm_start=warm,
+                eager_hard_abort=eager_hard_abort, dirty_brokers=dirty,
+                device=self.device)
+        return optimizer.optimizations(
+            state, topo, gen_options, warm_start=warm,
+            eager_hard_abort=True, eager_driver=True, device=self.device)
+
+    def _solve(self, optimizer: GoalOptimizer, cacheable: bool, options,
+               allow_capacity_estimation, eager_hard_abort,
+               incremental=None) -> OptimizerResult:
+        """The solve of a proposal request on the FUSED rung; a failure
+        raises (the degradation ladder is not ported)."""
+        return self._solve_on_rung(SolverRung.FUSED, optimizer, cacheable,
+                                   options, allow_capacity_estimation,
+                                   eager_hard_abort, incremental=incremental)
+
+    def _solve_request(self, optimizer: GoalOptimizer, state: ClusterState,
+                       topo, options=None) -> OptimizerResult:
+        """A broker request's solve on its own copy of the state."""
+        return optimizer.optimizations(_own_copy(state), topo, options,
+                                       device=self.device)
+
+    # ------------------------------------------------------------------
+    # requests
+    # ------------------------------------------------------------------
+    def rebalance(self, goals: Optional[Sequence[str]] = None,
+                  dryrun: bool = True,
+                  options: Optional[OptimizationOptions] = None,
+                  reason: str = "rebalance",
+                  ignore_proposal_cache: bool = False,
+                  kafka_assigner: bool = False,
+                  portfolio_width: Optional[int] = None,
+                  _scheduler_class: Optional[SchedulerClass] = None
+                  ) -> OperationResult:
+        """Proposals of `optimizations`; `kafka_assigner` swaps in the
+        kafka-assigner goal order."""
+        self._dry_run_only(dryrun)
+        if kafka_assigner:
+            goals = list(KAFKA_ASSIGNER_GOAL_ORDER)
+        result = self.optimizations(
+            goals, options,
+            ignore_proposal_cache=ignore_proposal_cache
+            or options is not None or kafka_assigner,
+            portfolio_width=portfolio_width,
+            _scheduler_class=_scheduler_class)
+        return self._answer(result, reason)
+
+    def _one_broker_set(self, broker_ids, op: str):
+        sets = candidate_broker_sets(broker_ids)
+        if sets is not None and len(sets) > 1:
+            raise _not_ported(f"{op} with several candidate broker sets",
+                              "scenario engine")
+        return list(sets[0] if sets is not None else broker_ids)
+
+    def add_brokers(self, broker_ids: Sequence[int],
+                    goals: Optional[Sequence[str]] = None,
+                    dryrun: bool = True, reason: str = "add brokers"
+                    ) -> OperationResult:
+        """Move replicas onto the given brokers only: they are marked new
+        and are the only move destinations (no options generator)."""
+        broker_ids = self._one_broker_set(broker_ids, "add_brokers")
+        self._dry_run_only(dryrun)
+        state, topo = self._model_for_solve()
+        idx = topo.broker_index
+        for b in broker_ids:
+            state = S.set_broker_state(state, idx[b], new=True)
+        options = OptimizationOptions(
+            requested_destination_broker_ids=frozenset(broker_ids))
+        result = self._solve_request(self._optimizer_for(goals), state,
+                                     topo, options)
+        return self._answer(result, reason)
+
+    def remove_brokers(self, broker_ids: Sequence[int],
+                       goals: Optional[Sequence[str]] = None,
+                       dryrun: bool = True, reason: str = "remove brokers"
+                       ) -> OperationResult:
+        """Drain every replica off the given brokers (modeled dead, so
+        self-healing moves them)."""
+        broker_ids = self._one_broker_set(broker_ids, "remove_brokers")
+        self._dry_run_only(dryrun)
+        state, topo = self._model_for_solve()
+        idx = topo.broker_index
+        for b in broker_ids:
+            state = S.set_broker_state(state, idx[b], alive=False)
+        result = self._solve_request(self._optimizer_for(goals), state,
+                                     topo)
+        return self._answer(result, reason)
+
+    def demote_brokers(self, broker_ids: Sequence[int],
+                       dryrun: bool = True, reason: str = "demote brokers"
+                       ) -> OperationResult:
+        """Move leadership off the given brokers (preferred leader
+        election)."""
+        broker_ids = self._one_broker_set(broker_ids, "demote_brokers")
+        self._dry_run_only(dryrun)
+        state, topo = self._model_for_solve()
+        idx = topo.broker_index
+        for b in broker_ids:
+            state = S.set_broker_state(state, idx[b], demoted=True)
+        result = self._solve_request(self._ple_optimizer, state, topo)
+        return self._answer(result, reason)
+
+    def fix_offline_replicas(self, goals: Optional[Sequence[str]] = None,
+                             dryrun: bool = True,
+                             reason: str = "fix offline replicas"
+                             ) -> OperationResult:
+        """Move the offline replicas onto healthy brokers and logdirs;
+        ValueError when there is none."""
+        self._dry_run_only(dryrun)
+        state, topo = self._model_for_solve()
+        if not bool(S.self_healing_eligible(state).any()):
+            raise ValueError("no offline replicas to fix")
+        result = self._solve_request(self._optimizer_for(goals), state,
+                                     topo)
+        return self._answer(result, reason)
+
+    @staticmethod
+    def _answer(result: OptimizerResult, reason: str) -> OperationResult:
+        LOG.info("%s: %d proposals (%d replica moves, %d leadership moves), "
+                 "dryrun=True", reason, len(result.proposals),
+                 result.num_replica_movements,
+                 result.num_leadership_movements)
+        return OperationResult(result, dryrun=True)

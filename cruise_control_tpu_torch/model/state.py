@@ -160,6 +160,15 @@ def partition_rack_count(state: ClusterState) -> torch.Tensor:
     return counts.reshape(state.num_partitions, state.num_racks)
 
 
+def partition_broker_count(state: ClusterState) -> torch.Tensor:
+    """i32[P, B] — replicas of partition p on broker b (at most 1 in a
+    sane model)."""
+    flat = state.replica_partition * state.num_brokers + state.replica_broker
+    counts = ops.segment_sum(state.replica_valid.to(torch.int32), flat,
+                             state.num_partitions * state.num_brokers)
+    return counts.reshape(state.num_partitions, state.num_brokers)
+
+
 def partition_replication_factor(state: ClusterState) -> torch.Tensor:
     """i32[P] — replica count per partition."""
     return ops.segment_sum(state.replica_valid.to(torch.int32),
@@ -197,6 +206,26 @@ def utilization_matrix(state: ClusterState) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # Mutation
 # ---------------------------------------------------------------------------
+
+def move_replica(state: ClusterState, replica, dest_broker,
+                 dest_disk=None) -> ClusterState:
+    """Relocate one replica to `dest_broker` (and `dest_disk`, else no
+    logdir); it is offline exactly when the destination is dead, so
+    moving an offline replica to an alive broker brings it online."""
+    dev = state.device
+    replica = torch.as_tensor(replica, device=dev).long()
+    dest = torch.as_tensor(dest_broker, device=dev).to(torch.int32)
+    disk = (torch.full_like(dest, -1) if dest_disk is None
+            else torch.as_tensor(dest_disk, device=dev).to(torch.int32))
+    new_broker = state.replica_broker.clone()
+    new_broker[replica] = dest
+    new_disk = state.replica_disk.clone()
+    new_disk[replica] = disk
+    new_offline = state.replica_offline.clone()
+    new_offline[replica] = ~state.broker_alive[dest.long()]
+    return state.replace(replica_broker=new_broker, replica_disk=new_disk,
+                         replica_offline=new_offline)
+
 
 def apply_moves(state: ClusterState, replicas: torch.Tensor,
                 dest_brokers: torch.Tensor,

@@ -214,3 +214,72 @@ def random_cluster(spec: RandomClusterSpec, device=None
            for k, v in fields.items()},
         num_racks=racks, num_hosts=hosts, num_topics=topics)
     return state, topology
+
+
+def served_inputs(state: ClusterState, topology: ClusterTopology,
+                  generation: int = 1):
+    """(ClusterSnapshot, leader loads, capacities): the description of a
+    generated (or solved) cluster that the port's `LoadMonitor` takes in
+    place of metadata, partition samples and a capacity resolver.  Each
+    partition's replicas keep their order; its leader load is its leader
+    replica's base load plus the partition's leadership bonus (float32
+    values added in float64); a JBOD broker's capacity lists each of its
+    logdirs, a dead logdir reported offline."""
+    from cruise_control_tpu_torch.cluster.types import (BrokerInfo,
+                                                        ClusterSnapshot,
+                                                        LogDirInfo,
+                                                        PartitionInfo,
+                                                        TopicPartition)
+    from cruise_control_tpu_torch.config.capacity import BrokerCapacity
+    h = {f: getattr(state, f).cpu().numpy() for f in (
+        "replica_valid", "replica_partition", "replica_broker",
+        "replica_disk", "replica_is_leader", "replica_offline",
+        "replica_base_load", "partition_leader_bonus", "broker_alive",
+        "broker_capacity", "broker_rack", "broker_host", "disk_broker",
+        "disk_capacity", "disk_alive")}
+    ids = topology.broker_ids
+    disks_of = [[] for _ in ids]
+    for d, (b, name) in enumerate(topology.disk_names):
+        disks_of[b].append((d, name))
+    brokers, capacities = [], {}
+    for b, bid in enumerate(ids):
+        logdirs = tuple(LogDirInfo(name, offline=not h["disk_alive"][d])
+                        for d, name in disks_of[b])
+        brokers.append(BrokerInfo(
+            bid, host=topology.host_names[h["broker_host"][b]],
+            rack=topology.rack_ids[h["broker_rack"][b]],
+            alive=bool(h["broker_alive"][b]), logdirs=logdirs))
+        cap = [float(x) for x in h["broker_capacity"][b]]
+        by_logdir = None
+        if disks_of[b]:
+            by_logdir = {name: float(h["disk_capacity"][d])
+                         for d, name in disks_of[b]}
+            cap[Resource.DISK] = sum(by_logdir.values())
+        capacities[bid] = BrokerCapacity(tuple(cap), by_logdir)
+    valid = np.nonzero(h["replica_valid"])[0]
+    order = valid[np.argsort(h["replica_partition"][valid], kind="stable")]
+    parts = h["replica_partition"][order]
+    starts = np.searchsorted(parts, np.arange(len(topology.partitions) + 1))
+    disk_names = [name for _, name in topology.disk_names]
+    partitions, loads = [], {}
+    for p, pid in enumerate(topology.partitions):
+        rows = order[starts[p]:starts[p + 1]]
+        if not rows.size:
+            continue
+        replicas = tuple(ids[b] for b in h["replica_broker"][rows])
+        lead = rows[h["replica_is_leader"][rows]]
+        leader = ids[h["replica_broker"][lead[0]]] if lead.size else None
+        disk = h["replica_disk"][rows]
+        partitions.append(PartitionInfo(
+            TopicPartition(pid.topic, pid.partition), leader, replicas,
+            offline_replicas=tuple(
+                r for r, off in zip(replicas, h["replica_offline"][rows])
+                if off),
+            logdir_by_broker={r: disk_names[d]
+                              for r, d in zip(replicas, disk) if d >= 0}))
+        src = lead[0] if lead.size else rows[0]
+        loads[(pid.topic, pid.partition)] = (
+            h["replica_base_load"][src].astype(np.float64)
+            + h["partition_leader_bonus"][p].astype(np.float64))
+    snapshot = ClusterSnapshot(generation, tuple(brokers), tuple(partitions))
+    return snapshot, loads, capacities

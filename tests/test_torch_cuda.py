@@ -28,7 +28,11 @@ kafka-assigner and intra-broker solves against the port's CPU path; and
 the dirty-region functions (`apply_delta` with padded id arrays,
 `set_broker_capacities`, `restrict_context_to_dirty`) and a 16-broker
 add-broker request solve (rack-aware first, then the default stack with
-the new brokers as the only destinations) against the CPU path.
+the new brokers as the only destinations) against the CPU path; the
+model builder's state placed on the card, and requests served through
+the facade over the monitor (a cold solve, a delta fast-forwarded on the
+card, its restricted warm solve, a broker removal) against the CPU
+path.
 
 Each test decides inside itself whether a card is present and skips
 with a reason when none is; run them on a machine with the card with
@@ -1475,3 +1479,72 @@ def test_add_broker_request_on_the_card_equals_the_cpu_path():
     held = torch.bincount(out["cpu"].final_state.replica_broker.long(),
                           minlength=16)
     assert (held[[14, 15]] > 0).all()
+
+
+def test_builder_places_the_state_on_the_card():
+    """The builder's state on the card holds the CPU build's values, and
+    every field lives on the card."""
+    _card()
+    from cruise_control_tpu_torch.model.builder import ClusterModelBuilder
+    from cruise_control_tpu_torch.model.state import STATE_FIELDS
+    built = {}
+    for dev in ("cuda", "cpu"):
+        b = ClusterModelBuilder()
+        for i in range(8):
+            b.add_broker(i, f"r{i % 3}", [100.0, 1e4, 1e4, 1e6],
+                         disks={"/d0": 5e5, "/d1": 0.0 if i == 2 else 5e5})
+        for p in range(40):
+            b.add_partition(f"t{p % 3}", p, p % 8, [(p + 1) % 8, (p + 3) % 8],
+                            [1.0 + p, 10.0 * p, 20.0, 300.0])
+        built[dev] = b.build(pad_replicas_to=128, device=dev)
+    for f in STATE_FIELDS:
+        got = getattr(built["cuda"][0], f)
+        assert got.is_cuda, f
+        assert _same(got.cpu(), getattr(built["cpu"][0], f)), f
+
+
+def test_served_requests_on_the_card_equal_the_cpu_path():
+    """A cold default-stack request, a delta the store fast-forwards on
+    the card (equal to a rebuild there), the restricted warm request and
+    a broker removal, served through the facade over the monitor: the
+    card's proposals, placements and store counters equal the CPU
+    path's."""
+    _card()
+    from cruise_control_tpu_torch.facade import CruiseControl
+    from cruise_control_tpu_torch.model.state import STATE_FIELDS
+    from cruise_control_tpu_torch.monitor.deltas import (ModelDelta,
+                                                         PartitionLoadUpdate)
+    from cruise_control_tpu_torch.monitor.load_monitor import LoadMonitor
+    from cruise_control_tpu_torch.testing.random_cluster import served_inputs
+    goals = ["RackAwareGoal", "DiskCapacityGoal", "ReplicaDistributionGoal",
+             "DiskUsageDistributionGoal"]
+    st, topo = random_cluster(RandomClusterSpec(**dict(
+        STORE_SPEC, dead_brokers=0)), device="cpu")
+    snap, loads, caps = served_inputs(st, topo)
+    p0 = snap.partitions[0]
+    delta = ModelDelta(
+        capacity_overrides={2: {"cpu": caps[2].capacity[0] * 1.5}},
+        load_updates=(PartitionLoadUpdate(p0.tp.topic, p0.tp.partition, tuple(
+            loads[(p0.tp.topic, p0.tp.partition)] * 1.25)),))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        mon = LoadMonitor(snap, loads, caps, device=dev)
+        cc = CruiseControl(mon, device=dev, goal_names=goals,
+                           max_optimization_rounds=32)
+        cold = cc.optimizations()
+        mon.apply_model_delta(delta)
+        warm = cc.optimizations()
+        resident = cc.model_store._state
+        rebuilt, _ = mon.cluster_model()
+        for f in STATE_FIELDS:
+            assert _same(getattr(resident, f), getattr(rebuilt, f)), f
+        removed = cc.remove_brokers([0]).optimizer_result
+        out[dev] = (cold, warm, removed, cc.model_store.to_json())
+    from cruise_control_tpu_torch.analyzer.optimizer import proposal_set
+    for i in range(3):
+        card, cpu = out["cuda"][i], out["cpu"][i]
+        assert proposal_set(card) == proposal_set(cpu)
+        assert torch.equal(card.final_state.replica_is_leader.cpu(),
+                           cpu.final_state.replica_is_leader)
+    assert out["cuda"][3] == out["cpu"][3]
+    assert out["cpu"][3]["deltaApplies"] == 1
