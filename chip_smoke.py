@@ -164,7 +164,9 @@ Phases:
      host-side skip, the eager abort);
      Phase 3 ends with requests served through the port's facade
      (`CruiseControl` over `LoadMonitor`, fed the description of a
-     generated cluster: `served_inputs`), each on the card and again in
+     generated cluster: `served_inputs`, each topic's partitions
+     numbered in turn as a simulated cluster reports them:
+     `sim_description`), each on the card and again in
      a facade on the CPU, with the gates above, the store's counters
      (never a quarantine), the resident model and warm seed unchanged by
      every request, the resident model equal to a rebuild after each
@@ -177,7 +179,21 @@ Phases:
      kafka-assigner `rebalance`, `demote_brokers` and `remove_brokers`
      of brokers 0 and 100, `add_brokers` of the 10 appended brokers from
      the add-broker request's rack-aware placement, and
-     `fix_offline_replicas` on config 5's cluster;
+     `fix_offline_replicas` on config 5's cluster; then requests
+     executed (`run_executed`) through the port's `Executor` on a
+     `SimulatedCluster` (virtual clock) built from the same description,
+     journaled, with a replication throttle: `rebalance(dryrun=False)`
+     (its proposals the served cold request's), the monitor refreshed
+     from the cluster and `optimizations()` again (a store miss whose
+     rebuilt model holds the executed placement; its stats beside the
+     executed solve's), then `remove_brokers([0, 100], dryrun=False)`
+     and the recently removed brokers in the next self-healing options;
+     each execution with every task completed, the throttle cleared,
+     the executor idle, the journal ending in its finish record and the
+     cluster in the solve's final placement (replica sets, leaders,
+     logdirs), with the solve's seconds, the executor's host wall, the
+     virtual seconds, the polls, the admin calls, the tasks by type and
+     the launches;
   4. scale, 2,600 brokers / 200K partitions / 26 racks / 100 topics: the
      whole default stack (bench.py's "north" preset), the four-goal solve,
      config 5 (52 broken logdirs), the six hard goals with brokers 0,
@@ -186,10 +202,13 @@ Phases:
      broker), the add-broker request (130 new brokers) and the
      incremental solve (its cold and warm times), with the same gates
      (no CPU comparison), and the served requests `optimizations` cold,
-     a narrow delta and `remove_brokers` of 26 brokers (card only); then
+     a narrow delta and `remove_brokers` of 26 brokers (card only), and
+     the cold `rebalance(dryrun=False)` executed as at the slice with a
+     one-minute progress check and no journal; then
      the widest rank_accept call of the run
      must be one phase 2 checked.  --requests-only runs only the request
-     paths and the served requests in phases 3 and 4, and --profile with
+     paths and the served and executed requests in phases 3 and 4, and
+     --profile with
      it profiles the request paths beside their option-less twins.
 With --profile, default-stack solves in turns and two more profiled (with
 K8, then with K8's lexsort dispatch: the torch lexsort, the kernel on its
@@ -4009,6 +4028,7 @@ def run_slice(results: dict) -> None:
     run_modes(results, north=False)
     run_requests(results, north=False, stack_result=stack_result)
     run_served(results, north=False)
+    run_executed(results, north=False)
     results["_identical"] = True
 
 
@@ -4534,6 +4554,35 @@ def rack_aware_start(solve: dict, device: str = "cuda"):
     return _PREPARED[key], topo
 
 
+def sim_description(inputs):
+    """The description (snapshot, leader loads, capacities) as a
+    `SimulatedCluster` built from it reports it: brokers by id, each
+    topic's partitions together (topics in order of first appearance)
+    and numbered 0, 1, ... in their order, each partition's leader first
+    in its replica list (the others in their order).  The same cluster;
+    a model built from it is the model of what the simulated cluster
+    reports."""
+    from cruise_control_tpu_torch.cluster.types import (ClusterSnapshot,
+                                                        PartitionInfo,
+                                                        TopicPartition)
+    snap, loads, capacities = inputs
+    by_topic: dict = {}
+    for p in snap.partitions:
+        by_topic.setdefault(p.tp.topic, []).append(p)
+    parts, new_loads = [], {}
+    for topic, members in by_topic.items():
+        for k, p in enumerate(members):
+            tp = TopicPartition(topic, k)
+            parts.append(PartitionInfo(
+                tp, p.leader, tuple(sorted(p.replicas,
+                                           key=lambda b, p=p: b != p.leader)),
+                p.in_sync, p.offline_replicas, dict(p.logdir_by_broker)))
+            new_loads[(topic, k)] = loads[(p.tp.topic, p.tp.partition)]
+    brokers = tuple(sorted(snap.brokers, key=lambda b: b.broker_id))
+    return (ClusterSnapshot(snap.generation, brokers, tuple(parts),
+                            snap.controller_id), new_loads, capacities)
+
+
 def run_served(results: dict, north: bool) -> None:
     """Requests served through the port's CruiseControl over its
     LoadMonitor, fed the description (snapshot, leader loads, capacities)
@@ -4571,18 +4620,22 @@ def run_served(results: dict, north: bool) -> None:
 
     add_start = jbod = None
     if north:
-        inputs = describe(spec)
+        inputs = sim_description(describe(spec))
     else:
         # from a rack-aware placement, as the self-healing request path:
         # on the random one an excluded topic's rack violations cannot
         # be fixed and that request aborts, in the reference too
-        inputs = served_inputs(*rack_aware_start(SLICE_HEAL_REQUEST))
+        inputs = sim_description(served_inputs(
+            *rack_aware_start(SLICE_HEAL_REQUEST)))
         prep, topo = rack_aware_start(SLICE_ADD_REQUEST)
         new_ids = [topo.broker_ids[i] for i in
                    prep.broker_new.nonzero().flatten().tolist()]
         add_start = (served_inputs(prep, topo), new_ids)
         jbod = describe(SLICE_CONFIG5["spec"])
     card = _served_sequence("cuda", inputs, north, add_start, jbod)
+    # the cold request's inputs and result, for run_executed
+    results[f"_served_cold_{'north' if north else 'slice'}"] = (
+        inputs, card[0]["result"])
     results[f"_served_{'north' if north else 'slice'}"] = [
         {k: r[k] for k in ("label", "wall", "advance_s", "solve_s", "dirty")}
         | {"rebuild_s": r["build"].get("total"),
@@ -4596,6 +4649,321 @@ def run_served(results: dict, north: bool) -> None:
     cpu = _served_sequence("cpu", inputs, north, add_start, jbod)
     for a, b in zip(card, cpu):
         served_equal(a, b)
+
+
+#: the executor's progress check interval (Cruise Control's
+#: execution.progress.check.interval.ms): its default at the slice, a
+#: minute at 2,600 brokers (fewer polls for the same work)
+EXECUTED_CHECK_INTERVAL_S = {False: 10.0, True: 60.0}
+#: the replication throttle each execution sets and clears
+EXECUTED_THROTTLE = 50e6
+#: the admin calls counted in each execution
+EXECUTED_OPS = ("describe_cluster", "list_partition_reassignments",
+                "alter_partition_reassignments", "elect_preferred_leaders",
+                "alter_replica_log_dirs", "set_replication_throttle",
+                "clear_replication_throttle")
+
+
+def executed_cluster(inputs):
+    """(SimulatedCluster on a virtual clock, its snapshot) for a
+    description from `sim_description`: each broker with its rack and
+    host, each topic one `create_topic` with its replica lists in order,
+    each partition's size its leader's disk load (as the JAX package's
+    loadgen rig sizes a simulated cluster).  The snapshot must report the
+    description's placement."""
+    from cruise_control_tpu_torch.cluster.metadata import MetadataClient
+    from cruise_control_tpu_torch.cluster.simulated import SimulatedCluster
+    from cruise_control_tpu_torch.common.resources import Resource
+    snap, loads, _capacities = inputs
+    sim = SimulatedCluster()
+    for b in snap.brokers:
+        sim.add_broker(b.broker_id, rack=b.rack, host=b.host,
+                       logdirs=tuple(d.path for d in b.logdirs)
+                       or ("/data/d0",))
+    by_topic: dict = {}
+    for p in snap.partitions:
+        by_topic.setdefault(p.tp.topic, []).append(p)
+    for topic, members in by_topic.items():
+        sim.create_topic(topic, [list(p.replicas) for p in members])
+        for p in members:
+            sim.set_partition_load(p.tp, size_bytes=float(
+                loads[(topic, p.tp.partition)][Resource.DISK]))
+    described = MetadataClient(sim).refresh_metadata()
+    if [(p.tp, p.leader, p.replicas) for p in described.partitions] != \
+            [(p.tp, p.leader, p.replicas) for p in snap.partitions]:
+        raise AssertionError("the simulated cluster does not report the "
+                             "description's placement")
+    return sim, described
+
+
+def state_placement(state, topo, first_logdir) -> dict:
+    """{(topic, partition): (broker set, leader, {broker: logdir})} of a
+    state; a replica without a logdir is on its broker's first logdir
+    (`first_logdir`), where a simulated cluster puts it."""
+    h = {f: getattr(state, f).cpu().numpy().tolist() for f in (
+        "replica_valid", "replica_partition", "replica_broker",
+        "replica_is_leader", "replica_disk")}
+    ids, disks = topo.broker_ids, [n for _, n in topo.disk_names]
+    out: dict = {}
+    for ok, p, b, lead, d in zip(h["replica_valid"], h["replica_partition"],
+                                 h["replica_broker"], h["replica_is_leader"],
+                                 h["replica_disk"]):
+        if not ok:
+            continue
+        bid = ids[b]
+        brokers, leader, logdirs = out.setdefault(p, (set(), [None], {}))
+        brokers.add(bid)
+        if lead:
+            leader[0] = bid
+        logdirs[bid] = disks[d] if d >= 0 else first_logdir[bid]
+    parts = topo.partitions
+    return {(parts[p].topic, parts[p].partition): (frozenset(b), lead[0], ld)
+            for p, (b, lead, ld) in out.items()}
+
+
+def snapshot_placement(snapshot) -> dict:
+    return {(p.tp.topic, p.tp.partition): (frozenset(p.replicas), p.leader,
+                                           dict(p.logdir_by_broker))
+            for p in snapshot.partitions}
+
+
+def placement_gate(want: dict, snapshot, label: str,
+                   logdirs: bool = True) -> None:
+    """Every partition of `want` as the cluster reports it: its replica
+    set and leader, and with `logdirs` each replica's logdir."""
+    have = snapshot_placement(snapshot)
+    cut = (lambda v: v) if logdirs else (lambda v: v[:2])
+    bad = [tp for tp in want
+           if tp not in have or cut(have[tp]) != cut(want[tp])]
+    if bad or len(have) != len(want):
+        raise AssertionError(
+            f"{label}: {len(bad)} of {len(want)} partitions differ from the "
+            f"cluster ({len(have)} there), first "
+            f"{[(tp, want[tp], have.get(tp)) for tp in bad[:3]]}")
+    log(f"    {label}: every partition's replica set, leader"
+        f"{' and logdirs' if logdirs else ''} as the cluster reports it "
+        f"({len(want)} partitions): ok")
+
+
+def _stats_relative(a, b) -> tuple:
+    """(largest relative difference, field) between two stats."""
+    import dataclasses
+    import torch
+    worst = (0.0, None)
+    for f in dataclasses.fields(a):
+        x = getattr(a, f.name).cpu().double()
+        y = getattr(b, f.name).cpu().double()
+        rel = torch.max(torch.abs(x - y)
+                        / torch.clamp(torch.abs(y), min=1e-30)).item()
+        if rel > worst[0]:
+            worst = (rel, f.name)
+    return worst
+
+
+def run_executed(results: dict, north: bool, device: str = "cuda") -> None:
+    """Requests executed through the port's Executor on a
+    SimulatedCluster (virtual clock) built from the served cold request's
+    description, with a journal and a replication throttle: at 200
+    brokers `rebalance(dryrun=False)` (its proposals those of
+    `run_served`'s cold request on the card), the monitor refreshed from
+    the cluster and `optimizations()` again (a store miss whose rebuilt
+    model holds the executed placement), then `remove_brokers([0, 100],
+    dryrun=False)` and the recent-broker history in the next
+    self-healing options; at 2,600 brokers the cold `rebalance
+    (dryrun=False)` with a one-minute progress check and no journal.
+    Each execution must complete every task, clear its throttle, settle
+    the executor (and end its journal in a `finish` record), and leave
+    the cluster in the solve's final placement."""
+    import collections
+    import dataclasses
+    import tempfile
+    from cruise_control_tpu_torch.analyzer.optimizer import proposal_set
+    from cruise_control_tpu_torch.cluster.metadata import MetadataClient
+    from cruise_control_tpu_torch.executor import (ExecutorNotifier,
+                                                   ExecutorPhase, TaskType)
+    from cruise_control_tpu_torch.facade import CruiseControl
+    from cruise_control_tpu_torch.monitor.load_monitor import LoadMonitor
+    from cruise_control_tpu_torch.utils import persist
+    key = "north" if north else "slice"
+    inputs, cold = results[f"_served_cold_{key}"]
+    log(f"  -- executed requests ({'2,600 brokers' if north else 'slice'}):"
+        f" the port's Executor on a SimulatedCluster"
+        f"{'' if north else ', journaled'}")
+    t0 = time.perf_counter()
+    sim, described = executed_cluster(inputs)
+    log(f"    simulated cluster of {len(described.brokers)} brokers, "
+        f"{len(described.partitions)} partitions built in "
+        f"{time.perf_counter() - t0:.3f} s")
+    first_logdir = {b.broker_id: b.logdirs[0].path
+                    for b in described.brokers}
+    monitor = LoadMonitor(described, inputs[1], inputs[2], device=device)
+    calls: collections.Counter = collections.Counter()
+    for op in EXECUTED_OPS:
+        def counted(*a, _real=getattr(sim, op), _op=op, **kw):
+            calls[_op] += 1
+            return _real(*a, **kw)
+        setattr(sim, op, counted)
+
+    def sleep(seconds):
+        calls["sleeps"] += 1
+        sim.advance(seconds)
+    finished: dict = {}
+
+    class Finished(ExecutorNotifier):
+        def on_execution_finished(self, uuid, succeeded, message):
+            finished[uuid] = (succeeded, message, time.perf_counter())
+
+    summary = []
+    with tempfile.TemporaryDirectory(prefix="executor-journal-") as jdir:
+        cc = CruiseControl(
+            monitor, admin=sim, device=device, max_optimization_rounds=192,
+            time_fn=lambda: sim.now_ms() / 1000.0, sleep_fn=sleep,
+            executor_notifier=Finished(),
+            # at 2,600 brokers a journal would fsync each of some 215,000
+            # task records: the slice's run carries the journal checks
+            executor_journal_dir=None if north else jdir,
+            executor_kwargs=dict(
+                progress_check_interval_s=EXECUTED_CHECK_INTERVAL_S[north],
+                replication_throttle_bytes_per_s=EXECUTED_THROTTLE))
+
+        def execute(label, call, kernels):
+            """serve() the request (gates after the execution), await
+            the execution, check it and the cluster's placement."""
+            box = {}
+
+            def started():
+                calls.clear()
+                box["answer"] = call()
+                box["started"] = time.perf_counter()
+                box["virtual"] = sim.now_ms() / 1000.0
+                return box["answer"]
+            out = serve(f"{label}, dryrun=False", started, cc, monitor,
+                        kernels, gates=False)
+            answer = box["answer"]
+            uuid = answer.execution_uuid
+            if uuid is None or not answer.proposals:
+                raise AssertionError(f"executed {label}: no execution "
+                                     "started")
+            if not cc.executor.await_completion(timeout=900.0):
+                raise AssertionError(f"executed {label}: the execution "
+                                     "did not finish in 900 s")
+            ok, message, ended = finished[uuid]
+            exec_wall = ended - box["started"]
+            virtual = sim.now_ms() / 1000.0 - box["virtual"]
+            counted = dict(calls)
+            mgr = cc.executor._manager
+            tasks = {t.value: dataclasses.asdict(mgr.counts(t))
+                     for t in TaskType}
+            log(f"    executed {label} on {CARD[0]}: solve "
+                f"{out['solve_s']:.3f} s (request wall {out['wall']:.3f} "
+                f"s, rebuild "
+                f"{out['build'].get('total', 0.0):.3f} s); executor host "
+                f"wall {exec_wall:.3f} s for {virtual:.0f} virtual s; "
+                f"{counted.get('sleeps', 0)} polls, "
+                f"{counted.get('describe_cluster', 0)} describe_cluster "
+                f"calls, admin calls "
+                f"{dict((k, v) for k, v in counted.items() if k != 'sleeps')}"
+                f"; tasks by type {tasks}; {message}")
+            done = all(c["completed"] == c["total"] for c in tasks.values())
+            if not ok or not done:
+                raise AssertionError(f"executed {label}: not every task "
+                                     f"completed ({message}; {tasks})")
+            if any(b.throttle is not None for b in sim._brokers.values()):
+                raise AssertionError(f"executed {label}: a throttle was "
+                                     "left on")
+            if cc.executor.state.phase != ExecutorPhase.NO_TASK_IN_PROGRESS:
+                raise AssertionError(f"executed {label}: the executor is "
+                                     f"{cc.executor.state.phase}")
+            journaled = ""
+            if cc.executor_journal is not None:
+                replay = cc.executor_journal.replay()
+                segment = sorted(p for p in os.listdir(jdir)
+                                 if p.startswith("journal-"))[-1]
+                records, torn = persist.read_crc_json(
+                    os.path.join(jdir, segment))
+                if (not replay.finished or replay.start["uuid"] != uuid
+                        or torn or records[-1]["t"] != "finish"
+                        or not records[-1]["succeeded"]):
+                    raise AssertionError(f"executed {label}: the journal "
+                                         f"does not end in its finish "
+                                         f"record")
+                journaled = (f", journal ended in its finish record "
+                             f"({replay.records} records)")
+            log(f"    executed {label}: every task completed, throttle "
+                f"cleared, executor idle{journaled}: ok")
+            result = out["result"]
+            placement_gate(state_placement(result.final_state,
+                                           out["solve"]["topo"],
+                                           first_logdir),
+                           sim.describe_cluster(),
+                           f"executed {label}")
+            result.request = dict(options=out["solve"]["options"],
+                                  dirty=out["solve"]["dirty"])
+            _gates(out["solve"]["state"], out["solve"]["topo"], result)
+            summary.append(dict(
+                label=label, solve_s=out["solve_s"], wall=out["wall"],
+                rebuild_s=out["build"].get("total"),
+                executor_wall_s=exec_wall, virtual_s=virtual,
+                polls=counted.get("sleeps", 0),
+                describe_cluster=counted.get("describe_cluster", 0),
+                admin_calls=counted, tasks=tasks,
+                proposals=len(result.proposals),
+                launches=out["launches"]))
+            return out
+
+        try:
+            first = execute("rebalance", lambda: cc.rebalance(dryrun=False),
+                            SERVED_STACK_KERNELS)
+            same = (proposal_set(first["result"]) == proposal_set(cold)
+                    and _logdir_moves(first["result"]) == _logdir_moves(cold))
+            log(f"    executed rebalance: proposals equal to the served cold "
+                f"request's ({len(cold.proposals)}): {same}")
+            if not same:
+                raise AssertionError("the executed rebalance's proposals "
+                                     "differ from the served cold request's")
+            if not north:
+                monitor.update_cluster(MetadataClient(sim).refresh_metadata())
+                store = cc.model_store
+                hits, misses = store.hits, store.misses
+                after = serve("after the execution", cc.optimizations, cc,
+                              monitor, served_sums)
+                if store.misses != misses + 1 or store.hits != hits:
+                    raise AssertionError("the request after the execution "
+                                         "was not a store miss")
+                placement_gate(state_placement(after["solve"]["state"],
+                                               after["solve"]["topo"],
+                                               first_logdir),
+                               sim.describe_cluster(),
+                               "the rebuilt model", logdirs=False)
+                rel, field = _stats_relative(after["result"].stats_before,
+                                             first["result"].stats_after)
+                log("    the rebuilt model's stats beside the executed "
+                    "solve's stats_after: " + json.dumps({
+                        f.name: [getattr(after["result"].stats_before,
+                                         f.name).tolist(),
+                                 getattr(first["result"].stats_after,
+                                         f.name).tolist()]
+                        for f in dataclasses.fields(
+                            first["result"].stats_after)}))
+                log(f"    largest relative difference {rel:.3e} "
+                    f"({field})")
+                results["_executed_stats_rel"] = (rel, field)
+                execute("remove brokers 0, 100",
+                        lambda: cc.remove_brokers([0, 100], dryrun=False),
+                        SERVED_HEAL_KERNELS)
+                removed = cc.executor.recently_removed_brokers()
+                options = cc._self_healing_options()
+                if removed != {0, 100} or options is None or \
+                        options.excluded_brokers_for_replica_move != \
+                        frozenset({0, 100}):
+                    raise AssertionError(
+                        f"recently removed {removed}, next self-healing "
+                        f"options {options}")
+                log("    recently removed brokers {0, 100}, excluded from "
+                    "the next self-healing options' replica moves: ok")
+        finally:
+            cc.shutdown()
+    results[f"_executed_{key}"] = summary
 
 
 def profile_slice(solve: dict, device: str = "cuda",
@@ -4729,6 +5097,7 @@ def run_scale(results: dict) -> None:
     run_modes(results, north=True)
     run_requests(results, north=True)
     run_served(results, north=True)
+    run_executed(results, north=True)
 
 
 def _most_launched(splits: dict, prefix: str, measured) -> str:
@@ -4777,7 +5146,7 @@ def main(argv=None) -> int:
                     help="phases 3 and 4 run only the request paths "
                          "(add-broker, self-healing, incremental, fast "
                          "mode under the fused solver) and the requests "
-                         "served through the port's facade")
+                         "served and executed through the port's facade")
     ap.add_argument("--parent", default=None,
                     help="a checkout of the parent tree: phase 2 times its "
                          "K6 and K10 chains as yardsticks and its K7 beside "
@@ -4914,6 +5283,7 @@ def main(argv=None) -> int:
             if args.requests_only:
                 run_requests(results, north=False)
                 run_served(results, north=False)
+                run_executed(results, north=False)
             else:
                 run_slice(results)
             log(f"[t] {time.time() - t_run:.1f} s")
@@ -4924,6 +5294,7 @@ def main(argv=None) -> int:
             if args.requests_only:
                 run_requests(results, north=True)
                 run_served(results, north=True)
+                run_executed(results, north=True)
             else:
                 run_scale(results)
             log(f"[t] {time.time() - t_run:.1f} s")
@@ -5058,6 +5429,10 @@ def main(argv=None) -> int:
             "north_add_request", "north_incremental")}))
     log("[5] served requests: " + json.dumps({
         k: results.get(f"_served_{k}") for k in ("slice", "north")}))
+    log("[5] executed requests: " + json.dumps({
+        k: results.get(f"_executed_{k}") for k in ("slice", "north")}
+        | {"rebuilt_stats_largest_relative_difference":
+           results.get("_executed_stats_rel")}))
     log("[5] rank_accept: " + json.dumps(results.get("rank_accept")))
     for k in ("commit_moves", "_commit_moves_north", "commit_leadership",
               "_commit_leadership_north", "segment_sum", "ordered_sum",

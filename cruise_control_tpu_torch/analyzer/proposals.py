@@ -50,8 +50,32 @@ class ExecutionProposal:
                      if p.broker_id not in old)
 
     @property
+    def replicas_to_remove(self) -> Tuple[int, ...]:
+        new = {p.broker_id for p in self.new_replicas}
+        return tuple(p.broker_id for p in self.old_replicas
+                     if p.broker_id not in new)
+
+    @property
     def inter_broker_data_to_move(self) -> float:
         return self.partition_size * len(self.replicas_to_add)
+
+    @property
+    def intra_broker_data_to_move(self) -> float:
+        """Bytes moved between logdirs of one broker."""
+        old_dirs = {r.broker_id: r.logdir for r in self.old_replicas}
+        return self.partition_size * sum(
+            1 for r in self.new_replicas
+            if r.logdir is not None
+            and old_dirs.get(r.broker_id) not in (None, r.logdir))
+
+    def to_json(self) -> dict:
+        return {
+            "topicPartition": {"topic": self.partition.topic,
+                               "partition": self.partition.partition},
+            "oldLeader": self.old_leader,
+            "oldReplicas": [p.broker_id for p in self.old_replicas],
+            "newReplicas": [p.broker_id for p in self.new_replicas],
+        }
 
 
 def _ordered_placements(brokers, leaders, disks, row_valid, topology):

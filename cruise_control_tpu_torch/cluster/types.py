@@ -1,14 +1,18 @@
-"""Value types describing the managed cluster (port of the records of
+"""Value types describing the managed cluster (port of
 cruise_control_tpu/cluster/types.py).
 
-The metadata a model build reads: brokers with their racks, hosts and
-logdirs, and partitions with their replica lists, leaders, offline
-replicas and per-replica logdirs.
+The metadata a model build and the executor read: brokers with their
+racks, hosts and logdirs, partitions with their replica lists, leaders,
+offline replicas and per-replica logdirs, and in-flight reassignments.
+A snapshot answers `broker(id)` and `partition(tp)` from an index built
+once per snapshot, with the JAX package's answers (the first match,
+None for an unknown id).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import FrozenSet, List, Mapping, Optional, Tuple
+import functools
+from typing import Dict, FrozenSet, List, Mapping, Optional, Sequence, Tuple
 
 
 @dataclasses.dataclass(frozen=True, order=True)
@@ -57,6 +61,20 @@ class PartitionInfo:
     logdir_by_broker: Mapping[int, str] = dataclasses.field(
         default_factory=dict)
 
+    @property
+    def size_bytes(self) -> float:
+        return 0.0
+
+
+@dataclasses.dataclass(frozen=True)
+class ReassignmentState:
+    """An in-flight partition reassignment."""
+
+    tp: TopicPartition
+    adding_replicas: Tuple[int, ...]
+    removing_replicas: Tuple[int, ...]
+    target_replicas: Tuple[int, ...]
+
 
 @dataclasses.dataclass(frozen=True)
 class ClusterSnapshot:
@@ -68,6 +86,26 @@ class ClusterSnapshot:
     partitions: Tuple[PartitionInfo, ...]
     controller_id: Optional[int] = None
 
+    @functools.cached_property
+    def _broker_index(self) -> Dict[int, BrokerInfo]:
+        index: Dict[int, BrokerInfo] = {}
+        for b in self.brokers:
+            index.setdefault(b.broker_id, b)
+        return index
+
+    @functools.cached_property
+    def _partition_index(self) -> Dict[TopicPartition, PartitionInfo]:
+        index: Dict[TopicPartition, PartitionInfo] = {}
+        for p in self.partitions:
+            index.setdefault(p.tp, p)
+        return index
+
+    def broker(self, broker_id: int) -> Optional[BrokerInfo]:
+        return self._broker_index.get(broker_id)
+
+    def partition(self, tp: TopicPartition) -> Optional[PartitionInfo]:
+        return self._partition_index.get(tp)
+
     @property
     def alive_broker_ids(self) -> FrozenSet[int]:
         return frozenset(b.broker_id for b in self.brokers if b.alive)
@@ -78,3 +116,32 @@ class ClusterSnapshot:
 
     def partitions_of(self, topic: str) -> List[PartitionInfo]:
         return [p for p in self.partitions if p.tp.topic == topic]
+
+    @property
+    def topics(self) -> FrozenSet[str]:
+        return frozenset(p.tp.topic for p in self.partitions)
+
+    def partitions_with_offline_replicas(self) -> List[PartitionInfo]:
+        return [p for p in self.partitions if p.offline_replicas]
+
+    def replica_count(self) -> int:
+        return sum(len(p.replicas) for p in self.partitions)
+
+
+def partitions_by_index(partitions: Sequence[PartitionInfo]
+                        ) -> Dict[TopicPartition, PartitionInfo]:
+    return {p.tp: p for p in partitions}
+
+
+def indexed_snapshot(generation: int, brokers: Tuple[BrokerInfo, ...],
+                     partitions: Tuple[PartitionInfo, ...],
+                     controller_id: Optional[int],
+                     partition_index: Dict[TopicPartition, PartitionInfo]
+                     ) -> ClusterSnapshot:
+    """A snapshot given its partition index (each partition by its
+    `tp`, which must be unique) instead of building it on first use: a
+    source that keeps the index across snapshots pays a dict copy, not a
+    pass over every partition."""
+    snap = ClusterSnapshot(generation, brokers, partitions, controller_id)
+    snap.__dict__["_partition_index"] = partition_index
+    return snap

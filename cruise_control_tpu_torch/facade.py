@@ -1,6 +1,6 @@
-"""The facade's solve side (port of the request methods, the proposal
-cache, the warm seed, the dirty region and the device model store
-consult of cruise_control_tpu/facade.py).
+"""The facade (port of the request methods, the proposal cache, the warm
+seed, the dirty region, the device model store consult and the execution
+side of cruise_control_tpu/facade.py).
 
 `CruiseControl` serves the reference's proposal requests over a
 `LoadMonitor`: `optimizations`, `rebalance`, `add_brokers`,
@@ -14,9 +14,17 @@ final placement, restricted to the brokers its deltas touched when those
 are few enough.
 
 Every solve runs inline on the facade's device (the card unless
-"cpu" is asked for); there is no scheduler, no executor and no
-degradation ladder, so a device failure raises.  The resident model and
-the warm seed are shared, so each solve gets its own copy of them.
+"cpu" is asked for); there is no scheduler and no degradation ladder, so
+a device failure raises.  The resident model and the warm seed are
+shared, so each solve gets its own copy of them.
+
+With an `admin` client (cluster/admin.py), a request with `dryrun=False`
+hands its proposals to the facade's `Executor` (executor/), which moves
+replicas, logdirs and leadership through that client; with
+`executor_journal_dir` every execution is journaled and
+`recover_interrupted_execution` settles what a crashed process left in
+flight.  The port has no sampling loop: after an execution the caller
+refreshes the monitor's metadata (`LoadMonitor.update_cluster`).
 """
 from __future__ import annotations
 
@@ -39,13 +47,26 @@ from cruise_control_tpu_torch.analyzer.optimizer import (GoalOptimizer,
 from cruise_control_tpu_torch.analyzer.options_generator import \
     DefaultOptimizationOptionsGenerator
 from cruise_control_tpu_torch.device import resolve_device
+from cruise_control_tpu_torch.executor.executor import (Executor,
+                                                        ExecutorNotifier)
+from cruise_control_tpu_torch.executor.journal import (
+    DEFAULT_SEGMENT_MAX_BYTES, ExecutionJournal)
+from cruise_control_tpu_torch.executor.strategy import \
+    ReplicaMovementStrategy
 from cruise_control_tpu_torch.model import state as S
 from cruise_control_tpu_torch.model.state import STATE_FIELDS, ClusterState
 from cruise_control_tpu_torch.model.store import DeviceModelStore
+from cruise_control_tpu_torch.obs import trace as obs_trace
 from cruise_control_tpu_torch.scenario.spec import candidate_broker_sets
 from cruise_control_tpu_torch.sched.policy import SchedulerClass
 
 LOG = logging.getLogger(__name__)
+#: operations audit log: one INFO line per requested mutation
+OPERATION_LOG = logging.getLogger("operationLogger")
+
+
+class OngoingExecutionError(RuntimeError):
+    """An execution is already in progress."""
 
 
 class SolverRung(enum.IntEnum):
@@ -90,11 +111,13 @@ def _not_ported(what: str, module: str) -> NotImplementedError:
 
 @dataclasses.dataclass
 class OperationResult:
-    """What a request returns: the optimizer result and its proposals;
-    `dryrun` is what the caller asked for (the port serves dry runs
-    only)."""
+    """What a request returns: the optimizer result and its proposals,
+    and, when not a dry run, the uuid of the execution driving them.
+    `dryrun` is what the caller asked for: an executed request that found
+    nothing to do has no uuid and is still not a dry run."""
 
     optimizer_result: Optional[OptimizerResult]
+    execution_uuid: Optional[str] = None
     proposals: List = dataclasses.field(default_factory=list)
     dryrun: bool = True
 
@@ -104,13 +127,16 @@ class OperationResult:
 
 
 class CruiseControl:
-    """The solve side of the facade over `load_monitor` (any object with
+    """The facade over `load_monitor` (any object with
     `model_generation`, `cluster_model`, `deltas_between` and
-    `follower_cpu_estimator`).  The settings are the reference's, with
+    `follower_cpu_estimator`; `pause_metric_sampling` and
+    `resume_metric_sampling` too when it executes) and, for executions,
+    the cluster's `admin` client.  The settings are the reference's, with
     its defaults; `max_optimization_rounds` sets the default stack's
-    rounds (hard goals keep at least 1,024)."""
+    rounds (hard goals keep at least 1,024); `executor_kwargs` go to the
+    `Executor` (its caps, intervals, timeouts and throttle)."""
 
-    def __init__(self, load_monitor, *, device=None,
+    def __init__(self, load_monitor, *, admin=None, device=None,
                  goal_names: Optional[Sequence[str]] = None,
                  max_optimization_rounds: Optional[int] = None,
                  constraint: Optional[BalancingConstraint] = None,
@@ -124,13 +150,49 @@ class CruiseControl:
                  incremental_enabled: bool = True,
                  incremental_max_deltas: int = 64,
                  incremental_max_dirty_ratio: float = 0.5,
-                 time_fn: Optional[Callable[[], float]] = None) -> None:
+                 executor_notifier: Optional[ExecutorNotifier] = None,
+                 executor_kwargs: Optional[dict] = None,
+                 executor_journal_dir: Optional[str] = None,
+                 executor_recovery_mode: str = "resume",
+                 executor_journal_segment_max_bytes: Optional[int] = None,
+                 time_fn: Optional[Callable[[], float]] = None,
+                 sleep_fn: Optional[Callable[[float], None]] = None
+                 ) -> None:
         if solver_precision != "float32":
             raise _not_ported(f"solver_precision={solver_precision!r}",
                               "analyzer/precision.py")
+        if executor_recovery_mode not in ("resume", "abort"):
+            raise ValueError(
+                f"executor.recovery.mode must be resume|abort, got "
+                f"{executor_recovery_mode!r}")
         self.device = resolve_device(device)
         self.load_monitor = load_monitor
         self._time = time_fn or _time.time
+        self._executor_recovery_mode = executor_recovery_mode
+        self._executor_recovery_done = False
+        #: the executor needs the cluster's admin client; without one the
+        #: facade serves dry runs only
+        self.executor_journal: Optional[ExecutionJournal] = None
+        self.executor: Optional[Executor] = None
+        if admin is not None:
+            if executor_journal_dir:
+                self.executor_journal = ExecutionJournal(
+                    executor_journal_dir,
+                    segment_max_bytes=(executor_journal_segment_max_bytes
+                                       or DEFAULT_SEGMENT_MAX_BYTES),
+                    time_fn=self._time)
+                self.executor_journal.on_error = self._on_journal_error
+            self.executor = Executor(
+                admin, load_monitor=load_monitor,
+                notifier=executor_notifier, time_fn=self._time,
+                sleep_fn=sleep_fn, journal=self.executor_journal,
+                **(executor_kwargs or {}))
+        #: journal failures (the journal carried on journal-less): their
+        #: count and the last one's text
+        self.journal_error_events = 0
+        self.last_journal_error: Optional[str] = None
+        #: the trace of the last `recover_interrupted_execution`
+        self.last_recovery_trace: Optional[obs_trace.Trace] = None
         self._constraint = constraint or BalancingConstraint()
         self._options_generator = (options_generator
                                    or DefaultOptimizationOptionsGenerator())
@@ -164,12 +226,20 @@ class CruiseControl:
     # ------------------------------------------------------------------
     # options
     # ------------------------------------------------------------------
-    def _self_healing_options(self, recently_demoted=(),
-                              recently_removed=()
+    def _self_healing_options(self, recently_demoted=None,
+                              recently_removed=None
                               ) -> Optional[OptimizationOptions]:
         """Exclusions for a self-healing fix: recently demoted brokers
-        take no leadership, recently removed brokers take no replicas
-        (the reference reads both lists from its executor)."""
+        take no leadership, recently removed brokers take no replicas.
+        Each list defaults to the executor's history (none without an
+        executor)."""
+        ex = self.executor
+        if recently_demoted is None:
+            recently_demoted = (ex.recently_demoted_brokers()
+                                if ex is not None else ())
+        if recently_removed is None:
+            recently_removed = (ex.recently_removed_brokers()
+                                if ex is not None else ())
         excl_lead = frozenset(recently_demoted)
         excl_move = frozenset(recently_removed)
         if not excl_lead and not excl_move:
@@ -186,10 +256,86 @@ class CruiseControl:
         return GoalOptimizer(default_goals(names=list(goals)),
                              self._constraint)
 
-    @staticmethod
-    def _dry_run_only(dryrun: bool) -> None:
-        if not dryrun:
-            raise _not_ported("dryrun=False", "executor")
+    def _sanity_check_execution(self, dryrun: bool) -> None:
+        if dryrun:
+            return
+        if self.executor is None:
+            raise ValueError("dryrun=False needs the cluster's admin client "
+                             "(CruiseControl(admin=...))")
+        if self.executor.has_ongoing_execution:
+            raise OngoingExecutionError(
+                "cannot start execution: another execution is in progress")
+
+    def _maybe_execute(self, result: OptimizerResult, dryrun: bool,
+                       reason: str,
+                       strategy: Optional[ReplicaMovementStrategy],
+                       **execute_kwargs) -> OperationResult:
+        OPERATION_LOG.info(
+            "%s: %d proposals (%d replica moves, %d leadership moves), "
+            "dryrun=%s", reason, len(result.proposals),
+            result.num_replica_movements, result.num_leadership_movements,
+            dryrun)
+        if dryrun or not result.proposals:
+            return OperationResult(result, dryrun=dryrun)
+        uuid = self.executor.execute_proposals(
+            result.proposals, reason=reason, strategy=strategy,
+            **execute_kwargs)
+        self._invalidate_proposal_cache()
+        return OperationResult(result, execution_uuid=uuid, dryrun=False)
+
+    # ------------------------------------------------------------------
+    # executions: crash recovery, journal errors, shutdown
+    # ------------------------------------------------------------------
+    def recover_interrupted_execution(self) -> Optional[dict]:
+        """Replay the executor journal and settle what the previous
+        process left in flight (executor/recovery.py): per
+        `executor_recovery_mode` the interrupted execution is resumed
+        under its original uuid or aborted and cleaned; in both modes
+        orphaned replication throttles are removed.  Idempotent (the
+        first call wins) and best effort: a failed recovery is logged,
+        never raised.  Returns the recovery report, or None when there
+        was nothing to recover (or journaling is off).  The recovery's
+        trace is kept as `last_recovery_trace`."""
+        if self.executor_journal is None or self._executor_recovery_done:
+            return None
+        self._executor_recovery_done = True
+        mode = self._executor_recovery_mode
+        trace = obs_trace.start("executor.recovery", mode=mode)
+        self.last_recovery_trace = trace
+        try:
+            report = self.executor.recover(mode=mode)
+        except Exception as exc:  # noqa: BLE001 - startup must survive
+            LOG.exception("executor crash recovery failed; the journal "
+                          "is left in place for manual inspection")
+            obs_trace.finish(trace, error=exc)
+            return None
+        obs_trace.finish(trace)
+        if report is not None:
+            LOG.warning("execution %s recovered (mode=%s): %d terminal, "
+                        "%d adopted, %d pending tasks; throttles cleared "
+                        "on %s", report.get("uuid"), mode,
+                        report.get("tasksTerminal", 0),
+                        report.get("tasksAdopted", 0),
+                        report.get("tasksPending", 0),
+                        report.get("clearedThrottleBrokers", []))
+        return report
+
+    def _on_journal_error(self, exc: BaseException) -> None:
+        """The executor journal degraded to journal-less execution (disk
+        full, EIO): count it and keep it; the rebalance continues."""
+        self.journal_error_events += 1
+        self.last_journal_error = f"{type(exc).__name__}: {exc}"
+        LOG.error("executor journal degraded (%s); the execution "
+                  "continues journal-less", self.last_journal_error)
+
+    def shutdown(self) -> None:
+        """Stop the executor (force-stop: in-flight reassignments are
+        cancelled), wait for it and close the journal."""
+        if self.executor is not None:
+            self.executor.stop_execution(force=True)
+            self.executor.await_completion(timeout=30.0)
+        if self.executor_journal is not None:
+            self.executor_journal.close()
 
     # ------------------------------------------------------------------
     # proposals
@@ -404,14 +550,15 @@ class CruiseControl:
                   dryrun: bool = True,
                   options: Optional[OptimizationOptions] = None,
                   reason: str = "rebalance",
+                  strategy: Optional[ReplicaMovementStrategy] = None,
                   ignore_proposal_cache: bool = False,
                   kafka_assigner: bool = False,
                   portfolio_width: Optional[int] = None,
-                  _scheduler_class: Optional[SchedulerClass] = None
-                  ) -> OperationResult:
-        """Proposals of `optimizations`; `kafka_assigner` swaps in the
-        kafka-assigner goal order."""
-        self._dry_run_only(dryrun)
+                  _scheduler_class: Optional[SchedulerClass] = None,
+                  **execute_kwargs) -> OperationResult:
+        """Proposals of `optimizations`, executed unless `dryrun`;
+        `kafka_assigner` swaps in the kafka-assigner goal order."""
+        self._sanity_check_execution(dryrun)
         if kafka_assigner:
             goals = list(KAFKA_ASSIGNER_GOAL_ORDER)
         result = self.optimizations(
@@ -420,7 +567,8 @@ class CruiseControl:
             or options is not None or kafka_assigner,
             portfolio_width=portfolio_width,
             _scheduler_class=_scheduler_class)
-        return self._answer(result, reason)
+        return self._maybe_execute(result, dryrun, reason, strategy,
+                                   **execute_kwargs)
 
     def _one_broker_set(self, broker_ids, op: str):
         sets = candidate_broker_sets(broker_ids)
@@ -431,12 +579,12 @@ class CruiseControl:
 
     def add_brokers(self, broker_ids: Sequence[int],
                     goals: Optional[Sequence[str]] = None,
-                    dryrun: bool = True, reason: str = "add brokers"
-                    ) -> OperationResult:
+                    dryrun: bool = True, reason: str = "add brokers",
+                    **execute_kwargs) -> OperationResult:
         """Move replicas onto the given brokers only: they are marked new
         and are the only move destinations (no options generator)."""
         broker_ids = self._one_broker_set(broker_ids, "add_brokers")
-        self._dry_run_only(dryrun)
+        self._sanity_check_execution(dryrun)
         state, topo = self._model_for_solve()
         idx = topo.broker_index
         for b in broker_ids:
@@ -445,56 +593,55 @@ class CruiseControl:
             requested_destination_broker_ids=frozenset(broker_ids))
         result = self._solve_request(self._optimizer_for(goals), state,
                                      topo, options)
-        return self._answer(result, reason)
+        return self._maybe_execute(result, dryrun, reason, None,
+                                   **execute_kwargs)
 
     def remove_brokers(self, broker_ids: Sequence[int],
                        goals: Optional[Sequence[str]] = None,
-                       dryrun: bool = True, reason: str = "remove brokers"
-                       ) -> OperationResult:
+                       dryrun: bool = True, reason: str = "remove brokers",
+                       **execute_kwargs) -> OperationResult:
         """Drain every replica off the given brokers (modeled dead, so
-        self-healing moves them)."""
+        self-healing moves them); an execution records them as recently
+        removed."""
         broker_ids = self._one_broker_set(broker_ids, "remove_brokers")
-        self._dry_run_only(dryrun)
+        self._sanity_check_execution(dryrun)
         state, topo = self._model_for_solve()
         idx = topo.broker_index
         for b in broker_ids:
             state = S.set_broker_state(state, idx[b], alive=False)
         result = self._solve_request(self._optimizer_for(goals), state,
                                      topo)
-        return self._answer(result, reason)
+        return self._maybe_execute(result, dryrun, reason, None,
+                                   removed_brokers=list(broker_ids),
+                                   **execute_kwargs)
 
     def demote_brokers(self, broker_ids: Sequence[int],
-                       dryrun: bool = True, reason: str = "demote brokers"
-                       ) -> OperationResult:
+                       dryrun: bool = True, reason: str = "demote brokers",
+                       **execute_kwargs) -> OperationResult:
         """Move leadership off the given brokers (preferred leader
-        election)."""
+        election); an execution records them as recently demoted."""
         broker_ids = self._one_broker_set(broker_ids, "demote_brokers")
-        self._dry_run_only(dryrun)
+        self._sanity_check_execution(dryrun)
         state, topo = self._model_for_solve()
         idx = topo.broker_index
         for b in broker_ids:
             state = S.set_broker_state(state, idx[b], demoted=True)
         result = self._solve_request(self._ple_optimizer, state, topo)
-        return self._answer(result, reason)
+        return self._maybe_execute(result, dryrun, reason, None,
+                                   demoted_brokers=list(broker_ids),
+                                   **execute_kwargs)
 
     def fix_offline_replicas(self, goals: Optional[Sequence[str]] = None,
                              dryrun: bool = True,
-                             reason: str = "fix offline replicas"
-                             ) -> OperationResult:
+                             reason: str = "fix offline replicas",
+                             **execute_kwargs) -> OperationResult:
         """Move the offline replicas onto healthy brokers and logdirs;
         ValueError when there is none."""
-        self._dry_run_only(dryrun)
+        self._sanity_check_execution(dryrun)
         state, topo = self._model_for_solve()
         if not bool(S.self_healing_eligible(state).any()):
             raise ValueError("no offline replicas to fix")
         result = self._solve_request(self._optimizer_for(goals), state,
                                      topo)
-        return self._answer(result, reason)
-
-    @staticmethod
-    def _answer(result: OptimizerResult, reason: str) -> OperationResult:
-        LOG.info("%s: %d proposals (%d replica moves, %d leadership moves), "
-                 "dryrun=True", reason, len(result.proposals),
-                 result.num_replica_movements,
-                 result.num_leadership_movements)
-        return OperationResult(result, dryrun=True)
+        return self._maybe_execute(result, dryrun, reason, None,
+                                   **execute_kwargs)

@@ -17,8 +17,8 @@ through a contiguous chain of logged deltas (monitor/deltas.py) is
 reached by applying each delta's plan here, all or nothing; anything
 else (a generation gap, a delta the resident axes cannot address, a
 failure mid-apply) is a counted fallback, and the caller rebuilds from
-the monitor.  A failure mid-apply quarantines the resident model: a
-half-applied model is never served.  The store also keeps each applied
+the monitor.  A failure mid-apply (fault site `store.apply_delta`)
+quarantines the resident model: a half-applied model is never served.  The store also keeps each applied
 delta's dirty-broker mask, so `dirty_since(generation)` gives the region
 a warm solve seeded at `generation` must revisit.
 
@@ -41,6 +41,8 @@ from cruise_control_tpu_torch.model.state import (ClusterState,
                                                   set_broker_capacities)
 from cruise_control_tpu_torch.monitor.deltas import (capacity_rows,
                                                      leader_load_split)
+from cruise_control_tpu_torch.obs import trace as obs_trace
+from cruise_control_tpu_torch.utils import faults
 
 LOG = logging.getLogger(__name__)
 
@@ -273,6 +275,7 @@ class DeviceModelStore:
             dirty_entries = []
             try:
                 for rec in records:
+                    faults.inject("store.apply_delta")
                     plan = self._build_plan(rec.delta)
                     state, dirty = apply_delta(state, plan)
                     dirty_entries.append(
@@ -339,7 +342,8 @@ class DeviceModelStore:
     def record_fallback(self, reason: str) -> None:
         """Count a consult that had a resident model but could not use it
         (a gap, a long chain, the other capacity flag, a dirty region too
-        large)."""
+        large).  The reason also lands on the active request's trace."""
+        obs_trace.event("model-store.fallback", reason=reason)
         with self._lock:
             self._fallback(reason)
 

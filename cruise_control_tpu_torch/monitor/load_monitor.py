@@ -96,6 +96,9 @@ class LoadMonitor:
         #: host seconds of the last build: the builder's description,
         #: its arrays, the move to the device, the capacity overlay
         self.last_build_seconds: Dict[str, float] = {}
+        #: why metric sampling is paused (an execution runs), else None;
+        #: the port has no sampler yet, so this is the whole effect
+        self.sampling_paused_reason: Optional[str] = None
 
     @staticmethod
     def _load_map(leader_loads) -> Dict[Tuple[str, int], np.ndarray]:
@@ -211,6 +214,13 @@ class LoadMonitor:
                         leader_out_weight=lw_out,
                         follower_in_weight=fw_in))
         return estimate_follower_cpu
+
+    def pause_metric_sampling(self, reason: str) -> None:
+        self.sampling_paused_reason = reason
+
+    def resume_metric_sampling(self, reason: str) -> None:
+        LOG.debug("metric sampling resumed: %s", reason)
+        self.sampling_paused_reason = None
 
     # ------------------------------------------------------------------
     # model building

@@ -24,8 +24,8 @@ the warm seed are unchanged bit for bit.  Also: a restricted solve that
 fails its verdict is retried as a full sweep in both; the EAGER rung is
 the optimizer's eager driver; an invalidated cache solves again; what
 the port does not have raises
-NotImplementedError; without a card the facade raises unless
-device="cpu".
+NotImplementedError (`dryrun=False` without an admin client raises
+ValueError); without a card the facade raises unless device="cpu".
 """
 import dataclasses
 
@@ -358,8 +358,10 @@ def test_self_healing_options():
 def test_what_the_port_lacks_raises():
     _sim, jcc, pmon, pcc, _clock = make_pair()
     jcc.shutdown()
-    for call, what in ((lambda: pcc.rebalance(dryrun=False), "executor"),
-                       (lambda: pcc.add_brokers([[1], [2]]), "scenario"),
+    # executing needs the cluster's admin client, which this facade lacks
+    with pytest.raises(ValueError, match="admin"):
+        pcc.rebalance(dryrun=False)
+    for call, what in ((lambda: pcc.add_brokers([[1], [2]]), "scenario"),
                        (lambda: pcc.optimizations(portfolio_width=4),
                         "portfolio"),
                        (lambda: F.CruiseControl(pmon, device="cpu",

@@ -17,7 +17,8 @@ and feed the port's `LoadMonitor`.  Then:
   does (tests/test_incremental.py:151-181);
 - an unlogged change breaks the chain, a capacity-flag mismatch never
   fast-forwards, unknown ids are rejected or unsupported, and a failure
-  mid-apply quarantines the store.
+  mid-apply (the store's fault site `store.apply_delta`) quarantines the
+  store.
 """
 import numpy as np
 import pytest
@@ -41,6 +42,7 @@ from cruise_control_tpu_torch.model.state import STATE_FIELDS
 from cruise_control_tpu_torch.monitor import deltas as PD
 from cruise_control_tpu_torch.monitor.load_monitor import LoadMonitor
 from cruise_control_tpu_torch.scenario.spec import BrokerAdd
+from cruise_control_tpu_torch.utils import faults
 
 STATIC = ("num_racks", "num_hosts", "num_topics")
 JBOD_DISKS = {"/d0": 6e5, "/d1": 6e5}
@@ -371,22 +373,18 @@ def test_unknown_ids_are_rejected_or_unsupported(rig):
     assert store.quarantines == 0 and store.to_json()["resident"]
 
 
-def test_failure_mid_apply_quarantines(rig, monkeypatch):
+def test_failure_mid_apply_quarantines(rig):
     _sim, _jmon, pmon, store, _clock = rig
     g0 = store.generation
     g1 = pmon.apply_model_delta(PD.ModelDelta(
         capacity_overrides={0: {"disk": 1.3e6}}))
-    real = ST.apply_delta
-
-    def failing(state, plan):
-        raise RuntimeError("device op failed")
-
-    monkeypatch.setattr(ST, "apply_delta", failing)
-    assert store.advance(pmon.deltas_between(g0, g1), g1) is None
+    plan = faults.FaultPlan().fail_nth("store.apply_delta", 1)
+    with faults.injected(plan) as injector:
+        assert store.advance(pmon.deltas_between(g0, g1), g1) is None
+    assert injector.failure_count("store.apply_delta") == 1
     assert store.quarantines == 1 and store.fallbacks == 1
     assert store.last_fallback_reason.startswith("quarantined")
     assert not store.to_json()["resident"]
-    monkeypatch.setattr(ST, "apply_delta", real)
     # the next consult rebuilds and installs
     from cruise_control_tpu_torch.facade import CruiseControl
     cc = CruiseControl(pmon, device="cpu")
