@@ -4,6 +4,7 @@
 Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py [--phases 1,2,3,4] [--profile] [--requests-only]
+                          [--scenarios-only]
 
 Phases:
   1. the card's name and power limit (nvidia-smi), then the build of the
@@ -204,11 +205,13 @@ Phases:
      (no CPU comparison), and the served requests `optimizations` cold,
      a narrow delta and `remove_brokers` of 26 brokers (card only), and
      the cold `rebalance(dryrun=False)` executed as at the slice with a
-     one-minute progress check and no journal; then
+     one-minute progress check and no journal, and `remove_brokers` of
+     two candidate sets of 26 brokers (every lane feasible) and the host
+     rung's wall with broker 0 dead; then
      the widest rank_accept call of the run
      must be one phase 2 checked.  --requests-only runs only the request
-     paths and the served and executed requests in phases 3 and 4, and
-     --profile with
+     paths and the served, executed and what-if requests in phases 3 and
+     4, --scenarios-only only the what-if requests, and --profile with
      it profiles the request paths beside their option-less twins.
 With --profile, default-stack solves in turns and two more profiled (with
 K8, then with K8's lexsort dispatch: the torch lexsort, the kernel on its
@@ -4029,6 +4032,7 @@ def run_slice(results: dict) -> None:
     run_requests(results, north=False, stack_result=stack_result)
     run_served(results, north=False)
     run_executed(results, north=False)
+    run_scenarios(results, north=False)
     results["_identical"] = True
 
 
@@ -4286,15 +4290,16 @@ def served_meter():
          LoadMonitor.cluster_model) = real
 
 
-def served_facade(inputs, device: str):
+def served_facade(inputs, device: str, **settings):
     """(monitor, facade) on `device` over a cluster's description
     (`served_inputs`: snapshot, leader loads, capacities): the default
-    stack at 192 rounds, every other setting the reference's default."""
+    stack at 192 rounds, every other setting the reference's default
+    unless `settings` names it."""
     from cruise_control_tpu_torch.facade import CruiseControl
     from cruise_control_tpu_torch.monitor.load_monitor import LoadMonitor
     monitor = LoadMonitor(*inputs, device=device)
     return monitor, CruiseControl(monitor, device=device,
-                                  max_optimization_rounds=192)
+                                  max_optimization_rounds=192, **settings)
 
 
 def served_delta(inputs, partitions: int, capacity: bool):
@@ -4368,7 +4373,7 @@ def serve(label: str, call, cc, monitor, kernels=(), expect_store=None,
                launches=launches, store=counts, dirty=dirty,
                build=build, advance_s=sum(rec["advance_s"]),
                solve_s=sum(s["seconds"] for s in rec["solves"]),
-               solves=len(rec["solves"]))
+               solves=len(rec["solves"]), facade=cc)
     where = "card" if on_card else "CPU"
     log(f"    served {label} ({where}): wall {wall:.3f} s; rebuild "
         + (f"{build['total']:.3f} s (builder loop {build['describe']:.3f}, "
@@ -4644,6 +4649,8 @@ def run_served(results: dict, north: bool) -> None:
            "rounds": sum(r["result"].rounds_by_goal.values()),
            "proposals": len(r["result"].proposals)} for r in card]
     if north:
+        # the facade, its model resident, for the what-if requests
+        results["_served_facade_north"] = card[-1]["facade"]
         return
     torch.set_num_threads(min(8, os.cpu_count() or 1))
     cpu = _served_sequence("cpu", inputs, north, add_start, jbod)
@@ -4966,6 +4973,419 @@ def run_executed(results: dict, north: bool, device: str = "cuda") -> None:
     results[f"_executed_{key}"] = summary
 
 
+#: the scenario phase's what-ifs at the slice, after the base lane: 10
+#: hypothetical brokers (ids no broker has) the only destinations, brokers
+#: 0 and 100 removed, every disk load x 1.2
+SCENARIO_FIRST_NEW_ID = 10_000
+SCENARIO_ADDED = 10
+#: the ladder's settings in the scenario phase: the breaker probes as
+#: soon as it opens, and a retry does not wait
+SCENARIO_LADDER = dict(solver_breaker_cooldown_s=0.0,
+                       sleep_fn=lambda seconds: None)
+
+
+def scenario_specs():
+    from cruise_control_tpu_torch.scenario.spec import (BrokerAdd,
+                                                        ScenarioSpec)
+    return [ScenarioSpec(
+                name=f"add {SCENARIO_ADDED} brokers",
+                add_brokers=tuple(BrokerAdd(SCENARIO_FIRST_NEW_ID + i)
+                                  for i in range(SCENARIO_ADDED)),
+                only_move_to_added=True),
+            ScenarioSpec(name="remove 0, 100", remove_brokers=(0, 100)),
+            ScenarioSpec(name="disk x 1.2", load_scale={"disk": 1.2})]
+
+
+@contextlib.contextmanager
+def scenario_meter():
+    """Per scenario batch the engine's result, and per lane its goal
+    pipeline's seconds (to a synchronized end) and kernel launches, and
+    the K13 launches of its movement metrics."""
+    import torch
+    from cruise_control_tpu_torch import cuda_kernels
+    from cruise_control_tpu_torch.analyzer.optimizer import GoalOptimizer
+    from cruise_control_tpu_torch.scenario import engine as E
+    rec = {"batches": [], "lanes": []}
+    real = (GoalOptimizer._pipeline, E._movement_metrics,
+            E.ScenarioEngine.evaluate)
+
+    def pipeline(self, initial, *args, **kwargs):
+        before = dict(cuda_kernels.LAUNCHES)
+        t0 = time.perf_counter()
+        run = real[0](self, initial, *args, **kwargs)
+        if initial.device.type == "cuda":
+            torch.cuda.synchronize()
+        rec["lanes"].append(dict(
+            seconds=time.perf_counter() - t0,
+            launches={k: cuda_kernels.LAUNCHES[k] - before[k]
+                      for k in SOURCES}))
+        return run
+
+    def movement(initial, final):
+        before = cuda_kernels.LAUNCHES["ordered_sum"]
+        out = real[1](initial, final)
+        if rec["lanes"]:
+            rec["lanes"][-1]["movement_k13"] = (
+                cuda_kernels.LAUNCHES["ordered_sum"] - before)
+        return out
+
+    def evaluate(self, *args, **kwargs):
+        result = real[2](self, *args, **kwargs)
+        rec["batches"].append(result)
+        return result
+
+    GoalOptimizer._pipeline = pipeline
+    E._movement_metrics = movement
+    E.ScenarioEngine.evaluate = evaluate
+    try:
+        yield rec
+    finally:
+        (GoalOptimizer._pipeline, E._movement_metrics,
+         E.ScenarioEngine.evaluate) = real
+
+
+def scenario_request(label: str, call, cc, kernels=(), rung: str = "FUSED",
+                     degraded: bool = False) -> dict:
+    """One what-if request through the facade: its wall, the engine's
+    batches and each lane's seconds and launches (counts set to 0 just
+    before, read just after; each of `kernels` > 0 on the card), each
+    outcome served at `rung`, the engine's descents and the request's
+    trace (`degraded` or not) as expected."""
+    import torch
+    from cruise_control_tpu_torch import cuda_kernels
+    on_card = cc.device.type == "cuda"
+    descents = cc.scenario_engine.total_descents
+    cuda_kernels.reset_launches()
+    with scenario_meter() as rec:
+        t0 = time.perf_counter()
+        answer = call()
+        if on_card:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {k: cuda_kernels.LAUNCHES[k] for k in SOURCES}
+    outcomes = [o for b in rec["batches"] for o in b.outcomes]
+    where = "card" if on_card else "CPU"
+    log(f"    scenarios {label} ({where}): wall {wall:.3f} s; batches "
+        + ", ".join(f"{b.batch_sizes} ({b.rung}, solve {b.solve_s:.3f} s)"
+                    for b in rec["batches"])
+        + "; lanes " + ", ".join(f"{lane['seconds']:.3f}"
+                                 for lane in rec["lanes"]) + " s")
+    for o in outcomes:
+        log(f"      {o.spec.name}: feasible {o.feasible}"
+            f"{'' if o.feasible else ' (' + o.reason + ')'}, rung {o.rung}"
+            f", rounds {sum(o.rounds_by_goal.values())}, proposals "
+            f"{len(o.proposals)}, replica moves {o.num_replica_moves}, "
+            f"leadership moves {o.num_leadership_moves}, data to move "
+            f"{o.data_to_move:.6g}, balancedness {o.balancedness:.3f}")
+    if on_card:
+        log(f"      launches {launches}")
+        for i, lane in enumerate(rec["lanes"]):
+            log(f"      lane {i}: {lane['seconds']:.3f} s, launches "
+                f"{lane['launches']}, movement K13 "
+                f"{lane.get('movement_k13')}")
+        missing = [k for k in kernels if launches[k] <= 0]
+        if missing:
+            raise AssertionError(f"scenarios {label}: kernels {missing} "
+                                 "were not launched")
+    wrong = [o.spec.name for o in outcomes if o.rung != rung]
+    if wrong:
+        raise AssertionError(f"scenarios {label}: {wrong} not served at "
+                             f"{rung}")
+    trace = cc.last_solve_trace
+    if (trace.outcome == "degraded") != degraded:
+        raise AssertionError(f"scenarios {label}: trace outcome "
+                             f"{trace.outcome}")
+    if rung == "FUSED" and cc.scenario_engine.total_descents != descents:
+        raise AssertionError(f"scenarios {label}: the engine descended")
+    return dict(label=label, answer=answer, wall=wall, launches=launches,
+                batches=rec["batches"], lanes=rec["lanes"],
+                outcomes=outcomes)
+
+
+def outcome_differences(a, b) -> dict:
+    """What two scenario outcomes do not share: verdicts, instruments,
+    movement (data to move bit for bit), proposals (logdirs and new
+    leaders included) and the stats, before, after and by goal, bit for
+    bit."""
+    import numpy as np
+    from cruise_control_tpu_torch.analyzer.optimizer import proposal_set
+    same = {
+        "verdict": (a.feasible, a.reason, a.invalid_input)
+        == (b.feasible, b.reason, b.invalid_input),
+        "counts": (a.violated_broker_counts, a.entry_broker_counts,
+                   a.violated_goals_before, a.violated_goals_after,
+                   a.regressed_goals)
+        == (b.violated_broker_counts, b.entry_broker_counts,
+            b.violated_goals_before, b.violated_goals_after,
+            b.regressed_goals),
+        "rounds": (a.rounds_by_goal, a.converged_at_by_goal)
+        == (b.rounds_by_goal, b.converged_at_by_goal),
+        "movement": (a.num_replica_moves, a.num_leadership_moves,
+                     np.float32(a.data_to_move).tobytes(), a.balancedness)
+        == (b.num_replica_moves, b.num_leadership_moves,
+            np.float32(b.data_to_move).tobytes(), b.balancedness),
+        "proposals and leaders": (
+            proposal_set(a) == proposal_set(b)
+            and _logdir_moves(a) == _logdir_moves(b)
+            and sorted((str(p.partition), p.new_leader) for p in a.proposals)
+            == sorted((str(p.partition), p.new_leader) for p in b.proposals)),
+        "stats": not _stats_differences(a, b)}
+    return {k: v for k, v in same.items() if not v}
+
+
+def scenarios_equal(card: dict, cpu: dict) -> None:
+    """Every lane of the card's request equals the CPU facade's."""
+    pairs = list(zip(card["outcomes"], cpu["outcomes"]))
+    if len(card["outcomes"]) != len(cpu["outcomes"]):
+        raise AssertionError(f"scenarios {card['label']}: lane counts")
+    for a, b in pairs:
+        diff = outcome_differences(a, b)
+        log(f"    scenarios {card['label']}, {a.spec.name}: card and CPU "
+            f"identical (verdict, counts, rounds, movement, proposals and "
+            f"leaders, stats bit for bit): {not diff}")
+        if diff or a.spec.name != b.spec.name:
+            raise AssertionError(f"scenarios {card['label']}, "
+                                 f"{a.spec.name}: the card differs from "
+                                 f"the CPU facade in {sorted(diff)}")
+
+
+def winner_equals_single(label: str, candidates: dict, single) -> None:
+    """The winning lane's proposals are the single-set request's."""
+    from cruise_control_tpu_torch.analyzer.optimizer import proposal_set
+    answer = candidates["answer"]
+    best = answer.scenario_report["scenarios"][0]["name"]
+    same = (proposal_set(answer) == proposal_set(single)
+            and _logdir_moves(answer) == _logdir_moves(single))
+    log(f"    {label}: winner {best}, {len(answer.proposals)} proposals; "
+        f"equal to its single-set request ({len(single.proposals)}): "
+        f"{same}")
+    if not same:
+        raise AssertionError(f"{label}: the winning lane's proposals "
+                             "differ from its single-set request")
+
+
+def _ids(name: str, prefix: str) -> list:
+    """The broker ids of a candidate scenario's name ("remove-0-100")."""
+    return [int(b) for b in name.removeprefix(prefix).split("-")]
+
+
+def host_rung_wall(cc, dead, label: str) -> float:
+    """The host rung (`host_fallback_solve`) on the facade's model with
+    `dead` brokers killed: its wall, every offline replica placed."""
+    from cruise_control_tpu_torch.model import state as S
+    from cruise_control_tpu_torch.model.cpu_model import host_fallback_solve
+    state, topo = cc._model_for_solve()
+    for b in dead:
+        state = S.set_broker_state(state, topo.broker_index[b], alive=False)
+    offline = int(S.self_healing_eligible(state).sum())
+    t0 = time.perf_counter()
+    result = host_fallback_solve(state, topo)
+    wall = time.perf_counter() - t0
+    left = int(S.self_healing_eligible(result.final_state).sum())
+    log(f"    host rung ({label}, brokers {list(dead)} dead): {wall:.3f} s "
+        f"for {offline} offline replicas, {len(result.proposals)} "
+        f"proposals, {left} left offline")
+    if left or result.rounds_by_goal["__host_fallback__"] != offline:
+        raise AssertionError(f"host rung ({label}): {left} replicas left "
+                             "offline")
+    return wall
+
+
+def _scenario_slice(device: str, inputs, add_inputs, new_ids,
+                    full: bool) -> dict:
+    """The scenario requests of the slice on `device`, in order (see
+    `run_scenarios`): the two that the CPU facade repeats, and with
+    `full` the rest."""
+    import dataclasses
+    from cruise_control_tpu_torch.analyzer.degradation import SolverRung
+    from cruise_control_tpu_torch.utils import faults
+    card = device == "cuda"
+    monitor, cc = served_facade(inputs, device, **SCENARIO_LADDER)
+    out = {"batch": scenario_request(
+        "base + 3", lambda: cc.evaluate_scenarios(scenario_specs()), cc,
+        SERVED_STACK_KERNELS)}
+    out["remove"] = scenario_request(
+        "remove [[0, 100], [50, 150]]",
+        lambda: cc.remove_brokers([[0, 100], [50, 150]]), cc,
+        SERVED_HEAL_KERNELS)
+    if not full:
+        return out
+    # the batch's lanes one at a time (each at its own geometry): K
+    # single requests
+    out["singles"] = [scenario_request(
+        f"single {s.name}", lambda s=s: cc.evaluate_scenarios(
+            [s], include_base=False), cc) for s in
+        [o.spec for o in out["batch"]["outcomes"]]]
+    # a deliberate descent: one fault at the batch's dispatch, the lane
+    # served by the per-scenario EAGER rung (the eager driver at the
+    # spec's own geometry), which must equal its FUSED twin: the single
+    # request of the same spec, at the same geometry
+    twin = out["singles"][3]["outcomes"][0]
+    with faults.injected(faults.FaultPlan().fail_nth("scenario.execute",
+                                                     1)):
+        out["eager"] = scenario_request(
+            "disk x 1.2 after a fault at scenario.execute",
+            lambda: cc.evaluate_scenarios([twin.spec], include_base=False),
+            cc, rung="EAGER")
+    eager = out["eager"]["outcomes"][0]
+    # the EAGER rung's outcome carries no per-goal stats and no regressed
+    # goals, counts leadership-only moves a proposal and sums the data to
+    # move over the proposals (`_outcome_from_result`), where a FUSED
+    # lane counts a replica and sums on the device (`_movement_metrics`),
+    # as the reference's rungs do (tests/test_torch_scenario.py): the
+    # twin's leadership count is taken from its proposals, and its data
+    # to move held to 1e-6 relative
+    leaders = sum(1 for p in twin.proposals
+                  if p.has_leader_action and not p.has_replica_action)
+    data_close = (abs(eager.data_to_move - twin.data_to_move)
+                  <= 1e-6 * abs(twin.data_to_move))
+    diff = outcome_differences(eager, dataclasses.replace(
+        twin, stats_by_goal={}, regressed_goals=[],
+        num_leadership_moves=leaders, data_to_move=eager.data_to_move))
+    log(f"    the EAGER outcome equals its FUSED twin (verdict, counts, "
+        f"rounds, movement, proposals and leaders, stats before and after "
+        f"bit for bit; leadership moves {eager.num_leadership_moves}, the "
+        f"twin's proposals {leaders}, its lane {twin.num_leadership_moves}"
+        f"; data to move within 1e-6: {data_close}): {not diff}; engine "
+        f"rung {cc.scenario_engine.ladder.rung.name}, descents "
+        f"{cc.scenario_engine.total_descents}")
+    if diff or not data_close or eager.stats_by_goal:
+        raise AssertionError(f"the EAGER outcome differs from its FUSED "
+                             f"twin in {sorted(diff)} (data to move "
+                             f"close: {data_close})")
+    if cc.scenario_engine.total_descents != 1:
+        raise AssertionError("the faulted batch did not descend once")
+    best = out["remove"]["answer"].scenario_report["scenarios"][0]["name"]
+    winner_equals_single("remove candidates", out["remove"],
+                         cc.remove_brokers(_ids(best, "remove-")))
+    out["demote"] = scenario_request(
+        "demote [[0], [100]]", lambda: cc.demote_brokers([[0], [100]]), cc,
+        SUM_KERNELS)
+    best = out["demote"]["answer"].scenario_report["scenarios"][0]["name"]
+    winner_equals_single("demote candidates", out["demote"],
+                         cc.demote_brokers(_ids(best, "demote-")))
+    _, add_cc = served_facade(add_inputs, device, **SCENARIO_LADDER)
+    sets = [new_ids[:5], new_ids[5:10]]
+    out["add"] = scenario_request(
+        f"add {sets}", lambda: add_cc.add_brokers(sets), add_cc,
+        SERVED_STACK_KERNELS)
+    best = out["add"]["answer"].scenario_report["scenarios"][0]["name"]
+    winner_equals_single("add candidates", out["add"],
+                         add_cc.add_brokers(_ids(best, "add-")))
+    # every optimizer site failing: the request is served by the host
+    # rung, then the breaker's probes climb back one rung a request
+    ladder = []
+    plan = faults.FaultPlan().fail_always("optimizer.execute")
+    for step, want, degraded in (("all rungs failing", SolverRung.CPU, True),
+                                 ("the probe", SolverRung.EAGER, True),
+                                 ("recovered", SolverRung.FUSED, False)):
+        t0 = time.perf_counter()
+        with (faults.injected(plan) if step == "all rungs failing"
+              else contextlib.nullcontext()):
+            result = cc.optimizations(ignore_proposal_cache=True)
+        if card:
+            import torch
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ladder.append(dict(step=step, rung=cc.last_solve_rung.name,
+                           outcome=cc.last_solve_trace.outcome, wall=wall,
+                           descents=cc.solver_descents,
+                           retries=cc.solver_retries,
+                           invalidations=cc.model_store.invalidations,
+                           proposals=len(result.proposals)))
+        log(f"    ladder, {step}: {ladder[-1]}")
+        if (cc.last_solve_rung is not want
+                or (cc.last_solve_trace.outcome == "degraded") != degraded
+                or cc.solver_descents != 2
+                or cc.model_store.invalidations < 1):
+            raise AssertionError(f"ladder, {step}: {ladder[-1]}")
+    out["ladder"] = ladder
+    out["host_rung_s"] = host_rung_wall(cc, (0, 100), "200 brokers")
+    return out
+
+
+def run_scenarios(results: dict, north: bool) -> None:
+    """What-if requests through the port's facade (`evaluate_scenarios`
+    and candidate broker sets), the scenario engine's lanes on the card.
+
+    At 200 brokers, over the self-healing request's rack-aware placement
+    (the default stack at 192 rounds): the base scenario and three
+    what-ifs in one batch (10 hypothetical brokers the only
+    destinations, brokers 0 and 100 removed, disk loads x 1.2) and
+    `remove_brokers([[0, 100], [50, 150]])`, each lane equal to the CPU
+    facade's bit for bit; then, on the card only, the batch's lanes as K
+    single requests, one batch of the disk what-if after one fault at
+    `scenario.execute` (served at EAGER, the per-scenario eager driver,
+    equal to its FUSED twin: the single request of the same spec),
+    `demote_brokers([[0], [100]])` (a sub-batch of the
+    preferred-leader goal beside the base lane) and `add_brokers` of two
+    sets of 5 appended brokers (on the add-broker request's placement),
+    each winner equal to its single-set request; every outcome but the
+    faulted one at FUSED, no other descent, no degraded trace.  Then
+    every optimizer site failing for one `optimizations`
+    request (served from the host rung, the trace degraded, the ladder's
+    two descents counted), the two requests after it climbing back one
+    rung each; and the host rung's wall with brokers 0 and 100 dead.  At
+    2,600 brokers (`run_served`'s facade when it ran first):
+    `remove_brokers` of two sets of 26 brokers, every lane feasible, and
+    the host rung's wall with broker 0 dead."""
+    from cruise_control_tpu_torch.testing.random_cluster import (
+        RandomClusterSpec, random_cluster, served_inputs)
+    where = "2,600 brokers" if north else "slice"
+    log(f"  -- what-if scenarios ({where}): the port's CruiseControl, its "
+        "scenario engine and degradation ladder")
+    summary: dict = {}
+    if north:
+        # the served requests' facade, its model resident, when they ran
+        # before
+        cc = results.pop("_served_facade_north", None)
+        if cc is None:
+            t0 = time.perf_counter()
+            inputs = sim_description(served_inputs(*random_cluster(
+                RandomClusterSpec(**NORTH_SPEC), device="cuda")))
+            log(f"    described {len(inputs[0].brokers)} brokers in "
+                f"{time.perf_counter() - t0:.3f} s")
+            _, cc = served_facade(inputs, "cuda", **SCENARIO_LADDER)
+        sets = [list(range(0, 2600, 100)), list(range(50, 2600, 100))]
+        north_run = scenario_request(
+            "remove two sets of 26 brokers", lambda: cc.remove_brokers(sets),
+            cc, SERVED_HEAL_KERNELS)
+        infeasible = [o.spec.name for o in north_run["outcomes"]
+                      if not o.feasible]
+        if infeasible:
+            raise AssertionError(f"north scenarios infeasible: {infeasible}")
+        summary = dict(wall=north_run["wall"],
+                       lanes=[lane["seconds"] for lane in north_run["lanes"]],
+                       host_rung_s=host_rung_wall(cc, (0,),
+                                                  "2,600 brokers"))
+        results["_scenarios_north"] = summary
+        return
+    inputs = sim_description(served_inputs(
+        *rack_aware_start(SLICE_HEAL_REQUEST)))
+    prep, topo = rack_aware_start(SLICE_ADD_REQUEST)
+    new_ids = [topo.broker_ids[i] for i in
+               prep.broker_new.nonzero().flatten().tolist()]
+    add_inputs = served_inputs(prep, topo)
+    card = _scenario_slice("cuda", inputs, add_inputs, new_ids, full=True)
+    import torch
+    torch.set_num_threads(min(8, os.cpu_count() or 1))
+    cpu = _scenario_slice("cpu", inputs, add_inputs, new_ids, full=False)
+    for key in ("batch", "remove"):
+        scenarios_equal(card[key], cpu[key])
+    summary = {
+        key: dict(wall=card[key]["wall"],
+                  lanes=[lane["seconds"] for lane in card[key]["lanes"]],
+                  lane_launches=[lane["launches"]
+                                 for lane in card[key]["lanes"]])
+        for key in ("batch", "remove", "demote", "add", "eager")}
+    summary["singles_wall"] = [one["wall"] for one in card["singles"]]
+    summary["cpu_walls"] = {key: cpu[key]["wall"]
+                            for key in ("batch", "remove")}
+    summary["ladder"] = card["ladder"]
+    summary["host_rung_s"] = card["host_rung_s"]
+    results["_scenarios_slice"] = summary
+
+
 def profile_slice(solve: dict, device: str = "cuda",
                   lexsort_dispatch: bool = False) -> None:
     """torch.profiler over one solve on the card: wall time, the device's
@@ -5098,6 +5518,7 @@ def run_scale(results: dict) -> None:
     run_requests(results, north=True)
     run_served(results, north=True)
     run_executed(results, north=True)
+    run_scenarios(results, north=True)
 
 
 def _most_launched(splits: dict, prefix: str, measured) -> str:
@@ -5147,6 +5568,9 @@ def main(argv=None) -> int:
                          "(add-broker, self-healing, incremental, fast "
                          "mode under the fused solver) and the requests "
                          "served and executed through the port's facade")
+    ap.add_argument("--scenarios-only", action="store_true",
+                    help="phases 3 and 4 run only the what-if scenario "
+                         "requests and the degradation ladder's checks")
     ap.add_argument("--parent", default=None,
                     help="a checkout of the parent tree: phase 2 times its "
                          "K6 and K10 chains as yardsticks and its K7 beside "
@@ -5280,10 +5704,13 @@ def main(argv=None) -> int:
                 "goals, the default stack and the add-broker solve, then "
                 "config 5 and the six hard goals (self-healing), then the "
                 "demote, kafka-assigner and intra-broker modes")
-            if args.requests_only:
+            if args.scenarios_only:
+                run_scenarios(results, north=False)
+            elif args.requests_only:
                 run_requests(results, north=False)
                 run_served(results, north=False)
                 run_executed(results, north=False)
+                run_scenarios(results, north=False)
             else:
                 run_slice(results)
             log(f"[t] {time.time() - t_run:.1f} s")
@@ -5291,10 +5718,13 @@ def main(argv=None) -> int:
             log("[4] scale: the default stack, the four-goal solve, config 5, "
                 "the six hard goals and the demote, kafka-assigner and "
                 "intra-broker modes at 2,600 brokers / 200K partitions")
-            if args.requests_only:
+            if args.scenarios_only:
+                run_scenarios(results, north=True)
+            elif args.requests_only:
                 run_requests(results, north=True)
                 run_served(results, north=True)
                 run_executed(results, north=True)
+                run_scenarios(results, north=True)
             else:
                 run_scale(results)
             log(f"[t] {time.time() - t_run:.1f} s")
@@ -5433,6 +5863,8 @@ def main(argv=None) -> int:
         k: results.get(f"_executed_{k}") for k in ("slice", "north")}
         | {"rebuilt_stats_largest_relative_difference":
            results.get("_executed_stats_rel")}))
+    log("[5] what-if scenarios and the ladder: " + json.dumps({
+        k: results.get(f"_scenarios_{k}") for k in ("slice", "north")}))
     log("[5] rank_accept: " + json.dumps(results.get("rank_accept")))
     for k in ("commit_moves", "_commit_moves_north", "commit_leadership",
               "_commit_leadership_north", "segment_sum", "ordered_sum",

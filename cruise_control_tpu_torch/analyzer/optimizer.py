@@ -33,6 +33,8 @@ from cruise_control_tpu_torch.analyzer.context import (
     BalancingConstraint, OptimizationContext, OptimizationOptions,
     ensure_full_cache, make_context, make_round_cache,
     refresh_float_aggregates, restrict_context_to_dirty, table_width)
+from cruise_control_tpu_torch.analyzer.degradation import \
+    InvalidModelInputError
 from cruise_control_tpu_torch.analyzer.fusion import plan_segments
 from cruise_control_tpu_torch.analyzer.goals import base as goals_base
 from cruise_control_tpu_torch.analyzer.goals.base import (Goal,
@@ -51,10 +53,6 @@ from cruise_control_tpu_torch.model.stats import (ClusterModelStats,
 
 
 LOG = logging.getLogger(__name__)
-
-
-class InvalidModelInputError(ValueError):
-    """The model carries NaN/Inf/negative loads or capacities."""
 
 
 def inputs_invalid(state: ClusterState) -> torch.Tensor:
@@ -139,6 +137,40 @@ class OptimizerResult:
         kept = sum(c for n, c in costs.items() if n not in violated)
         total = sum(costs.values())
         return 100.0 * kept / total if total else 100.0
+
+
+@dataclasses.dataclass
+class PipelineRun:
+    """What `GoalOptimizer._pipeline` measured on one model: the final
+    state and cache, the stats and per-goal instruments, and the
+    verdicts the caller raises (a request) or reports (a scenario
+    lane)."""
+
+    state: ClusterState
+    cache: Optional[object] = None
+    invalid: bool = False
+    broken: bool = False
+    still_offline: int = 0
+    #: the post-heal largest per-broker replica count, and the wider
+    #: broker-table width it calls for (0: the table held)
+    max_count: int = 0
+    new_slots: int = 0
+    heal_rounds: int = 0
+    heal_moves: int = 0
+    stats_before: Optional[ClusterModelStats] = None
+    stats_by_goal: Dict[str, ClusterModelStats] = \
+        dataclasses.field(default_factory=dict)
+    violated_before: List[str] = dataclasses.field(default_factory=list)
+    violated_after: List[str] = dataclasses.field(default_factory=list)
+    violated_broker_counts: Dict[str, Tuple[int, int, int]] = \
+        dataclasses.field(default_factory=dict)
+    entry_broker_counts: Dict[str, int] = \
+        dataclasses.field(default_factory=dict)
+    rounds_by_goal: Dict[str, int] = dataclasses.field(default_factory=dict)
+    converged_at_by_goal: Dict[str, int] = \
+        dataclasses.field(default_factory=dict)
+    regressed: List[str] = dataclasses.field(default_factory=list)
+    skipped_goals: List[str] = dataclasses.field(default_factory=list)
 
 
 def _count(mask: torch.Tensor) -> int:
@@ -250,6 +282,159 @@ class GoalOptimizer:
                 margin = getattr(g, "pct_margin", margin)
         return active, "ReplicaDistributionGoal" in names, margin
 
+    def _pipeline(self, initial: ClusterState, state: ClusterState,
+                  ctx: OptimizationContext, *, eager: bool = False,
+                  eager_driver: bool = False, host_skip: bool = False,
+                  fault_site: Optional[str] = "optimizer.execute",
+                  raise_verdicts: bool = True,
+                  pre_only: bool = False) -> PipelineRun:
+        """The pre-program, the goal segments and the post sweep on
+        `state` (`initial` is the model before any warm start, read for
+        the before-counts and the validity sweep).
+
+        With `raise_verdicts` (a request's solve) an invalid model raises
+        InvalidModelInputError, offline replicas left after self-healing
+        raise OptimizationFailure and `eager` aborts on a hard goal still
+        violated after its own segment; without it (a scenario lane) each
+        verdict is recorded in the run, which stops after the pre-program
+        only for an invalid model.  A broker table overflowed by
+        self-healing stops the run after the pre-program with
+        `new_slots` set.  `pre_only` stops there in any case.
+        `fault_site` is injected before each program the reference
+        dispatches: the pre-program, each segment (each goal's rounds and
+        its epilogue under the eager driver) and the post sweep."""
+        from cruise_control_tpu_torch.sched.runtime import \
+            segment_checkpoint
+        from cruise_control_tpu_torch.utils import faults
+
+        def program() -> None:
+            if fault_site is not None:
+                faults.inject(fault_site)
+
+        goals = self.goals
+        run = PipelineRun(state=state)
+        # --- pre: stats and violation sweep before, validity, pre-balance
+        program()
+        if bool(inputs_invalid(initial)):
+            if raise_verdicts:
+                raise InvalidModelInputError(
+                    "cluster model carries NaN/Inf/negative replica "
+                    "loads, leadership bonuses, or broker capacities")
+            run.invalid = True
+            return run
+        stats_before = compute_stats(initial)
+        cache0 = make_round_cache(initial)
+        vb = [_count(g.violated_brokers(initial, ctx, cache0)) for g in goals]
+        needs_heal = bool(S.self_healing_eligible(state).any())
+        # a broken cluster (dead brokers, broken disks or offline
+        # replicas) waives the stats-regression abort
+        run.broken = (needs_heal or not bool(torch.all(state.broker_alive))
+                      or not bool(torch.all(state.disk_alive)))
+        if needs_heal:
+            state, run.heal_rounds, run.heal_moves = heal_offline_replicas(
+                state, ctx)
+        active_res, balance_counts, count_margin = self._prebalance_dims()
+        pre_rounds = 0
+        if (ctx.prebalance and not ctx.fix_offline_replicas_only
+                and (any(active_res) or balance_counts)):
+            from cruise_control_tpu_torch.analyzer.prebalance import \
+                prebalance
+            state, pre_rounds, cache = prebalance(
+                state, ctx, count_margin=count_margin,
+                active_resources=active_res, balance_counts=balance_counts)
+        else:
+            cache = ensure_full_cache(state, ctx, None)
+        run.max_count = int(torch.max(S.broker_replica_count(state)))
+        if ctx.table_slots and run.max_count > ctx.table_slots:
+            run.new_slots = table_width(run.max_count, state.num_replicas)
+            return run
+        run.still_offline = _count(S.self_healing_eligible(state))
+        if run.still_offline and raise_verdicts:
+            raise OptimizationFailure(
+                f"self-healing could not relocate {run.still_offline} "
+                f"offline replicas (insufficient capacity or eligible "
+                f"brokers)")
+        run.state, run.cache = state, cache
+        if pre_only:
+            return run
+
+        # --- goal segments
+        prev_stats = stats_before
+        stats_by_goal: Dict[str, ClusterModelStats] = {}
+        own, entry, rounds_by_goal, conv_by_goal = [], [], {}, {}
+        regressed: List[str] = []
+        skipped: List[str] = []
+        for start, stop in self._plan_segments(eager_driver):
+            segment_checkpoint()
+            if (host_skip and not eager_driver
+                    and self._segment_no_work(start, stop, state, ctx,
+                                              cache)):
+                # every goal of the segment is an identity at no work:
+                # no refresh, unchanged stats, zero rounds and counts
+                for goal in goals[start:stop]:
+                    entry.append(0)
+                    own.append(0)
+                    rounds_by_goal[goal.name] = conv_by_goal[goal.name] = 0
+                    stats_by_goal[goal.name] = prev_stats.cpu()
+                    skipped.append(goal.name)
+                continue
+            program()
+            cache = refresh_float_aggregates(state, cache)
+            for i in range(start, stop):
+                goal = goals[i]
+                entry.append(_count(goal.violated_brokers(state, ctx, cache)))
+                # the eager driver runs every goal (the reference's
+                # per-goal programs have no no-work branch)
+                nw = None if eager_driver else goal.no_work(state, ctx, cache)
+                if nw is not None and bool(nw):
+                    g_rounds = g_conv = 0
+                else:
+                    sink: List = []
+                    goals_base.set_round_sink(sink)
+                    try:
+                        state, cache = goal.optimize_cached(
+                            state, ctx, goals[:i], cache)
+                    finally:
+                        goals_base.set_round_sink(None)
+                    g_rounds, g_conv = goals_base.collapse_sink(sink)
+                cache = ensure_full_cache(state, ctx, cache)
+                if eager_driver:
+                    program()
+                rounds_by_goal[goal.name] = g_rounds
+                conv_by_goal[goal.name] = g_conv
+                goal_stats = compute_stats_fresh_loads(state, cache)
+                stats_by_goal[goal.name] = goal_stats.cpu()
+                own.append(_count(goal.violated_brokers(state, ctx, cache)))
+                if not bool(goal.stats_not_worse(prev_stats, goal_stats)):
+                    regressed.append(goal.name)
+                prev_stats = goal_stats
+            if eager and raise_verdicts:
+                for i in range(start, stop):
+                    if goals[i].is_hard and own[i]:
+                        raise OptimizationFailure(
+                            f"hard goal {goals[i].name} still violated "
+                            f"after its own optimization (eager abort)")
+
+        # --- post sweep
+        program()
+        cache1 = refresh_float_aggregates(state, cache)
+        va = [_count(g.violated_brokers(state, ctx, cache1)) for g in goals]
+        if pre_rounds:
+            rounds_by_goal["__prebalance__"] = pre_rounds
+        run.state, run.cache = state, cache
+        run.stats_before = stats_before
+        run.stats_by_goal = stats_by_goal
+        run.violated_before = [g.name for g, v in zip(goals, vb) if v]
+        run.violated_after = [g.name for g, v in zip(goals, va) if v]
+        run.violated_broker_counts = {
+            g.name: (b, o, a) for g, b, o, a in zip(goals, vb, own, va)}
+        run.entry_broker_counts = {g.name: e for g, e in zip(goals, entry)}
+        run.rounds_by_goal = rounds_by_goal
+        run.converged_at_by_goal = conv_by_goal
+        run.regressed = regressed
+        run.skipped_goals = skipped
+        return run
+
     def optimizations(self, state: ClusterState, topology,
                       options: Optional[OptimizationOptions] = None,
                       check_sanity: bool = True,
@@ -311,119 +496,30 @@ class GoalOptimizer:
         if dirty_brokers is not None:
             ctx = restrict_context_to_dirty(initial, ctx, dirty_brokers)
 
-        # --- pre: stats and violation sweep before, validity, pre-balance
-        if bool(inputs_invalid(initial)):
-            raise InvalidModelInputError(
-                "cluster model carries NaN/Inf/negative replica loads, "
-                "leadership bonuses, or broker capacities")
-        stats_before = compute_stats(initial)
-        cache0 = make_round_cache(initial)
-        vb = [_count(g.violated_brokers(initial, ctx, cache0)) for g in goals]
-        needs_heal = bool(S.self_healing_eligible(state).any())
-        # a broken cluster (dead brokers, broken disks or offline
-        # replicas) waives the stats-regression abort
-        broken = (needs_heal or not bool(torch.all(state.broker_alive))
-                  or not bool(torch.all(state.disk_alive)))
-        heal_rounds = heal_moves = 0
-        if needs_heal:
-            state, heal_rounds, heal_moves = heal_offline_replicas(state,
-                                                                   ctx)
-        active_res, balance_counts, count_margin = self._prebalance_dims()
-        pre_rounds = 0
-        if (ctx.prebalance and not ctx.fix_offline_replicas_only
-                and (any(active_res) or balance_counts)):
-            from cruise_control_tpu_torch.analyzer.prebalance import \
-                prebalance
-            state, pre_rounds, cache = prebalance(
-                state, ctx, count_margin=count_margin,
-                active_resources=active_res, balance_counts=balance_counts)
-        else:
-            cache = ensure_full_cache(state, ctx, None)
-        # self-healing runs table-less and may push a broker past the
-        # table width sized from the pre-heal counts, and a rebuilt table
-        # would drop the overflow; the reference then re-runs the whole
-        # solve with a wider table (and discards this run), so the port
-        # restarts as soon as it knows
-        max_count = int(torch.max(S.broker_replica_count(state)))
-        if ctx.table_slots and max_count > ctx.table_slots:
-            new_slots = table_width(max_count, state.num_replicas)
+        run = self._pipeline(initial, state, ctx, eager=eager,
+                             eager_driver=eager_driver,
+                             host_skip=self.host_side_skip,
+                             fault_site="optimizer.execute")
+        if run.new_slots:
+            # self-healing runs table-less and may push a broker past the
+            # table width sized from the pre-heal counts, and a rebuilt
+            # table would drop the overflow; the reference then re-runs
+            # the whole solve with a wider table (and discards this run),
+            # so the port restarts as soon as it knows
             LOG.warning("post-heal per-broker replica count %d overflowed "
                         "the broker table width %d; re-running with width "
-                        "%d", max_count, ctx.table_slots, new_slots)
+                        "%d", run.max_count, ctx.table_slots, run.new_slots)
             return self.optimizations(
                 initial, topology, options, check_sanity=check_sanity,
-                _table_slots_override=new_slots, warm_start=warm_start,
+                _table_slots_override=run.new_slots, warm_start=warm_start,
                 eager_hard_abort=eager, eager_driver=eager_driver,
                 mesh=mesh, dirty_brokers=dirty_brokers, device=dev)
-        still_offline = _count(S.self_healing_eligible(state))
-        if still_offline:
-            raise OptimizationFailure(
-                f"self-healing could not relocate {still_offline} "
-                f"offline replicas (insufficient capacity or eligible "
-                f"brokers)")
-
-        # --- goal segments
-        prev_stats = stats_before
-        stats_by_goal: Dict[str, ClusterModelStats] = {}
-        own, entry, rounds_by_goal, conv_by_goal = [], [], {}, {}
-        regressed: List[str] = []
-        skipped: List[str] = []
-        for start, stop in self._plan_segments(eager_driver):
-            if (self.host_side_skip and not eager_driver
-                    and self._segment_no_work(start, stop, state, ctx,
-                                              cache)):
-                # every goal of the segment is an identity at no work:
-                # no refresh, unchanged stats, zero rounds and counts
-                for goal in goals[start:stop]:
-                    entry.append(0)
-                    own.append(0)
-                    rounds_by_goal[goal.name] = conv_by_goal[goal.name] = 0
-                    stats_by_goal[goal.name] = prev_stats.cpu()
-                    skipped.append(goal.name)
-                continue
-            cache = refresh_float_aggregates(state, cache)
-            for i in range(start, stop):
-                goal = goals[i]
-                entry.append(_count(goal.violated_brokers(state, ctx, cache)))
-                # the eager driver runs every goal (the reference's
-                # per-goal programs have no no-work branch)
-                nw = None if eager_driver else goal.no_work(state, ctx, cache)
-                if nw is not None and bool(nw):
-                    g_rounds = g_conv = 0
-                else:
-                    sink: List = []
-                    goals_base.set_round_sink(sink)
-                    try:
-                        state, cache = goal.optimize_cached(
-                            state, ctx, goals[:i], cache)
-                    finally:
-                        goals_base.set_round_sink(None)
-                    g_rounds, g_conv = goals_base.collapse_sink(sink)
-                cache = ensure_full_cache(state, ctx, cache)
-                rounds_by_goal[goal.name] = g_rounds
-                conv_by_goal[goal.name] = g_conv
-                goal_stats = compute_stats_fresh_loads(state, cache)
-                stats_by_goal[goal.name] = goal_stats.cpu()
-                own.append(_count(goal.violated_brokers(state, ctx, cache)))
-                if not bool(goal.stats_not_worse(prev_stats, goal_stats)):
-                    regressed.append(goal.name)
-                prev_stats = goal_stats
-            if eager:
-                for i in range(start, stop):
-                    if goals[i].is_hard and own[i]:
-                        raise OptimizationFailure(
-                            f"hard goal {goals[i].name} still violated "
-                            f"after its own optimization (eager abort)")
-
-        # --- post sweep
-        cache1 = refresh_float_aggregates(state, cache)
-        va = [_count(g.violated_brokers(state, ctx, cache1)) for g in goals]
-
-        violated_before = [g.name for g, v in zip(goals, vb) if v]
-        violated_after = [g.name for g, v in zip(goals, va) if v]
-        if pre_rounds:
-            rounds_by_goal["__prebalance__"] = pre_rounds
-        if regressed and not broken:
+        state, cache = run.state, run.cache
+        stats_before, stats_by_goal = run.stats_before, run.stats_by_goal
+        rounds_by_goal, regressed = run.rounds_by_goal, run.regressed
+        violated_before, violated_after = run.violated_before, \
+            run.violated_after
+        if regressed and not run.broken:
             raise OptimizationFailure(
                 "optimization made goal statistics worse than before "
                 "for: " + ", ".join(regressed))
@@ -456,16 +552,14 @@ class GoalOptimizer:
             final_state=state,
             duration_s=time.time() - t_start,
             final_cache=cache,
-            violated_broker_counts={
-                g.name: (b, o, a)
-                for g, b, o, a in zip(goals, vb, own, va)},
+            violated_broker_counts=run.violated_broker_counts,
             rounds_by_goal=rounds_by_goal,
-            entry_broker_counts={g.name: e for g, e in zip(goals, entry)},
-            converged_at_by_goal=conv_by_goal,
+            entry_broker_counts=run.entry_broker_counts,
+            converged_at_by_goal=run.converged_at_by_goal,
             hard_goal_names=frozenset(g.name for g in goals if g.is_hard),
-            heal_rounds=heal_rounds,
-            heal_moves=heal_moves,
-            skipped_goals=skipped,
+            heal_rounds=run.heal_rounds,
+            heal_moves=run.heal_moves,
+            skipped_goals=run.skipped_goals,
             balancedness_weights=self.balancedness_weights,
         )
         return result

@@ -137,6 +137,23 @@ def reset_launches() -> None:
     LAUNCH_SPLITS.clear()
 
 
+class KernelBuildError(RuntimeError):
+    """The kernel library failed to build (nvcc missing or failing, the
+    link) or to load (ctypes).  Not a solve failure the degradation
+    ladder may step around: it raises through it."""
+
+
+class KernelLaunchError(RuntimeError):
+    """A kernel failed to launch or run (the CUDA error its C entry
+    returned).  Not ladder material either: it raises through."""
+
+
+class KernelContractError(KernelLaunchError, ValueError, TypeError):
+    """A wrapper was called outside its kernel's contract (device,
+    dtype, shape, alignment, limits): raised before any launch, and
+    raised through the ladder as a failed launch is."""
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -144,12 +161,13 @@ def _nvcc() -> str:
     cand = Path("/usr/local/cuda/bin/nvcc")
     if cand.exists():
         return str(cand)
-    raise RuntimeError("nvcc not found: the CUDA kernels of "
-                       "cruise_control_tpu_torch need the CUDA toolkit")
+    raise KernelBuildError("nvcc not found: the CUDA kernels of "
+                           "cruise_control_tpu_torch need the CUDA toolkit")
 
 
 def build() -> ctypes.CDLL:
-    """Compile (once per source content) and load the kernel library."""
+    """Compile (once per source content) and load the kernel library;
+    KernelBuildError when either fails."""
     global _LIB
     with _LOCK:
         if _LIB is not None:
@@ -181,8 +199,8 @@ def build() -> ctypes.CDLL:
                 if proc.returncode != 0:
                     failed.append(name)
             if failed:
-                raise RuntimeError("nvcc failed for " + ", ".join(failed)
-                                   + "\n" + "\n".join(log))
+                raise KernelBuildError("nvcc failed for " + ", ".join(failed)
+                                       + "\n" + "\n".join(log))
             tmp = so.with_suffix(f".{os.getpid()}.tmp")
             link = subprocess.run(
                 [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
@@ -190,9 +208,13 @@ def build() -> ctypes.CDLL:
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             log.append(f"== link\n{link.stdout}")
             if link.returncode != 0:
-                raise RuntimeError("nvcc link failed\n" + "\n".join(log))
+                raise KernelBuildError("nvcc link failed\n" + "\n".join(log))
             os.replace(tmp, so)
-        lib = ctypes.CDLL(str(so))
+        try:
+            lib = ctypes.CDLL(str(so))
+        except OSError as exc:
+            raise KernelBuildError(f"the kernel library {so} failed to "
+                                   f"load: {exc}") from exc
         lib.cc_row_topk.argtypes = [_P, _P, _I, _I, _I] + [_P] * 5 + [
             _I, _P]
         lib.cc_table_topk.argtypes = [_P, ctypes.c_longlong, _P, _I, _P, _I,
@@ -260,7 +282,7 @@ def build() -> ctypes.CDLL:
         from cruise_control_tpu_torch.analyzer.leadership import (
             SWEEP_COMPACT)
         if lib.cc_sweep_window_width() != SWEEP_COMPACT:
-            raise RuntimeError(
+            raise KernelBuildError(
                 f"csrc/sweep_pick.cu's window ({lib.cc_sweep_window_width()}"
                 f") is not SWEEP_COMPACT ({SWEEP_COMPACT})")
         BUILD_INFO.update(seconds=time.time() - t0, log="\n".join(log),
@@ -275,25 +297,26 @@ def _stream() -> int:
 
 def _check(t: torch.Tensor, name: str, dtype, shape=None) -> None:
     if not t.is_cuda:
-        raise ValueError(f"{name} must be a CUDA tensor")
+        raise KernelContractError(f"{name} must be a CUDA tensor")
     if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        raise KernelContractError(f"{name} must be {dtype}, got {t.dtype}")
     if shape is not None and tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} must have shape {tuple(shape)}, "
-                         f"got {tuple(t.shape)}")
+        raise KernelContractError(
+            f"{name} must have shape {tuple(shape)}, "
+            f"got {tuple(t.shape)}")
     if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+        raise KernelContractError(f"{name} must be contiguous")
 
 
 def _check_rows4(t: torch.Tensor, name: str) -> None:
     """A plane the kernel reads or writes four floats at a time."""
     if t.data_ptr() % 16:
-        raise ValueError(f"{name} must be 16-byte aligned")
+        raise KernelContractError(f"{name} must be 16-byte aligned")
 
 
 def _raise_on(err: int, name: str) -> None:
     if err != 0:
-        raise RuntimeError(f"CUDA kernel {name} failed: error {err} "
+        raise KernelLaunchError(f"CUDA kernel {name} failed: error {err} "
                            f"({torch.cuda.get_device_name()})")
 
 
@@ -310,8 +333,9 @@ def _row_topk_outputs(b: int, k: int, dev) -> list:
 def _row_topk_shape(table: torch.Tensor, k: int) -> tuple:
     b, s = table.shape
     if not (1 <= k <= min(ROW_TOPK_MAX_K, s) and s <= ROW_TOPK_MAX_S):
-        raise ValueError(f"row_topk takes 1 <= k <= min({ROW_TOPK_MAX_K}, "
-                         f"S) and S <= {ROW_TOPK_MAX_S}, got k={k}, S={s}")
+        raise KernelContractError(
+            f"row_topk takes 1 <= k <= min({ROW_TOPK_MAX_K}, "
+            f"S) and S <= {ROW_TOPK_MAX_S}, got k={k}, S={s}")
     _check(table, "table", torch.int32, (b, s))
     return b, s
 
@@ -379,8 +403,9 @@ def assign_pass(pref: torch.Tensor, dest_ids: torch.Tensor,
     lib = build()
     c, kk = pref.shape
     if not (1 <= kk <= ASSIGN_MAX_K and c >= 1):
-        raise ValueError(f"assign_pass takes C >= 1 and 1 <= K <= "
-                         f"{ASSIGN_MAX_K}, got C={c}, K={kk}")
+        raise KernelContractError(
+            f"assign_pass takes C >= 1 and 1 <= K <= "
+            f"{ASSIGN_MAX_K}, got C={c}, K={kk}")
     num_b = taken_cnt.shape[0]
     _check(pref, "pref", torch.float32)
     _check(dest_ids, "dest_ids", torch.int32, (kk,))
@@ -392,7 +417,8 @@ def assign_pass(pref: torch.Tensor, dest_ids: torch.Tensor,
     _check(assigned, "assigned", torch.bool, (c,))
     _check(dest, "dest", torch.int32, (c,))
     if (keep is None) != (prev_best is None):
-        raise ValueError("assign_pass folds keep and prev_best together")
+        raise KernelContractError(
+            "assign_pass folds keep and prev_best together")
     if keep is not None:
         _check(keep, "keep", torch.bool, (c,))
         _check(prev_best, "prev_best", torch.int32, (c,))
@@ -443,10 +469,11 @@ def _planes(cache, fields, donate: bool) -> dict:
 def _commit_scratch_bytes(kernel: str, n: int, num_b: int) -> int:
     got = getattr(build(), f"cc_{kernel}_scratch")(n, num_b)
     if got < 0:
-        raise ValueError(f"{kernel} cannot bucket {n} rows into {num_b} "
-                         "brokers: past the limits of csrc/commit_bucket.cuh "
-                         "(at most 17,066 brokers; 1,048,576 rows up to "
-                         "5,120 brokers, fewer above)")
+        raise KernelContractError(
+            f"{kernel} cannot bucket {n} rows into {num_b} "
+            "brokers: past the limits of csrc/commit_bucket.cuh "
+            "(at most 17,066 brokers; 1,048,576 rows up to "
+            "5,120 brokers, fewer above)")
     return got
 
 
@@ -559,10 +586,12 @@ def leader_assign_pass(t, k: int, multi: bool, keep=None, prev_db=None,
     num_r = t.replica_broker.shape[0]
     num_b = t.leader_ok.shape[0]
     if not 1 <= rf <= LEADER_MAX_RF:
-        raise ValueError(f"leader_assign_pass takes 1 <= RF <= "
-                         f"{LEADER_MAX_RF}, got {rf}")
+        raise KernelContractError(
+            f"leader_assign_pass takes 1 <= RF <= "
+            f"{LEADER_MAX_RF}, got {rf}")
     if t.rows.dtype not in (torch.int32, torch.int64):
-        raise TypeError(f"rows must be int32 or int64, got {t.rows.dtype}")
+        raise KernelContractError(
+            f"rows must be int32 or int64, got {t.rows.dtype}")
     for name, x, dt, shape in (
             ("rows", t.rows, t.rows.dtype, (c,)),
             ("sib", t.sib, torch.int32, (c, rf)),
@@ -585,7 +614,7 @@ def leader_assign_pass(t, k: int, multi: bool, keep=None, prev_db=None,
     _check_vector(t.dest_headroom, "dest_headroom", num_b)
     _check_vector(t.dest_pref, "dest_pref", num_b)
     if not t.accept.is_cuda or t.accept.dtype != torch.bool:
-        raise ValueError("accept must be a bool CUDA tensor")
+        raise KernelContractError("accept must be a bool CUDA tensor")
     accept = t.accept.expand(c, rf)
     n_terms = 0
     if multi:
@@ -597,7 +626,8 @@ def leader_assign_pass(t, k: int, multi: bool, keep=None, prev_db=None,
                             ("prev_db", prev_db, torch.int32),
                             ("prev_dr", prev_dr, torch.int32)):
             if x is None:
-                raise ValueError(f"leader_assign_pass pass {k} folds {name}")
+                raise KernelContractError(
+                    f"leader_assign_pass pass {k} folds {name}")
             _check(x, name, dt, (c,))
     dev = t.sib.device
     db = torch.empty(c, dtype=torch.int32, device=dev)
@@ -819,11 +849,13 @@ def forced_select(forced: torch.Tensor, w: torch.Tensor,
     nb = top_b.shape[0]
     max_k = lib.cc_forced_select_max_k()
     if not 0 <= k <= min(max_k, num_r):
-        raise ValueError(f"forced_select takes 0 <= k <= min({max_k}, R), "
-                         f"got k={k}")
+        raise KernelContractError(
+            f"forced_select takes 0 <= k <= min({max_k}, R), "
+            f"got k={k}")
     if nb > 32:
-        raise ValueError(f"forced_select takes at most 32 top brokers, "
-                         f"got {nb}")
+        raise KernelContractError(
+            f"forced_select takes at most 32 top brokers, "
+            f"got {nb}")
     for name, t, dt, shape in (
             ("forced", forced, torch.bool, (num_r,)),
             ("w", w, torch.float32, (num_r,)),
@@ -876,18 +908,22 @@ def rank_accept(dest: torch.Tensor, gain: torch.Tensor, has: torch.Tensor,
     c = dest.shape[0]
     n_terms = len(d_w)
     if not (len(cum_d) == len(hr_d) == n_terms):
-        raise ValueError("rank_accept takes as many cumulants and headrooms "
-                         "as weights")
+        raise KernelContractError(
+            "rank_accept takes as many cumulants and headrooms "
+            "as weights")
     if not 1 <= num_b <= 65534 or c * (n_terms + 1) >= 2 ** 31 - 1:
-        raise ValueError(f"rank_accept takes 1 <= B <= 65534 and C * (T + "
-                         f"1) < 2**31 - 1, got B={num_b}, C={c}, "
-                         f"T={n_terms}")
+        raise KernelContractError(
+            f"rank_accept takes 1 <= B <= 65534 and C * (T + "
+            f"1) < 2**31 - 1, got B={num_b}, C={c}, "
+            f"T={n_terms}")
     if c > RANK_ONE_BLOCK_MAX and order is None:
-        raise ValueError(f"rank_accept above C = {RANK_ONE_BLOCK_MAX} takes "
-                         "the lexsort order")
+        raise KernelContractError(
+            f"rank_accept above C = {RANK_ONE_BLOCK_MAX} takes "
+            "the lexsort order")
     if commit and not isinstance(cum_d, torch.Tensor):
-        raise ValueError("rank_accept's commit updates one f32[T, B] "
-                         "cumulant tensor in place")
+        raise KernelContractError(
+            "rank_accept's commit updates one f32[T, B] "
+            "cumulant tensor in place")
     dev = dest.device
 
     def rows(x, n):
@@ -947,7 +983,7 @@ def argmax_scratch(device: int, stream: int, num_segments: int = 1):
     buf = _ARGMAX_SCRATCH.get(key)
     if buf is None or buf.numel() < num_segments:
         if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError(
+            raise KernelContractError(
                 f"segment_argmax needs {num_segments} scratch keys on a "
                 f"stream that is capturing a CUDA graph and holds "
                 f"{0 if buf is None else buf.numel()}: call it once on this "
@@ -981,11 +1017,13 @@ def _argmax_inputs(score, segment, valid, num_segments: int, keep: bool):
     launch keeps its keys in shared memory), share, stream)."""
     n = score.shape[0]
     if num_segments < 0 or n >= 2 ** 31 - 1:
-        raise ValueError(f"segment_argmax takes S >= 0 and n < 2**31 - 1, "
-                         f"got S={num_segments}, n={n}")
+        raise KernelContractError(
+            f"segment_argmax takes S >= 0 and n < 2**31 - 1, "
+            f"got S={num_segments}, n={n}")
     if segment.dtype not in (torch.int32, torch.int64):
-        raise TypeError(f"segment must be int32 or int64, got "
-                        f"{segment.dtype}")
+        raise KernelContractError(
+            f"segment must be int32 or int64, got "
+            f"{segment.dtype}")
     for name, t, dt in (("score", score, torch.float32),
                         ("segment", segment, segment.dtype),
                         ("valid", valid, torch.bool)):
@@ -1060,8 +1098,9 @@ def swap_shortlist(hot, cold, out_r, in_r, out_has, in_has, dev_u, util,
     num_b = hot.shape[0]
     max_h = lib.cc_swap_max_shortlist()
     if not 1 <= h <= min(num_b, max_h):
-        raise ValueError(f"swap_shortlist takes 1 <= H <= min(B, {max_h}), "
-                         f"got {h}")
+        raise KernelContractError(
+            f"swap_shortlist takes 1 <= H <= min(B, {max_h}), "
+            f"got {h}")
     for name, t, dt in (("hot", hot, torch.bool), ("cold", cold, torch.bool),
                         ("out_r", out_r, torch.int32),
                         ("in_r", in_r, torch.int32),
@@ -1101,9 +1140,10 @@ def _swap_done(dev: torch.device) -> torch.Tensor:
     buf = _SWAP_DONE.get(key)
     if buf is None:
         if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("swap_pair's counter is allocated on a "
-                               "stream that captures a CUDA graph: call it "
-                               "once on this stream before the capture")
+            raise KernelContractError(
+                "swap_pair's counter is allocated on a "
+                "stream that captures a CUDA graph: call it "
+                "once on this stream before the capture")
         buf = torch.empty(1, dtype=torch.int32, device=dev)
         _raise_on(build().cc_swap_pair_reset(buf.data_ptr(), _stream()),
                   "swap_pair (its counter's reset)")
@@ -1139,8 +1179,9 @@ def swap_pair(h_ids, c_ids, out_r, in_r, out_has, in_has, hot, cold, w,
     _check_vector(w, "w", num_r)
     max_h = lib.cc_swap_max_shortlist()
     if nc < 1 or nh > max_h:
-        raise ValueError(f"swap_pair takes at least one cold column and at "
-                         f"most {max_h} hot rows")
+        raise KernelContractError(
+            f"swap_pair takes at least one cold column and at "
+            f"most {max_h} hot rows")
     _check_vector(dev_u, "dev_u", num_b, broadcast=True)
     _check_vector(util, "util", num_b, broadcast=True)
     for name, t in (("lower", lower), ("upper", upper)):
@@ -1148,7 +1189,7 @@ def swap_pair(h_ids, c_ids, out_r, in_r, out_has, in_has, hot, cold, w,
             _check_vector(t, name, num_b, broadcast=True)
     vecs = (dev_u, util, lower, upper)
     if not accept.is_cuda or accept.dtype != torch.bool:
-        raise ValueError("accept must be a bool CUDA tensor")
+        raise KernelContractError("accept must be a bool CUDA tensor")
     acc = accept.expand(nh, nc)
     dev = w.device
     sel = torch.empty(nh, dtype=torch.float32, device=dev)
@@ -1177,8 +1218,9 @@ def _check_ids(replica_broker, replica_partition, partition_replicas):
         _check(partition_replicas, "partition_replicas", torch.int32,
                (partition_replicas.shape[0], partition_replicas.shape[1]))
         if partition_replicas.shape[1] > DEST_MAX_RF:
-            raise ValueError(f"dest_feasibility takes RF <= {DEST_MAX_RF}, "
-                             f"got {partition_replicas.shape[1]}")
+            raise KernelContractError(
+                f"dest_feasibility takes RF <= {DEST_MAX_RF}, "
+                f"got {partition_replicas.shape[1]}")
 
 
 def _ptr(t):
@@ -1205,7 +1247,8 @@ def dest_pref(cand_r, dest_ids, dest_ok, replica_broker, replica_partition,
     nc, nk = cand_r.shape[0], dest_ids.shape[0]
     for name, t, n in (("cand_r", cand_r, nc), ("dest_ids", dest_ids, nk)):
         if t.dtype not in (torch.int32, torch.int64):
-            raise TypeError(f"{name} must be int32 or int64, got {t.dtype}")
+            raise KernelContractError(
+                f"{name} must be int32 or int64, got {t.dtype}")
         _check(t, name, t.dtype, (n,))
     num_b = dest_ok.shape[0]
     _check(dest_ok, "dest_ok", torch.bool, (num_b,))
@@ -1215,14 +1258,15 @@ def dest_pref(cand_r, dest_ids, dest_ok, replica_broker, replica_partition,
     if cand_has is not None:
         _check(cand_has, "cand_has", torch.bool, (nc,))
     if (w_c is None) != (dest_headroom is None):
-        raise ValueError("dest_pref takes w_c and dest_headroom together")
+        raise KernelContractError(
+            "dest_pref takes w_c and dest_headroom together")
     if w_c is not None:
         _check_vector(w_c, "w_c", nc)
         _check_vector(dest_headroom, "dest_headroom", num_b)
     acc_c = acc_k = 0
     if accept is not None:
         if not accept.is_cuda or accept.dtype != torch.bool:
-            raise ValueError("accept must be a bool CUDA tensor")
+            raise KernelContractError("accept must be a bool CUDA tensor")
         accept = accept.expand(nc, nk)
         acc_c, acc_k = accept.stride()
     out = torch.empty((nc, nk), dtype=torch.float32, device=cand_r.device)
@@ -1254,15 +1298,16 @@ def dest_has(cand_r, w_c, dest_ok, dest_headroom, replica_broker,
     num_b = dest_ok.shape[0]
     if cand_r is not None:
         if cand_r.dtype not in (torch.int32, torch.int64):
-            raise TypeError(f"cand_r must be int32 or int64, got "
-                            f"{cand_r.dtype}")
+            raise KernelContractError(
+                f"cand_r must be int32 or int64, got "
+                f"{cand_r.dtype}")
         _check(cand_r, "cand_r", cand_r.dtype, (nc,))
     _check_vector(w_c, "w_c", nc)
     _check(dest_ok, "dest_ok", torch.bool, (num_b,))
     _check_vector(dest_headroom, "dest_headroom", num_b)
     _check_ids(replica_broker, replica_partition, partition_replicas)
     if num_b < 1:
-        raise ValueError("dest_has takes at least one broker")
+        raise KernelContractError("dest_has takes at least one broker")
     out = torch.empty(nc, dtype=torch.bool, device=w_c.device)
     err = lib.cc_dest_has(
         nc, partition_replicas.shape[1], num_b, _ptr(cand_r),
@@ -1282,7 +1327,8 @@ def _segment_scratch_bytes(num: int, n: int, m: int) -> int:
     """Bytes of K12's one scratch allocation (its plan, from the library)."""
     nbytes = int(build().cc_segment_sum_scratch(num, n, m))
     if nbytes < 0:
-        raise ValueError(f"segment_sum cannot plan N={num}, n={n}, M={m}")
+        raise KernelContractError(
+            f"segment_sum cannot plan N={num}, n={n}, M={m}")
     return nbytes
 
 
@@ -1296,13 +1342,15 @@ def segment_sum(x: torch.Tensor, ids: torch.Tensor, n: int,
     rest = tuple(x.shape[1:])
     _check(x, "x", torch.float32)
     if ids.dtype not in (torch.int32, torch.int64):
-        raise TypeError(f"ids must be int32 or int64, got {ids.dtype}")
+        raise KernelContractError(
+            f"ids must be int32 or int64, got {ids.dtype}")
     _check(ids, "ids", ids.dtype, (num,))
     if init is not None:
         _check(init, "init", torch.float32, (n,) + rest)
     if not 0 <= n <= SEGMENT_MAX or num >= 2 ** 31 - 1:
-        raise ValueError(f"segment_sum takes 0 <= n <= {SEGMENT_MAX} and N "
-                         f"< 2**31 - 1, got n={n}, N={num}")
+        raise KernelContractError(
+            f"segment_sum takes 0 <= n <= {SEGMENT_MAX} and N "
+            f"< 2**31 - 1, got n={n}, N={num}")
     m = 1
     for d in rest:
         m *= d
@@ -1351,7 +1399,7 @@ def _ordered_slot(device: int, stream: int) -> int:
             slots = _ORDERED_SLOTS.setdefault(device, {})
             if stream not in slots:
                 if len(slots) >= ORDERED_COUNTER_SLOTS:
-                    raise RuntimeError(
+                    raise KernelContractError(
                         f"more than {ORDERED_COUNTER_SLOTS} streams on device "
                         f"{device} launched K13's spread path or K2")
                 slots[stream] = len(slots)
@@ -1363,11 +1411,13 @@ def ordered_sum(x: torch.Tensor) -> torch.Tensor:
     windowed order."""
     lib = build()
     if x.dim() != 2:
-        raise ValueError(f"ordered_sum takes a 2-d tensor, got {x.dim()}")
+        raise KernelContractError(
+            f"ordered_sum takes a 2-d tensor, got {x.dim()}")
     _check(x, "x", torch.float32)
     n, m = x.shape
     if n >= 2 ** 31 - 1:
-        raise ValueError(f"ordered_sum takes n < 2**31 - 1, got n={n}")
+        raise KernelContractError(
+            f"ordered_sum takes n < 2**31 - 1, got n={n}")
     out = torch.empty(m, dtype=torch.float32, device=x.device)
     if m == 0:
         return out
@@ -1402,18 +1452,20 @@ def _check_vector(t: torch.Tensor, name: str, n=None,
     scalar = broadcast and t is not None and t.dim() <= 1 and t.numel() == 1
     if (t is None or not t.is_cuda or t.dtype != torch.float32
             or t.dim() != 1 and not scalar):
-        raise ValueError(f"{name} must be a 1-d float32 CUDA tensor")
+        raise KernelContractError(f"{name} must be a 1-d float32 CUDA tensor")
     if n is not None and not scalar and t.shape[0] != n:
-        raise ValueError(f"{name} must have {n} entries, got {t.shape[0]}")
+        raise KernelContractError(
+            f"{name} must have {n} entries, got {t.shape[0]}")
 
 
 def check_gate(k: int, n_terms: int) -> None:
     """Raise unless K14's gate takes rows of k candidates and n_terms
     terms."""
     if not 1 <= k <= GATE_MAX_K or n_terms > GATE_MAX_TERMS:
-        raise ValueError(f"prefix_gate takes 1 <= k <= {GATE_MAX_K} and at "
-                         f"most {GATE_MAX_TERMS} terms, got k={k}, "
-                         f"{n_terms} terms")
+        raise KernelContractError(
+            f"prefix_gate takes 1 <= k <= {GATE_MAX_K} and at "
+            f"most {GATE_MAX_TERMS} terms, got k={k}, "
+            f"{n_terms} terms")
 
 
 def prefix_gate(has: torch.Tensor, w: torch.Tensor, excess: torch.Tensor,

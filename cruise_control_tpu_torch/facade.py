@@ -1,22 +1,35 @@
 """The facade (port of the request methods, the proposal cache, the warm
-seed, the dirty region, the device model store consult and the execution
-side of cruise_control_tpu/facade.py).
+seed, the dirty region, the device model store consult, the degradation
+ladder, the what-if scenarios and the execution side of
+cruise_control_tpu/facade.py).
 
 `CruiseControl` serves the reference's proposal requests over a
 `LoadMonitor`: `optimizations`, `rebalance`, `add_brokers`,
-`remove_brokers`, `demote_brokers` and `fix_offline_replicas`.  The model
-of each request comes from the device model store (`_model_for_solve`):
-the resident model as it is, fast-forwarded by the monitor's logged
-deltas, or rebuilt from the monitor.  Default-stack requests with
-default options answer from the proposal cache while the model
-generation holds; otherwise they solve warm from the last such request's
-final placement, restricted to the brokers its deltas touched when those
-are few enough.
+`remove_brokers`, `demote_brokers`, `fix_offline_replicas` and
+`evaluate_scenarios`.  The model of each request comes from the device
+model store (`_model_for_solve`): the resident model as it is,
+fast-forwarded by the monitor's logged deltas, or rebuilt from the
+monitor.  Default-stack requests with default options answer from the
+proposal cache while the model generation holds; otherwise they solve
+warm from the last such request's final placement, restricted to the
+brokers its deltas touched when those are few enough.
 
-Every solve runs inline on the facade's device (the card unless
-"cpu" is asked for); there is no scheduler and no degradation ladder, so
-a device failure raises.  The resident model and the warm seed are
-shared, so each solve gets its own copy of them.
+Every solve runs inline on the facade's device (the card unless "cpu"
+is asked for); there is no scheduler.  A proposal request's solve goes
+through the degradation ladder (analyzer/degradation.py): a failure is
+retried with backoff, then served from the next rung down — FUSED, then
+EAGER, then the host fallback (model/cpu_model.py) — with the request's
+trace marked ``degraded`` and the descent counted.  Only an injected
+fault or the card running out of memory descends: solver verdicts,
+invalid models, a kernel that fails to build, load or launch, and any
+other error raise at once.
+The resident model and the warm seed are shared, so each solve gets its
+own copy of them.
+
+Several candidate broker sets in `add_brokers`, `remove_brokers` or
+`demote_brokers` are a what-if analysis: the scenario engine
+(scenario/engine.py) solves them in one batch, with its own ladder, and
+the best candidate's proposals come back with the ranked report.
 
 With an `admin` client (cluster/admin.py), a request with `dryrun=False`
 hands its proposals to the facade's `Executor` (executor/), which moves
@@ -29,7 +42,6 @@ refreshes the monitor's metadata (`LoadMonitor.update_cluster`).
 from __future__ import annotations
 
 import dataclasses
-import enum
 import logging
 import threading
 import time as _time
@@ -39,6 +51,9 @@ import torch
 
 from cruise_control_tpu_torch.analyzer.context import (BalancingConstraint,
                                                        OptimizationOptions)
+from cruise_control_tpu_torch.analyzer.degradation import (
+    BackoffPolicy, CircuitBreaker, DegradationLadder, FailureKind,
+    SolverRung, classify_failure, ladder_material)
 from cruise_control_tpu_torch.analyzer.goals.base import OptimizationFailure
 from cruise_control_tpu_torch.analyzer.goals.registry import (
     DEFAULT_GOAL_ORDER, KAFKA_ASSIGNER_GOAL_ORDER, default_goals, make_goal)
@@ -54,10 +69,15 @@ from cruise_control_tpu_torch.executor.journal import (
 from cruise_control_tpu_torch.executor.strategy import \
     ReplicaMovementStrategy
 from cruise_control_tpu_torch.model import state as S
-from cruise_control_tpu_torch.model.state import STATE_FIELDS, ClusterState
+from cruise_control_tpu_torch.model.state import ClusterState
+from cruise_control_tpu_torch.model.state import own_copy as _own_copy
 from cruise_control_tpu_torch.model.store import DeviceModelStore
 from cruise_control_tpu_torch.obs import trace as obs_trace
-from cruise_control_tpu_torch.scenario.spec import candidate_broker_sets
+from cruise_control_tpu_torch.scenario.engine import (BASE_SCENARIO_NAME,
+                                                      ScenarioBatchResult,
+                                                      ScenarioEngine)
+from cruise_control_tpu_torch.scenario.spec import (BrokerAdd, ScenarioSpec,
+                                                    candidate_broker_sets)
 from cruise_control_tpu_torch.sched.policy import SchedulerClass
 
 LOG = logging.getLogger(__name__)
@@ -67,15 +87,6 @@ OPERATION_LOG = logging.getLogger("operationLogger")
 
 class OngoingExecutionError(RuntimeError):
     """An execution is already in progress."""
-
-
-class SolverRung(enum.IntEnum):
-    """The solver rungs this facade serves (the reference's ladder
-    values): FUSED, the goal pipeline; EAGER, one goal a segment with the
-    eager hard-goal abort."""
-
-    FUSED = 0
-    EAGER = 1
 
 
 def _warm_start_compatible(seed: ClusterState, state: ClusterState) -> bool:
@@ -97,12 +108,6 @@ def _warm_start_compatible(seed: ClusterState, state: ClusterState) -> bool:
                   "disk_broker", "broker_rack"))
 
 
-def _own_copy(state: ClusterState) -> ClusterState:
-    """A state whose tensors are its own: what a solve may consume."""
-    return state.replace(**{f: getattr(state, f).clone()
-                            for f in STATE_FIELDS})
-
-
 def _not_ported(what: str, module: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} needs the reference's {module}, which the port does not "
@@ -120,6 +125,10 @@ class OperationResult:
     execution_uuid: Optional[str] = None
     proposals: List = dataclasses.field(default_factory=list)
     dryrun: bool = True
+    #: the ranked what-if report when the request carried several
+    #: candidate broker sets (always a dry run; `proposals` then holds
+    #: the best candidate's)
+    scenario_report: Optional[dict] = None
 
     def __post_init__(self) -> None:
         if self.optimizer_result is not None and not self.proposals:
@@ -134,7 +143,8 @@ class CruiseControl:
     the cluster's `admin` client.  The settings are the reference's, with
     its defaults; `max_optimization_rounds` sets the default stack's
     rounds (hard goals keep at least 1,024); `executor_kwargs` go to the
-    `Executor` (its caps, intervals, timeouts and throttle)."""
+    `Executor` (its caps, intervals, timeouts and throttle); `sleep_fn`
+    waits out the executor's polls and the ladder's retry backoff."""
 
     def __init__(self, load_monitor, *, admin=None, device=None,
                  goal_names: Optional[Sequence[str]] = None,
@@ -150,6 +160,15 @@ class CruiseControl:
                  incremental_enabled: bool = True,
                  incremental_max_deltas: int = 64,
                  incremental_max_dirty_ratio: float = 0.5,
+                 solver_degradation_enabled: bool = True,
+                 solver_max_retries_per_rung: int = 1,
+                 solver_retry_backoff_base_s: float = 1.0,
+                 solver_retry_backoff_max_s: float = 60.0,
+                 solver_breaker_failure_threshold: int = 3,
+                 solver_breaker_cooldown_s: float = 300.0,
+                 scenario_engine_enabled: bool = True,
+                 scenario_max_batch_size: int = 32,
+                 scenario_include_base: bool = True,
                  executor_notifier: Optional[ExecutorNotifier] = None,
                  executor_kwargs: Optional[dict] = None,
                  executor_journal_dir: Optional[str] = None,
@@ -168,6 +187,7 @@ class CruiseControl:
         self.device = resolve_device(device)
         self.load_monitor = load_monitor
         self._time = time_fn or _time.time
+        self._sleep = sleep_fn or _time.sleep
         self._executor_recovery_mode = executor_recovery_mode
         self._executor_recovery_done = False
         #: the executor needs the cluster's admin client; without one the
@@ -222,6 +242,41 @@ class CruiseControl:
         #: dirty-region solves that failed their verdict and were retried
         #: as a full sweep
         self.incremental_solve_fallbacks = 0
+
+        # the degradation ladder of the request solves
+        self._solver_degradation_enabled = solver_degradation_enabled
+        self._solver_max_retries_per_rung = max(0,
+                                                solver_max_retries_per_rung)
+        self._solver_backoff = BackoffPolicy(
+            base_s=solver_retry_backoff_base_s,
+            max_s=solver_retry_backoff_max_s)
+        self.solver_breaker = CircuitBreaker(
+            failure_threshold=solver_breaker_failure_threshold,
+            cooldown_s=solver_breaker_cooldown_s, time_fn=self._time)
+        #: the port has no mesh: its ladder tops out at FUSED
+        self._solver_top_rung = SolverRung.FUSED
+        self.solver_ladder = DegradationLadder(
+            self.solver_breaker, top_rung=self._solver_top_rung)
+        #: the ladder's meters (the reference's solver-descents and
+        #: solver-retries) and the rung that served the last proposal
+        #: solve
+        self.solver_descents = 0
+        self.solver_retries = 0
+        self.last_solve_rung: Optional[SolverRung] = None
+        #: the trace of the last request (its outcome: "ok", "degraded")
+        self.last_solve_trace: Optional[obs_trace.Trace] = None
+
+        # the what-if scenario engine, with its own ladder: a failing
+        # what-if batch must not pin the request solves, nor they it
+        self._scenario_enabled = scenario_engine_enabled
+        self._scenario_include_base = scenario_include_base
+        self.scenario_engine = ScenarioEngine(
+            self._optimizer_for, constraint=self._constraint,
+            max_batch_size=scenario_max_batch_size,
+            breaker_failure_threshold=solver_breaker_failure_threshold,
+            breaker_cooldown_s=solver_breaker_cooldown_s,
+            balancedness_weights=balancedness_weights,
+            time_fn=self._time, device=self.device)
 
     # ------------------------------------------------------------------
     # options
@@ -366,36 +421,40 @@ class CruiseControl:
                 if self._cache_valid(generation):
                     return self._cached_result
         optimizer = self._optimizer_for(goals)
-        with self._cache_lock:
-            epoch = self._cache_epoch
         allow_incremental = (self._incremental_enabled and cacheable
                              and klass is SchedulerClass.USER_INTERACTIVE)
-        cell: Optional[Dict] = {} if allow_incremental else None
-        try:
-            result = self._solve(optimizer, cacheable, options,
-                                 _allow_capacity_estimation,
-                                 _eager_hard_abort, incremental=cell)
-        except OptimizationFailure:
-            if not (cell and cell.get("dirty")):
-                raise
-            # a restricted solve may fail a verdict that the full sweep
-            # can meet (a hard violation outside the dirty region)
-            self.incremental_solve_fallbacks += 1
-            self.model_store.record_fallback(
-                "dirty-region solve verdict; full sweep retry")
-            LOG.info("dirty-region solve failed its verdict; retrying as "
-                     "a full sweep")
-            result = self._solve(optimizer, cacheable, options,
-                                 _allow_capacity_estimation,
-                                 _eager_hard_abort)
-        if cacheable:
+
+        def run_solve() -> OptimizerResult:
             with self._cache_lock:
-                self._warm_seed = (result.final_state, generation)
-                if self._cache_epoch == epoch:
-                    self._cached_result = result
-                    self._cached_generation = generation
-                    self._cached_at = self._time()
-        return result
+                epoch = self._cache_epoch
+            cell: Optional[Dict] = {} if allow_incremental else None
+            try:
+                result = self._solve(optimizer, cacheable, options,
+                                     _allow_capacity_estimation,
+                                     _eager_hard_abort, incremental=cell)
+            except OptimizationFailure:
+                if not (cell and cell.get("dirty")):
+                    raise
+                # a restricted solve may fail a verdict that the full
+                # sweep can meet (a hard violation outside the region)
+                self.incremental_solve_fallbacks += 1
+                self.model_store.record_fallback(
+                    "dirty-region solve verdict; full sweep retry")
+                LOG.info("dirty-region solve failed its verdict; retrying "
+                         "as a full sweep")
+                result = self._solve(optimizer, cacheable, options,
+                                     _allow_capacity_estimation,
+                                     _eager_hard_abort)
+            if cacheable:
+                with self._cache_lock:
+                    self._warm_seed = (result.final_state, generation)
+                    if self._cache_epoch == epoch:
+                        self._cached_result = result
+                        self._cached_generation = generation
+                        self._cached_at = self._time()
+            return result
+
+        return self._traced(klass, run_solve, "optimizations")
 
     def _cache_valid(self, generation) -> bool:
         """Caller holds _cache_lock."""
@@ -511,31 +570,142 @@ class CruiseControl:
                        eager_hard_abort,
                        incremental=None) -> OptimizerResult:
         """One solve on `rung`: FUSED with the warm seed and the dirty
-        region, EAGER with the seed but no dirty region."""
+        region, EAGER with the seed but no dirty region, CPU the host
+        fallback (self-healing repair only, the request's broker-level
+        exclusions kept)."""
         incr = incremental if rung is SolverRung.FUSED else None
         state, topo, warm, dirty = self._materialize_solve_inputs(
             cacheable, allow_capacity_estimation, incremental=incr)
         gen_options = self._options_generator.generate(
             options or OptimizationOptions(), topo)
-        state = _own_copy(state)
-        warm = None if warm is None else _own_copy(warm)
-        if rung is SolverRung.FUSED:
+        with obs_trace.span("device.solve", rung=rung.name,
+                            dirtyRegion=dirty is not None):
+            if rung is SolverRung.CPU:
+                from cruise_control_tpu_torch.model.cpu_model import \
+                    host_fallback_solve
+                return host_fallback_solve(state, topo,
+                                           options=gen_options,
+                                           time_fn=self._time)
+            state = _own_copy(state)
+            warm = None if warm is None else _own_copy(warm)
+            if rung is SolverRung.FUSED:
+                return optimizer.optimizations(
+                    state, topo, gen_options, warm_start=warm,
+                    eager_hard_abort=eager_hard_abort, dirty_brokers=dirty,
+                    device=self.device)
             return optimizer.optimizations(
                 state, topo, gen_options, warm_start=warm,
-                eager_hard_abort=eager_hard_abort, dirty_brokers=dirty,
+                eager_hard_abort=True, eager_driver=True,
                 device=self.device)
-        return optimizer.optimizations(
-            state, topo, gen_options, warm_start=warm,
-            eager_hard_abort=True, eager_driver=True, device=self.device)
 
     def _solve(self, optimizer: GoalOptimizer, cacheable: bool, options,
                allow_capacity_estimation, eager_hard_abort,
                incremental=None) -> OptimizerResult:
-        """The solve of a proposal request on the FUSED rung; a failure
-        raises (the degradation ladder is not ported)."""
-        return self._solve_on_rung(SolverRung.FUSED, optimizer, cacheable,
-                                   options, allow_capacity_estimation,
-                                   eager_hard_abort, incremental=incremental)
+        """A proposal request's solve through the degradation ladder:
+        retried with exponential backoff and jitter on its rung, served
+        from the next rung down (FUSED, EAGER, CPU) once the rung has
+        used its retries, with the breaker pinning a degraded rung until
+        its cooldown.  A descent marks the request's trace ``degraded``,
+        emits ``solve.descend`` and counts on the facade; a descent below
+        FUSED invalidates the device model store.
+
+        Only an injected fault or the card running out of memory is
+        ladder material (`degradation.ladder_material`); anything else
+        raises at once: OptimizationFailure (a solver verdict, the same
+        at every rung), InvalidModelInputError (garbage at every rung),
+        SolvePreempted (control flow), a kernel that fails to build,
+        load or launch (it must not hide behind the host rung) and any
+        other error of the port."""
+        if not self._solver_degradation_enabled:
+            with obs_trace.span("solve.rung-attempt",
+                                rung=self._solver_top_rung.name, retry=0):
+                result = self._solve_on_rung(
+                    self._solver_top_rung, optimizer, cacheable, options,
+                    allow_capacity_estimation, eager_hard_abort,
+                    incremental=incremental)
+            self.last_solve_rung = self._solver_top_rung
+            return result
+        rung = self.solver_ladder.entry_rung()
+        delays = self._solver_backoff.delays()
+        attempts_on_rung = 0
+        while True:
+            try:
+                with obs_trace.span("solve.rung-attempt", rung=rung.name,
+                                    retry=attempts_on_rung):
+                    result = self._solve_on_rung(
+                        rung, optimizer, cacheable, options,
+                        allow_capacity_estimation, eager_hard_abort,
+                        incremental=incremental)
+            except Exception as exc:  # noqa: BLE001 - the ladder classifies
+                if not ladder_material(exc):
+                    raise
+                kind = classify_failure(exc)
+                obs_trace.event("solve.failure", rung=rung.name,
+                                kind=kind.value, retry=attempts_on_rung)
+                tripped = self.solver_ladder.on_failure(rung)
+                LOG.warning("solve failed at rung %s (%s): %s", rung.name,
+                            kind.value, exc)
+                if tripped:
+                    self._report_solver_degraded(
+                        rung, self.solver_ladder.rung, kind, exc, True)
+                attempts_on_rung += 1
+                if attempts_on_rung <= self._solver_max_retries_per_rung:
+                    self.solver_retries += 1
+                    self._sleep(next(delays))
+                    continue
+                nxt = self.solver_ladder.descend(rung)
+                if nxt is None:
+                    # the bottom rung failed: nothing left to degrade to
+                    if not tripped:
+                        self._report_solver_degraded(rung, None, kind, exc,
+                                                     False)
+                    raise
+                if nxt >= SolverRung.EAGER:
+                    # a device sick enough to fail the pipeline is no
+                    # place to trust resident buffers
+                    self.model_store.invalidate(
+                        f"ladder descent to {nxt.name}")
+                self.solver_descents += 1
+                obs_trace.mark("degraded")
+                obs_trace.event("solve.descend", from_rung=rung.name,
+                                to_rung=nxt.name, kind=kind.value)
+                if not tripped:
+                    self._report_solver_degraded(rung, nxt, kind, exc,
+                                                 False)
+                rung = nxt
+                attempts_on_rung = 0
+                continue
+            self.solver_ladder.on_success(rung)
+            self.last_solve_rung = rung
+            if rung > self._solver_top_rung:
+                # served degraded: mark the trace even when the descent
+                # happened in an earlier request (a pinned rung)
+                obs_trace.mark("degraded")
+                LOG.info("solve served from degraded rung %s", rung.name)
+            return result
+
+    def _report_solver_degraded(self, from_rung: SolverRung,
+                                to_rung: Optional[SolverRung],
+                                kind: FailureKind, exc: BaseException,
+                                breaker_tripped: bool) -> None:
+        """Mark the request's trace degraded and log the report (the
+        reference also raises a SolverDegraded anomaly and dumps its
+        flight recorder: neither is ported)."""
+        obs_trace.mark("degraded")
+        LOG.warning("solver degraded %s -> %s (%s, breaker tripped: %s): "
+                    "%s: %s", from_rung.name,
+                    to_rung.name if to_rung is not None else "none",
+                    kind.value, breaker_tripped, type(exc).__name__, exc)
+
+    def _traced(self, klass: SchedulerClass, run, label: str):
+        """Run a request's solve inside its trace (the reference's
+        `_scheduled_solve` without the scheduler): the active trace, or
+        one minted and finished around the solve, kept as
+        `last_solve_trace`."""
+        with obs_trace.solve_trace(f"solve.{label}",
+                                   schedulerClass=klass.name) as trace:
+            self.last_solve_trace = trace
+            return run()
 
     def _solve_request(self, optimizer: GoalOptimizer, state: ClusterState,
                        topo, options=None) -> OptimizerResult:
@@ -570,20 +740,109 @@ class CruiseControl:
         return self._maybe_execute(result, dryrun, reason, strategy,
                                    **execute_kwargs)
 
-    def _one_broker_set(self, broker_ids, op: str):
-        sets = candidate_broker_sets(broker_ids)
-        if sets is not None and len(sets) > 1:
-            raise _not_ported(f"{op} with several candidate broker sets",
-                              "scenario engine")
-        return list(sets[0] if sets is not None else broker_ids)
+    # ------------------------------------------------------------------
+    # what-if scenarios
+    # ------------------------------------------------------------------
+    def evaluate_scenarios(self, specs: Sequence[ScenarioSpec],
+                           goals: Optional[Sequence[str]] = None,
+                           include_base: Optional[bool] = None,
+                           include_proposals: bool = True,
+                           reason: str = "scenarios",
+                           _scheduler_class: Optional[SchedulerClass]
+                           = None) -> ScenarioBatchResult:
+        """Evaluate what-if cluster variants in one batch of the scenario
+        engine, a dry run only.  Unless `include_base` (default:
+        `scenario_include_base`) is False, the no-op base scenario comes
+        first, so the report can diff every variant against doing
+        nothing.  Runs inline (the reference's single-caller fold: the
+        port has no scheduler to fold sweeps in)."""
+        if not self._scenario_enabled:
+            raise ValueError("the scenario engine is disabled "
+                             "(scenario.engine.enabled=false)")
+        specs = list(specs)
+        if not specs:
+            raise ValueError("no scenarios given")
+        if include_base is None:
+            include_base = self._scenario_include_base
+        if include_base and not any(s.name == BASE_SCENARIO_NAME
+                                    for s in specs):
+            specs = [ScenarioSpec(name=BASE_SCENARIO_NAME)] + specs
+        klass = (_scheduler_class if _scheduler_class is not None
+                 else SchedulerClass.SCENARIO_SWEEP)
+        OPERATION_LOG.info("%s: evaluating %d scenarios (dry run)",
+                           reason, len(specs))
 
+        def fold_run(spec_lists: List[List[ScenarioSpec]]
+                     ) -> List[ScenarioBatchResult]:
+            state, topo = self._model_for_solve()
+            gen_options = self._options_generator.generate(
+                OptimizationOptions(), topo)
+            return [self.scenario_engine.evaluate(
+                state, topo, lst, goals=goals, options=gen_options,
+                include_proposals=include_proposals) for lst in spec_lists]
+
+        return self._traced(klass, lambda: fold_run([specs])[0],
+                            "scenarios")
+
+    def _broker_candidates(self, op: str, sets, goals, dryrun: bool,
+                           reason: str) -> OperationResult:
+        """ADD/REMOVE/DEMOTE_BROKER with several candidate broker sets:
+        one batched what-if ranks them and the best candidate's proposals
+        come back with the whole report.  Never executes: submit the
+        winner as one set to act on it."""
+        from cruise_control_tpu_torch.scenario.report import (batch_report,
+                                                              rank)
+        if not dryrun:
+            raise ValueError(
+                f"{op} with multiple candidate broker sets is a what-if "
+                f"analysis (dry-run only); execute with ONE broker set")
+        specs = []
+        for s in sets:
+            name = f"{op}-{'-'.join(str(b) for b in s)}"
+            if op == "add":
+                specs.append(ScenarioSpec(
+                    name=name,
+                    add_brokers=tuple(BrokerAdd(broker_id=b) for b in s),
+                    only_move_to_added=True,
+                    goals=tuple(goals) if goals else None))
+            elif op == "remove":
+                specs.append(ScenarioSpec(
+                    name=name, remove_brokers=tuple(s),
+                    goals=tuple(goals) if goals else None))
+            else:
+                specs.append(ScenarioSpec(
+                    name=name, demote_brokers=tuple(s),
+                    goals=("PreferredLeaderElectionGoal",)))
+        result = self.evaluate_scenarios(specs, reason=reason)
+        candidates = [o for o in result.outcomes
+                      if o.spec.name != BASE_SCENARIO_NAME]
+        best = rank(candidates)[0]
+        OPERATION_LOG.info(
+            "%s: best of %d candidates is %r (feasible=%s, "
+            "balancedness=%.1f), dryrun=True", reason, len(candidates),
+            best.spec.name, best.feasible, best.balancedness)
+        return OperationResult(None, proposals=list(best.proposals),
+                               dryrun=True,
+                               scenario_report=batch_report(result))
+
+    # ------------------------------------------------------------------
+    # broker requests
+    # ------------------------------------------------------------------
     def add_brokers(self, broker_ids: Sequence[int],
                     goals: Optional[Sequence[str]] = None,
                     dryrun: bool = True, reason: str = "add brokers",
+                    _scheduler_class: Optional[SchedulerClass] = None,
                     **execute_kwargs) -> OperationResult:
         """Move replicas onto the given brokers only: they are marked new
-        and are the only move destinations (no options generator)."""
-        broker_ids = self._one_broker_set(broker_ids, "add_brokers")
+        and are the only move destinations (no options generator).  A
+        sequence of sequences is several candidate sets, ranked by the
+        scenario engine (a dry run)."""
+        sets = candidate_broker_sets(broker_ids)
+        if sets is not None and len(sets) > 1:
+            return self._broker_candidates("add", sets, goals, dryrun,
+                                           reason)
+        if sets is not None:
+            broker_ids = sets[0]
         self._sanity_check_execution(dryrun)
         state, topo = self._model_for_solve()
         idx = topo.broker_index
@@ -591,42 +850,64 @@ class CruiseControl:
             state = S.set_broker_state(state, idx[b], new=True)
         options = OptimizationOptions(
             requested_destination_broker_ids=frozenset(broker_ids))
-        result = self._solve_request(self._optimizer_for(goals), state,
-                                     topo, options)
+        optimizer = self._optimizer_for(goals)
+        result = self._traced(
+            _scheduler_class or SchedulerClass.USER_INTERACTIVE,
+            lambda: self._solve_request(optimizer, state, topo, options),
+            "add-brokers")
         return self._maybe_execute(result, dryrun, reason, None,
                                    **execute_kwargs)
 
     def remove_brokers(self, broker_ids: Sequence[int],
                        goals: Optional[Sequence[str]] = None,
                        dryrun: bool = True, reason: str = "remove brokers",
+                       _scheduler_class: Optional[SchedulerClass] = None,
                        **execute_kwargs) -> OperationResult:
         """Drain every replica off the given brokers (modeled dead, so
         self-healing moves them); an execution records them as recently
-        removed."""
-        broker_ids = self._one_broker_set(broker_ids, "remove_brokers")
+        removed.  Several candidate sets: see `add_brokers`."""
+        sets = candidate_broker_sets(broker_ids)
+        if sets is not None and len(sets) > 1:
+            return self._broker_candidates("remove", sets, goals, dryrun,
+                                           reason)
+        if sets is not None:
+            broker_ids = sets[0]
         self._sanity_check_execution(dryrun)
         state, topo = self._model_for_solve()
         idx = topo.broker_index
         for b in broker_ids:
             state = S.set_broker_state(state, idx[b], alive=False)
-        result = self._solve_request(self._optimizer_for(goals), state,
-                                     topo)
+        optimizer = self._optimizer_for(goals)
+        result = self._traced(
+            _scheduler_class or SchedulerClass.USER_INTERACTIVE,
+            lambda: self._solve_request(optimizer, state, topo),
+            "remove-brokers")
         return self._maybe_execute(result, dryrun, reason, None,
                                    removed_brokers=list(broker_ids),
                                    **execute_kwargs)
 
     def demote_brokers(self, broker_ids: Sequence[int],
                        dryrun: bool = True, reason: str = "demote brokers",
+                       _scheduler_class: Optional[SchedulerClass] = None,
                        **execute_kwargs) -> OperationResult:
         """Move leadership off the given brokers (preferred leader
-        election); an execution records them as recently demoted."""
-        broker_ids = self._one_broker_set(broker_ids, "demote_brokers")
+        election); an execution records them as recently demoted.
+        Several candidate sets: see `add_brokers`."""
+        sets = candidate_broker_sets(broker_ids)
+        if sets is not None and len(sets) > 1:
+            return self._broker_candidates("demote", sets, None, dryrun,
+                                           reason)
+        if sets is not None:
+            broker_ids = sets[0]
         self._sanity_check_execution(dryrun)
         state, topo = self._model_for_solve()
         idx = topo.broker_index
         for b in broker_ids:
             state = S.set_broker_state(state, idx[b], demoted=True)
-        result = self._solve_request(self._ple_optimizer, state, topo)
+        result = self._traced(
+            _scheduler_class or SchedulerClass.USER_INTERACTIVE,
+            lambda: self._solve_request(self._ple_optimizer, state, topo),
+            "demote-brokers")
         return self._maybe_execute(result, dryrun, reason, None,
                                    demoted_brokers=list(broker_ids),
                                    **execute_kwargs)
@@ -634,6 +915,8 @@ class CruiseControl:
     def fix_offline_replicas(self, goals: Optional[Sequence[str]] = None,
                              dryrun: bool = True,
                              reason: str = "fix offline replicas",
+                             _scheduler_class: Optional[SchedulerClass]
+                             = None,
                              **execute_kwargs) -> OperationResult:
         """Move the offline replicas onto healthy brokers and logdirs;
         ValueError when there is none."""
@@ -641,7 +924,10 @@ class CruiseControl:
         state, topo = self._model_for_solve()
         if not bool(S.self_healing_eligible(state).any()):
             raise ValueError("no offline replicas to fix")
-        result = self._solve_request(self._optimizer_for(goals), state,
-                                     topo)
+        optimizer = self._optimizer_for(goals)
+        result = self._traced(
+            _scheduler_class or SchedulerClass.USER_INTERACTIVE,
+            lambda: self._solve_request(optimizer, state, topo),
+            "fix-offline-replicas")
         return self._maybe_execute(result, dryrun, reason, None,
                                    **execute_kwargs)

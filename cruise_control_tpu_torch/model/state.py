@@ -96,6 +96,13 @@ class ClusterState:
                                for f in STATE_FIELDS})
 
 
+def own_copy(state: ClusterState) -> ClusterState:
+    """A state whose tensors are its own: what a solve may consume (the
+    round commits write in place)."""
+    return state.replace(**{f: getattr(state, f).clone()
+                            for f in STATE_FIELDS})
+
+
 # ---------------------------------------------------------------------------
 # Load queries
 # ---------------------------------------------------------------------------

@@ -90,8 +90,9 @@ def make_sim():
     return sim
 
 
-def make_pair(**kwargs):
-    """(sim, JAX facade, port monitor, port facade, clock)."""
+def make_pair(goals=tuple(INCR_GOALS), **kwargs):
+    """(sim, JAX facade, port monitor, port facade, clock), both facades
+    over `goals`."""
     sim = make_sim()
     clock = {"now": 10_000.0}
     jcc = JCruiseControl(
@@ -103,7 +104,7 @@ def make_pair(**kwargs):
                             min_samples_per_window=1,
                             sampling_interval_ms=5_000),
         executor_kwargs=dict(progress_check_interval_s=1.0),
-        auto_warmup=False, goal_names=list(INCR_GOALS),
+        auto_warmup=False, goal_names=list(goals),
         options_generator=JGenerator(PATTERN), **kwargs)
     jcc.start_up(do_sampling=False, start_detection=False)
     for _ in range(8):
@@ -114,7 +115,7 @@ def make_pair(**kwargs):
                                        clock["now"] * 1000.0)
     pmon = LoadMonitor(snap, loads, caps, device="cpu")
     pcc = F.CruiseControl(
-        pmon, device="cpu", goal_names=list(INCR_GOALS),
+        pmon, device="cpu", goal_names=list(goals),
         options_generator=DefaultOptimizationOptionsGenerator(PATTERN),
         time_fn=lambda: clock["now"], **kwargs)
     return sim, jcc, pmon, pcc, clock
@@ -361,8 +362,7 @@ def test_what_the_port_lacks_raises():
     # executing needs the cluster's admin client, which this facade lacks
     with pytest.raises(ValueError, match="admin"):
         pcc.rebalance(dryrun=False)
-    for call, what in ((lambda: pcc.add_brokers([[1], [2]]), "scenario"),
-                       (lambda: pcc.optimizations(portfolio_width=4),
+    for call, what in ((lambda: pcc.optimizations(portfolio_width=4),
                         "portfolio"),
                        (lambda: F.CruiseControl(pmon, device="cpu",
                                                 solver_precision="bfloat16"),
