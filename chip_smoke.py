@@ -4,7 +4,7 @@
 Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py [--phases 1,2,3,4] [--profile] [--requests-only]
-                          [--scenarios-only]
+                          [--scenarios-only] [--sampled-only]
 
 Phases:
   1. the card's name and power limit (nvidia-smi), then the build of the
@@ -164,7 +164,8 @@ Phases:
      fast mode under the fused solver (fusion-group segments, the
      host-side skip, the eager abort);
      Phase 3 ends with requests served through the port's facade
-     (`CruiseControl` over `LoadMonitor`, fed the description of a
+     (`CruiseControl` over a `SnapshotLoadMonitor`, fed the description
+     of a
      generated cluster: `served_inputs`, each topic's partitions
      numbered in turn as a simulated cluster reports them:
      `sim_description`), each on the card and again in
@@ -194,7 +195,18 @@ Phases:
      cluster in the solve's final placement (replica sets, leaders,
      logdirs), with the solve's seconds, the executor's host wall, the
      virtual seconds, the polls, the admin calls, the tasks by type and
-     the launches;
+     the launches; then requests served from metric samples
+     (`run_sampled`): the facade built as the reference's, from a
+     `SimulatedCluster` of the same description with its leader loads, a
+     `SimulatedClusterSampler` and a capacity JSON file, its own
+     `LoadMonitor` filled by the two sampling rounds the default
+     requirements need, then `optimizations()` cold,
+     `rebalance(dryrun=False)` of its proposals, two rounds more and
+     `optimizations()` again (its model holds the executed placement with
+     no refresh by hand), each broker's sampled load within 1e-6 of the
+     cluster's, both requests against a CPU facade, the seconds of each
+     round and each request split into aggregation, builder loop,
+     arrays, move to the card and solve;
   4. scale, 2,600 brokers / 200K partitions / 26 racks / 100 topics: the
      whole default stack (bench.py's "north" preset), the four-goal solve,
      config 5 (52 broken logdirs), the six hard goals with brokers 0,
@@ -205,14 +217,17 @@ Phases:
      (no CPU comparison), and the served requests `optimizations` cold,
      a narrow delta and `remove_brokers` of 26 brokers (card only), and
      the cold `rebalance(dryrun=False)` executed as at the slice with a
-     one-minute progress check and no journal, and `remove_brokers` of
+     one-minute progress check and no journal, the sampled cold request
+     (card only, with its gates and the load check), and `remove_brokers` of
      two candidate sets of 26 brokers (every lane feasible) and the host
      rung's wall with broker 0 dead; then
      the widest rank_accept call of the run
      must be one phase 2 checked.  --requests-only runs only the request
-     paths and the served, executed and what-if requests in phases 3 and
-     4, --scenarios-only only the what-if requests, and --profile with
-     it profiles the request paths beside their option-less twins.
+     paths and the served, executed, sampled and what-if requests in
+     phases 3 and 4, --scenarios-only only the what-if requests,
+     --sampled-only only the sampled ones, and --profile with
+     --requests-only profiles the request paths beside their option-less
+     twins.
 With --profile, default-stack solves in turns and two more profiled (with
 K8, then with K8's lexsort dispatch: the torch lexsort, the kernel on its
 order and the ordered scatters after each pass) and one more config-5,
@@ -4032,6 +4047,7 @@ def run_slice(results: dict) -> None:
     run_requests(results, north=False, stack_result=stack_result)
     run_served(results, north=False)
     run_executed(results, north=False)
+    run_sampled(results, north=False)
     run_scenarios(results, north=False)
     results["_identical"] = True
 
@@ -4245,10 +4261,11 @@ def served_meter():
     import torch
     from cruise_control_tpu_torch.analyzer.optimizer import GoalOptimizer
     from cruise_control_tpu_torch.model.store import DeviceModelStore
-    from cruise_control_tpu_torch.monitor.load_monitor import LoadMonitor
+    from cruise_control_tpu_torch.monitor.load_monitor import (
+        LoadMonitor, SnapshotLoadMonitor)
     rec = {"solves": [], "advance_s": [], "builds": []}
     real = (GoalOptimizer.optimizations, DeviceModelStore.advance,
-            LoadMonitor.cluster_model)
+            SnapshotLoadMonitor.cluster_model, LoadMonitor.cluster_model)
 
     def sync(dev):
         if dev.type == "cuda":
@@ -4273,32 +4290,36 @@ def served_meter():
         rec["advance_s"].append(time.perf_counter() - t0)
         return out
 
-    def build(self, *a, **kw):
-        t0 = time.perf_counter()
-        out = real[2](self, *a, **kw)
-        rec["builds"].append(dict(self.last_build_seconds,
-                                  total=time.perf_counter() - t0))
-        return out
+    def builder(fn):
+        def build(self, *a, **kw):
+            t0 = time.perf_counter()
+            out = fn(self, *a, **kw)
+            rec["builds"].append(dict(self.last_build_seconds,
+                                      total=time.perf_counter() - t0))
+            return out
+        return build
 
     GoalOptimizer.optimizations = solve
     DeviceModelStore.advance = advance
-    LoadMonitor.cluster_model = build
+    SnapshotLoadMonitor.cluster_model = builder(real[2])
+    LoadMonitor.cluster_model = builder(real[3])
     try:
         yield rec
     finally:
         (GoalOptimizer.optimizations, DeviceModelStore.advance,
-         LoadMonitor.cluster_model) = real
+         SnapshotLoadMonitor.cluster_model, LoadMonitor.cluster_model) = real
 
 
 def served_facade(inputs, device: str, **settings):
     """(monitor, facade) on `device` over a cluster's description
-    (`served_inputs`: snapshot, leader loads, capacities): the default
-    stack at 192 rounds, every other setting the reference's default
-    unless `settings` names it."""
+    (`served_inputs`: snapshot, leader loads, capacities) in a
+    `SnapshotLoadMonitor`: the default stack at 192 rounds, every other
+    setting the reference's default unless `settings` names it."""
     from cruise_control_tpu_torch.facade import CruiseControl
-    from cruise_control_tpu_torch.monitor.load_monitor import LoadMonitor
-    monitor = LoadMonitor(*inputs, device=device)
-    return monitor, CruiseControl(monitor, device=device,
+    from cruise_control_tpu_torch.monitor.load_monitor import \
+        SnapshotLoadMonitor
+    monitor = SnapshotLoadMonitor(*inputs, device=device)
+    return monitor, CruiseControl(load_monitor=monitor, device=device,
                                   max_optimization_rounds=192, **settings)
 
 
@@ -4588,10 +4609,37 @@ def sim_description(inputs):
                             snap.controller_id), new_loads, capacities)
 
 
+def describe(cluster_spec):
+    """The description (`served_inputs`) of a generated cluster."""
+    from cruise_control_tpu_torch.testing.random_cluster import (
+        RandomClusterSpec, random_cluster, served_inputs)
+    t0 = time.perf_counter()
+    out = served_inputs(*random_cluster(RandomClusterSpec(**cluster_spec),
+                                        device="cuda"))
+    log(f"    described {len(out[0].brokers)} brokers, "
+        f"{len(out[0].partitions)} partitions in "
+        f"{time.perf_counter() - t0:.3f} s")
+    return out
+
+
+def served_description(north: bool):
+    """The served requests' cluster, as a simulated cluster reports it:
+    at 200 brokers the self-healing request's rack-aware placement of the
+    slice (on the random one an excluded topic's rack violations cannot
+    be fixed and that request aborts, in the reference too), at 2,600
+    the random placement."""
+    from cruise_control_tpu_torch.testing.random_cluster import \
+        served_inputs
+    if north:
+        return sim_description(describe(NORTH_SPEC))
+    return sim_description(served_inputs(
+        *rack_aware_start(SLICE_HEAL_REQUEST)))
+
+
 def run_served(results: dict, north: bool) -> None:
-    """Requests served through the port's CruiseControl over its
-    LoadMonitor, fed the description (snapshot, leader loads, capacities)
-    of a generated cluster.  At 200 brokers, in one facade over the
+    """Requests served through the port's CruiseControl over a
+    SnapshotLoadMonitor, fed the description (snapshot, leader loads,
+    capacities) of a generated cluster.  At 200 brokers, in one facade over the
     self-healing request's rack-aware placement: `optimizations` cold (a
     store miss, the rebuild, `install`), its cache hit (the same
     result, no solve, no launch), a narrow delta (broker 2's capacity x
@@ -4607,31 +4655,14 @@ def run_served(results: dict, north: bool) -> None:
     same sequence on the CPU.  At 2,600 brokers: cold, a narrow delta and
     `remove_brokers(0, 100, ..., 2500)`, the card only."""
     import torch
-    from cruise_control_tpu_torch.testing.random_cluster import (
-        RandomClusterSpec, random_cluster, served_inputs)
-    spec = NORTH_SPEC if north else SLICE_SPEC
+    from cruise_control_tpu_torch.testing.random_cluster import \
+        served_inputs
     where = "2,600 brokers" if north else "slice"
-    log(f"  -- served requests ({where}): the port's CruiseControl over its "
-        "LoadMonitor")
-
-    def describe(cluster_spec):
-        t0 = time.perf_counter()
-        out = served_inputs(*random_cluster(RandomClusterSpec(
-            **cluster_spec), device="cuda"))
-        log(f"    described {len(out[0].brokers)} brokers, "
-            f"{len(out[0].partitions)} partitions in "
-            f"{time.perf_counter() - t0:.3f} s")
-        return out
-
+    log(f"  -- served requests ({where}): the port's CruiseControl over a "
+        "SnapshotLoadMonitor")
     add_start = jbod = None
-    if north:
-        inputs = sim_description(describe(spec))
-    else:
-        # from a rack-aware placement, as the self-healing request path:
-        # on the random one an excluded topic's rack violations cannot
-        # be fixed and that request aborts, in the reference too
-        inputs = sim_description(served_inputs(
-            *rack_aware_start(SLICE_HEAL_REQUEST)))
+    inputs = served_description(north)
+    if not north:
         prep, topo = rack_aware_start(SLICE_ADD_REQUEST)
         new_ids = [topo.broker_ids[i] for i in
                    prep.broker_new.nonzero().flatten().tolist()]
@@ -4789,7 +4820,8 @@ def run_executed(results: dict, north: bool, device: str = "cuda") -> None:
     from cruise_control_tpu_torch.executor import (ExecutorNotifier,
                                                    ExecutorPhase, TaskType)
     from cruise_control_tpu_torch.facade import CruiseControl
-    from cruise_control_tpu_torch.monitor.load_monitor import LoadMonitor
+    from cruise_control_tpu_torch.monitor.load_monitor import \
+        SnapshotLoadMonitor
     from cruise_control_tpu_torch.utils import persist
     key = "north" if north else "slice"
     inputs, cold = results[f"_served_cold_{key}"]
@@ -4803,7 +4835,8 @@ def run_executed(results: dict, north: bool, device: str = "cuda") -> None:
         f"{time.perf_counter() - t0:.3f} s")
     first_logdir = {b.broker_id: b.logdirs[0].path
                     for b in described.brokers}
-    monitor = LoadMonitor(described, inputs[1], inputs[2], device=device)
+    monitor = SnapshotLoadMonitor(described, inputs[1], inputs[2],
+                                  device=device)
     calls: collections.Counter = collections.Counter()
     for op in EXECUTED_OPS:
         def counted(*a, _real=getattr(sim, op), _op=op, **kw):
@@ -4823,7 +4856,8 @@ def run_executed(results: dict, north: bool, device: str = "cuda") -> None:
     summary = []
     with tempfile.TemporaryDirectory(prefix="executor-journal-") as jdir:
         cc = CruiseControl(
-            monitor, admin=sim, device=device, max_optimization_rounds=192,
+            admin=sim, load_monitor=monitor, device=device,
+            max_optimization_rounds=192,
             time_fn=lambda: sim.now_ms() / 1000.0, sleep_fn=sleep,
             executor_notifier=Finished(),
             # at 2,600 brokers a journal would fsync each of some 215,000
@@ -4971,6 +5005,272 @@ def run_executed(results: dict, north: bool, device: str = "cuda") -> None:
         finally:
             cc.shutdown()
     results[f"_executed_{key}"] = summary
+
+
+# ---------------------------------------------------------------------------
+# sampled requests: the facade built as the reference's is, its own
+# LoadMonitor sampling a SimulatedCluster
+# ---------------------------------------------------------------------------
+
+#: the sampled monitor's windows: a minute each, one sample a window, one
+#: stable window kept; a round a minute, so the default requirements (one
+#: valid window) are met by two rounds, the fewest
+SAMPLED_MONITOR = dict(num_windows=1, window_ms=60_000,
+                       min_samples_per_window=1,
+                       sampling_interval_ms=60_000)
+SAMPLED_ROUNDS = 2
+#: the largest relative difference allowed between a sampled model's
+#: broker loads and the simulated cluster's (the windows keep float32)
+SAMPLED_LOAD_RTOL = 1e-6
+
+
+def capacity_file(capacities, path: str) -> None:
+    """A description's capacities as a capacity JSON file for
+    `BrokerCapacityConfigFileResolver`: one entry a broker (a JBOD
+    broker's DISK by logdir), the default entry (broker -1) the first
+    broker's."""
+    from cruise_control_tpu_torch.common.resources import Resource
+
+    def entry(bid, cap):
+        c = cap.capacity
+        disk = (dict(cap.disk_capacity_by_logdir)
+                if cap.disk_capacity_by_logdir else c[Resource.DISK])
+        return {"brokerId": str(bid), "capacity": {
+            "DISK": disk, "CPU": c[Resource.CPU], "NW_IN": c[Resource.NW_IN],
+            "NW_OUT": c[Resource.NW_OUT]}}
+    ids = sorted(capacities)
+    with open(path, "w") as f:
+        json.dump({"brokerCapacities": [entry(-1, capacities[ids[0]])] + [
+            entry(b, capacities[b]) for b in ids]}, f)
+
+
+def sampled_facade(inputs, device: str, cap_path: str, north: bool):
+    """(simulated cluster, facade): a `SimulatedCluster` on a virtual
+    clock built from the description (`executed_cluster`), each
+    partition's leader load its description's, and the facade built as
+    the reference's is: `CruiseControl(sim, SimulatedClusterSampler(sim),
+    BrokerCapacityConfigFileResolver(cap_path), monitor_kwargs=...)`,
+    started without a sampling thread."""
+    from cruise_control_tpu_torch.config.capacity import \
+        BrokerCapacityConfigFileResolver
+    from cruise_control_tpu_torch.facade import CruiseControl
+    from cruise_control_tpu_torch.monitor.sampling.sampler import \
+        SimulatedClusterSampler
+    t0 = time.perf_counter()
+    sim, described = executed_cluster(inputs)
+    loads = inputs[1]
+    for p in described.partitions:
+        cpu, nw_in, nw_out, disk = (
+            float(x) for x in loads[(p.tp.topic, p.tp.partition)])
+        sim.set_partition_load(p.tp, leader_cpu=cpu, nw_in=nw_in,
+                               nw_out=nw_out, size_bytes=disk)
+    resolver = BrokerCapacityConfigFileResolver(cap_path)
+    for b in described.brokers:
+        got = resolver.capacity_for_broker(b.rack, b.host, b.broker_id,
+                                           False)
+        want = inputs[2][b.broker_id]
+        if (got.capacity != want.capacity or got.disk_capacity_by_logdir
+                != want.disk_capacity_by_logdir):
+            raise AssertionError(f"the capacity file gives broker "
+                                 f"{b.broker_id} {got}, not {want}")
+    cc = CruiseControl(
+        sim, SimulatedClusterSampler(sim), resolver,
+        monitor_kwargs=dict(SAMPLED_MONITOR), device=device,
+        max_optimization_rounds=192,
+        time_fn=lambda: sim.now_ms() / 1000.0, sleep_fn=sim.advance,
+        executor_kwargs=dict(
+            progress_check_interval_s=EXECUTED_CHECK_INTERVAL_S[north],
+            replication_throttle_bytes_per_s=EXECUTED_THROTTLE))
+    cc.start_up(do_sampling=False)
+    log(f"    simulated cluster of {len(described.brokers)} brokers with "
+        f"its loads and the sampled facade ({device}) built in "
+        f"{time.perf_counter() - t0:.3f} s")
+    return sim, cc
+
+
+def sampling_rounds(cc, sim, rounds: int) -> list:
+    """`rounds` sampling rounds a window apart on the virtual clock; the
+    host seconds of each."""
+    out = []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        cc.load_monitor.task_runner.sample_once()
+        out.append(time.perf_counter() - t0)
+        sim.advance(SAMPLED_MONITOR["window_ms"] / 1000.0)
+    return out
+
+
+def sampled_loads_gate(state, topo, inputs, snapshot, follower_cpu,
+                       label: str) -> float:
+    """The model's load of each broker (its replicas' loads summed in
+    float64) against the simulated cluster's: each partition's leader
+    load (the description's) on its leader, and on every other replica
+    its follower load (`follower_cpu` of the leader's, NW_OUT 0), per
+    `snapshot`'s placement; to `SAMPLED_LOAD_RTOL` relative.  Returns
+    the largest relative difference."""
+    import numpy as np
+    from cruise_control_tpu_torch.common.resources import (NUM_RESOURCES,
+                                                           Resource)
+    h = {f: getattr(state, f).cpu().numpy() for f in (
+        "replica_valid", "replica_partition", "replica_broker",
+        "replica_is_leader", "replica_base_load", "partition_leader_bonus")}
+    v = h["replica_valid"]
+    bonus = h["partition_leader_bonus"].astype(np.float64)
+    load = h["replica_base_load"].astype(np.float64)
+    lead = v & h["replica_is_leader"]
+    load[lead] += bonus[h["replica_partition"][lead]]
+    num_b = len(topo.broker_ids)
+    model = np.zeros((num_b, NUM_RESOURCES))
+    np.add.at(model, h["replica_broker"][v], load[v])
+    want = np.zeros((num_b, NUM_RESOURCES))
+    idx = topo.broker_index
+    for p in snapshot.partitions:
+        x = np.asarray(inputs[1][(p.tp.topic, p.tp.partition)], np.float64)
+        f = x.copy()
+        f[Resource.NW_OUT] = 0.0
+        f[Resource.CPU] = follower_cpu(x[Resource.CPU], x[Resource.NW_IN],
+                                       x[Resource.NW_OUT])
+        for b in p.replicas:
+            want[idx[b]] += x if b == p.leader else f
+    rel = np.abs(model - want) / np.maximum(np.abs(want), 1e-30)
+    worst = float(rel.max())
+    log(f"    {label}: each broker's sampled load against the simulated "
+        f"cluster's, largest relative difference {worst:.3e} (limit "
+        f"{SAMPLED_LOAD_RTOL:g})")
+    if not worst <= SAMPLED_LOAD_RTOL:
+        b, r = np.unravel_index(int(rel.argmax()), rel.shape)
+        raise AssertionError(f"{label}: broker {topo.broker_ids[b]}'s "
+                             f"resource {r} is {model[b, r]!r} in the model, "
+                             f"{want[b, r]!r} in the cluster")
+    return worst
+
+
+def _sampled_sequence(device: str, inputs, north: bool,
+                      cap_path: str) -> dict:
+    """The sampled requests on `device` (see `run_sampled`)."""
+    import dataclasses
+    from cruise_control_tpu_torch.executor import ExecutorPhase, TaskType
+    sim, cc = sampled_facade(inputs, device, cap_path, north)
+    monitor = cc.load_monitor
+    where = "card" if device == "cuda" else "CPU"
+    out = {}
+    try:
+        out["rounds_s"] = sampling_rounds(cc, sim, SAMPLED_ROUNDS)
+        log(f"    {SAMPLED_ROUNDS} sampling rounds ({where}): "
+            f"{', '.join(f'{x:.3f}' for x in out['rounds_s'])} s; "
+            f"{monitor.partition_aggregator.num_samples()} partition "
+            f"samples held, {monitor.num_quarantined_samples} quarantined")
+        cold = out["cold"] = serve("sampled cold", cc.optimizations, cc,
+                                   monitor, SERVED_STACK_KERNELS,
+                                   (0, 1, 0, 0))
+        build = cold["build"]
+        log(f"      the sampled build: aggregation "
+            f"{build['aggregate']:.3f} s of {build['total']:.3f}")
+        snapshot = monitor.metadata.refresh_metadata()
+        out["load_rel"] = sampled_loads_gate(
+            cold["solve"]["state"], cold["solve"]["topo"], inputs, snapshot,
+            monitor.follower_cpu_estimator(), f"sampled cold ({where})")
+        if north:
+            return out
+        first_logdir = {b.broker_id: b.logdirs[0].path
+                        for b in snapshot.brokers}
+        t0 = time.perf_counter()
+        op = cc.rebalance(dryrun=False)
+        if op.execution_uuid is None or op.optimizer_result is not \
+                cold["result"]:
+            raise AssertionError("the sampled rebalance did not execute the "
+                                 "cached cold proposals")
+        if not cc.executor.await_completion(timeout=900.0):
+            raise AssertionError("the sampled rebalance did not finish in "
+                                 "900 s")
+        out["executor_s"] = time.perf_counter() - t0
+        mgr = cc.executor._manager
+        tasks = {t.value: dataclasses.asdict(mgr.counts(t))
+                 for t in TaskType}
+        if not all(c["completed"] == c["total"] for c in tasks.values()) \
+                or cc.executor.state.phase != \
+                ExecutorPhase.NO_TASK_IN_PROGRESS:
+            raise AssertionError(f"the sampled rebalance left tasks or the "
+                                 f"executor busy: {tasks}")
+        placement_gate(state_placement(cold["result"].final_state,
+                                       cold["solve"]["topo"], first_logdir),
+                       sim.describe_cluster(),
+                       f"executed sampled rebalance ({where})")
+        log(f"    executed the sampled cold proposals ({where}): "
+            f"{len(op.proposals)} proposals, tasks {tasks}, executor "
+            f"{out['executor_s']:.3f} s")
+        out["rounds_after_s"] = sampling_rounds(cc, sim, SAMPLED_ROUNDS)
+        misses = cc.model_store.misses
+        after = out["after"] = serve("sampled after the execution",
+                                     cc.optimizations, cc, monitor,
+                                     served_sums)
+        if cc.model_store.misses != misses + 1 or after["solve"] is None:
+            raise AssertionError("the sampled request after the execution "
+                                 "was not a store miss and a solve")
+        placement_gate(state_placement(after["solve"]["state"],
+                                       after["solve"]["topo"], first_logdir),
+                       sim.describe_cluster(),
+                       f"the sampled model after the execution ({where})",
+                       logdirs=False)
+        out["load_rel_after"] = sampled_loads_gate(
+            after["solve"]["state"], after["solve"]["topo"], inputs,
+            monitor.metadata.refresh_metadata(),
+            monitor.follower_cpu_estimator(),
+            f"sampled after the execution ({where})")
+    finally:
+        cc.shutdown()
+    return out
+
+
+def run_sampled(results: dict, north: bool) -> None:
+    """Requests served from metric samples: the facade built as the
+    reference's is (`sampled_facade`), over a `SimulatedCluster` of the
+    served requests' description with each partition's leader load, its
+    capacities read from a capacity JSON file, the fewest sampling rounds
+    the default requirements need (two, a window apart) on the virtual
+    clock, then `optimizations()` cold: a store miss, the model built
+    from the aggregated windows, the default stack at 192 rounds; its
+    broker loads equal to the simulated cluster's to 1e-6 relative.  At
+    200 brokers then `rebalance(dryrun=False)` (the cached proposals,
+    executed), two rounds more and `optimizations()` again, whose model
+    holds the executed placement with no refresh by hand; both requests
+    equal to the same sequence on a CPU facade (proposals, leader flags,
+    rounds, store counters and stats bit for bit).  At 2,600 brokers the
+    cold request alone, on the card, with the phase-3 gates."""
+    import tempfile
+    key = "north" if north else "slice"
+    log(f"  -- sampled requests ({'2,600 brokers' if north else 'slice'}): "
+        "the facade's own LoadMonitor sampling a SimulatedCluster")
+    cold = results.get(f"_served_cold_{key}")
+    inputs = cold[0] if cold is not None else served_description(north)
+    with tempfile.TemporaryDirectory(prefix="capacity-") as tmp:
+        cap_path = os.path.join(tmp, "capacity.json")
+        capacity_file(inputs[2], cap_path)
+        card = _sampled_sequence("cuda", inputs, north, cap_path)
+        cpu = None
+        if not north:
+            cpu = _sampled_sequence("cpu", inputs, north, cap_path)
+    steps = ("cold",) if north else ("cold", "after")
+    if cpu is not None:
+        for step in steps:
+            served_equal(card[step], cpu[step])
+    summary = {k: card[k] for k in ("rounds_s", "rounds_after_s",
+                                    "executor_s", "load_rel",
+                                    "load_rel_after") if k in card}
+    for step in steps:
+        r = card[step]
+        summary[step] = {k: r[k] for k in ("wall", "solve_s")} | {
+            "aggregate_s": r["build"].get("aggregate"),
+            "rebuild_s": r["build"].get("total"),
+            "builder_loop_s": r["build"].get("describe"),
+            "arrays_s": r["build"].get("arrays"),
+            "to_device_s": r["build"].get("to_device"),
+            "rounds": sum(r["result"].rounds_by_goal.values()),
+            "proposals": len(r["result"].proposals),
+            "launches": r["launches"]}
+    if cpu is not None:
+        summary["cpu_solve_s"] = {s: cpu[s]["solve_s"] for s in steps}
+    results[f"_sampled_{key}"] = summary
 
 
 #: the scenario phase's what-ifs at the slice, after the base lane: 10
@@ -5518,6 +5818,7 @@ def run_scale(results: dict) -> None:
     run_requests(results, north=True)
     run_served(results, north=True)
     run_executed(results, north=True)
+    run_sampled(results, north=True)
     run_scenarios(results, north=True)
 
 
@@ -5571,6 +5872,10 @@ def main(argv=None) -> int:
     ap.add_argument("--scenarios-only", action="store_true",
                     help="phases 3 and 4 run only the what-if scenario "
                          "requests and the degradation ladder's checks")
+    ap.add_argument("--sampled-only", action="store_true",
+                    help="phases 3 and 4 run only the requests served "
+                         "from metric samples (the facade's own "
+                         "LoadMonitor over a simulated cluster)")
     ap.add_argument("--parent", default=None,
                     help="a checkout of the parent tree: phase 2 times its "
                          "K6 and K10 chains as yardsticks and its K7 beside "
@@ -5706,10 +6011,13 @@ def main(argv=None) -> int:
                 "demote, kafka-assigner and intra-broker modes")
             if args.scenarios_only:
                 run_scenarios(results, north=False)
+            elif args.sampled_only:
+                run_sampled(results, north=False)
             elif args.requests_only:
                 run_requests(results, north=False)
                 run_served(results, north=False)
                 run_executed(results, north=False)
+                run_sampled(results, north=False)
                 run_scenarios(results, north=False)
             else:
                 run_slice(results)
@@ -5720,10 +6028,13 @@ def main(argv=None) -> int:
                 "intra-broker modes at 2,600 brokers / 200K partitions")
             if args.scenarios_only:
                 run_scenarios(results, north=True)
+            elif args.sampled_only:
+                run_sampled(results, north=True)
             elif args.requests_only:
                 run_requests(results, north=True)
                 run_served(results, north=True)
                 run_executed(results, north=True)
+                run_sampled(results, north=True)
                 run_scenarios(results, north=True)
             else:
                 run_scale(results)
@@ -5863,6 +6174,8 @@ def main(argv=None) -> int:
         k: results.get(f"_executed_{k}") for k in ("slice", "north")}
         | {"rebuilt_stats_largest_relative_difference":
            results.get("_executed_stats_rel")}))
+    log("[5] sampled requests: " + json.dumps({
+        k: results.get(f"_sampled_{k}") for k in ("slice", "north")}))
     log("[5] what-if scenarios and the ladder: " + json.dumps({
         k: results.get(f"_scenarios_{k}") for k in ("slice", "north")}))
     log("[5] rank_accept: " + json.dumps(results.get("rank_accept")))

@@ -11,10 +11,12 @@ one the cluster keeps a virtual clock that `advance()` moves.
 Its snapshots and generations are the JAX package's, call for call.  What
 differs is the bookkeeping, which keeps a 200,000-partition cluster cheap
 to poll: the partitions with a reassignment in flight are indexed, so a
-step or a reassignment listing visits only them, and `describe_cluster`
+step or a reassignment listing visits only them, `describe_cluster`
 keeps each partition's `PartitionInfo`, rebuilds only those that changed
 since the last call (all of them after a broker or disk change) and
-hands each snapshot a copy of its kept partition index.
+hands each snapshot a copy of its kept partition index, and
+`describe_log_dirs` sums every broker's logdirs in one pass over the
+partitions.
 """
 from __future__ import annotations
 
@@ -250,19 +252,25 @@ class SimulatedCluster(ClusterAdminClient):
     def describe_log_dirs(self, broker_ids: Sequence[int]
                           ) -> Dict[int, List[LogDirInfo]]:
         with self._lock:
-            out: Dict[int, List[LogDirInfo]] = {}
+            # one pass over the partitions for every broker: each
+            # logdir's sum still adds its partitions in creation order
+            used: Dict[int, Dict[str, float]] = {}
             for bid in broker_ids:
                 b = self._brokers.get(bid)
-                if b is None or not b.alive:
-                    continue
-                used: Dict[str, float] = {d: 0.0 for d in b.logdirs}
-                for part in self._partitions.values():
-                    d = part.logdir_by_broker.get(bid)
-                    if d in used:
-                        used[d] += part.size_bytes
-                out[bid] = [LogDirInfo(d, used_bytes=used[d],
-                                       offline=d in b.offline_logdirs)
-                            for d in b.logdirs]
+                if b is not None and b.alive:
+                    used[bid] = {d: 0.0 for d in b.logdirs}
+            for part in self._partitions.values():
+                for bid, d in part.logdir_by_broker.items():
+                    dirs = used.get(bid)
+                    if dirs is not None and d in dirs:
+                        dirs[d] += part.size_bytes
+            out: Dict[int, List[LogDirInfo]] = {}
+            for bid in broker_ids:
+                if bid in used:
+                    b = self._brokers[bid]
+                    out[bid] = [LogDirInfo(d, used_bytes=used[bid][d],
+                                           offline=d in b.offline_logdirs)
+                                for d in b.logdirs]
             return out
 
     def list_partition_reassignments(self) -> List[ReassignmentState]:

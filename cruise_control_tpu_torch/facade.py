@@ -3,11 +3,16 @@ seed, the dirty region, the device model store consult, the degradation
 ladder, the what-if scenarios and the execution side of
 cruise_control_tpu/facade.py).
 
-`CruiseControl` serves the reference's proposal requests over a
-`LoadMonitor`: `optimizations`, `rebalance`, `add_brokers`,
-`remove_brokers`, `demote_brokers`, `fix_offline_replicas` and
-`evaluate_scenarios`.  The model of each request comes from the device
-model store (`_model_for_solve`): the resident model as it is,
+`CruiseControl` serves the reference's proposal requests over a load
+monitor: `optimizations`, `rebalance`, `add_brokers`, `remove_brokers`,
+`demote_brokers`, `fix_offline_replicas`, `evaluate_scenarios` and
+`update_topic_replication_factor`.  Built as the reference is, from the
+cluster's admin client, a metric sampler and a capacity resolver, it
+builds its own `LoadMonitor` (monitor/load_monitor.py), whose sampling
+rounds feed the windows every model is built from; `load_monitor=` takes
+a monitor built by the caller instead, such as a `SnapshotLoadMonitor`.
+The model of each request comes from the device model store
+(`_model_for_solve`): the resident model as it is,
 fast-forwarded by the monitor's logged deltas, or rebuilt from the
 monitor.  Default-stack requests with default options answer from the
 proposal cache while the model generation holds; otherwise they solve
@@ -36,8 +41,9 @@ hands its proposals to the facade's `Executor` (executor/), which moves
 replicas, logdirs and leadership through that client; with
 `executor_journal_dir` every execution is journaled and
 `recover_interrupted_execution` settles what a crashed process left in
-flight.  The port has no sampling loop: after an execution the caller
-refreshes the monitor's metadata (`LoadMonitor.update_cluster`).
+flight.  The sampled monitor refreshes the cluster's metadata for each
+model and samples the executed placement in its next rounds; a
+`SnapshotLoadMonitor` is refreshed by its caller (`update_cluster`).
 """
 from __future__ import annotations
 
@@ -61,6 +67,9 @@ from cruise_control_tpu_torch.analyzer.optimizer import (GoalOptimizer,
                                                          OptimizerResult)
 from cruise_control_tpu_torch.analyzer.options_generator import \
     DefaultOptimizationOptionsGenerator
+from cruise_control_tpu_torch.analyzer.proposals import (ExecutionProposal,
+                                                         ReplicaPlacement)
+from cruise_control_tpu_torch.config.capacity import StaticCapacityResolver
 from cruise_control_tpu_torch.device import resolve_device
 from cruise_control_tpu_torch.executor.executor import (Executor,
                                                         ExecutorNotifier)
@@ -72,6 +81,8 @@ from cruise_control_tpu_torch.model import state as S
 from cruise_control_tpu_torch.model.state import ClusterState
 from cruise_control_tpu_torch.model.state import own_copy as _own_copy
 from cruise_control_tpu_torch.model.store import DeviceModelStore
+from cruise_control_tpu_torch.model.topology import PartitionId
+from cruise_control_tpu_torch.monitor.load_monitor import LoadMonitor
 from cruise_control_tpu_torch.obs import trace as obs_trace
 from cruise_control_tpu_torch.scenario.engine import (BASE_SCENARIO_NAME,
                                                       ScenarioBatchResult,
@@ -136,17 +147,25 @@ class OperationResult:
 
 
 class CruiseControl:
-    """The facade over `load_monitor` (any object with
-    `model_generation`, `cluster_model`, `deltas_between` and
-    `follower_cpu_estimator`; `pause_metric_sampling` and
-    `resume_metric_sampling` too when it executes) and, for executions,
-    the cluster's `admin` client.  The settings are the reference's, with
-    its defaults; `max_optimization_rounds` sets the default stack's
-    rounds (hard goals keep at least 1,024); `executor_kwargs` go to the
-    `Executor` (its caps, intervals, timeouts and throttle); `sleep_fn`
-    waits out the executor's polls and the ladder's retry backoff."""
+    """The facade over the cluster's `admin` client: the reference's
+    `(admin, sampler, capacity_resolver, ..., monitor_kwargs)` build a
+    `LoadMonitor` that samples the cluster through `sampler`
+    (`monitor_kwargs` are its settings; its time is the facade's
+    `time_fn`, its device the facade's).  `load_monitor=` takes a built
+    monitor instead (`LoadMonitor` or `SnapshotLoadMonitor`: any object
+    with `model_generation`, `cluster_model`, `deltas_between`,
+    `follower_cpu_estimator`, `acquire_for_model_generation`, `start_up`,
+    `shutdown`, `pause_metric_sampling` and `resume_metric_sampling`);
+    then `admin` is optional and without it the facade serves dry runs
+    only.  The settings are the reference's, with its defaults;
+    `max_optimization_rounds` sets the default stack's rounds (hard
+    goals keep at least 1,024); `executor_kwargs` go to the `Executor`
+    (its caps, intervals, timeouts and throttle); `sleep_fn` waits out
+    the executor's polls and the ladder's retry backoff."""
 
-    def __init__(self, load_monitor, *, admin=None, device=None,
+    def __init__(self, admin=None, sampler=None, capacity_resolver=None, *,
+                 load_monitor=None, monitor_kwargs: Optional[dict] = None,
+                 device=None,
                  goal_names: Optional[Sequence[str]] = None,
                  max_optimization_rounds: Optional[int] = None,
                  constraint: Optional[BalancingConstraint] = None,
@@ -185,9 +204,22 @@ class CruiseControl:
                 f"executor.recovery.mode must be resume|abort, got "
                 f"{executor_recovery_mode!r}")
         self.device = resolve_device(device)
-        self.load_monitor = load_monitor
         self._time = time_fn or _time.time
         self._sleep = sleep_fn or _time.sleep
+        if load_monitor is None:
+            if admin is None or sampler is None:
+                raise ValueError("CruiseControl needs the cluster's admin "
+                                 "client and a metric sampler, or a built "
+                                 "load_monitor")
+            load_monitor = LoadMonitor(
+                admin, sampler, capacity_resolver or StaticCapacityResolver(),
+                time_fn=self._time, device=self.device,
+                **(monitor_kwargs or {}))
+        elif (sampler is not None or capacity_resolver is not None
+              or monitor_kwargs):
+            raise ValueError("a built load_monitor takes no sampler, "
+                             "capacity_resolver or monitor_kwargs")
+        self.load_monitor = load_monitor
         self._executor_recovery_mode = executor_recovery_mode
         self._executor_recovery_done = False
         #: the executor needs the cluster's admin client; without one the
@@ -383,14 +415,38 @@ class CruiseControl:
         LOG.error("executor journal degraded (%s); the execution "
                   "continues journal-less", self.last_journal_error)
 
+    def start_up(self, do_sampling: bool = True,
+                 skip_loading_samples: bool = False) -> None:
+        """Crash recovery first (an execution the previous process left
+        in flight is settled before anything samples or solves over a
+        half-moved cluster), then the monitor's start-up: the stored
+        samples reloaded, and unless `do_sampling` is False its sampling
+        thread started."""
+        self.recover_interrupted_execution()
+        self.load_monitor.start_up(do_sampling=do_sampling,
+                                   skip_loading_samples=skip_loading_samples)
+
     def shutdown(self) -> None:
         """Stop the executor (force-stop: in-flight reassignments are
-        cancelled), wait for it and close the journal."""
+        cancelled), wait for it, close the journal, then stop the
+        monitor (its sampling thread and fetcher pool)."""
         if self.executor is not None:
             self.executor.stop_execution(force=True)
             self.executor.await_completion(timeout=30.0)
         if self.executor_journal is not None:
             self.executor_journal.close()
+        self.load_monitor.shutdown()
+
+    def stop_execution(self, force: bool = False) -> None:
+        """Stop the ongoing execution, if any."""
+        if self.executor is not None:
+            self.executor.stop_execution(force=force)
+
+    def pause_sampling(self, reason: str = "paused by user") -> None:
+        self.load_monitor.pause_metric_sampling(reason)
+
+    def resume_sampling(self, reason: str = "resumed by user") -> None:
+        self.load_monitor.resume_metric_sampling(reason)
 
     # ------------------------------------------------------------------
     # proposals
@@ -468,6 +524,18 @@ class CruiseControl:
             self._cached_result = None
             self._cache_epoch += 1
 
+    def cluster_model(self, requirements=None,
+                      allow_capacity_estimation: Optional[bool] = None):
+        """A fresh build of the monitor's model under `requirements` (the
+        monitor's default when None), behind the monitor's model-build
+        semaphore."""
+        if allow_capacity_estimation is None:
+            allow_capacity_estimation = True
+        with self.load_monitor.acquire_for_model_generation():
+            return self.load_monitor.cluster_model(
+                requirements,
+                allow_capacity_estimation=allow_capacity_estimation)
+
     def _model_for_solve(self, allow_capacity_estimation=None):
         """(state, topology) resident in the device model store: the
         store's model as it is, fast-forwarded through the monitor's
@@ -477,7 +545,7 @@ class CruiseControl:
             allow_capacity_estimation = True
         monitor = self.load_monitor
         if not self._incremental_enabled:
-            return monitor.cluster_model(
+            return self.cluster_model(
                 allow_capacity_estimation=allow_capacity_estimation)
         store = self.model_store
         generation = monitor.model_generation()
@@ -501,7 +569,7 @@ class CruiseControl:
                     f"{self._incremental_max_deltas})")
             else:
                 store.record_fallback("generation-gap")
-        state, topo = monitor.cluster_model(
+        state, topo = self.cluster_model(
             allow_capacity_estimation=allow_capacity_estimation)
         # install only when the generation did not move under the build
         if monitor.model_generation() == generation:
@@ -931,3 +999,92 @@ class CruiseControl:
             "fix-offline-replicas")
         return self._maybe_execute(result, dryrun, reason, None,
                                    **execute_kwargs)
+
+    # ------------------------------------------------------------------
+    # topic configuration
+    # ------------------------------------------------------------------
+    def update_topic_replication_factor(
+            self, topic: str, target_rf: int,
+            goals: Optional[Sequence[str]] = None,
+            dryrun: bool = True,
+            reason: str = "topic configuration",
+            **execute_kwargs) -> OperationResult:
+        """Grow or shrink a topic's replication factor (Cruise Control's
+        TopicConfigurationRunnable and ClusterModel.createOrDeleteReplicas):
+        new replicas land rack-aware on the brokers with the fewest
+        replicas; removals drop rack-duplicate followers first and never
+        the leader.  Reads the monitor's metadata client, so it needs the
+        sampled `LoadMonitor`."""
+        if target_rf < 1:
+            raise ValueError("replication factor must be >= 1")
+        self._sanity_check_execution(dryrun)
+        metadata = getattr(self.load_monitor, "metadata", None)
+        if metadata is None:
+            raise ValueError("update_topic_replication_factor reads the "
+                             "monitor's metadata client (LoadMonitor)")
+        snapshot = metadata.refresh_metadata()
+        parts = snapshot.partitions_of(topic)
+        if not parts:
+            raise ValueError(f"unknown topic {topic!r}")
+        rack_of = {b.broker_id: (b.rack or b.host) for b in snapshot.brokers}
+        alive = sorted(snapshot.alive_broker_ids)
+        if target_rf > len(alive):
+            raise ValueError(
+                f"replication factor {target_rf} exceeds {len(alive)} "
+                f"alive brokers")
+        counts: Dict[int, int] = {b: 0 for b in alive}
+        for p in snapshot.partitions:
+            for b in p.replicas:
+                if b in counts:
+                    counts[b] += 1
+
+        proposals = []
+        for p in sorted(parts, key=lambda x: x.tp.partition):
+            old = list(p.replicas)
+            new = list(old)
+            while len(new) < target_rf:
+                used_racks = {rack_of[b] for b in new if b in rack_of}
+                candidates = [b for b in alive if b not in new]
+                if not candidates:
+                    raise ValueError(
+                        f"not enough brokers for rf={target_rf}")
+                # unused rack first, then fewest replicas
+                candidates.sort(key=lambda b: (rack_of[b] in used_racks,
+                                               counts[b], b))
+                pick = candidates[0]
+                new.append(pick)
+                counts[pick] += 1
+            while len(new) > target_rf:
+                followers = [b for b in new if b != p.leader]
+                if not followers:
+                    break
+                rack_tally: Dict[str, int] = {}
+                for b in new:
+                    rack_tally[rack_of.get(b, "?")] = rack_tally.get(
+                        rack_of.get(b, "?"), 0) + 1
+                # duplicated rack first, then the broker with most replicas
+                followers.sort(key=lambda b: (
+                    -rack_tally.get(rack_of.get(b, "?"), 0),
+                    -counts.get(b, 0), -b))
+                drop = followers[0]
+                new.remove(drop)
+                if drop in counts:
+                    counts[drop] -= 1
+            if new != old:
+                leader = p.leader if p.leader is not None else new[0]
+                ordered_old = [leader] + [b for b in old if b != leader]
+                ordered_new = [leader] + [b for b in new if b != leader]
+                proposals.append(ExecutionProposal(
+                    partition=PartitionId(topic, p.tp.partition),
+                    old_leader=leader,
+                    old_replicas=tuple(ReplicaPlacement(b)
+                                       for b in ordered_old),
+                    new_replicas=tuple(ReplicaPlacement(b)
+                                       for b in ordered_new)))
+        if dryrun or not proposals:
+            return OperationResult(None, proposals=proposals, dryrun=dryrun)
+        uuid = self.executor.execute_proposals(proposals, reason=reason,
+                                               **execute_kwargs)
+        self._invalidate_proposal_cache()
+        return OperationResult(None, execution_uuid=uuid,
+                               proposals=proposals, dryrun=False)

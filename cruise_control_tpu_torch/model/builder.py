@@ -41,18 +41,34 @@ def _load_vector(load: LoadLike) -> np.ndarray:
     return vec.copy()
 
 
+#: the scalar types `estimate_follower_cpu` takes its float path for
+_SCALARS = (float, int, np.floating, np.integer)
+
+
 def estimate_follower_cpu(leader_cpu, leader_nw_in, leader_nw_out,
                           leader_in_weight: float = None,
                           leader_out_weight: float = None,
                           follower_in_weight: float = None):
     """Follower CPU estimated from the leader's load, scalar- and
-    array-compatible; the weights default to the module constants."""
+    array-compatible; the weights default to the module constants.
+    Scalars take a float path with the array path's operations in its
+    order (IEEE double either way), so both give the same bits."""
     lw_in = (CPU_WEIGHT_LEADER_BYTES_IN if leader_in_weight is None
              else leader_in_weight)
     lw_out = (CPU_WEIGHT_LEADER_BYTES_OUT if leader_out_weight is None
               else leader_out_weight)
     fw_in = (CPU_WEIGHT_FOLLOWER_BYTES_IN if follower_in_weight is None
              else follower_in_weight)
+    if all(isinstance(x, _SCALARS) for x in (leader_cpu, leader_nw_in,
+                                             leader_nw_out, lw_in, lw_out,
+                                             fw_in)):
+        nw_in = float(leader_nw_in)
+        denom = (float(lw_in) * nw_in
+                 + float(lw_out) * float(leader_nw_out))
+        if denom > 0.0:
+            return (float(leader_cpu) * float(fw_in) * nw_in
+                    / (denom if denom > 1e-300 else 1e-300))
+        return 0.0
     denom = (lw_in * np.asarray(leader_nw_in, np.float64)
              + lw_out * np.asarray(leader_nw_out, np.float64))
     est = np.where(denom > 0.0,

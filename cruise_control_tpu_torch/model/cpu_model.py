@@ -1,7 +1,14 @@
-"""The host-side (numpy) fallback solver: the bottom rung of the solver
-degradation ladder (port of `_leader_bonus_rows`, `_host_stats` and
-`host_fallback_solve` of cruise_control_tpu/model/cpu_model.py; the
-trainable linear CPU model of that module is not ported yet).
+"""CPU-side models (port of cruise_control_tpu/model/cpu_model.py): the
+trainable linear CPU model and the host-side (numpy) fallback solver, the
+bottom rung of the solver degradation ladder.
+
+`LinearRegressionCpuModel` models broker CPU utilization as a linear
+function of leader-bytes-in, leader-bytes-out and follower (replication)
+bytes-in rates (Cruise Control's LinearRegressionModelParameters.java and
+ModelUtils.java); training is one batched least-squares fit over the
+sample matrix (`np.linalg.lstsq`, with the JAX package's three-step
+refit), and the fitted coefficients then drive the follower-CPU
+attribution of the monitor's model build.
 
 `host_fallback_solve` is what the facade falls back to when both device
 rungs (the goal pipeline, the eager per-goal driver) are failing: numpy
@@ -10,12 +17,142 @@ unavailable — relocating offline replicas off dead brokers and broken
 disks (analyzer/degradation.py)."""
 from __future__ import annotations
 
+import dataclasses
+import threading
 import time as _time
+from typing import Optional
 
 import numpy as np
 import torch
 
 from cruise_control_tpu_torch.common.resources import NUM_RESOURCES, Resource
+
+
+@dataclasses.dataclass(frozen=True)
+class CpuModelCoefficients:
+    """CPU% contributed per byte/s of each traffic kind."""
+
+    leader_bytes_in: float
+    leader_bytes_out: float
+    follower_bytes_in: float
+
+    def estimate_leader_cpu(self, leader_nw_in: float, leader_nw_out: float
+                            ) -> float:
+        return (self.leader_bytes_in * leader_nw_in
+                + self.leader_bytes_out * leader_nw_out)
+
+    def estimate_follower_cpu(self, follower_nw_in: float) -> float:
+        return self.follower_bytes_in * follower_nw_in
+
+
+class LinearRegressionCpuModel:
+    """Accumulates (cpu, leader_in, leader_out, replication_in) training
+    rows and fits coefficients on demand."""
+
+    MIN_SAMPLES = 8
+
+    def __init__(self, cpu_util_bucket_size_pct: int = 5,
+                 min_num_cpu_util_buckets: int = 5,
+                 required_samples_per_bucket: int = 10) -> None:
+        self._lock = threading.Lock()
+        self._rows: list = []
+        self._coefficients: Optional[CpuModelCoefficients] = None
+        #: training-readiness knobs (reference
+        #: linear.regression.model.cpu.util.bucket.size /
+        #: .min.num.cpu.util.buckets / .required.samples.per.bucket:
+        #: samples are bucketed by CPU utilization and the fit waits for
+        #: coverage, so one load level cannot dominate the coefficients)
+        self._bucket_size_pct = max(1, cpu_util_bucket_size_pct)
+        self._min_buckets = max(1, min_num_cpu_util_buckets)
+        self._required_per_bucket = max(1, required_samples_per_bucket)
+
+    def training_coverage(self) -> tuple:
+        """(filled buckets, required buckets) — a bucket counts once it
+        holds required_samples_per_bucket samples."""
+        from collections import Counter
+        with self._lock:
+            counts = Counter(int(r[0] // self._bucket_size_pct)
+                             for r in self._rows)
+        filled = sum(1 for c in counts.values()
+                     if c >= self._required_per_bucket)
+        return filled, self._min_buckets
+
+    @property
+    def ready_to_train(self) -> bool:
+        filled, need = self.training_coverage()
+        return filled >= need
+
+    # ------------------------------------------------------------------
+    def add_sample(self, cpu_pct: float, leader_bytes_in: float,
+                   leader_bytes_out: float,
+                   replication_bytes_in: float) -> None:
+        with self._lock:
+            self._rows.append((cpu_pct, leader_bytes_in, leader_bytes_out,
+                               replication_bytes_in))
+
+    def clear_samples(self) -> None:
+        """Drop accumulated training rows (callers that re-feed the full
+        history each training round must clear first, or rows duplicate)."""
+        with self._lock:
+            self._rows.clear()
+
+    @property
+    def num_samples(self) -> int:
+        with self._lock:
+            return len(self._rows)
+
+    @property
+    def trained(self) -> bool:
+        with self._lock:
+            return self._coefficients is not None
+
+    @property
+    def coefficients(self) -> Optional[CpuModelCoefficients]:
+        with self._lock:
+            return self._coefficients
+
+    # ------------------------------------------------------------------
+    def train(self) -> CpuModelCoefficients:
+        """Non-negative least squares fit (coefficients are physical rates,
+        so negatives are clamped and refit without that feature —
+        the reference likewise guards against nonsensical coefficients)."""
+        with self._lock:
+            rows = np.asarray(self._rows, dtype=np.float64)
+        if rows.shape[0] < self.MIN_SAMPLES:
+            raise ValueError(
+                f"need >= {self.MIN_SAMPLES} training samples, "
+                f"have {rows.shape[0]}")
+        y = rows[:, 0]
+        X = rows[:, 1:4]
+        active = [0, 1, 2]
+        coef = np.zeros(3)
+        for _ in range(3):
+            sol, *_ = np.linalg.lstsq(X[:, active], y, rcond=None)
+            if (sol >= 0).all():
+                for i, a in enumerate(active):
+                    coef[a] = sol[i]
+                break
+            # drop the most negative feature and refit
+            worst = active[int(np.argmin(sol))]
+            active = [a for a in active if a != worst]
+            if not active:
+                break
+        result = CpuModelCoefficients(*coef)
+        with self._lock:
+            self._coefficients = result
+        return result
+
+    def training_error(self) -> Optional[float]:
+        """RMS error of the fit over the training rows."""
+        with self._lock:
+            coefs = self._coefficients
+            rows = np.asarray(self._rows, dtype=np.float64)
+        if coefs is None or rows.shape[0] == 0:
+            return None
+        pred = (coefs.leader_bytes_in * rows[:, 1]
+                + coefs.leader_bytes_out * rows[:, 2]
+                + coefs.follower_bytes_in * rows[:, 3])
+        return float(np.sqrt(np.mean((pred - rows[:, 0]) ** 2)))
 
 
 def _leader_bonus_rows(part, bonus):

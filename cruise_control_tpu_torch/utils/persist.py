@@ -1,7 +1,7 @@
 """Durable writes (port of cruise_control_tpu/utils/persist.py).
 
-Two disciplines, shared by every store that reaches disk (here the
-executor journal):
+Two disciplines, shared by every store that reaches disk (the executor
+journal and the metric-sample store):
 
 * **atomic publication**: `atomic_write` writes a temp file next to the
   target and `os.replace`s it into place, so a reader (or a process that
@@ -20,7 +20,7 @@ import json
 import os
 import tempfile
 import zlib
-from typing import IO, List, Optional, Tuple
+from typing import IO, Iterable, List, Optional, Tuple
 
 
 def fsync_file(fh) -> None:
@@ -71,6 +71,35 @@ def atomic_write_json(path: str, obj, fsync: bool = False) -> None:
                                   separators=(",", ":")).encode(),
                  fsync=fsync)
 
+
+
+def atomic_rewrite(path: str, chunks: Iterable[bytes],
+                   fsync: bool = False) -> int:
+    """Compaction primitive: stream `chunks` into a temp file and
+    atomically replace `path` with it (rewrite-temp-then-rename).
+    Returns the number of bytes written.  The sample store's retention
+    compaction uses it: the new content is a filtered stream of the old,
+    never loaded into memory at once."""
+    fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path) or ".",
+                               prefix=".tmp-", suffix="~")
+    written = 0
+    try:
+        with os.fdopen(fd, "wb") as fh:
+            for chunk in chunks:
+                fh.write(chunk)
+                written += len(chunk)
+            if fsync:
+                fsync_file(fh)
+        os.replace(tmp, path)
+        if fsync:
+            fsync_dir(os.path.dirname(path) or ".")
+    except BaseException:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        raise
+    return written
 
 # ---------------------------------------------------------------------------
 # CRC-framed JSONL records (append-only WAL framing)

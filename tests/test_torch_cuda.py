@@ -1514,7 +1514,8 @@ def test_served_requests_on_the_card_equal_the_cpu_path():
     from cruise_control_tpu_torch.model.state import STATE_FIELDS
     from cruise_control_tpu_torch.monitor.deltas import (ModelDelta,
                                                          PartitionLoadUpdate)
-    from cruise_control_tpu_torch.monitor.load_monitor import LoadMonitor
+    from cruise_control_tpu_torch.monitor.load_monitor import \
+        SnapshotLoadMonitor
     from cruise_control_tpu_torch.testing.random_cluster import served_inputs
     goals = ["RackAwareGoal", "DiskCapacityGoal", "ReplicaDistributionGoal",
              "DiskUsageDistributionGoal"]
@@ -1528,8 +1529,8 @@ def test_served_requests_on_the_card_equal_the_cpu_path():
             loads[(p0.tp.topic, p0.tp.partition)] * 1.25)),))
     out = {}
     for dev in ("cuda", "cpu"):
-        mon = LoadMonitor(snap, loads, caps, device=dev)
-        cc = CruiseControl(mon, device=dev, goal_names=goals,
+        mon = SnapshotLoadMonitor(snap, loads, caps, device=dev)
+        cc = CruiseControl(load_monitor=mon, device=dev, goal_names=goals,
                            max_optimization_rounds=32)
         cold = cc.optimizations()
         mon.apply_model_delta(delta)

@@ -4,7 +4,7 @@ facade.py) against the JAX reference's `CruiseControl`, on the CPU.
 A JAX `CruiseControl` over a `SimulatedCluster` (as tests/
 test_incremental.py makes one: sampled windows, the incremental store,
 the `INCR_GOALS` stack) serves the same requests as a port
-`CruiseControl` over a port `LoadMonitor` fed from the JAX monitor's
+`CruiseControl` over a port `SnapshotLoadMonitor` fed from the JAX monitor's
 snapshot, capacities and expected leader loads (converted field by
 field, tests/test_torch_monitor.py).  The cluster: 9 brokers on two racks,
 broker 8 empty, two topics of rf 2 placed rack-aware with skewed loads,
@@ -53,7 +53,8 @@ from cruise_control_tpu_torch.analyzer.goals.base import OptimizationFailure
 from cruise_control_tpu_torch.analyzer.options_generator import \
     DefaultOptimizationOptionsGenerator
 from cruise_control_tpu_torch.model.state import STATE_FIELDS
-from cruise_control_tpu_torch.monitor.load_monitor import LoadMonitor
+from cruise_control_tpu_torch.monitor.load_monitor import \
+    SnapshotLoadMonitor
 from test_torch_monitor import monitor_inputs, port_delta, port_snapshot
 
 INCR_GOALS = ["RackAwareGoal", "DiskCapacityGoal",
@@ -113,9 +114,9 @@ def make_pair(goals=tuple(INCR_GOALS), **kwargs):
         clock["now"] += 5
     snap, loads, caps = monitor_inputs(jcc.load_monitor,
                                        clock["now"] * 1000.0)
-    pmon = LoadMonitor(snap, loads, caps, device="cpu")
+    pmon = SnapshotLoadMonitor(snap, loads, caps, device="cpu")
     pcc = F.CruiseControl(
-        pmon, device="cpu", goal_names=list(goals),
+        load_monitor=pmon, device="cpu", goal_names=list(goals),
         options_generator=DefaultOptimizationOptionsGenerator(PATTERN),
         time_fn=lambda: clock["now"], **kwargs)
     return sim, jcc, pmon, pcc, clock
@@ -364,7 +365,8 @@ def test_what_the_port_lacks_raises():
         pcc.rebalance(dryrun=False)
     for call, what in ((lambda: pcc.optimizations(portfolio_width=4),
                         "portfolio"),
-                       (lambda: F.CruiseControl(pmon, device="cpu",
+                       (lambda: F.CruiseControl(load_monitor=pmon,
+                                                device="cpu",
                                                 solver_precision="bfloat16"),
                         "precision")):
         with pytest.raises(NotImplementedError, match=what):
@@ -377,4 +379,4 @@ def test_facade_raises_without_a_card_unless_cpu():
     _sim, jcc, pmon, _pcc, _clock = make_pair()
     jcc.shutdown()
     with pytest.raises(RuntimeError):
-        F.CruiseControl(pmon)
+        F.CruiseControl(load_monitor=pmon)

@@ -37,7 +37,8 @@ from cruise_control_tpu_torch.analyzer.options_generator import \
 from cruise_control_tpu_torch.cluster.metadata import MetadataClient
 from cruise_control_tpu_torch.cluster.simulated import SimulatedCluster
 from cruise_control_tpu_torch.cluster.types import TopicPartition
-from cruise_control_tpu_torch.monitor.load_monitor import LoadMonitor
+from cruise_control_tpu_torch.monitor.load_monitor import \
+    SnapshotLoadMonitor
 from cruise_control_tpu_torch.utils import faults
 from test_torch_executor import KITS, norm, snapshot_key, tasks_key
 from test_torch_executor_recovery import crashed_run
@@ -119,9 +120,10 @@ def executed():
                                         jclock["now"] * 1000.0)
     psnap = MetadataClient(psim).refresh_metadata()
     assert snapshot_key(psnap) == snapshot_key(jsnap)
-    pmon = LoadMonitor(psnap, loads, caps, device="cpu")
+    pmon = SnapshotLoadMonitor(psnap, loads, caps, device="cpu")
     pcc = F.CruiseControl(
-        pmon, admin=psim, device="cpu", goal_names=list(INCR_GOALS),
+        load_monitor=pmon, admin=psim, device="cpu",
+        goal_names=list(INCR_GOALS),
         options_generator=DefaultOptimizationOptionsGenerator(PATTERN),
         time_fn=lambda: pclock["now"], sleep_fn=_ticking(psim, pclock),
         executor_kwargs=dict(progress_check_interval_s=1.0))
@@ -214,8 +216,9 @@ def test_recovery_through_the_facades(tmp_path):
                 scheduler_enabled=False)
         else:
             cc = F.CruiseControl(
-                LoadMonitor(MetadataClient(sim).refresh_metadata(), {}, {},
-                            device="cpu"),
+                load_monitor=SnapshotLoadMonitor(
+                    MetadataClient(sim).refresh_metadata(), {}, {},
+                    device="cpu"),
                 admin=sim, device="cpu", time_fn=clock,
                 sleep_fn=sim.advance,
                 executor_kwargs=dict(progress_check_interval_s=1.0),
@@ -240,8 +243,8 @@ def test_recovery_through_the_facades(tmp_path):
 def test_journal_error_is_counted(tmp_path):
     sim = make_port_sim()
     pcc = F.CruiseControl(
-        LoadMonitor(MetadataClient(sim).refresh_metadata(), {}, {},
-                    device="cpu"),
+        load_monitor=SnapshotLoadMonitor(
+            MetadataClient(sim).refresh_metadata(), {}, {}, device="cpu"),
         admin=sim, device="cpu", time_fn=lambda: sim.now_ms() / 1000.0,
         sleep_fn=sim.advance, executor_journal_dir=str(tmp_path / "j"),
         executor_kwargs=dict(progress_check_interval_s=1.0))
@@ -265,8 +268,9 @@ def test_journal_error_is_counted(tmp_path):
 
 def test_dryrun_false_needs_an_admin():
     sim = make_port_sim()
-    pcc = F.CruiseControl(LoadMonitor(MetadataClient(sim).refresh_metadata(),
-                                      {}, {}, device="cpu"), device="cpu")
+    pcc = F.CruiseControl(load_monitor=SnapshotLoadMonitor(
+        MetadataClient(sim).refresh_metadata(), {}, {}, device="cpu"),
+        device="cpu")
     assert pcc.executor is None
     for call in (lambda: pcc.rebalance(dryrun=False),
                  lambda: pcc.remove_brokers([1], dryrun=False),
@@ -274,5 +278,5 @@ def test_dryrun_false_needs_an_admin():
         with pytest.raises(ValueError, match="admin"):
             call()
     with pytest.raises(ValueError, match="resume|abort"):
-        F.CruiseControl(pcc.load_monitor, device="cpu",
+        F.CruiseControl(load_monitor=pcc.load_monitor, device="cpu",
                         executor_recovery_mode="later")

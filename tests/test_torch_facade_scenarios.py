@@ -5,7 +5,7 @@ and several candidate broker sets in `add_brokers`, `remove_brokers` and
 The facades of tests/test_torch_facade.py: a JAX `CruiseControl` over a
 9-broker `SimulatedCluster` (`RackAwareGoal` and
 `DiskUsageDistributionGoal`, an excluded-topics pattern) beside a port
-`CruiseControl` over a `LoadMonitor` fed the same snapshot, leader
+`CruiseControl` over a `SnapshotLoadMonitor` fed the same snapshot, leader
 loads and capacities.  In one sequence both serve:
 `evaluate_scenarios` of two variants with the base scenario first, three
 without it, `remove_brokers([[1], [2]])`, `add_brokers([[8],

@@ -7,7 +7,7 @@ test_incremental.py builds one) with JBOD logdirs on the even brokers,
 one of them failed, and a capacity resolver that lists them.  Its
 metadata snapshot, its capacities and the expected leader loads of its
 aggregated windows are converted field by field into the port's records
-and feed the port's `LoadMonitor`.  Then:
+and feed the port's `SnapshotLoadMonitor`.  Then:
 - `cluster_model()` equals the reference's exactly, before any delta,
   after each delta kind (capacity override, load update, demote, add,
   remove), after one delta of every kind and after a chain, and
@@ -40,7 +40,8 @@ from cruise_control_tpu_torch.config.capacity import BrokerCapacity
 from cruise_control_tpu_torch.model import store as ST
 from cruise_control_tpu_torch.model.state import STATE_FIELDS
 from cruise_control_tpu_torch.monitor import deltas as PD
-from cruise_control_tpu_torch.monitor.load_monitor import LoadMonitor
+from cruise_control_tpu_torch.monitor.load_monitor import \
+    SnapshotLoadMonitor
 from cruise_control_tpu_torch.scenario.spec import BrokerAdd
 from cruise_control_tpu_torch.utils import faults
 
@@ -152,7 +153,7 @@ def monitor_inputs(jmon, now_ms):
 
 def port_monitor(jmon, clock, **kwargs):
     snap, loads, caps = monitor_inputs(jmon, clock["now"] * 1000.0)
-    return LoadMonitor(snap, loads, caps, device="cpu", **kwargs)
+    return SnapshotLoadMonitor(snap, loads, caps, device="cpu", **kwargs)
 
 
 def assert_states_equal(js, ps):
@@ -330,7 +331,7 @@ def test_unlogged_change_breaks_the_chain(rig):
 def test_capacity_flag_mismatch_never_fast_forwards(rig):
     from cruise_control_tpu_torch.facade import CruiseControl
     _sim, _jmon, pmon, _store, _clock = rig
-    cc = CruiseControl(pmon, device="cpu")
+    cc = CruiseControl(load_monitor=pmon, device="cpu")
     cc._model_for_solve()
     pmon.apply_model_delta(PD.ModelDelta(
         capacity_overrides={0: {"disk": 9e5}}))
@@ -387,7 +388,7 @@ def test_failure_mid_apply_quarantines(rig):
     assert not store.to_json()["resident"]
     # the next consult rebuilds and installs
     from cruise_control_tpu_torch.facade import CruiseControl
-    cc = CruiseControl(pmon, device="cpu")
+    cc = CruiseControl(load_monitor=pmon, device="cpu")
     cc.model_store = store
     state, _ = cc._model_for_solve()
     assert store.to_json()["resident"] and store.misses == 1
@@ -418,4 +419,5 @@ def test_monitor_raises_without_a_card_unless_cpu():
         pytest.skip("a card is present")
     snap = PT.ClusterSnapshot(1, (PT.BrokerInfo(0),), ())
     with pytest.raises(RuntimeError):
-        LoadMonitor(snap, {}, {0: BrokerCapacity((1.0, 1.0, 1.0, 1.0))})
+        SnapshotLoadMonitor(snap, {},
+                            {0: BrokerCapacity((1.0, 1.0, 1.0, 1.0))})
