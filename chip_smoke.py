@@ -5,6 +5,7 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py [--phases 1,2,3,4] [--profile] [--requests-only]
                           [--scenarios-only] [--sampled-only]
+                          [--scheduled-only]
 
 Phases:
   1. the card's name and power limit (nvidia-smi), then the build of the
@@ -163,7 +164,8 @@ Phases:
      left violated, and an all-dirty solve equal to the full one) and
      fast mode under the fused solver (fusion-group segments, the
      host-side skip, the eager abort);
-     Phase 3 ends with requests served through the port's facade
+     Phase 3 ends with requests served through the port's facade, its
+     scheduler off so that each solves inline
      (`CruiseControl` over a `SnapshotLoadMonitor`, fed the description
      of a
      generated cluster: `served_inputs`, each topic's partitions
@@ -174,10 +176,10 @@ Phases:
      every request, the resident model equal to a rebuild after each
      fast-forward, and the times of each request (wall, the rebuild's
      builder loop and move to the card, the fast-forward, the solve):
-     `optimizations` cold, its cache hit, a narrow delta (a restricted
-     warm solve over at most 25 dirty brokers), a wide delta (warm,
-     unrestricted, one counted fallback), `rebalance` with the
-     self-healing options and an excluded-topics pattern, the
+     `optimizations` cold, its cache hit, `rebalance` with the
+     self-healing options and an excluded-topics pattern, a narrow delta
+     (a restricted warm solve over at most 25 dirty brokers), a wide
+     delta (warm, unrestricted, one counted fallback), the
      kafka-assigner `rebalance`, `demote_brokers` and `remove_brokers`
      of brokers 0 and 100, `add_brokers` of the 10 appended brokers from
      the add-broker request's rack-aware placement, and
@@ -206,7 +208,18 @@ Phases:
      no refresh by hand), each broker's sampled load within 1e-6 of the
      cluster's, both requests against a CPU facade, the seconds of each
      round and each request split into aggregation, builder loop,
-     arrays, move to the card and solve;
+     arrays, move to the card and solve; then the what-if requests
+     (`run_scenarios`), and last the requests through the device-time
+     scheduler (`run_scheduled`): a facade with its scheduler on, one
+     background precompute pass parked at its first goal-segment
+     checkpoint until the interactive self-healing `rebalance` queues,
+     which then runs first and preempts it; both results equal to their
+     inline twins above bit for bit, the resident model and the seed
+     unchanged, the preempted trace pinned in the flight recorder, K9's
+     scratch zero, no new counter slot; two identical concurrent requests
+     coalesced to one solve, two what-if sweeps folded into one batch
+     (each lane equal to the what-if batch's), and `state()` with the
+     OpenMetrics page;
   4. scale, 2,600 brokers / 200K partitions / 26 racks / 100 topics: the
      whole default stack (bench.py's "north" preset), the four-goal solve,
      config 5 (52 broken logdirs), the six hard goals with brokers 0,
@@ -220,12 +233,17 @@ Phases:
      one-minute progress check and no journal, the sampled cold request
      (card only, with its gates and the load check), and `remove_brokers` of
      two candidate sets of 26 brokers (every lane feasible) and the host
-     rung's wall with broker 0 dead; then
+     rung's wall with broker 0 dead, and the scheduled precompute
+     preempted by `remove_brokers` of 26 brokers on the served facade
+     (the served cold model put back as its resident; the precompute
+     equal to the served cold request); then
      the widest rank_accept call of the run
      must be one phase 2 checked.  --requests-only runs only the request
      paths and the served, executed, sampled and what-if requests in
      phases 3 and 4, --scenarios-only only the what-if requests,
-     --sampled-only only the sampled ones, and --profile with
+     --sampled-only only the sampled ones, --scheduled-only only the
+     scheduled ones (their inline yardsticks solved on the card first),
+     and --profile with
      --requests-only profiles the request paths beside their option-less
      twins.
 With --profile, default-stack solves in turns and two more profiled (with
@@ -4049,6 +4067,7 @@ def run_slice(results: dict) -> None:
     run_executed(results, north=False)
     run_sampled(results, north=False)
     run_scenarios(results, north=False)
+    run_scheduled(results, north=False)
     results["_identical"] = True
 
 
@@ -4243,11 +4262,12 @@ SERVED_WIDE_PARTITIONS = 64
 SERVED_PATTERN = "topic-[03]"
 #: the store's counters after each request of the 200-broker sequence
 #: (hits, misses, fallbacks, delta applies): a cold miss, the cache (no
-#: consult), two fast-forwards (the second's dirty region too large: a
-#: fallback, counted as a miss), then a resident hit a request
+#: consult), a resident hit, two fast-forwards (the second's dirty region
+#: too large: a fallback, counted as a miss), then a resident hit a
+#: request
 SERVED_STORE = {"cold": (0, 1, 0, 0), "cache hit": (0, 1, 0, 0),
-                "narrow delta": (1, 1, 0, 1), "wide delta": (2, 2, 1, 2),
-                "self-healing options": (3, 2, 1, 2),
+                "self-healing options": (1, 1, 0, 0),
+                "narrow delta": (2, 1, 0, 1), "wide delta": (3, 2, 1, 2),
                 "kafka assigner": (4, 2, 1, 2), "demote": (5, 2, 1, 2),
                 "remove": (6, 2, 1, 2)}
 
@@ -4313,12 +4333,14 @@ def served_meter():
 def served_facade(inputs, device: str, **settings):
     """(monitor, facade) on `device` over a cluster's description
     (`served_inputs`: snapshot, leader loads, capacities) in a
-    `SnapshotLoadMonitor`: the default stack at 192 rounds, every other
-    setting the reference's default unless `settings` names it."""
+    `SnapshotLoadMonitor`: the default stack at 192 rounds, its scheduler
+    disabled (each request solves inline on the calling thread), every
+    other setting the reference's default unless `settings` names it."""
     from cruise_control_tpu_torch.facade import CruiseControl
     from cruise_control_tpu_torch.monitor.load_monitor import \
         SnapshotLoadMonitor
     monitor = SnapshotLoadMonitor(*inputs, device=device)
+    settings.setdefault("scheduler_enabled", False)
     return monitor, CruiseControl(load_monitor=monitor, device=device,
                                   max_optimization_rounds=192, **settings)
 
@@ -4394,7 +4416,8 @@ def serve(label: str, call, cc, monitor, kernels=(), expect_store=None,
                launches=launches, store=counts, dirty=dirty,
                build=build, advance_s=sum(rec["advance_s"]),
                solve_s=sum(s["seconds"] for s in rec["solves"]),
-               solves=len(rec["solves"]), facade=cc)
+               solves=len(rec["solves"]), facade=cc,
+               resident=(store._state, store._topology))
     where = "card" if on_card else "CPU"
     log(f"    served {label} ({where}): wall {wall:.3f} s; rebuild "
         + (f"{build['total']:.3f} s (builder loop {build['describe']:.3f}, "
@@ -4471,6 +4494,32 @@ def served_equal(card: dict, cpu: dict) -> None:
                              f"from the CPU facade: {same}")
 
 
+class HealingPatternGenerator:
+    """The options generator of the served facades' self-healing
+    request: the deployment's excluded-topics pattern (`SERVED_PATTERN`)
+    merged into a request triggered by a goal violation, any other
+    request's options as they are."""
+
+    def __init__(self) -> None:
+        from cruise_control_tpu_torch.analyzer.options_generator import \
+            DefaultOptimizationOptionsGenerator
+        self._pattern = DefaultOptimizationOptionsGenerator(SERVED_PATTERN)
+        self._plain = DefaultOptimizationOptionsGenerator()
+
+    def generate(self, options, topology=None):
+        gen = (self._pattern if options.is_triggered_by_goal_violation
+               else self._plain)
+        return gen.generate(options, topology)
+
+
+def healing_options(cc):
+    """The self-healing request's options: brokers 0 and 100 take no
+    leadership, 50 and 150 no replicas."""
+    return cc._self_healing_options(
+        recently_demoted=HEAL_EXCLUDED_LEADERSHIP,
+        recently_removed=HEAL_EXCLUDED_MOVES)
+
+
 def _served_sequence(device: str, inputs, north: bool, add_start=None,
                      jbod=None) -> list:
     """The requests of the served path on `device`, in order (see
@@ -4479,8 +4528,6 @@ def _served_sequence(device: str, inputs, north: bool, add_start=None,
     config-5 clusters."""
     from cruise_control_tpu_torch.analyzer.goals.registry import \
         KAFKA_ASSIGNER_GOAL_ORDER
-    from cruise_control_tpu_torch.analyzer.options_generator import \
-        DefaultOptimizationOptionsGenerator
     assert KAFKA_ASSIGNER_GOAL_ORDER == KAFKA_ASSIGNER_GOALS
     monitor, cc = served_facade(inputs, device)
     card = device == "cuda"
@@ -4495,11 +4542,19 @@ def _served_sequence(device: str, inputs, north: bool, add_start=None,
         raise AssertionError("the cache hit solved, launched or answered "
                              "another result")
     out.append(hit)
+    if not north:
+        # the deployment's excluded-topics pattern, for this request
+        cc._options_generator = HealingPatternGenerator()
+        out.append(serve("self-healing options",
+                         lambda: cc.rebalance(options=healing_options(cc)),
+                         cc, monitor, SERVED_STACK_KERNELS,
+                         SERVED_STORE["self-healing options"]))
     monitor.apply_model_delta(served_delta(
         inputs, SERVED_NARROW_PARTITIONS, capacity=True))
+    # at 2,600 brokers no self-healing request came before: one hit less
     narrow = serve("narrow delta", cc.optimizations, cc, monitor,
-                   served_sums, SERVED_STORE["narrow delta"],
-                   rebuild_check=True)
+                   served_sums, (1, 1, 0, 1) if north
+                   else SERVED_STORE["narrow delta"], rebuild_check=True)
     if narrow["dirty"] is None or not 0 < narrow["dirty"] <= min(
             25, num_b // 2) or not narrow["solve"]["warm"]:
         raise AssertionError(f"the narrow delta's solve was not warm and "
@@ -4523,21 +4578,6 @@ def _served_sequence(device: str, inputs, north: bool, add_start=None,
         raise AssertionError("the wide delta's solve was not warm, "
                              "unrestricted and counted as a fallback")
     out.append(wide)
-    healing = cc._self_healing_options(
-        recently_demoted=HEAL_EXCLUDED_LEADERSHIP,
-        recently_removed=HEAL_EXCLUDED_MOVES)
-    generator = cc._options_generator
-    # the deployment's excluded-topics pattern, for this request
-    cc._options_generator = DefaultOptimizationOptionsGenerator(
-        SERVED_PATTERN)
-    try:
-        heal = serve("self-healing options",
-                     lambda: cc.rebalance(options=healing), cc, monitor,
-                     SERVED_STACK_KERNELS,
-                     SERVED_STORE["self-healing options"])
-    finally:
-        cc._options_generator = generator
-    out.append(heal)
     out.append(serve("kafka assigner",
                      lambda: cc.rebalance(kafka_assigner=True), cc, monitor,
                      served_sums,
@@ -4669,9 +4709,14 @@ def run_served(results: dict, north: bool) -> None:
         add_start = (served_inputs(prep, topo), new_ids)
         jbod = describe(SLICE_CONFIG5["spec"])
     card = _served_sequence("cuda", inputs, north, add_start, jbod)
-    # the cold request's inputs and result, for run_executed
-    results[f"_served_cold_{'north' if north else 'slice'}"] = (
-        inputs, card[0]["result"])
+    key = "north" if north else "slice"
+    # the cold request's inputs and result, for run_executed and
+    # run_scheduled; the resident model it built (later requests leave
+    # that state object as it is), and the self-healing request's answer
+    results[f"_served_cold_{key}"] = (inputs, card[0]["result"])
+    results[f"_served_resident_{key}"] = card[0]["resident"]
+    if not north:
+        results["_served_heal_slice"] = (card[2]["result"], card[2]["wall"])
     results[f"_served_{'north' if north else 'slice'}"] = [
         {k: r[k] for k in ("label", "wall", "advance_s", "solve_s", "dirty")}
         | {"rebuild_s": r["build"].get("total"),
@@ -5494,7 +5539,7 @@ def host_rung_wall(cc, dead, label: str) -> float:
 def _scenario_slice(device: str, inputs, add_inputs, new_ids,
                     full: bool) -> dict:
     """The scenario requests of the slice on `device`, in order (see
-    `run_scenarios`): the two that the CPU facade repeats, and with
+    `run_scenarios`): the batch, which the CPU facade repeats, and with
     `full` the rest."""
     import dataclasses
     from cruise_control_tpu_torch.analyzer.degradation import SolverRung
@@ -5504,12 +5549,12 @@ def _scenario_slice(device: str, inputs, add_inputs, new_ids,
     out = {"batch": scenario_request(
         "base + 3", lambda: cc.evaluate_scenarios(scenario_specs()), cc,
         SERVED_STACK_KERNELS)}
+    if not full:
+        return out
     out["remove"] = scenario_request(
         "remove [[0, 100], [50, 150]]",
         lambda: cc.remove_brokers([[0, 100], [50, 150]]), cc,
         SERVED_HEAL_KERNELS)
-    if not full:
-        return out
     # the batch's lanes one at a time (each at its own geometry): K
     # single requests
     out["singles"] = [scenario_request(
@@ -5611,9 +5656,11 @@ def run_scenarios(results: dict, north: bool) -> None:
     At 200 brokers, over the self-healing request's rack-aware placement
     (the default stack at 192 rounds): the base scenario and three
     what-ifs in one batch (10 hypothetical brokers the only
-    destinations, brokers 0 and 100 removed, disk loads x 1.2) and
-    `remove_brokers([[0, 100], [50, 150]])`, each lane equal to the CPU
-    facade's bit for bit; then, on the card only, the batch's lanes as K
+    destinations, brokers 0 and 100 removed, disk loads x 1.2), each lane
+    equal to the CPU facade's bit for bit, and
+    `remove_brokers([[0, 100], [50, 150]])` (held against the CPU until
+    the script's time limit cut that twin); then, on the card only, the
+    batch's lanes as K
     single requests, one batch of the disk what-if after one fault at
     `scenario.execute` (served at EAGER, the per-scenario eager driver,
     equal to its FUSED twin: the single request of the same spec),
@@ -5638,7 +5685,7 @@ def run_scenarios(results: dict, north: bool) -> None:
     if north:
         # the served requests' facade, its model resident, when they ran
         # before
-        cc = results.pop("_served_facade_north", None)
+        cc = results.get("_served_facade_north")
         if cc is None:
             t0 = time.perf_counter()
             inputs = sim_description(served_inputs(*random_cluster(
@@ -5670,8 +5717,13 @@ def run_scenarios(results: dict, north: bool) -> None:
     import torch
     torch.set_num_threads(min(8, os.cpu_count() or 1))
     cpu = _scenario_slice("cpu", inputs, add_inputs, new_ids, full=False)
-    for key in ("batch", "remove"):
-        scenarios_equal(card[key], cpu[key])
+    # the CPU facade repeats the batch only (the remove candidate sets'
+    # CPU twin was cut for the script's time limit: their winner is held
+    # to its single request on the card)
+    scenarios_equal(card["batch"], cpu["batch"])
+    # the batch's lanes (held against the CPU facade), for run_scheduled
+    results["_scenario_batch_slice"] = (card["batch"]["outcomes"],
+                                        card["batch"]["wall"])
     summary = {
         key: dict(wall=card[key]["wall"],
                   lanes=[lane["seconds"] for lane in card[key]["lanes"]],
@@ -5679,11 +5731,471 @@ def run_scenarios(results: dict, north: bool) -> None:
                                  for lane in card[key]["lanes"]])
         for key in ("batch", "remove", "demote", "add", "eager")}
     summary["singles_wall"] = [one["wall"] for one in card["singles"]]
-    summary["cpu_walls"] = {key: cpu[key]["wall"]
-                            for key in ("batch", "remove")}
+    summary["cpu_walls"] = {"batch": cpu["batch"]["wall"]}
     summary["ladder"] = card["ladder"]
     summary["host_rung_s"] = card["host_rung_s"]
     results["_scenarios_slice"] = summary
+
+
+#: the scheduled requests' facade settings: the scheduler on (the
+#: reference's default), everything else as the served facades'
+SCHEDULED = dict(scheduler_enabled=True)
+
+
+def state_hash(state) -> str:
+    """sha256 of every field of a model state, bytes as they lie."""
+    import hashlib
+    from cruise_control_tpu_torch.model.state import STATE_FIELDS
+    h = hashlib.sha256()
+    for f in STATE_FIELDS:
+        h.update(getattr(state, f).detach().cpu().contiguous().numpy()
+                 .tobytes())
+    return h.hexdigest()
+
+
+def result_differences(a, b) -> list:
+    """What two request results do not share: proposals (logdirs and new
+    leaders included), placement and leader flags, rounds and the stats
+    (before, after and by goal) bit for bit."""
+    import torch
+    from cruise_control_tpu_torch.analyzer.optimizer import proposal_set
+    same = {
+        "proposals": (proposal_set(a) == proposal_set(b)
+                      and _logdir_moves(a) == _logdir_moves(b)
+                      and sorted((str(p.partition), p.new_leader)
+                                 for p in a.proposals)
+                      == sorted((str(p.partition), p.new_leader)
+                                for p in b.proposals)),
+        "placement and leaders": all(
+            torch.equal(getattr(a.final_state, f).cpu(),
+                        getattr(b.final_state, f).cpu())
+            for f in ("replica_broker", "replica_disk",
+                      "replica_is_leader")),
+        "rounds": a.rounds_by_goal == b.rounds_by_goal,
+        "stats": not _stats_differences(a, b)}
+    return [k for k, v in same.items() if not v]
+
+
+def _store_counts(cc) -> tuple:
+    counts = cc.model_store.to_json()
+    return (counts["hits"], counts["misses"], counts["fallbacks"],
+            counts["deltaApplies"])
+
+
+def preemption_sequence(cc, label: str, expect_store: tuple,
+                        interactive) -> dict:
+    """One precompute pass on its thread, parked at its first goal-segment
+    checkpoint until the interactive request `interactive()` (a dry run
+    of the facade's default stack) is queued; it then runs first and the
+    precompute runs again to its end.  Gates: that order,
+    one preemption counted, the precompute's trace marked "preempted" and
+    pinned in the flight recorder, the resident model unchanged, the warm
+    seed the precompute's final state, the store's counters moved by
+    `expect_store` (hits, misses, fallbacks, delta applies), K9's
+    scratch zero, no new counter slot, every kernel of the default stack
+    launched.  Returns the
+    results, the preemption latency (the interactive ticket's submission
+    to its dispatch), the precompute's attempts, each goal segment's
+    span of its completed run, and the walls."""
+    import threading
+    import torch
+    from cruise_control_tpu_torch import cuda_kernels
+    from cruise_control_tpu_torch.obs import recorder as obs_recorder
+    from cruise_control_tpu_torch.obs import trace as obs_trace
+    from cruise_control_tpu_torch.sched import runtime as R
+    on_card = cc.device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    order, attempts, marks = [], [], []
+    blocked, queued = threading.Event(), threading.Event()
+    real_checkpoint = R.segment_checkpoint
+    real_solve = cc.goal_optimizer.optimizations
+
+    def checkpoint():
+        # only the precompute (the one preemptible job) has a check
+        if getattr(R._TLS, "preempt_check", None) is not None:
+            sync()
+            marks.append(time.perf_counter())
+            if len(marks) == 1:
+                blocked.set()
+                if not queued.wait(600.0):
+                    raise AssertionError("the interactive request never "
+                                         "queued")
+        real_checkpoint()
+
+    def noted(state, topo, options=None, **kw):
+        # the job's class, from the trace the dispatch thread runs under
+        trace = obs_trace.current()
+        heal = trace.tags.get("schedulerClass") != "PRECOMPUTE"
+        order.append("interactive-solve" if heal else "pre-solve")
+        t0 = time.perf_counter()
+        try:
+            result = real_solve(state, topo, options, **kw)
+        except R.SolvePreempted:
+            sync()
+            attempts.append(dict(preempted=True,
+                                 seconds=time.perf_counter() - t0,
+                                 segments_done=len(marks) - 1))
+            raise
+        sync()
+        if not heal:
+            order.append("pre-complete")
+            attempts.append(dict(preempted=False,
+                                 seconds=time.perf_counter() - t0,
+                                 end=time.perf_counter()))
+        return result
+
+    store = cc.model_store
+    slots = {d: len(v) for d, v in cuda_kernels._ORDERED_SLOTS.items()}
+    sched = cc.solve_scheduler
+    preemptions = sched.stats.preemptions
+    store_before = _store_counts(cc)
+    recorder = obs_recorder.get_recorder()
+    pinned_before = recorder.to_json()["pinnedTotal"]
+    cuda_kernels.reset_launches()
+    R.segment_checkpoint = checkpoint
+    cc.goal_optimizer.optimizations = noted
+    out, tickets = {}, []
+    try:
+        def precompute():
+            t0 = time.perf_counter()
+            try:
+                out["status"] = cc._precompute_once_status()
+            finally:
+                out["pre_wall"] = time.perf_counter() - t0
+
+        def request():
+            R.set_submission_listener(tickets.append)
+            t0 = time.perf_counter()
+            try:
+                out["heal"] = interactive()
+                sync()
+            except BaseException as exc:  # noqa: BLE001 - raised below
+                out["heal_error"] = exc
+            finally:
+                out["heal_wall"] = time.perf_counter() - t0
+                R.clear_submission_listener()
+        pre = threading.Thread(target=precompute, name="precompute-pass")
+        pre.start()
+        if not blocked.wait(600.0):
+            raise AssertionError(f"{label}: the precompute never reached "
+                                 "a segment checkpoint")
+        resident = state_hash(store._state)
+        heal = threading.Thread(target=request, name="interactive")
+        heal.start()
+        deadline = time.monotonic() + 300.0
+        while sched.queue.depth() < 1:
+            if not heal.is_alive() and "heal_error" in out:
+                raise out["heal_error"]
+            if time.monotonic() > deadline or not heal.is_alive():
+                raise AssertionError(
+                    f"{label}: the interactive request never queued "
+                    f"(its thread alive: {heal.is_alive()}, answer "
+                    f"{'heal' in out})")
+            time.sleep(0.001)
+        queued.set()
+        heal.join()
+        pre.join()
+    finally:
+        R.segment_checkpoint = real_checkpoint
+        del cc.goal_optimizer.optimizations
+        queued.set()
+    if "heal_error" in out:
+        raise out["heal_error"]
+    launches = {k: cuda_kernels.LAUNCHES[k] for k in SOURCES}
+    ticket = tickets[0]
+    latency = ticket.started_at - ticket.enqueued_at
+    plan = cc.goal_optimizer._plan_segments()
+    goals = [g.name for g in cc.goal_optimizer.goals]
+    done = [a for a in attempts if not a["preempted"]][0]
+    # the completed run's checkpoints (after the first attempt's one)
+    run_marks = marks[len(marks) - len(plan):] + [done["end"]]
+    spans = [dict(goals=goals[a:b], seconds=run_marks[i + 1] - run_marks[i])
+             for i, (a, b) in enumerate(plan)]
+    # before its first segment: stats, self-healing and the pre-balance;
+    # the last span runs to the solve's end (the post sweep included)
+    pre_program = run_marks[0] - (done["end"] - done["seconds"])
+    preempted = [d for d in recorder.query(outcome="preempted",
+                                           export=False)
+                 if d["tags"].get("schedulerClass") == "PRECOMPUTE"]
+    result = cc._cached_result
+    summary = dict(
+        order=order, latency_s=latency, attempts=attempts,
+        preempted_in_segment=dict(index=0, goals=goals[plan[0][0]:
+                                                      plan[0][1]]),
+        segment_spans=spans, pre_program_s=pre_program,
+        precompute_wall_s=out["pre_wall"],
+        interactive_wall_s=out["heal_wall"],
+        store=_store_counts(cc), launches=launches,
+        scheduler=sched.to_json())
+    log(f"    scheduled ({label}): order {order}; preemption latency "
+        f"{latency * 1e3:.3f} ms; precompute attempts "
+        + ", ".join(f"{a['seconds']:.3f} s"
+                    + (" (preempted)" if a["preempted"] else "")
+                    for a in attempts)
+        + f", pass wall {out['pre_wall']:.3f} s; interactive wall "
+        f"{out['heal_wall']:.3f} s; the re-run's pre-program "
+        f"{pre_program:.3f} s, segments "
+        + ", ".join(f"{'+'.join(s['goals'])} {s['seconds']:.3f} s"
+                    for s in spans)
+        + f"; store {summary['store']}; card {CARD[0]}")
+    if on_card:
+        log(f"      launches {launches}")
+    gates = {
+        "status": out["status"] == "computed",
+        "order": order == ["pre-solve", "interactive-solve", "pre-solve",
+                           "pre-complete"],
+        "one preemption": sched.stats.preemptions == preemptions + 1
+        and cc.metrics.to_json()["sched-preemptions"]["count"] >= 1,
+        "trace preempted and pinned": bool(preempted)
+        and recorder.to_json()["pinnedTotal"] > pinned_before,
+        "resident unchanged": state_hash(store._state) == resident,
+        "seed is the precompute's": cc._warm_seed is not None
+        and cc._warm_seed[0] is result.final_state,
+        "store": tuple(a - b for a, b in zip(summary["store"],
+                                             store_before)) == expect_store,
+        "counter slots": {d: len(v) for d, v in
+                          cuda_kernels._ORDERED_SLOTS.items()} == slots,
+        "scratch": (not on_card) or scratch_is_zero(),
+        "launches": (not on_card) or all(
+            launches[k] > 0 for k in SERVED_STACK_KERNELS)}
+    log(f"      gates {gates}")
+    if not all(gates.values()):
+        raise AssertionError(f"scheduled ({label}): gates {gates}")
+    return dict(summary, precompute=result,
+                interactive=out["heal"].optimizer_result, resident=resident)
+
+
+def coalesce_and_fold(cc, batch_outcomes) -> dict:
+    """Two concurrent identical `optimizations(ignore_proposal_cache=True)`
+    coalesce to one solve (one result object), then two compatible
+    what-if sweeps of two specs each fold into one engine batch (the base
+    solved once), each split outcome equal to that spec's lane of
+    `batch_outcomes` (phase 3's batch of the base and three what-ifs);
+    the dispatch thread parked on a gate job while each pair queues."""
+    import threading
+    import torch
+    from cruise_control_tpu_torch.sched.policy import SchedulerClass
+    from cruise_control_tpu_torch.sched.scheduler import SolveJob
+    sched = cc.solve_scheduler
+
+    def parked():
+        gate, started = threading.Event(), threading.Event()
+
+        def hold():
+            started.set()
+            gate.wait(600.0)
+        t = threading.Thread(target=lambda: sched.submit(SolveJob(
+            klass=SchedulerClass.ANOMALY_HEAL, run=hold, label="gate")))
+        t.start()
+        started.wait(60.0)
+        return gate, t
+
+    def wait_for(pred):
+        deadline = time.monotonic() + 60.0
+        while not pred():
+            if time.monotonic() > deadline:
+                raise AssertionError("scheduled: a request never queued")
+            time.sleep(0.001)
+    solves = []
+    real_solve = cc.goal_optimizer.optimizations
+    cc.goal_optimizer.optimizations = lambda *a, **kw: (
+        solves.append(1), real_solve(*a, **kw))[1]
+    got = {}
+    try:
+        coalesced = sched.stats.coalesced
+        gate, gate_thread = parked()
+        pair = [threading.Thread(target=lambda i=i: got.setdefault(
+            i, cc.optimizations(ignore_proposal_cache=True)))
+            for i in range(2)]
+        t0 = time.perf_counter()
+        for t in pair:
+            t.start()
+        wait_for(lambda: sched.stats.coalesced == coalesced + 1)
+        gate.set()
+        for t in pair + [gate_thread]:
+            t.join()
+        if cc.device.type == "cuda":
+            torch.cuda.synchronize()
+        coalesce_wall = time.perf_counter() - t0
+    finally:
+        del cc.goal_optimizer.optimizations
+    by_name = {o.spec.name: o for o in batch_outcomes}
+    specs = [o.spec for o in batch_outcomes if o.spec.name != "__base__"]
+    sweeps = [specs[:2], specs[1:]]
+    engine = cc.scenario_engine
+    batches, folded = engine.total_batches, sched.stats.folded
+    answers = {}
+    gate, gate_thread = parked()
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=lambda i=i, s=s: answers.setdefault(
+        i, cc.evaluate_scenarios(s))) for i, s in enumerate(sweeps)]
+    for n, t in enumerate(threads, 1):
+        t.start()
+        wait_for(lambda n=n: sched.queue.depth() == n)
+    gate.set()
+    for t in threads + [gate_thread]:
+        t.join()
+    if cc.device.type == "cuda":
+        torch.cuda.synchronize()
+    fold_wall = time.perf_counter() - t0
+    diffs = {f"sweep {i} {o.spec.name}": outcome_differences(
+        o, by_name[o.spec.name])
+        for i, a in answers.items() for o in a.outcomes}
+    diffs = {k: sorted(v) for k, v in diffs.items() if v}
+    summary = dict(coalesced_solves=len(solves),
+                   coalesce_wall_s=coalesce_wall,
+                   fold_batch_size=engine.last_batch_size,
+                   sweeps_alone=[len(s) + 1 for s in sweeps],
+                   fold_wall_s=fold_wall,
+                   fold_lane_s=answers[0].solve_s)
+    log(f"    scheduled: two identical requests, {len(solves)} solve "
+        f"({coalesce_wall:.3f} s); two sweeps of {len(sweeps[0])} specs "
+        f"folded into one batch of {engine.last_batch_size} (alone "
+        f"{summary['sweeps_alone']}) in {fold_wall:.3f} s; lanes equal to "
+        f"phase 3's batch: {not diffs}")
+    gates = {
+        "one solve": len(solves) == 1 and got[0] is got[1],
+        "one batch": engine.total_batches == batches + 1
+        and sched.stats.folded == folded + 1
+        and engine.last_batch_size == 1 + sum(len(s) for s in sweeps),
+        "base shared": answers[0].outcomes[0] is answers[1].outcomes[0],
+        "lanes": not diffs}
+    if not all(gates.values()):
+        raise AssertionError(f"scheduled: gates {gates}, lane "
+                             f"differences {diffs}")
+    return summary
+
+
+def observability_gate(cc) -> dict:
+    """`state()` (every substate the port has, sensors included) renders
+    to JSON, and the OpenMetrics page parses with every sensor on it."""
+    import re
+    from cruise_control_tpu_torch.obs import export as obs_export
+    from cruise_control_tpu_torch.utils.metrics import canonical_sensor_name
+    doc = cc.state(["monitor", "executor", "analyzer", "scenario",
+                    "scheduler", "incremental", "slo", "sensors"])
+    text = json.dumps(doc, sort_keys=True)
+    page = obs_export.render_for(cc)
+    sample = re.compile(r'^[a-zA-Z_][a-zA-Z0-9_]*(\{[^}]*\})? '
+                        r'(-?[0-9.]+(e[+-]?[0-9]+)?|NaN)$')
+    bad = [line for line in page.splitlines()[:-1]
+           if not (line.startswith("# TYPE ") or sample.match(line))]
+    missing = [s for s in doc["Sensors"]
+               if canonical_sensor_name(s) not in page]
+    log(f"    state(): {len(text)} bytes, {len(doc['Sensors'])} sensors; "
+        f"OpenMetrics page {len(page.splitlines())} lines; scheduler "
+        f"{json.dumps({k: doc['SchedulerState'][k] for k in ('submitted', 'completed', 'coalesced', 'folded', 'preemptions', 'occupancy')})}"
+        f"; SLO {doc['sloStatus']['status']}")
+    if bad or missing or not page.endswith("# EOF\n"):
+        raise AssertionError(f"OpenMetrics page: unparseable {bad[:3]}, "
+                             f"missing {missing}")
+    return dict(sensors=len(doc["Sensors"]), page_lines=len(
+        page.splitlines()), slo=doc["sloStatus"]["status"])
+
+
+def run_scheduled(results: dict, north: bool, device: str = "cuda") -> None:
+    """Requests through the port's device-time scheduler (`sched/`): every
+    solve a job of its dispatch thread.
+
+    At 200 brokers, a facade with its scheduler on over the served
+    requests' description: one precompute pass preempted by the
+    interactive self-healing request (`preemption_sequence`), each
+    result equal bit for bit to its inline twin of `run_served` (the
+    cold request and the self-healing one, both held against the CPU
+    there), the resident model equal to the served one's; then two
+    identical requests coalesced and two what-if sweeps folded
+    (`coalesce_and_fold`), and `state()` and the OpenMetrics page.  At
+    2,600 brokers, on `run_served`'s facade (its scheduler turned on, the
+    served cold model put back as the store's resident at a new
+    generation, so no rebuild): the same preemption sequence with the
+    served `remove_brokers` of 26 brokers as the interactive request, the
+    precompute equal to the served cold request bit for bit."""
+    from cruise_control_tpu_torch.sched import runtime as R
+    where = "2,600 brokers" if north else "slice"
+    log(f"  -- scheduled requests ({where}): the port's CruiseControl "
+        "behind its device-time scheduler")
+    key = "north" if north else "slice"
+    if f"_served_cold_{key}" not in results:
+        # run alone (--scheduled-only): the inline yardsticks on the card
+        inputs = served_description(north)
+        _, inline = served_facade(inputs, "cuda")
+        inline._options_generator = HealingPatternGenerator()
+        cold = inline.optimizations()
+        results[f"_served_cold_{key}"] = (inputs, cold)
+        results[f"_served_resident_{key}"] = (inline.model_store._state,
+                                              inline.model_store._topology)
+        if north:
+            results["_served_facade_north"] = inline
+        else:
+            t0 = time.perf_counter()
+            heal = inline.rebalance(options=healing_options(inline))
+            results["_served_heal_slice"] = (heal.optimizer_result,
+                                             time.perf_counter() - t0)
+            results["_scenario_batch_slice"] = (inline.evaluate_scenarios(
+                scenario_specs()).outcomes, None)
+    inputs, cold = results[f"_served_cold_{key}"]
+    state0, topo0 = results[f"_served_resident_{key}"]
+    if north:
+        cc = results["_served_facade_north"]
+        cc.solve_scheduler.enabled = True
+        # the served cold model back as the resident one, at a new
+        # generation (the overlay cleared: the monitor builds that model)
+        generation = cc.load_monitor.clear_model_overlay()
+        cc.model_store.install(generation, state0, topo0, True,
+                               cc.load_monitor.follower_cpu_estimator())
+    else:
+        _, cc = served_facade(inputs, device, **SCHEDULED)
+        # the served self-healing request's pattern (on the random north
+        # placement a request with excluded topics cannot fix the rack
+        # violations and aborts, in the reference too: PERF.md §4)
+        cc._options_generator = HealingPatternGenerator()
+    if cc.solve_scheduler.enabled is not True or R.under_gateway():
+        raise AssertionError("scheduled: the facade's scheduler is off")
+    # the store: at 200 brokers the first attempt rebuilds (a miss, as
+    # the served cold request did), the interactive request and the
+    # re-run hit; at 2,600 all three hit the model put back.  The
+    # interactive request at 200 brokers is the served self-healing
+    # `rebalance`; at 2,600 brokers, where a `rebalance` with the
+    # self-healing options leaves the random placement's rack violations
+    # (RackAwareGoal still violated, chip runs of this change), the
+    # served `remove_brokers` of 26 brokers
+    removed = list(range(0, 2600, 100))
+    interactive = ((lambda: cc.remove_brokers(removed)) if north
+                   else (lambda: cc.rebalance(options=healing_options(cc))))
+    seq = preemption_sequence(cc, where, (3, 0, 0, 0) if north
+                              else (2, 1, 0, 0), interactive)
+    twins = {"precompute": cold}
+    if not north:
+        twins["interactive"] = results["_served_heal_slice"][0]
+    diffs = {k: result_differences(seq[k], twin)
+             for k, twin in twins.items()}
+    resident_equal = seq["resident"] == state_hash(state0)
+    seed_equal = state_hash(cc._warm_seed[0]) == state_hash(
+        cold.final_state)
+    log(f"    scheduled ({where}): equal to the inline twins "
+        f"{ {k: not v for k, v in diffs.items()} }, resident model equal "
+        f"to the served one {resident_equal}, seed equal to the served "
+        f"cold final state {seed_equal}")
+    if any(diffs.values()) or not resident_equal or not seed_equal:
+        raise AssertionError(f"scheduled ({where}): differences {diffs}, "
+                             f"resident {resident_equal}, seed "
+                             f"{seed_equal}")
+    summary = {k: seq[k] for k in (
+        "latency_s", "attempts", "preempted_in_segment", "segment_spans",
+        "pre_program_s", "precompute_wall_s", "interactive_wall_s", "store", "order")}
+    summary["inline_wall_s"] = {
+        "interactive": (None if north
+                        else results["_served_heal_slice"][1]),
+        "cold": next((r["wall"] for r in results.get(f"_served_{key}", [])
+                      if r["label"] == "cold"), None)}
+    summary["card"] = CARD[0]
+    if not north:
+        outcomes, batch_wall = results["_scenario_batch_slice"]
+        summary.update(coalesce_and_fold(cc, outcomes))
+        summary["phase3_batch_wall_s"] = batch_wall
+        summary["observability"] = observability_gate(cc)
+    cc.shutdown()
+    results[f"_scheduled_{key}"] = summary
 
 
 def profile_slice(solve: dict, device: str = "cuda",
@@ -5820,6 +6332,7 @@ def run_scale(results: dict) -> None:
     run_executed(results, north=True)
     run_sampled(results, north=True)
     run_scenarios(results, north=True)
+    run_scheduled(results, north=True)
 
 
 def _most_launched(splits: dict, prefix: str, measured) -> str:
@@ -5859,6 +6372,44 @@ def pick_records(results: dict) -> None:
             f"(the default stack's launches by mode {counts})")
 
 
+def build_from_two_threads(cuda_kernels) -> int:
+    """The kernel library built by two threads at once, as a scheduler's
+    dispatch thread and a caller could both reach the first launch: one
+    nvcc compile per source (none when the library is already built) and
+    one library for both.  Returns the compiles."""
+    import threading
+    real = subprocess.Popen
+    compiles, libs, errors = [], [], []
+
+    def popen(args, *a, **kw):
+        if "-c" in args:
+            compiles.append(args)
+        return real(args, *a, **kw)
+
+    def build():
+        try:
+            libs.append(cuda_kernels.build())
+        except BaseException as exc:  # noqa: BLE001 - raised below
+            errors.append(exc)
+    subprocess.Popen = popen
+    try:
+        threads = [threading.Thread(target=build) for _ in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    finally:
+        subprocess.Popen = real
+    if errors:
+        raise errors[0]
+    if len(compiles) not in (0, len(cuda_kernels.SOURCES)) \
+            or libs[0] is not libs[1]:
+        raise AssertionError(f"two threads built the kernels "
+                             f"{len(compiles)} times over "
+                             f"{len(cuda_kernels.SOURCES)} sources")
+    return len(compiles)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="1,2,3,4")
@@ -5876,6 +6427,10 @@ def main(argv=None) -> int:
                     help="phases 3 and 4 run only the requests served "
                          "from metric samples (the facade's own "
                          "LoadMonitor over a simulated cluster)")
+    ap.add_argument("--scheduled-only", action="store_true",
+                    help="phases 3 and 4 run only the requests through "
+                         "the device-time scheduler (preemption, "
+                         "coalescing, folding, state())")
     ap.add_argument("--parent", default=None,
                     help="a checkout of the parent tree: phase 2 times its "
                          "K6 and K10 chains as yardsticks and its K7 beside "
@@ -5904,8 +6459,9 @@ def main(argv=None) -> int:
     log(f"[1] card: {smi} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | {name}")
     from cruise_control_tpu_torch import cuda_kernels
-    cuda_kernels.build()
-    log(f"[1] kernels built in {cuda_kernels.BUILD_INFO['seconds']:.1f} s")
+    compiles = build_from_two_threads(cuda_kernels)
+    log(f"[1] kernels built in {cuda_kernels.BUILD_INFO['seconds']:.1f} s, "
+        f"by two threads at once: {compiles} nvcc compiles, one library")
     for line in cuda_kernels.BUILD_INFO["log"].splitlines():
         if ("registers" in line or "spill" in line or "error" in line
                 or line.startswith("==")):
@@ -6013,12 +6569,15 @@ def main(argv=None) -> int:
                 run_scenarios(results, north=False)
             elif args.sampled_only:
                 run_sampled(results, north=False)
+            elif args.scheduled_only:
+                run_scheduled(results, north=False)
             elif args.requests_only:
                 run_requests(results, north=False)
                 run_served(results, north=False)
                 run_executed(results, north=False)
                 run_sampled(results, north=False)
                 run_scenarios(results, north=False)
+                run_scheduled(results, north=False)
             else:
                 run_slice(results)
             log(f"[t] {time.time() - t_run:.1f} s")
@@ -6030,12 +6589,15 @@ def main(argv=None) -> int:
                 run_scenarios(results, north=True)
             elif args.sampled_only:
                 run_sampled(results, north=True)
+            elif args.scheduled_only:
+                run_scheduled(results, north=True)
             elif args.requests_only:
                 run_requests(results, north=True)
                 run_served(results, north=True)
                 run_executed(results, north=True)
                 run_sampled(results, north=True)
                 run_scenarios(results, north=True)
+                run_scheduled(results, north=True)
             else:
                 run_scale(results)
             log(f"[t] {time.time() - t_run:.1f} s")
@@ -6178,6 +6740,8 @@ def main(argv=None) -> int:
         k: results.get(f"_sampled_{k}") for k in ("slice", "north")}))
     log("[5] what-if scenarios and the ladder: " + json.dumps({
         k: results.get(f"_scenarios_{k}") for k in ("slice", "north")}))
+    log("[5] scheduled requests: " + json.dumps({
+        k: results.get(f"_scheduled_{k}") for k in ("slice", "north")}))
     log("[5] rank_accept: " + json.dumps(results.get("rank_accept")))
     for k in ("commit_moves", "_commit_moves_north", "commit_leadership",
               "_commit_leadership_north", "segment_sum", "ordered_sum",

@@ -1,7 +1,8 @@
 """The facade (port of the request methods, the proposal cache, the warm
 seed, the dirty region, the device model store consult, the degradation
-ladder, the what-if scenarios and the execution side of
-cruise_control_tpu/facade.py).
+ladder, the what-if scenarios, the execution side, the device-time
+scheduler gateway, the background proposal precompute and the
+observability surface of cruise_control_tpu/facade.py).
 
 `CruiseControl` serves the reference's proposal requests over a load
 monitor: `optimizations`, `rebalance`, `add_brokers`, `remove_brokers`,
@@ -19,8 +20,15 @@ proposal cache while the model generation holds; otherwise they solve
 warm from the last such request's final placement, restricted to the
 brokers its deltas touched when those are few enough.
 
-Every solve runs inline on the facade's device (the card unless "cpu"
-is asked for); there is no scheduler.  A proposal request's solve goes
+Every solve runs on the facade's device (the card unless "cpu" is asked
+for) through one gateway, `_scheduled_solve`: the device-time scheduler
+(sched/) runs it on its dispatch thread in priority order, coalesces
+identical requests, folds compatible what-if sweeps into one batch and
+preempts the background precompute at a goal-segment boundary when a
+more urgent request queues (`scheduler_enabled=False` runs each job
+inline on the caller's thread, with the same results).  With
+`start_up(start_proposal_precompute=True)` a background thread keeps the
+proposal cache warm.  A proposal request's solve goes
 through the degradation ladder (analyzer/degradation.py): a failure is
 retried with backoff, then served from the next rung down — FUSED, then
 EAGER, then the host fallback (model/cpu_model.py) — with the request's
@@ -44,6 +52,12 @@ replicas, logdirs and leadership through that client; with
 flight.  The sampled monitor refreshes the cluster's metadata for each
 model and samples the executed placement in its next rounds; a
 `SnapshotLoadMonitor` is refreshed by its caller (`update_cluster`).
+
+The facade's sensors live in one `MetricRegistry` (`metrics`; OpenMetrics
+through obs/export.py), every finished trace in the flight recorder
+(obs/recorder.py), and `state()` reports the monitor, the executor, the
+analyzer, the scenario engine, the scheduler, the model store, the SLOs
+(obs/slo.py) and the sensors.
 """
 from __future__ import annotations
 
@@ -59,7 +73,7 @@ from cruise_control_tpu_torch.analyzer.context import (BalancingConstraint,
                                                        OptimizationOptions)
 from cruise_control_tpu_torch.analyzer.degradation import (
     BackoffPolicy, CircuitBreaker, DegradationLadder, FailureKind,
-    SolverRung, classify_failure, ladder_material)
+    InvalidModelInputError, SolverRung, classify_failure, ladder_material)
 from cruise_control_tpu_torch.analyzer.goals.base import OptimizationFailure
 from cruise_control_tpu_torch.analyzer.goals.registry import (
     DEFAULT_GOAL_ORDER, KAFKA_ASSIGNER_GOAL_ORDER, default_goals, make_goal)
@@ -75,6 +89,7 @@ from cruise_control_tpu_torch.executor.executor import (Executor,
                                                         ExecutorNotifier)
 from cruise_control_tpu_torch.executor.journal import (
     DEFAULT_SEGMENT_MAX_BYTES, ExecutionJournal)
+from cruise_control_tpu_torch.executor.state import ExecutorPhase
 from cruise_control_tpu_torch.executor.strategy import \
     ReplicaMovementStrategy
 from cruise_control_tpu_torch.model import state as S
@@ -83,13 +98,21 @@ from cruise_control_tpu_torch.model.state import own_copy as _own_copy
 from cruise_control_tpu_torch.model.store import DeviceModelStore
 from cruise_control_tpu_torch.model.topology import PartitionId
 from cruise_control_tpu_torch.monitor.load_monitor import LoadMonitor
+from cruise_control_tpu_torch.obs import recorder as obs_recorder
 from cruise_control_tpu_torch.obs import trace as obs_trace
+from cruise_control_tpu_torch.obs.slo import SloEvaluator
 from cruise_control_tpu_torch.scenario.engine import (BASE_SCENARIO_NAME,
                                                       ScenarioBatchResult,
                                                       ScenarioEngine)
 from cruise_control_tpu_torch.scenario.spec import (BrokerAdd, ScenarioSpec,
                                                     candidate_broker_sets)
-from cruise_control_tpu_torch.sched.policy import SchedulerClass
+from cruise_control_tpu_torch.sched import runtime as sched_runtime
+from cruise_control_tpu_torch.sched.policy import (SchedulerClass,
+                                                   SchedulerPolicy)
+from cruise_control_tpu_torch.sched.scheduler import (DeviceTimeScheduler,
+                                                      SolveJob)
+from cruise_control_tpu_torch.utils import faults
+from cruise_control_tpu_torch.utils.metrics import MetricRegistry
 
 LOG = logging.getLogger(__name__)
 #: operations audit log: one INFO line per requested mutation
@@ -161,7 +184,12 @@ class CruiseControl:
     `max_optimization_rounds` sets the default stack's rounds (hard
     goals keep at least 1,024); `executor_kwargs` go to the `Executor`
     (its caps, intervals, timeouts and throttle); `sleep_fn` waits out
-    the executor's polls and the ladder's retry backoff."""
+    the executor's polls and the ladder's retry backoff.  The
+    `scheduler_*` settings build the facade's `DeviceTimeScheduler`, or
+    `solve_scheduler=` brings one (the facade then neither attaches its
+    sensors nor stops it); the `obs_*` settings reconfigure the
+    process-wide tracing and flight recorder when given; the `slo_*`
+    settings are the SLO evaluator's."""
 
     def __init__(self, admin=None, sampler=None, capacity_resolver=None, *,
                  load_monitor=None, monitor_kwargs: Optional[dict] = None,
@@ -172,6 +200,10 @@ class CruiseControl:
                  balancedness_weights: Tuple[float, float] = (1.1, 1.5),
                  options_generator=None,
                  proposal_expiration_s: float = 900.0,
+                 proposal_precompute_interval_s: float = 30.0,
+                 allow_capacity_estimation_on_precompute: bool = True,
+                 precompute_eager_hard_abort: bool = False,
+                 precompute_solve_deadline_s: float = 1800.0,
                  warm_start_proposals: bool = True,
                  solver_fusion_enabled: bool = False,
                  solver_host_skip_enabled: bool = False,
@@ -193,6 +225,23 @@ class CruiseControl:
                  executor_journal_dir: Optional[str] = None,
                  executor_recovery_mode: str = "resume",
                  executor_journal_segment_max_bytes: Optional[int] = None,
+                 scheduler_enabled: bool = True,
+                 scheduler_preemption_enabled: bool = True,
+                 scheduler_class_weights: Optional[Sequence[float]] = None,
+                 scheduler_class_queue_caps: Optional[Sequence[int]] = None,
+                 scheduler_class_deadline_budgets_s: Optional[
+                     Sequence[float]] = None,
+                 solve_scheduler: Optional[DeviceTimeScheduler] = None,
+                 obs_tracing_enabled: Optional[bool] = None,
+                 obs_trace_log_enabled: Optional[bool] = None,
+                 obs_flight_recorder_capacity: Optional[int] = None,
+                 obs_flight_recorder_max_pinned: Optional[int] = None,
+                 obs_trace_sample_rate: Optional[float] = None,
+                 metrics_bucket_overrides: Optional[dict] = None,
+                 slo_enabled: bool = True,
+                 slo_objectives: Optional[dict] = None,
+                 slo_window_s: float = 300.0,
+                 slo_alert_threshold: float = 2.0,
                  time_fn: Optional[Callable[[], float]] = None,
                  sleep_fn: Optional[Callable[[float], None]] = None
                  ) -> None:
@@ -206,6 +255,22 @@ class CruiseControl:
         self.device = resolve_device(device)
         self._time = time_fn or _time.time
         self._sleep = sleep_fn or _time.sleep
+        # process-wide tracing and flight-recorder switches: only an
+        # explicit setting reconfigures them
+        if (obs_tracing_enabled is not None
+                or obs_trace_log_enabled is not None
+                or obs_trace_sample_rate is not None):
+            obs_trace.configure(enabled=obs_tracing_enabled,
+                                trace_log_enabled=obs_trace_log_enabled,
+                                sample_rate=obs_trace_sample_rate)
+        if (obs_flight_recorder_capacity is not None
+                or obs_flight_recorder_max_pinned is not None):
+            obs_recorder.configure(
+                capacity=obs_flight_recorder_capacity,
+                max_pinned=obs_flight_recorder_max_pinned)
+        #: the reference's sampler (read for sampler-corrupt-records);
+        #: None over a built monitor
+        self._sampler = sampler
         if load_monitor is None:
             if admin is None or sampler is None:
                 raise ValueError("CruiseControl needs the cluster's admin "
@@ -239,9 +304,8 @@ class CruiseControl:
                 notifier=executor_notifier, time_fn=self._time,
                 sleep_fn=sleep_fn, journal=self.executor_journal,
                 **(executor_kwargs or {}))
-        #: journal failures (the journal carried on journal-less): their
-        #: count and the last one's text
-        self.journal_error_events = 0
+        #: the text of the last journal failure (the journal carried on
+        #: journal-less; `journal_error_events` counts them)
         self.last_journal_error: Optional[str] = None
         #: the trace of the last `recover_interrupted_execution`
         self.last_recovery_trace: Optional[obs_trace.Trace] = None
@@ -253,8 +317,9 @@ class CruiseControl:
         self._incremental_max_dirty_ratio = min(
             1.0, max(0.0, incremental_max_dirty_ratio))
         self.model_store = DeviceModelStore()
+        self._goal_names = list(goal_names or DEFAULT_GOAL_ORDER)
         self.goal_optimizer = GoalOptimizer(
-            default_goals(names=list(goal_names or DEFAULT_GOAL_ORDER),
+            default_goals(names=self._goal_names,
                           max_rounds=max_optimization_rounds),
             self._constraint, balancedness_weights=balancedness_weights,
             fused_segments=solver_fusion_enabled,
@@ -271,9 +336,23 @@ class CruiseControl:
         #: (final state, model generation it solved) of the last
         #: default-stack request with default options
         self._warm_seed: Optional[Tuple] = None
-        #: dirty-region solves that failed their verdict and were retried
-        #: as a full sweep
-        self.incremental_solve_fallbacks = 0
+
+        # the background proposal precompute (the reference's
+        # GoalOptimizer.run loop): keeps the proposal cache warm
+        self._precompute_interval_s = proposal_precompute_interval_s
+        self._allow_capacity_estimation_precompute = \
+            allow_capacity_estimation_on_precompute
+        #: the precompute's solves abort at the first hard goal still
+        #: violated after its segment (it retries every interval anyway)
+        self._precompute_eager_hard_abort = precompute_eager_hard_abort
+        self._precompute_stop = threading.Event()
+        self._precompute_thread: Optional[threading.Thread] = None
+        #: the wall clock of the precompute pass in flight (None when
+        #: idle) and its scheduler ticket: the watchdog clocks the ticket's
+        #: dispatch, so queue wait does not read as a wedge
+        self._precompute_solve_started_at: Optional[float] = None
+        self._precompute_solve_deadline_s = precompute_solve_deadline_s
+        self._precompute_ticket = None
 
         # the degradation ladder of the request solves
         self._solver_degradation_enabled = solver_degradation_enabled
@@ -289,12 +368,11 @@ class CruiseControl:
         self._solver_top_rung = SolverRung.FUSED
         self.solver_ladder = DegradationLadder(
             self.solver_breaker, top_rung=self._solver_top_rung)
-        #: the ladder's meters (the reference's solver-descents and
-        #: solver-retries) and the rung that served the last proposal
-        #: solve
-        self.solver_descents = 0
-        self.solver_retries = 0
+        #: the rung that served the last proposal solve
         self.last_solve_rung: Optional[SolverRung] = None
+        #: goals whose own pass worsened their violated-broker count in
+        #: the last solve (the goal-self-regressions sensor)
+        self._goal_self_regressions: List[str] = []
         #: the trace of the last request (its outcome: "ok", "degraded")
         self.last_solve_trace: Optional[obs_trace.Trace] = None
 
@@ -309,6 +387,102 @@ class CruiseControl:
             breaker_cooldown_s=solver_breaker_cooldown_s,
             balancedness_weights=balancedness_weights,
             time_fn=self._time, device=self.device)
+
+        # the device-time scheduler: the single gateway of every solve
+        self._owns_scheduler = solve_scheduler is None
+        self.solve_scheduler = solve_scheduler or DeviceTimeScheduler(
+            SchedulerPolicy.from_lists(
+                weights=scheduler_class_weights,
+                queue_caps=scheduler_class_queue_caps,
+                deadline_budgets_s=scheduler_class_deadline_budgets_s,
+                preemption_enabled=scheduler_preemption_enabled),
+            enabled=scheduler_enabled, time_fn=self._time)
+        #: scopes coalesce and fold keys to this facade (model
+        #: generations of two facades collide in value)
+        self._coalesce_scope = f"cc-{id(self):x}"
+
+        # sensors (the reference's dropwizard registry); bucket overrides
+        # apply to histograms created after them
+        self.metrics = MetricRegistry(
+            self._time, bucket_overrides=metrics_bucket_overrides)
+        self._register_sensors()
+        sched_registry = (self.metrics if self._owns_scheduler
+                          else (getattr(self.solve_scheduler, "_metrics",
+                                        None) or self.metrics))
+        self.slo_evaluator = SloEvaluator(
+            sched_registry, objectives=slo_objectives, enabled=slo_enabled,
+            window_s=slo_window_s, alert_threshold=slo_alert_threshold,
+            time_fn=self._time)
+        self.slo_evaluator.attach_metrics(self.metrics)
+
+    def _register_sensors(self) -> None:
+        """The reference's gauges and meters for every module the port
+        has (the goal-violation detector's balancedness-score, the
+        program cache's and the portfolio's sensors and the mesh's
+        recovery sensors come with their modules)."""
+        m = self.metrics
+        m.gauge("solver-rung", lambda: int(self.solver_ladder.rung))
+        m.gauge("mesh-devices", lambda: 1.0)
+        store = self.model_store
+        m.gauge("incremental-store-hits", lambda: float(store.hits))
+        m.gauge("incremental-store-misses", lambda: float(store.misses))
+        m.gauge("incremental-store-fallbacks",
+                lambda: float(store.fallbacks))
+        m.gauge("incremental-store-delta-applies",
+                lambda: float(store.delta_applies))
+        m.gauge("incremental-store-dirty-brokers",
+                lambda: float(store.last_dirty_brokers))
+        m.gauge("goal-self-regressions",
+                lambda: float(len(self._goal_self_regressions)))
+        m.gauge("solver-breaker-open",
+                lambda: 0.0 if self.solver_breaker.cooldown_remaining_s()
+                == 0.0 else 1.0)
+        jrn = lambda: self.executor_journal  # noqa: E731
+        m.gauge("executor-journal-writes",
+                lambda: float(jrn().writes) if jrn() is not None else 0.0)
+        m.gauge("executor-journal-bytes",
+                lambda: (float(jrn().bytes_written)
+                         if jrn() is not None else 0.0))
+        m.gauge("executor-journal-errors",
+                lambda: float(jrn().errors) if jrn() is not None else 0.0)
+        m.gauge("sampler-quarantined-samples",
+                lambda: getattr(self.load_monitor,
+                                "num_quarantined_samples", 0))
+        m.gauge("sampler-corrupt-records",
+                lambda: getattr(self._sampler, "num_corrupt_records", 0))
+        self.scenario_engine.attach_metrics(m)
+        m.gauge("scenario-batch-size",
+                lambda: self.scenario_engine.last_batch_size)
+        m.gauge("scenario-rung",
+                lambda: int(self.scenario_engine.ladder.rung))
+        if self._owns_scheduler:
+            self.solve_scheduler.attach_metrics(m)
+
+    def _meter_count(self, name: str) -> int:
+        """A meter's count, read without creating the meter."""
+        meter = self.metrics.peek(name)
+        return 0 if meter is None else meter.to_json()["count"]
+
+    @property
+    def solver_descents(self) -> int:
+        """Ladder descents (the solver-descents meter)."""
+        return self._meter_count("solver-descents")
+
+    @property
+    def solver_retries(self) -> int:
+        """Retries on a rung (the solver-retries meter)."""
+        return self._meter_count("solver-retries")
+
+    @property
+    def incremental_solve_fallbacks(self) -> int:
+        """Dirty-region solves that failed their verdict and were retried
+        as a full sweep (the incremental-solve-fallbacks meter)."""
+        return self._meter_count("incremental-solve-fallbacks")
+
+    @property
+    def journal_error_events(self) -> int:
+        """Journal failures (the executor-journal-error-events meter)."""
+        return self._meter_count("executor-journal-error-events")
 
     # ------------------------------------------------------------------
     # options
@@ -395,9 +569,23 @@ class CruiseControl:
             LOG.exception("executor crash recovery failed; the journal "
                           "is left in place for manual inspection")
             obs_trace.finish(trace, error=exc)
+            self._report_execution_recovery(
+                None, mode, error=f"{type(exc).__name__}: {exc}")
             return None
         obs_trace.finish(trace)
         if report is not None:
+            self.metrics.meter("executor-recoveries").mark()
+            if report.get("resumed"):
+                # an abort-mode recovery resumes nothing: the meter counts
+                # the work the resumed execution carries
+                self.metrics.meter("executor-resumed-tasks").mark(
+                    report.get("tasksAdopted", 0)
+                    + report.get("tasksPending", 0))
+            if report.get("clearedThrottleBrokers"):
+                self.metrics.meter(
+                    "executor-orphaned-throttles-cleared").mark(
+                    len(report["clearedThrottleBrokers"]))
+            self._report_execution_recovery(report, mode)
             LOG.warning("execution %s recovered (mode=%s): %d terminal, "
                         "%d adopted, %d pending tasks; throttles cleared "
                         "on %s", report.get("uuid"), mode,
@@ -407,29 +595,70 @@ class CruiseControl:
                         report.get("clearedThrottleBrokers", []))
         return report
 
+    def _report_execution_recovery(self, report: Optional[dict], mode: str,
+                                   error: str = "") -> None:
+        """Dump the flight recorder for a recovery (the reference also
+        raises an ExecutionRecovery anomaly, which waits for the port's
+        detector)."""
+        desc = error or (f"recovered execution "
+                         f"{report.get('uuid', '?')}" if report else "")
+        obs_recorder.get_recorder().dump(
+            reason=f"ExecutionRecovery mode={mode} "
+                   f"({desc or 'no report'})")
+
     def _on_journal_error(self, exc: BaseException) -> None:
         """The executor journal degraded to journal-less execution (disk
-        full, EIO): count it and keep it; the rebalance continues."""
-        self.journal_error_events += 1
+        full, EIO): count it (executor-journal-error-events) and keep it;
+        the rebalance continues."""
+        self.metrics.meter("executor-journal-error-events").mark()
         self.last_journal_error = f"{type(exc).__name__}: {exc}"
         LOG.error("executor journal degraded (%s); the execution "
                   "continues journal-less", self.last_journal_error)
 
     def start_up(self, do_sampling: bool = True,
-                 skip_loading_samples: bool = False) -> None:
+                 skip_loading_samples: bool = False,
+                 start_proposal_precompute: bool = False) -> None:
         """Crash recovery first (an execution the previous process left
         in flight is settled before anything samples or solves over a
         half-moved cluster), then the monitor's start-up: the stored
         samples reloaded, and unless `do_sampling` is False its sampling
-        thread started."""
+        thread started; with `start_proposal_precompute` the background
+        precompute thread."""
         self.recover_interrupted_execution()
         self.load_monitor.start_up(do_sampling=do_sampling,
                                    skip_loading_samples=skip_loading_samples)
+        if start_proposal_precompute:
+            self._precompute_stop.clear()
+            self._precompute_thread = threading.Thread(
+                target=self._precompute_loop, name="proposal-precompute",
+                daemon=True)
+            self._precompute_thread.start()
 
     def shutdown(self) -> None:
-        """Stop the executor (force-stop: in-flight reassignments are
-        cancelled), wait for it, close the journal, then stop the
-        monitor (its sampling thread and fetcher pool)."""
+        """Stop the precompute, then the scheduler (queued tickets fail
+        at once, and nothing new is admitted), wait for the precompute
+        thread unless its solve overran its deadline, then stop the
+        executor (force-stop: in-flight reassignments are cancelled),
+        wait for it, close the journal and stop the monitor (its sampling
+        thread and fetcher pool)."""
+        self._precompute_stop.set()
+        if self._owns_scheduler:
+            self.solve_scheduler.stop()
+        if self._precompute_thread is not None:
+            started = self._precompute_solve_started_at
+            if self.precompute_wedged() and started is not None:
+                # the solve overran its deadline: it cannot be aborted,
+                # so shutdown does not wait for it (a daemon thread)
+                LOG.error(
+                    "proposal-precompute solve exceeded its %.0fs "
+                    "deadline (started %.0fs ago); shutting down without "
+                    "waiting for it", self._precompute_solve_deadline_s,
+                    self._time() - started)
+            else:
+                self._precompute_thread.join(timeout=5.0)
+                if self._precompute_thread.is_alive():
+                    LOG.warning("proposal-precompute still running after "
+                                "5s join timeout; shutting down around it")
         if self.executor is not None:
             self.executor.stop_execution(force=True)
             self.executor.await_completion(timeout=30.0)
@@ -449,6 +678,106 @@ class CruiseControl:
         self.load_monitor.resume_metric_sampling(reason)
 
     # ------------------------------------------------------------------
+    # the background proposal precompute (the reference's
+    # GoalOptimizer.run loop): the cache stays warm, so a request answers
+    # from it instead of paying a full solve
+    # ------------------------------------------------------------------
+    def precompute_proposals_once(self) -> bool:
+        """One precompute pass; True when a fresh result was computed.
+        Skipped while the monitor has no valid window, while an execution
+        moves the cluster, or while the cache is valid for the current
+        model generation."""
+        return self._precompute_once_status() == "computed"
+
+    def _precompute_once_status(self) -> str:
+        """'computed' | 'skipped' | 'failed': the loop backs off on
+        failures only, never on the routine skips."""
+        if not self._monitor_ready():
+            return "skipped"
+        if self.executor is not None and self.executor.has_ongoing_execution:
+            return "skipped"
+        generation = self.load_monitor.model_generation()
+        with self._cache_lock:
+            if self._cache_valid(generation):
+                return "skipped"
+        # published under _cache_lock: precompute_wedged and shutdown
+        # read them from other threads
+        with self._cache_lock:
+            self._precompute_solve_started_at = self._time()
+            self._precompute_ticket = None
+        try:
+            faults.inject("facade.precompute")
+            # the watchdog clocks the solve from its dispatch, not the
+            # queue wait in front of it
+            sched_runtime.set_submission_listener(
+                self._note_precompute_ticket)
+            try:
+                self.optimizations(
+                    _allow_capacity_estimation=(
+                        self._allow_capacity_estimation_precompute),
+                    _eager_hard_abort=(True
+                                       if self._precompute_eager_hard_abort
+                                       else None),
+                    _scheduler_class=SchedulerClass.PRECOMPUTE)
+            finally:
+                sched_runtime.clear_submission_listener()
+            return "computed"
+        except Exception as exc:  # noqa: BLE001 - keep the loop alive
+            LOG.warning("proposal precompute failed (%s): %s",
+                        classify_failure(exc).value, exc)
+            return "failed"
+        finally:
+            with self._cache_lock:
+                self._precompute_solve_started_at = None
+                self._precompute_ticket = None
+
+    def _note_precompute_ticket(self, ticket) -> None:
+        """Submission listener of the precompute solve (on the precompute
+        thread, outside any _cache_lock region)."""
+        with self._cache_lock:
+            self._precompute_ticket = ticket
+
+    def precompute_wedged(self) -> bool:
+        """True when the precompute solve in flight has overrun
+        `precompute_solve_deadline_s` (shutdown then stops waiting for
+        it).  Queue wait does not count: the clock starts when the
+        dispatch loop takes the solve (the ticket's `started_at`), or at
+        the pass's start when it had no ticket (an inline solve)."""
+        with self._cache_lock:
+            started = self._precompute_solve_started_at
+            ticket = self._precompute_ticket
+        if started is None:
+            return False
+        if ticket is not None:
+            started = ticket.started_at
+            if started is None:        # queued, or re-queued after a
+                return False           # preemption: waiting, not wedged
+        return self._time() - started > self._precompute_solve_deadline_s
+
+    def _precompute_loop(self) -> None:
+        """The first pass at once (a cold cache for a whole interval
+        after start-up would defeat the precompute), unless shutdown came
+        first; then one pass an interval, failures backing off
+        exponentially up to 32 intervals."""
+        consecutive_failures = 0
+        if not self._precompute_stop.is_set():
+            if self._precompute_once_status() == "failed":
+                consecutive_failures = 1
+        while True:
+            delay = self._precompute_interval_s * min(
+                2 ** consecutive_failures, 32)
+            if self._precompute_stop.wait(delay):
+                return
+            status = self._precompute_once_status()
+            if status == "failed":
+                consecutive_failures += 1
+            else:
+                consecutive_failures = 0
+
+    def _monitor_ready(self) -> bool:
+        return self.load_monitor.get_state().num_valid_windows > 0
+
+    # ------------------------------------------------------------------
     # proposals
     # ------------------------------------------------------------------
     def optimizations(self, goals: Optional[Sequence[str]] = None,
@@ -465,7 +794,13 @@ class CruiseControl:
         placement, and an interactive one only over the brokers the
         deltas since touched when they are at most
         `incremental_max_dirty_ratio` of the cluster.  A restricted solve
-        that fails its verdict is retried as a full sweep."""
+        that fails its verdict is retried as a full sweep.
+
+        The solve is a job of the device-time scheduler keyed on (goal
+        list, model generation, options), so identical concurrent
+        requests coalesce into one solve.  `_scheduler_class` picks its
+        priority class (USER_INTERACTIVE by default; the precompute
+        passes PRECOMPUTE)."""
         if portfolio_width is not None and int(portfolio_width) > 1:
             raise _not_ported("portfolio_width > 1", "portfolio search")
         klass = (_scheduler_class if _scheduler_class is not None
@@ -493,7 +828,10 @@ class CruiseControl:
                     raise
                 # a restricted solve may fail a verdict that the full
                 # sweep can meet (a hard violation outside the region)
-                self.incremental_solve_fallbacks += 1
+                self.metrics.meter("incremental-solve-fallbacks").mark()
+                obs_trace.mark("fallback")
+                obs_trace.event("incremental.fallback",
+                                reason="dirty-region solve verdict")
                 self.model_store.record_fallback(
                     "dirty-region solve verdict; full sweep retry")
                 LOG.info("dirty-region solve failed its verdict; retrying "
@@ -510,7 +848,14 @@ class CruiseControl:
                         self._cached_at = self._time()
             return result
 
-        return self._traced(klass, run_solve, "optimizations")
+        # the options' frozen dataclass is their identity: requests whose
+        # options differ in any field never share a solve
+        key = ("optimizations", self._coalesce_scope,
+               tuple(goals) if goals is not None else None,
+               generation, options, _allow_capacity_estimation,
+               _eager_hard_abort)
+        return self._scheduled_solve(klass, run_solve, coalesce_key=key,
+                                     label="optimizations")
 
     def _cache_valid(self, generation) -> bool:
         """Caller holds _cache_lock."""
@@ -531,7 +876,8 @@ class CruiseControl:
         semaphore."""
         if allow_capacity_estimation is None:
             allow_capacity_estimation = True
-        with self.load_monitor.acquire_for_model_generation():
+        with self.load_monitor.acquire_for_model_generation(), \
+                self.metrics.timer("cluster-model-creation-timer").time():
             return self.load_monitor.cluster_model(
                 requirements,
                 allow_capacity_estimation=allow_capacity_estimation)
@@ -646,8 +992,9 @@ class CruiseControl:
             cacheable, allow_capacity_estimation, incremental=incr)
         gen_options = self._options_generator.generate(
             options or OptimizationOptions(), topo)
-        with obs_trace.span("device.solve", rung=rung.name,
-                            dirtyRegion=dirty is not None):
+        with self.metrics.timer("proposal-computation-timer").time(), \
+                obs_trace.span("device.solve", rung=rung.name,
+                               dirtyRegion=dirty is not None):
             if rung is SolverRung.CPU:
                 from cruise_control_tpu_torch.model.cpu_model import \
                     host_fallback_solve
@@ -692,6 +1039,7 @@ class CruiseControl:
                     allow_capacity_estimation, eager_hard_abort,
                     incremental=incremental)
             self.last_solve_rung = self._solver_top_rung
+            self._note_goal_self_regressions(result)
             return result
         rung = self.solver_ladder.entry_rung()
         delays = self._solver_backoff.delays()
@@ -706,6 +1054,8 @@ class CruiseControl:
                         incremental=incremental)
             except Exception as exc:  # noqa: BLE001 - the ladder classifies
                 if not ladder_material(exc):
+                    if isinstance(exc, InvalidModelInputError):
+                        self.metrics.meter("solver-invalid-input").mark()
                     raise
                 kind = classify_failure(exc)
                 obs_trace.event("solve.failure", rung=rung.name,
@@ -718,7 +1068,7 @@ class CruiseControl:
                         rung, self.solver_ladder.rung, kind, exc, True)
                 attempts_on_rung += 1
                 if attempts_on_rung <= self._solver_max_retries_per_rung:
-                    self.solver_retries += 1
+                    self.metrics.meter("solver-retries").mark()
                     self._sleep(next(delays))
                     continue
                 nxt = self.solver_ladder.descend(rung)
@@ -733,7 +1083,7 @@ class CruiseControl:
                     # place to trust resident buffers
                     self.model_store.invalidate(
                         f"ladder descent to {nxt.name}")
-                self.solver_descents += 1
+                self.metrics.meter("solver-descents").mark()
                 obs_trace.mark("degraded")
                 obs_trace.event("solve.descend", from_rung=rung.name,
                                 to_rung=nxt.name, kind=kind.value)
@@ -750,30 +1100,87 @@ class CruiseControl:
                 # happened in an earlier request (a pinned rung)
                 obs_trace.mark("degraded")
                 LOG.info("solve served from degraded rung %s", rung.name)
+            self._note_goal_self_regressions(result)
             return result
+
+    def _note_goal_self_regressions(self, result) -> None:
+        """Goals whose own pass worsened their violated-broker count
+        (after-own above the count at the goal's entry; results without
+        entry counts, the host rung's, compare with `before`): the
+        goal-self-regressions sensor.  Goals the host-side skip elided
+        count into solver-goals-skipped."""
+        counts = getattr(result, "violated_broker_counts", None) or {}
+        entries = getattr(result, "entry_broker_counts", None) or {}
+        regressions = [g for g, (b, own, _a) in counts.items()
+                       if own > entries.get(g, b)]
+        if regressions:
+            self.metrics.meter("goal-self-regression-events").mark(
+                len(regressions))
+            LOG.warning("goal self-regression: %s worsened their own "
+                        "violated-broker counts (at-entry -> after-own: "
+                        "%s)", ", ".join(regressions),
+                        {g: (entries.get(g, counts[g][0]), counts[g][1])
+                         for g in regressions})
+        self._goal_self_regressions = regressions
+        skipped = getattr(result, "skipped_goals", None) or []
+        if skipped:
+            self.metrics.meter("solver-goals-skipped").mark(len(skipped))
 
     def _report_solver_degraded(self, from_rung: SolverRung,
                                 to_rung: Optional[SolverRung],
                                 kind: FailureKind, exc: BaseException,
                                 breaker_tripped: bool) -> None:
-        """Mark the request's trace degraded and log the report (the
-        reference also raises a SolverDegraded anomaly and dumps its
-        flight recorder: neither is ported)."""
+        """Mark the request's trace degraded (pinning it in the flight
+        recorder), dump the recorder with the in-flight trace's partial
+        tree, and log the report (the reference also raises a
+        SolverDegraded anomaly, which waits for the port's detector)."""
         obs_trace.mark("degraded")
+        active = obs_trace.current()
+        obs_recorder.get_recorder().dump(
+            reason=f"SolverDegraded {from_rung.name}->"
+                   f"{to_rung.name if to_rung is not None else 'none'} "
+                   f"({kind.value})",
+            active=active.to_json() if active is not None else None)
         LOG.warning("solver degraded %s -> %s (%s, breaker tripped: %s): "
                     "%s: %s", from_rung.name,
                     to_rung.name if to_rung is not None else "none",
                     kind.value, breaker_tripped, type(exc).__name__, exc)
 
-    def _traced(self, klass: SchedulerClass, run, label: str):
-        """Run a request's solve inside its trace (the reference's
-        `_scheduled_solve` without the scheduler): the active trace, or
-        one minted and finished around the solve, kept as
-        `last_solve_trace`."""
-        with obs_trace.solve_trace(f"solve.{label}",
+    def _scheduled_solve(self, klass: SchedulerClass, run,
+                         coalesce_key=None, label: str = "",
+                         fold_key=None, fold_payload=None, fold_run=None):
+        """Submit one solve to the device-time scheduler and block until
+        it ran (QueueFullError at the class's queue cap).  Every solve of
+        the facade goes through here: the single gateway.  The solve runs
+        inside its trace — the active one, or one minted and finished
+        here, kept as `last_solve_trace` — and on the card, on its
+        default stream, whichever thread runs it."""
+        with obs_trace.solve_trace(f"solve.{label or 'solve'}",
+                                   cluster=self._coalesce_scope,
                                    schedulerClass=klass.name) as trace:
             self.last_solve_trace = trace
-            return run()
+            return self.solve_scheduler.submit(SolveJob(
+                klass=klass, run=self._on_device(run), label=label,
+                coalesce_key=coalesce_key,
+                preemptible=self.solve_scheduler.policy.is_preemptible(
+                    klass),
+                fold_key=fold_key, fold_payload=fold_payload,
+                fold_run=(None if fold_run is None
+                          else self._on_device(fold_run)),
+                trace=obs_trace.current_context()))
+
+    def _on_device(self, fn):
+        """`fn` run with the facade's card current and its default stream
+        (a dispatch thread otherwise launches on its own current device
+        and stream); on the CPU, `fn` itself."""
+        if self.device.type != "cuda":
+            return fn
+
+        def run(*args):
+            with torch.cuda.device(self.device), torch.cuda.stream(
+                    torch.cuda.default_stream(self.device)):
+                return fn(*args)
+        return run
 
     def _solve_request(self, optimizer: GoalOptimizer, state: ClusterState,
                        topo, options=None) -> OptimizerResult:
@@ -822,8 +1229,12 @@ class CruiseControl:
         engine, a dry run only.  Unless `include_base` (default:
         `scenario_include_base`) is False, the no-op base scenario comes
         first, so the report can diff every variant against doing
-        nothing.  Runs inline (the reference's single-caller fold: the
-        port has no scheduler to fold sweeps in)."""
+        nothing.
+
+        A SCENARIO_SWEEP job of the scheduler: compatible sweeps queued
+        at dispatch (the same goal list, model generation and proposal
+        switch) fold into one engine batch that solves their shared base
+        once, and each caller gets back its own outcomes."""
         if not self._scenario_enabled:
             raise ValueError("the scenario engine is disabled "
                              "(scenario.engine.enabled=false)")
@@ -837,6 +1248,8 @@ class CruiseControl:
             specs = [ScenarioSpec(name=BASE_SCENARIO_NAME)] + specs
         klass = (_scheduler_class if _scheduler_class is not None
                  else SchedulerClass.SCENARIO_SWEEP)
+        generation = self.load_monitor.model_generation()
+        goal_key = tuple(goals) if goals is not None else None
         OPERATION_LOG.info("%s: evaluating %d scenarios (dry run)",
                            reason, len(specs))
 
@@ -845,12 +1258,49 @@ class CruiseControl:
             state, topo = self._model_for_solve()
             gen_options = self._options_generator.generate(
                 OptimizationOptions(), topo)
-            return [self.scenario_engine.evaluate(
-                state, topo, lst, goals=goals, options=gen_options,
-                include_proposals=include_proposals) for lst in spec_lists]
+            if len(spec_lists) == 1:
+                return [self.scenario_engine.evaluate(
+                    state, topo, spec_lists[0], goals=goals,
+                    options=gen_options,
+                    include_proposals=include_proposals)]
+            # every folded caller prepends the same no-op base scenario:
+            # it is solved once and its outcome handed to each
+            has_base = [bool(lst) and lst[0].name == BASE_SCENARIO_NAME
+                        and lst[0].is_noop() for lst in spec_lists]
+            merged: List[ScenarioSpec] = (
+                [ScenarioSpec(name=BASE_SCENARIO_NAME)] if any(has_base)
+                else [])
+            for lst, hb in zip(spec_lists, has_base):
+                merged.extend(lst[1:] if hb else lst)
+            OPERATION_LOG.info(
+                "scenario fold: %d compatible sweeps merged into one "
+                "%d-scenario batch", len(spec_lists), len(merged))
+            batch = self.scenario_engine.evaluate(
+                state, topo, merged, goals=goals, options=gen_options,
+                include_proposals=include_proposals)
+            base_outcome = batch.outcomes[0] if any(has_base) else None
+            split, i = [], 1 if any(has_base) else 0
+            for lst, hb in zip(spec_lists, has_base):
+                n = len(lst) - (1 if hb else 0)
+                outs = batch.outcomes[i:i + n]
+                i += n
+                if hb:
+                    outs = [base_outcome] + outs
+                split.append(ScenarioBatchResult(
+                    outcomes=outs, duration_s=batch.duration_s,
+                    compile_s=batch.compile_s, solve_s=batch.solve_s,
+                    oom_halvings=batch.oom_halvings,
+                    batch_sizes=list(batch.batch_sizes),
+                    rung=batch.rung))
+            return split
 
-        return self._traced(klass, lambda: fold_run([specs])[0],
-                            "scenarios")
+        fold_key = ("scenarios", self._coalesce_scope, goal_key,
+                    generation, include_proposals)
+        coalesce_key = fold_key + (tuple(repr(s) for s in specs),)
+        return self._scheduled_solve(
+            klass, lambda: fold_run([specs])[0],
+            coalesce_key=coalesce_key, label="scenarios",
+            fold_key=fold_key, fold_payload=specs, fold_run=fold_run)
 
     def _broker_candidates(self, op: str, sets, goals, dryrun: bool,
                            reason: str) -> OperationResult:
@@ -919,10 +1369,10 @@ class CruiseControl:
         options = OptimizationOptions(
             requested_destination_broker_ids=frozenset(broker_ids))
         optimizer = self._optimizer_for(goals)
-        result = self._traced(
+        result = self._scheduled_solve(
             _scheduler_class or SchedulerClass.USER_INTERACTIVE,
             lambda: self._solve_request(optimizer, state, topo, options),
-            "add-brokers")
+            label="add-brokers")
         return self._maybe_execute(result, dryrun, reason, None,
                                    **execute_kwargs)
 
@@ -946,10 +1396,10 @@ class CruiseControl:
         for b in broker_ids:
             state = S.set_broker_state(state, idx[b], alive=False)
         optimizer = self._optimizer_for(goals)
-        result = self._traced(
+        result = self._scheduled_solve(
             _scheduler_class or SchedulerClass.USER_INTERACTIVE,
             lambda: self._solve_request(optimizer, state, topo),
-            "remove-brokers")
+            label="remove-brokers")
         return self._maybe_execute(result, dryrun, reason, None,
                                    removed_brokers=list(broker_ids),
                                    **execute_kwargs)
@@ -972,10 +1422,10 @@ class CruiseControl:
         idx = topo.broker_index
         for b in broker_ids:
             state = S.set_broker_state(state, idx[b], demoted=True)
-        result = self._traced(
+        result = self._scheduled_solve(
             _scheduler_class or SchedulerClass.USER_INTERACTIVE,
             lambda: self._solve_request(self._ple_optimizer, state, topo),
-            "demote-brokers")
+            label="demote-brokers")
         return self._maybe_execute(result, dryrun, reason, None,
                                    demoted_brokers=list(broker_ids),
                                    **execute_kwargs)
@@ -993,12 +1443,82 @@ class CruiseControl:
         if not bool(S.self_healing_eligible(state).any()):
             raise ValueError("no offline replicas to fix")
         optimizer = self._optimizer_for(goals)
-        result = self._traced(
+        result = self._scheduled_solve(
             _scheduler_class or SchedulerClass.USER_INTERACTIVE,
             lambda: self._solve_request(optimizer, state, topo),
-            "fix-offline-replicas")
+            label="fix-offline-replicas")
         return self._maybe_execute(result, dryrun, reason, None,
                                    **execute_kwargs)
+
+    # ------------------------------------------------------------------
+    # state (Cruise Control's CruiseControlState)
+    # ------------------------------------------------------------------
+    def state(self, substates: Optional[Sequence[str]] = None) -> dict:
+        """The service's state by substate: "monitor", "executor",
+        "analyzer", "scenario", "scheduler", "incremental" and "slo" by
+        default, "sensors" when asked for.  The reference's
+        "anomaly_detector" and "portfolio" raise NotImplementedError
+        until their modules are ported."""
+        want = {s.lower() for s in (substates or (
+            "monitor", "executor", "analyzer", "scenario", "scheduler",
+            "incremental", "slo"))}
+        if "anomaly_detector" in want:
+            raise _not_ported("state substate 'anomaly_detector'",
+                              "detector/ package")
+        if "portfolio" in want:
+            raise _not_ported("state substate 'portfolio'",
+                              "portfolio/ package")
+        out: dict = {}
+        if "monitor" in want:
+            ms = self.load_monitor.get_state()
+            out["MonitorState"] = {
+                "state": ms.state,
+                "numValidWindows": ms.num_valid_windows,
+                "totalNumWindows": ms.total_num_windows,
+                "monitoredPartitionsPercentage":
+                    ms.monitored_partitions_percentage,
+                "numMonitoredPartitions": ms.num_monitored_partitions,
+                "numTotalPartitions": ms.num_total_partitions,
+                "reasonOfPause": ms.reason_of_pause,
+            }
+        if "executor" in want:
+            out["ExecutorState"] = (
+                self.executor.state.to_json() if self.executor is not None
+                else {"state": ExecutorPhase.NO_TASK_IN_PROGRESS.value})
+        if "analyzer" in want:
+            with self._cache_lock:
+                cached = self._cached_result
+            out["AnalyzerState"] = {
+                "isProposalReady": cached is not None,
+                "goals": self._goal_names,
+                "readyGoals": self._goal_names if cached is not None else [],
+                "solverDegradation": {
+                    **self.solver_ladder.to_json(),
+                    "precomputeWedged": self.precompute_wedged(),
+                    "meshDevices": 1,
+                    "meshRecovery": {"enabled": False, "span": 1},
+                },
+                "goalSelfRegressions": list(self._goal_self_regressions),
+            }
+        if "scenario" in want:
+            out["ScenarioEngineState"] = {
+                "enabled": self._scenario_enabled,
+                **self.scenario_engine.to_json(),
+            }
+        if "scheduler" in want:
+            out["SchedulerState"] = self.solve_scheduler.to_json()
+        if "incremental" in want:
+            out["IncrementalStoreState"] = {
+                "enabled": self._incremental_enabled,
+                **self.model_store.to_json(),
+            }
+        if "slo" in want:
+            # the reference adds its SLO burn detector's state, which
+            # waits for the port's detector
+            out["sloStatus"] = self.slo_evaluator.evaluate()
+        if "sensors" in want:
+            out["Sensors"] = self.metrics.to_json()
+        return out
 
     # ------------------------------------------------------------------
     # topic configuration

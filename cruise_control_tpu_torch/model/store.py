@@ -37,6 +37,7 @@ import torch
 
 from cruise_control_tpu_torch import ops
 from cruise_control_tpu_torch.common.resources import NUM_RESOURCES
+from cruise_control_tpu_torch.device import resolve_device
 from cruise_control_tpu_torch.model.state import (ClusterState,
                                                   set_broker_capacities)
 from cruise_control_tpu_torch.monitor.deltas import (capacity_rows,
@@ -134,9 +135,11 @@ def plan_arrays(num_brokers: int, num_partitions: int, *, new=(),
 
 def plan_from_numpy(arrays: Dict[str, np.ndarray], device=None
                     ) -> DeltaPlan:
-    """A DeltaPlan of `plan_arrays`' fields on `device`."""
+    """A DeltaPlan of `plan_arrays`' fields on `device` (the card unless
+    "cpu" is asked for)."""
+    dev = resolve_device(device)
     return DeltaPlan(**{f: torch.from_numpy(np.ascontiguousarray(
-        arrays[f])).to(device or "cpu") for f in PLAN_FIELDS})
+        arrays[f])).to(dev) for f in PLAN_FIELDS})
 
 
 def apply_delta(state: ClusterState, plan: DeltaPlan

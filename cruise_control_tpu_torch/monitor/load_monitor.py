@@ -743,6 +743,18 @@ class SnapshotLoadMonitor(_ModelOverlay):
         LOG.debug("metric sampling resumed: %s", reason)
         self.sampling_paused_reason = None
 
+    def get_state(self) -> LoadMonitorState:
+        """The handed-in loads are one complete window over every
+        partition: a model can always be built."""
+        total = len(self._snapshot.partitions)
+        paused = self.sampling_paused_reason
+        return LoadMonitorState(
+            state="PAUSED" if paused is not None else "RUNNING",
+            num_valid_windows=1, total_num_windows=1,
+            monitored_partitions_percentage=1.0,
+            num_monitored_partitions=total, num_total_partitions=total,
+            reason_of_pause=paused)
+
     # ------------------------------------------------------------------
     # model building
     # ------------------------------------------------------------------

@@ -1,6 +1,13 @@
-"""Observability (port of cruise_control_tpu/obs/): request-scoped
-tracing.  The flight recorder, the metrics export and the SLO evaluator
-are not ported yet."""
-from cruise_control_tpu_torch.obs import trace
+"""Observability (port of cruise_control_tpu/obs/).
 
-__all__ = ["trace"]
+* `obs.trace` — request-scoped span trees, minted by the facade around
+  every solve and carried to the scheduler's dispatch thread.
+* `obs.recorder` — the flight recorder: a ring of finished traces, with
+  failed, degraded, fallback and preempted ones pinned until exported.
+* `obs.export` — the OpenMetrics page of the sensor registry.
+* `obs.slo` — per-class latency and error-budget objectives, burn rates
+  computed from the scheduler's histograms.
+"""
+from cruise_control_tpu_torch.obs import export, recorder, slo, trace
+
+__all__ = ["export", "recorder", "slo", "trace"]

@@ -10,9 +10,10 @@ instantaneous event and `mark()` sets an outcome flag ("failed",
 no-op, so callers never guard.
 
 Spans are capped per trace (`Trace.MAX_SPANS`, overflow counted), and
-tracing touches no device.  The port has no flight recorder yet:
-`finish` stamps the trace and, when the trace log is on, writes it as one
-JSON line on the `traceLogger` logger; the caller keeps the `Trace`.
+tracing touches no device.  `finish` stamps the trace, writes it as one
+JSON line on the `traceLogger` logger when the trace log is on, and hands
+it to the flight recorder (obs/recorder.py), thinned by `sample_rate`:
+an "ok" trace is kept with that probability, any other outcome always.
 """
 from __future__ import annotations
 
@@ -34,31 +35,55 @@ LOG = logging.getLogger(__name__)
 TRACE_LOG = logging.getLogger("traceLogger")
 
 #: outcome precedence, worst first — a trace that both degraded and was
-#: preempted reports "degraded"
+#: preempted reports "degraded".  "rejected" is queue-cap backpressure:
+#: kept in the recorder's ring but never pinned (obs/recorder.py
+#: PINNED_OUTCOMES), so a rejection storm cannot flush the failed and
+#: degraded traces the recorder exists to keep
 OUTCOME_ORDER = ("failed", "degraded", "fallback", "preempted",
                  "rejected", "ok")
 
 _ENABLED = True
 _TRACE_LOG_ENABLED = False
+#: the fraction of "ok" traces handed to the flight recorder
+#: (obs.trace.sample.rate); any other outcome is always kept.  The
+#: decision hashes the trace id, so a trace's fate is reproducible
+_SAMPLE_RATE = 1.0
 _CONFIG_LOCK = threading.Lock()
 
 
 def configure(enabled: Optional[bool] = None,
-              trace_log_enabled: Optional[bool] = None) -> None:
+              trace_log_enabled: Optional[bool] = None,
+              sample_rate: Optional[float] = None) -> None:
     """Process-wide switches (obs.tracing.enabled /
-    obs.trace.log.enabled); None leaves a switch as found.  The
-    reference's sampling rate (obs.trace.sample.rate) thins its flight
-    recorder, which the port does not have yet."""
-    global _ENABLED, _TRACE_LOG_ENABLED
+    obs.trace.log.enabled / obs.trace.sample.rate); None leaves a switch
+    as found."""
+    global _ENABLED, _TRACE_LOG_ENABLED, _SAMPLE_RATE
     with _CONFIG_LOCK:
         if enabled is not None:
             _ENABLED = bool(enabled)
         if trace_log_enabled is not None:
             _TRACE_LOG_ENABLED = bool(trace_log_enabled)
+        if sample_rate is not None:
+            _SAMPLE_RATE = min(1.0, max(0.0, float(sample_rate)))
 
 
 def enabled() -> bool:
     return _ENABLED
+
+
+def sample_rate() -> float:
+    return _SAMPLE_RATE
+
+
+def _sampled_in(trace_id: str) -> bool:
+    """Keep decision for an "ok" trace: the trace id (random hex) hashes
+    to a point in [0, 1) compared with the sample rate."""
+    rate = _SAMPLE_RATE
+    if rate >= 1.0:
+        return True
+    if rate <= 0.0:
+        return False
+    return (int(trace_id[:8], 16) / float(0x100000000)) < rate
 
 
 @dataclasses.dataclass
@@ -289,8 +314,9 @@ def start_detached(name: str, **tags) -> Optional[Trace]:
 
 def finish(trace: Optional[Trace],
            error: Optional[BaseException] = None) -> None:
-    """End a trace: stamp the end time, fold in a terminal error and
-    (when obs.trace.log.enabled) emit one structured JSON log line."""
+    """End a trace: stamp the end time, fold in a terminal error, (when
+    obs.trace.log.enabled) emit one structured JSON log line, and hand
+    the finished tree to the flight recorder unless sampled out."""
     if trace is None:
         return
     # a finished trace must not linger as the thread's current context
@@ -302,17 +328,27 @@ def finish(trace: Optional[Trace],
     trace.ended_s = _time.time()
     if error is not None:
         # an exception class may declare its own outcome (duck-typed so
-        # this module keeps zero package dependencies)
+        # this module keeps zero package dependencies): QueueFullError
+        # sets trace_outcome="rejected" — backpressure, not failure
         trace.mark(getattr(error, "trace_outcome", None) or "failed")
         trace.tags.setdefault("error",
                               f"{type(error).__name__}: {error}")
+    from cruise_control_tpu_torch.obs import recorder as _recorder
     if _TRACE_LOG_ENABLED:
+        # the trace log sees every finished trace: sampling thins the
+        # flight recorder only
         try:
             TRACE_LOG.info("%s", json.dumps(trace.to_json(),
                                             sort_keys=True))
         except (TypeError, ValueError) as exc:
             LOG.warning("trace %s not JSON-serializable: %s",
                         trace.trace_id, exc)
+    if trace.outcome == "ok" and not _sampled_in(trace.trace_id):
+        # the recorder counts the drop: a quiet ring and a thinned one
+        # read differently
+        _recorder.get_recorder().record_sampled_out()
+        return
+    _recorder.get_recorder().record(trace)
 
 
 @contextlib.contextmanager

@@ -181,6 +181,15 @@ class ScenarioEngine:
         self.total_descents = 0
         self.last_compile_s = 0.0
         self.last_solve_s = 0.0
+        #: the facade's MetricRegistry once attached: the engine marks
+        #: scenario-descents and scenario-oom-halvings and times
+        #: scenario-execute-timer
+        self._metrics = None
+
+    def attach_metrics(self, registry) -> None:
+        """Late-bind the facade's MetricRegistry (the engine is built
+        before it)."""
+        self._metrics = registry
 
     def to_json(self) -> dict:
         return {
@@ -252,6 +261,9 @@ class ScenarioEngine:
             self.last_batch_size = len(specs)
             self.total_batches += 1
             self.total_scenarios += len(specs)
+        if self._metrics is not None:
+            self._metrics.update_timer("scenario-execute-timer",
+                                       result.duration_s)
         return result
 
     # ------------------------------------------------------------------
@@ -367,6 +379,8 @@ class ScenarioEngine:
         if self.ladder.rung != before:
             with self._lock:
                 self.total_descents += 1
+            if self._metrics is not None:
+                self._metrics.meter("scenario-descents").mark()
 
     def _outcome_from_result(self, spec, res, rung: str,
                              include_proposals: bool) -> ScenarioOutcome:
@@ -417,6 +431,8 @@ class ScenarioEngine:
         with self._lock:
             self.total_oom_halvings += 1
         result.oom_halvings += 1
+        if self._metrics is not None:
+            self._metrics.meter("scenario-oom-halvings").mark()
         half = len(specs) // 2
         LOG.warning("batched scenario solve of %d ran out of memory; "
                     "retrying as %d + %d", len(specs), half,

@@ -10,9 +10,11 @@ pipeline (port of cruise_control_tpu/sched/runtime.py).
 * the *submission listener* — a per-thread callback told of every
   scheduler submission.
 
-The port has no scheduler yet, so nothing sets them: the checkpoint is a
-no-op and the mesh token is None, as in the reference outside a
-gateway.  The module has no dependency inside the package.
+`DeviceTimeScheduler` (sched/scheduler.py) sets them around every job it
+runs: the gateway always, the preemption check around a preemptible job
+on its dispatch thread.  Outside a job the checkpoint is a no-op; the
+port has no mesh, so the token is always None.  The module has no
+dependency inside the package.
 """
 from __future__ import annotations
 

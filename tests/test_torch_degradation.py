@@ -309,10 +309,15 @@ def test_facade_descends_to_the_host_rung_like_the_reference():
             jcc._model_store.invalidations == 2
         assert trace.outcome == "degraded"
         root = trace.to_json()["root"]
+        # the solve ran as a scheduler job: its queue wait, then its
+        # dispatch, which holds the ladder's attempts and events
         assert [c["name"] for c in root["children"]] == \
+            ["sched.queue-wait", "sched.dispatch"]
+        dispatch = root["children"][1]
+        assert [c["name"] for c in dispatch["children"]] == \
             ["solve.rung-attempt"] * 5
         events = [(e["name"], e.get("from_rung"), e.get("to_rung"))
-                  for e in root["events"]]
+                  for e in dispatch["events"]]
         assert [e for e in events if e[0] == "solve.descend"] == [
             ("solve.descend", "FUSED", "EAGER"),
             ("solve.descend", "EAGER", "CPU")]

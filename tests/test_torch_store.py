@@ -85,7 +85,7 @@ def _apply_both(js, ps, kw):
     arrays = ST.plan_arrays(ps.num_brokers, ps.num_partitions, **kw)
     jstate, jdirty = _j_apply(js, JStore.DeltaPlan(
         **{k: jnp.asarray(v) for k, v in arrays.items()}))
-    pstate, pdirty = ST.apply_delta(ps, ST.plan_from_numpy(arrays))
+    pstate, pdirty = ST.apply_delta(ps, ST.plan_from_numpy(arrays, "cpu"))
     return jstate, jdirty, pstate, pdirty
 
 
@@ -132,7 +132,7 @@ def test_apply_delta_dirty_mask_parts(clusters):
     _, _, ps, _ = clusters
     kw = dict(loads={7: _load_row()})
     _, dirty = ST.apply_delta(ps, ST.plan_from_numpy(
-        ST.plan_arrays(ps.num_brokers, ps.num_partitions, **kw)))
+        ST.plan_arrays(ps.num_brokers, ps.num_partitions, **kw), "cpu"))
     holders = ps.replica_broker[(ps.replica_partition == 7)
                                 & ps.replica_valid]
     want = torch.zeros(ps.num_brokers, dtype=torch.bool)
@@ -140,7 +140,7 @@ def test_apply_delta_dirty_mask_parts(clusters):
     assert torch.equal(dirty, want)
     empty = ps.replace(replica_valid=torch.zeros_like(ps.replica_valid))
     _, dirty = ST.apply_delta(empty, ST.plan_from_numpy(
-        ST.plan_arrays(ps.num_brokers, ps.num_partitions, **kw)))
+        ST.plan_arrays(ps.num_brokers, ps.num_partitions, **kw), "cpu"))
     assert not dirty.any()
 
 
@@ -233,7 +233,7 @@ def test_plan_arrays_pad_as_the_store_does():
     assert arrays["cap_rows"].tolist() == [16] * 4
     assert [ST._pad_pow2(n) for n in (0, 4, 5, 9)] == [
         JStore._pad_pow2(n) for n in (0, 4, 5, 9)] == [4, 4, 8, 16]
-    plan = ST.plan_from_numpy(arrays)
+    plan = ST.plan_from_numpy(arrays, "cpu")
     assert [f.name for f in dataclasses.fields(plan)] == list(ST.PLAN_FIELDS)
     assert list(ST.PLAN_FIELDS) == [
         f.name for f in dataclasses.fields(JStore.DeltaPlan)]
