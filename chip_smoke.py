@@ -5,7 +5,7 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py [--phases 1,2,3,4] [--profile] [--requests-only]
                           [--scenarios-only] [--sampled-only]
-                          [--scheduled-only]
+                          [--scheduled-only] [--rest-only]
 
 Phases:
   1. the card's name and power limit (nvidia-smi), then the build of the
@@ -219,7 +219,18 @@ Phases:
      scratch zero, no new counter slot; two identical concurrent requests
      coalesced to one solve, two what-if sweeps folded into one batch
      (each lane equal to the what-if batch's), and `state()` with the
-     OpenMetrics page;
+     OpenMetrics page; then on that facade the REST layer (`run_rest`):
+     the port's server on 127.0.0.1:0 behind HTTP Basic, driven by the
+     port's client: PROPOSALS from the cache, equal to the facade's own
+     cache hit (a warm re-solve by then); on a second server over a
+     scheduled facade with warm start off PROPOSALS as a fresh solve
+     (202, then polled to 200) and from its cache, both equal to the
+     served cold answer;
+     LOAD (K12 on the card) equal to `broker_stats` of the resident model
+     on the CPU, PARTITION_LOAD, KAFKA_CLUSTER_STATE, STATE, TRACES,
+     /metrics and a 401, each request's wall split into the server's
+     operation, its JSON encoding and the transport, with the body's
+     bytes;
   4. scale, 2,600 brokers / 200K partitions / 26 racks / 100 topics: the
      whole default stack (bench.py's "north" preset), the four-goal solve,
      config 5 (52 broken logdirs), the six hard goals with brokers 0,
@@ -236,14 +247,17 @@ Phases:
      rung's wall with broker 0 dead, and the scheduled precompute
      preempted by `remove_brokers` of 26 brokers on the served facade
      (the served cold model put back as its resident; the precompute
-     equal to the served cold request); then
+     equal to the served cold request), and on that facade PROPOSALS
+     (about 74,000 proposals) from the cache and LOAD over HTTP, each
+     equal to its in-process twin; then
      the widest rank_accept call of the run
      must be one phase 2 checked.  --requests-only runs only the request
      paths and the served, executed, sampled and what-if requests in
      phases 3 and 4, --scenarios-only only the what-if requests,
      --sampled-only only the sampled ones, --scheduled-only only the
      scheduled ones (their inline yardsticks solved on the card first),
-     and --profile with
+     --rest-only only the REST phase (its facade built and its cold
+     request solved on the card first, no CPU twin), and --profile with
      --requests-only profiles the request paths beside their option-less
      twins.
 With --profile, default-stack solves in turns and two more profiled (with
@@ -6066,22 +6080,27 @@ def coalesce_and_fold(cc, batch_outcomes) -> dict:
     return summary
 
 
-def observability_gate(cc) -> dict:
-    """`state()` (every substate the port has, sensors included) renders
-    to JSON, and the OpenMetrics page parses with every sensor on it."""
+def openmetrics_problems(page: str, sensors) -> tuple:
+    """(unparseable lines, sensors missing) of an OpenMetrics page."""
     import re
-    from cruise_control_tpu_torch.obs import export as obs_export
     from cruise_control_tpu_torch.utils.metrics import canonical_sensor_name
-    doc = cc.state(["monitor", "executor", "analyzer", "scenario",
-                    "scheduler", "incremental", "slo", "sensors"])
-    text = json.dumps(doc, sort_keys=True)
-    page = obs_export.render_for(cc)
     sample = re.compile(r'^[a-zA-Z_][a-zA-Z0-9_]*(\{[^}]*\})? '
                         r'(-?[0-9.]+(e[+-]?[0-9]+)?|NaN)$')
     bad = [line for line in page.splitlines()[:-1]
            if not (line.startswith("# TYPE ") or sample.match(line))]
-    missing = [s for s in doc["Sensors"]
-               if canonical_sensor_name(s) not in page]
+    missing = [s for s in sensors if canonical_sensor_name(s) not in page]
+    return bad, missing
+
+
+def observability_gate(cc) -> dict:
+    """`state()` (every substate the port has, sensors included) renders
+    to JSON, and the OpenMetrics page parses with every sensor on it."""
+    from cruise_control_tpu_torch.obs import export as obs_export
+    doc = cc.state(["monitor", "executor", "analyzer", "scenario",
+                    "scheduler", "incremental", "slo", "sensors"])
+    text = json.dumps(doc, sort_keys=True)
+    page = obs_export.render_for(cc)
+    bad, missing = openmetrics_problems(page, doc["Sensors"])
     log(f"    state(): {len(text)} bytes, {len(doc['Sensors'])} sensors; "
         f"OpenMetrics page {len(page.splitlines())} lines; scheduler "
         f"{json.dumps({k: doc['SchedulerState'][k] for k in ('submitted', 'completed', 'coalesced', 'folded', 'preemptions', 'occupancy')})}"
@@ -6194,8 +6213,276 @@ def run_scheduled(results: dict, north: bool, device: str = "cuda") -> None:
         summary.update(coalesce_and_fold(cc, outcomes))
         summary["phase3_batch_wall_s"] = batch_wall
         summary["observability"] = observability_gate(cc)
+    if device == "cuda":
+        run_rest(results, north, cc)
     cc.shutdown()
     results[f"_scheduled_{key}"] = summary
+
+
+#: the REST phase's operator (HTTP Basic, ADMIN)
+REST_USER = ("operator", "rest-smoke")
+#: the app's async answer timeout: a fresh solve answers 202 first
+REST_ASYNC_TIMEOUT_S = 0.05
+
+
+def rest_call(label: str, call, log_out: list, operation=None):
+    """`call()` (a client request) timed: its wall, the server's operation
+    and the JSON encoding of the answer, with its bytes.  An async
+    endpoint's answer names its trace (`traceId`), whose duration is the
+    operation's; for a sync endpoint `operation()`, the same work called
+    in process, is timed.  The encoding is the server's
+    `json.dumps(body, indent=2)` done again on the answer (none for the
+    /metrics page, which is text).  The rest of the wall is the wait for
+    an async answer, the transport and the client's decoding."""
+    from cruise_control_tpu_torch.obs import recorder as obs_recorder
+    t0 = time.perf_counter()
+    out = call()
+    wall = time.perf_counter() - t0
+    enc = 0.0
+    text = out
+    if not isinstance(out, str):
+        t0 = time.perf_counter()
+        text = json.dumps(out, indent=2)
+        enc = time.perf_counter() - t0
+    if isinstance(out, dict) and out.get("traceId"):
+        trace = obs_recorder.get_recorder().query(trace_id=out["traceId"],
+                                                  export=False)
+        op = trace[0]["durationMs"] / 1e3
+    else:
+        t0 = time.perf_counter()
+        operation()
+        op = time.perf_counter() - t0
+    rec = dict(label=label, wall_s=wall, operation_s=op, encode_s=enc,
+               rest_s=wall - op - enc, bytes=len(text.encode()))
+    log_out.append(rec)
+    log(f"    REST {label}: wall {wall:.4f} s (operation {op:.4f}, "
+        f"encoding {enc:.4f}, the rest {wall - op - enc:.4f}), "
+        f"{rec['bytes']} bytes")
+    return out
+
+
+def rest_equal(label: str, got: dict, want: dict) -> None:
+    """A REST body (its `traceId` dropped) against its in-process twin,
+    as sorted JSON text."""
+    a = json.dumps({k: v for k, v in got.items() if k != "traceId"},
+                   sort_keys=True)
+    b = json.dumps(want, sort_keys=True)
+    if a != b:
+        diff = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                    min(len(a), len(b)))
+        raise AssertionError(f"REST {label}: the body differs from its "
+                             f"in-process twin at character {diff}: "
+                             f"{a[diff - 80:diff + 80]!r} against "
+                             f"{b[diff - 80:diff + 80]!r}")
+
+
+def rest_app(cc):
+    """(app, base URL, client) of the port's REST server over `cc` on
+    127.0.0.1:0, behind HTTP Basic with one ADMIN operator."""
+    import base64
+    from cruise_control_tpu_torch.api.security import (BasicSecurityProvider,
+                                                       Role)
+    from cruise_control_tpu_torch.api.server import CruiseControlApp
+    from cruise_control_tpu_torch.client.client import CruiseControlClient
+    app = CruiseControlApp(
+        cc, security=BasicSecurityProvider(
+            {REST_USER[0]: (REST_USER[1], Role.ADMIN)}),
+        async_response_timeout_s=REST_ASYNC_TIMEOUT_S, access_log=False)
+    base = f"http://127.0.0.1:{app.start('127.0.0.1', 0)}/kafkacruisecontrol"
+    auth = "Basic " + base64.b64encode(":".join(REST_USER).encode()).decode()
+    return app, base, CruiseControlClient(base, auth_header=auth,
+                                          poll_interval_s=0.01,
+                                          timeout_s=600.0)
+
+
+def run_rest(results: dict, north: bool, cc=None) -> dict:
+    """The port's REST layer over real HTTP: its `CruiseControlApp` on
+    127.0.0.1:0 with `BasicSecurityProvider`, driven by its
+    `CruiseControlClient`, over a scheduled facade (`run_scheduled`'s,
+    before its shutdown), so every solve takes the USER_TASKS pool, the
+    scheduler's gateway and the card.
+
+    At 200 brokers, first on a second server over a scheduled facade of
+    its own with warm start off (`rest_fresh_proposals`): PROPOSALS
+    (verbose) with `ignore_proposal_cache`, first answered 202 with a
+    User-Task-ID and polled to 200, a fresh solve on the card through the
+    scheduler that starts from the resident model as the cold request did
+    (a warm re-solve goes on from the last final placement), then the
+    same from that facade's cache, both equal to
+    `responses.optimization_result` of the served cold request (held
+    against the CPU in `run_served`).  Then on `run_scheduled`'s facade:
+    PROPOSALS from the cache, equal to the facade's own cache hit (by
+    then `coalesce_and_fold`'s warm re-solve); LOAD, equal to
+    `broker_stats` of the resident model moved to the CPU (the plain K12
+    there, K12 on the card behind the endpoint); PARTITION_LOAD,
+    KAFKA_CLUSTER_STATE and STATE against their in-process twins; TRACES
+    holding the fresh request's `rest.PROPOSALS` trace; /metrics parsed
+    as `observability_gate` parses the page; a request without
+    credentials answered 401.  At 2,600 brokers: PROPOSALS (verbose) from
+    the cache, equal to the served cold request's (the precompute's,
+    still cached), and LOAD.  Each request's wall is split
+    as `rest_call` says, with the body's bytes.  Alone (`--rest-only`) the
+    facade is built here and its cold request solved on the card first
+    (no CPU twin)."""
+    import torch
+    from cruise_control_tpu_torch import cuda_kernels
+    from cruise_control_tpu_torch.api import responses as R
+    from cruise_control_tpu_torch.client.client import (
+        CruiseControlClient, CruiseControlClientError)
+    from cruise_control_tpu_torch.obs import export as obs_export
+    from cruise_control_tpu_torch.obs import recorder as obs_recorder
+    where = "2,600 brokers" if north else "slice"
+    key = "north" if north else "slice"
+    log(f"  -- REST ({where}): the port's CruiseControlApp over HTTP, "
+        "driven by its CruiseControlClient")
+    own = cc is None
+    if own:
+        inputs = served_description(north)
+        _, cc = served_facade(inputs, "cuda", **SCHEDULED)
+        results[f"_served_cold_{key}"] = (inputs, cc.optimizations())
+    inputs, cold = results[f"_served_cold_{key}"]
+    resident = cc.model_store._state.to("cpu")
+    topo = cc.model_store._topology
+    app, base, client = rest_app(cc)
+    calls: list = []
+    twins: dict = {}
+    try:
+        t0 = time.perf_counter()
+        want = json.loads(json.dumps(R.optimization_result(
+            cold, verbose=True)))
+        twins["proposals_s"] = time.perf_counter() - t0
+        cache = cold
+        if not north:
+            fresh = rest_fresh_proposals(inputs, cc.device.type, calls,
+                                         cuda_kernels, want)
+            # the slice's cache holds `coalesce_and_fold`'s warm re-solve,
+            # not the cold answer: its twin is the facade's own cache hit
+            completed = cc.solve_scheduler.stats.completed
+            cache = cc.optimizations()
+            if cc.solve_scheduler.stats.completed != completed:
+                raise AssertionError("REST: the in-process twin of the "
+                                     "cached PROPOSALS solved")
+        cached = rest_call("PROPOSALS verbose, cached",
+                           lambda: client.proposals(verbose=True), calls)
+        rest_equal("PROPOSALS (cache)", cached, want if north else
+                   json.loads(json.dumps(R.optimization_result(
+                       cache, verbose=True))))
+        t0 = time.perf_counter()
+        want_load = R.broker_stats(resident, topo)
+        twins["load_s"] = time.perf_counter() - t0
+        load = rest_call("LOAD", client.load, calls)
+        rest_equal("LOAD", load, want_load)
+        if not north:
+            rest_equal("PARTITION_LOAD", rest_call(
+                "PARTITION_LOAD", client.partition_load, calls),
+                {"records": R.partition_load(resident, topo),
+                 "version": 1})
+            kafka = {**R.kafka_cluster_state(cc.load_monitor.cluster()),
+                     "version": 1}
+            rest_equal("KAFKA_CLUSTER_STATE", rest_call(
+                "KAFKA_CLUSTER_STATE", client.kafka_cluster_state, calls,
+                operation=lambda: R.kafka_cluster_state(
+                    cc.load_monitor.metadata.refresh_metadata())), kafka)
+            state = rest_call("STATE", client.state, calls,
+                              operation=cc.state)
+            if set(state) != {"MonitorState", "ExecutorState",
+                              "AnalyzerState", "ScenarioEngineState",
+                              "SchedulerState", "IncrementalStoreState",
+                              "sloStatus", "version"} or not state[
+                    "AnalyzerState"]["isProposalReady"]:
+                raise AssertionError(f"REST STATE: {sorted(state)}")
+            traces = rest_call(
+                "TRACES", lambda: client.traces(limit=64), calls,
+                operation=lambda: obs_recorder.get_recorder().query(
+                    limit=64, export=False))
+            named = {t["traceId"]: (t["name"], t["outcome"])
+                     for t in traces["traces"]}
+            if named.get(fresh["traceId"]) != ("rest.PROPOSALS", "ok"):
+                raise AssertionError(
+                    f"REST TRACES: the fresh request's trace "
+                    f"{fresh['traceId']} is {named.get(fresh['traceId'])}")
+            page = rest_call("/metrics", client.metrics_text, calls,
+                             operation=lambda: obs_export.render_for(cc))
+            bad, missing = openmetrics_problems(page, cc.metrics.to_json())
+            if bad or missing or not page.endswith("# EOF\n") or \
+                    "cc_tpu_proposals_request_rate_total" not in page:
+                raise AssertionError(f"REST /metrics: unparseable "
+                                     f"{bad[:3]}, missing {missing}")
+            try:
+                CruiseControlClient(base).state()
+                raise AssertionError("REST: a request without "
+                                     "credentials was answered")
+            except CruiseControlClientError as exc:
+                if exc.status != 401:
+                    raise
+            log("    REST: a request without credentials answered 401")
+    finally:
+        app.stop()
+        if own:
+            cc.shutdown()
+    if cc.device.type == "cuda":
+        torch.cuda.synchronize()
+    summary = dict(requests=calls, twins_s=twins, card=CARD[0],
+                   proposals=len(cold.proposals))
+    results[f"_rest_{key}"] = summary
+    return summary
+
+
+def rest_fresh_proposals(inputs, device: str, calls, cuda_kernels,
+                         want: dict) -> dict:
+    """PROPOSALS (verbose) with `ignore_proposal_cache` to a server over a
+    scheduled facade of its own with warm start off: the first answer a
+    202 with a User-Task-ID, then polled by that id to 200; then the same
+    request from that facade's cache.  Gates: both bodies equal to `want`
+    (the served cold answer), one solve completed by the scheduler in
+    all, every kernel of the default stack launched by it, the task
+    listed Completed with the body's trace id."""
+    import urllib.parse
+    from cruise_control_tpu_torch.api.user_tasks import USER_TASK_ID_HEADER
+    _, cc = served_facade(inputs, device, warm_start_proposals=False,
+                          **SCHEDULED)
+    app, base, client = rest_app(cc)
+    try:
+        url = f"{base}/proposals?" + urllib.parse.urlencode(
+            {"verbose": "true", "ignore_proposal_cache": "true"})
+        before = dict(cuda_kernels.LAUNCHES)
+        first = {}
+
+        def fresh():
+            status, headers, body = client._http("GET", url, None)
+            first.update(status=status,
+                         task=headers.get(USER_TASK_ID_HEADER))
+            while status == 202:
+                status, headers, body = client._http("GET", url,
+                                                     first["task"])
+            if status != 200:
+                raise AssertionError(f"REST fresh PROPOSALS: {status} "
+                                     f"{body}")
+            return body
+        body = rest_call("PROPOSALS verbose, fresh solve", fresh, calls)
+        rest_equal("PROPOSALS (fresh solve)", body, want)
+        launched = {k: cuda_kernels.LAUNCHES[k] - before[k]
+                    for k in STACK_KERNELS}
+        rest_equal("PROPOSALS (cache, warm start off)", rest_call(
+            "PROPOSALS verbose, cached, warm start off",
+            lambda: client.proposals(verbose=True), calls), want)
+        tasks = {t["UserTaskId"]: t
+                 for t in client.user_tasks()["userTasks"]}
+        task = tasks.get(first["task"], {})
+        gates = {"first answer 202": first["status"] == 202
+                 and first["task"],
+                 "one solve": cc.solve_scheduler.stats.completed == 1,
+                 "kernels": all(launched.values()) or device != "cuda",
+                 "task": task.get("Status") == "Completed"
+                 and task.get("TraceId") == body.get("traceId")}
+        log(f"    REST fresh solve: first answer {first['status']}, task "
+            f"{first['task']}, launches {launched}")
+        if not all(gates.values()):
+            raise AssertionError(f"REST fresh PROPOSALS: gates {gates}")
+        return body
+    finally:
+        app.stop()
+        cc.shutdown()
 
 
 def profile_slice(solve: dict, device: str = "cuda",
@@ -6431,6 +6718,11 @@ def main(argv=None) -> int:
                     help="phases 3 and 4 run only the requests through "
                          "the device-time scheduler (preemption, "
                          "coalescing, folding, state())")
+    ap.add_argument("--rest-only", action="store_true",
+                    help="phases 3 and 4 run only the REST phase (the "
+                         "port's server and client over HTTP, its facade "
+                         "built and its cold request solved on the card "
+                         "first)")
     ap.add_argument("--parent", default=None,
                     help="a checkout of the parent tree: phase 2 times its "
                          "K6 and K10 chains as yardsticks and its K7 beside "
@@ -6571,6 +6863,8 @@ def main(argv=None) -> int:
                 run_sampled(results, north=False)
             elif args.scheduled_only:
                 run_scheduled(results, north=False)
+            elif args.rest_only:
+                run_rest(results, north=False)
             elif args.requests_only:
                 run_requests(results, north=False)
                 run_served(results, north=False)
@@ -6591,6 +6885,8 @@ def main(argv=None) -> int:
                 run_sampled(results, north=True)
             elif args.scheduled_only:
                 run_scheduled(results, north=True)
+            elif args.rest_only:
+                run_rest(results, north=True)
             elif args.requests_only:
                 run_requests(results, north=True)
                 run_served(results, north=True)
@@ -6742,6 +7038,8 @@ def main(argv=None) -> int:
         k: results.get(f"_scenarios_{k}") for k in ("slice", "north")}))
     log("[5] scheduled requests: " + json.dumps({
         k: results.get(f"_scheduled_{k}") for k in ("slice", "north")}))
+    log("[5] REST: " + json.dumps({
+        k: results.get(f"_rest_{k}") for k in ("slice", "north")}))
     log("[5] rank_accept: " + json.dumps(results.get("rank_accept")))
     for k in ("commit_moves", "_commit_moves_north", "commit_leadership",
               "_commit_leadership_north", "segment_sum", "ordered_sum",

@@ -704,6 +704,16 @@ class SnapshotLoadMonitor(_ModelOverlay):
     def cluster(self) -> ClusterSnapshot:
         return self._snapshot
 
+    @property
+    def metadata(self) -> "SnapshotLoadMonitor":
+        """The metadata client's face (the REST layer's
+        KAFKA_CLUSTER_STATE reads `metadata.refresh_metadata()`): this
+        monitor, whose metadata is the snapshot handed in."""
+        return self
+
+    def refresh_metadata(self) -> ClusterSnapshot:
+        return self._snapshot
+
     def update_cluster(self, snapshot: ClusterSnapshot) -> ModelGeneration:
         """New metadata; its generation becomes the cluster generation."""
         with self._delta_lock:

@@ -25,7 +25,7 @@ import logging
 import threading
 import time as _time
 import uuid as _uuid
-from typing import Dict, List, NamedTuple, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional
 
 LOG = logging.getLogger(__name__)
 
@@ -349,6 +349,27 @@ def finish(trace: Optional[Trace],
         _recorder.get_recorder().record_sampled_out()
         return
     _recorder.get_recorder().record(trace)
+
+
+def finishing(trace: Optional[Trace],
+              op: Callable[[], object]) -> Callable[[], object]:
+    """Wrap `op` so it runs under `trace` (activated on whatever thread
+    executes it) and finishes the trace when it returns or raises: the
+    REST layer's USER_TASKS pool carries a request's trace this way."""
+    if trace is None:
+        return op
+    ctx = TraceContext(trace, trace.root_id)
+
+    def run():
+        with activate(ctx):
+            try:
+                result = op()
+            except BaseException as exc:
+                finish(trace, error=exc)
+                raise
+            finish(trace)
+            return result
+    return run
 
 
 @contextlib.contextmanager

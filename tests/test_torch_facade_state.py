@@ -267,15 +267,19 @@ def test_precompute_statuses_wedge_and_backoff(monkeypatch):
         t = threading.Thread(target=lambda: out.setdefault(
             "status", cc._precompute_once_status()))
         t.start()
-        assert entered.wait(60.0)
-        assert cc._precompute_ticket is not None
-        assert not cc.precompute_wedged()
-        clock["now"] += 61.0
-        assert cc.precompute_wedged()
-        assert cc.state(["analyzer"])["AnalyzerState"][
-            "solverDegradation"]["precomputeWedged"] is True
-        release.set()
-        t.join(60.0)
+        try:
+            assert entered.wait(60.0)
+            # the scheduler names the ticket to its submission listener
+            # after the dispatch thread may already have entered the solve
+            _wait(lambda: cc._precompute_ticket is not None)
+            assert not cc.precompute_wedged()
+            clock["now"] += 61.0
+            assert cc.precompute_wedged()
+            assert cc.state(["analyzer"])["AnalyzerState"][
+                "solverDegradation"]["precomputeWedged"] is True
+        finally:
+            release.set()
+            t.join(60.0)
         cc.goal_optimizer.optimizations = real_solve
         assert out["status"] == "computed" and not cc.precompute_wedged()
         assert cc._precompute_once_status() == "skipped"    # cache warm
